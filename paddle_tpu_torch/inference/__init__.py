@@ -1,0 +1,111 @@
+"""paddle.inference front door to the LLM serving engine (the port of
+`Config.enable_llm_engine`, `LLMPredictor` and `create_llm_predictor`
+from `paddle_tpu/inference/__init__.py`).
+
+This slice serves through the paged engine only: `paged=True`.
+"""
+
+_NOT_PORTED = {
+    "paged=False": "the dense ServingEngine needs flash-attention kernel "
+                   "K1 (ROADMAP Queue 1: dense ServingEngine and prefill)",
+    "speculative=True": "speculative decoding is not ported yet (ROADMAP "
+                        "Queue 1: LLaMA and speculative decoding)",
+}
+
+
+class Config:
+    """The inference Config's LLM-engine surface."""
+
+    def __init__(self):
+        self._llm_opts = None
+
+    def enable_llm_engine(self, num_slots=4, max_len=256, prefill_len=None,
+                          eos_token_id=None, max_queue=None, paged=False,
+                          block_size=16, num_blocks=None, speculative=False,
+                          draft_config=None, paged_kernel=None, device=None):
+        """Arm this Config for create_llm_predictor: slot count, cache
+        horizon, prefill chunk length (`prefill_len`), eos, queue bound,
+        block size and pool size of the paged KV cache, the paged
+        attention kernel ("reference" | "plain" | "cuda" | "auto"; None
+        defers to PT_PAGED_KERNEL, then "auto") and the device (None =
+        the CUDA card). Only `paged=True` is ported."""
+        if not paged:
+            raise NotImplementedError(
+                f"paged=False: {_NOT_PORTED['paged=False']}")
+        if speculative or draft_config is not None:
+            raise NotImplementedError(
+                f"speculative=True: {_NOT_PORTED['speculative=True']}")
+        self._llm_opts = {
+            "num_slots": int(num_slots),
+            "max_len": int(max_len),
+            "prefill_len": None if prefill_len is None else int(prefill_len),
+            "eos_token_id": eos_token_id,
+            "max_queue": max_queue,
+            "block_size": int(block_size),
+            "num_blocks": None if num_blocks is None else int(num_blocks),
+            "paged_kernel": paged_kernel,
+            "device": device,
+        }
+        return self
+
+    def llm_engine_enabled(self):
+        return self._llm_opts is not None
+
+    def enable_llm_fleet(self, *args, **kw):
+        raise NotImplementedError(
+            "the serving fleet is not ported yet (ROADMAP Queue 1: serving "
+            "fleet and operations tier)")
+
+    def enable_metrics_exporter(self, *args, **kw):
+        raise NotImplementedError(
+            "the metrics exporter is not ported yet (ROADMAP Queue 1: "
+            "serving fleet and operations tier)")
+
+
+class LLMPredictor:
+    """One Config-built Scheduler + PagedServingEngine pair with a
+    blocking generate() and the submit()/run() surface."""
+
+    def __init__(self, config, model):
+        from ..serving import PagedServingEngine, Scheduler
+        opts = config._llm_opts
+        self._eos_token_id = opts["eos_token_id"]
+        self.engine = PagedServingEngine(
+            model, num_slots=opts["num_slots"], max_len=opts["max_len"],
+            block_size=opts["block_size"], num_blocks=opts["num_blocks"],
+            prefill_chunk_len=opts["prefill_len"],
+            paged_kernel=opts["paged_kernel"], device=opts["device"])
+        self.scheduler = Scheduler(self.engine, max_queue=opts["max_queue"])
+
+    def generate(self, prompt, **kw):
+        kw.setdefault("eos_token_id", self._eos_token_id)
+        return self.scheduler.generate(prompt, **kw)
+
+    def submit(self, **kw):
+        kw.setdefault("eos_token_id", self._eos_token_id)
+        return self.scheduler.submit(**kw)
+
+    def run(self, **kw):
+        return self.scheduler.run(**kw)
+
+    @property
+    def metrics(self):
+        return self.scheduler.metrics
+
+
+def create_llm_predictor(config, model=None, draft_model=None):
+    """Front door from the inference Config to the serving stack: the
+    Config carries the engine knobs (enable_llm_engine) and `model` is a
+    causal LM exposing init_paged_cache / decode_step / prefill_chunk
+    (nlp.GPTForPretraining), already on the engine's device."""
+    if model is None:
+        raise ValueError("create_llm_predictor needs `model` (a causal LM "
+                         "with init_paged_cache/decode_step/prefill_chunk)")
+    if draft_model is not None:
+        raise NotImplementedError(
+            f"draft_model: {_NOT_PORTED['speculative=True']}")
+    if not config.llm_engine_enabled():
+        raise ValueError("call config.enable_llm_engine(paged=True, ...) "
+                         "first: the dense engine is not ported "
+                         f"({_NOT_PORTED['paged=False']})")
+    return LLMPredictor(config, model)

@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/*.cu` source has a plain C interface. It is compiled with
+nvcc for sm_90a into `build/paddle_tpu_torch/lib<name>.so` at first use
+and loaded with ctypes: pointers come from `tensor.data_ptr()`, the
+stream from `torch.cuda.current_stream().cuda_stream`. Nothing is built
+or loaded when this module is imported — the CPU tests import it on
+machines with no nvcc.
+"""
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
+    "paddle_tpu_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every exported entry point, by library name
+SIGNATURES = {
+    "paged_attention": {
+        "paged_attention_fwd": (
+            [_P, _P, _P, _P, _P, _P,             # q pk pv tables qpos out
+             _I, _I, _I, _I, _I, _I, _I, _I,     # b hkv rows c d bs nblk nb
+             ctypes.c_float, _I, _I, _I,         # scale use_window window
+             _P],                                # dtype stream
+            ctypes.c_int),
+    },
+}
+
+_loaded = {}
+
+
+def nvcc_path():
+    """The nvcc to build with: the CUDA toolkit's, else the one on PATH."""
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def build(name):
+    """Compile csrc/<name>.cu unless an up-to-date library exists.
+    Returns {"path", "seconds", "built", "ptxas"} — `ptxas` holds the
+    compiler's register/shared-memory report of a fresh build."""
+    src = CSRC / f"{name}.cu"
+    lib = BUILD_DIR / f"lib{name}.so"
+    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        return {"path": str(lib), "seconds": 0.0, "built": False,
+                "ptxas": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(src)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return {"path": str(lib), "seconds": seconds, "built": True,
+            "ptxas": proc.stderr}
+
+
+def load(name):
+    """The ctypes handle of lib<name>.so, built on first use, with every
+    entry point's argtypes/restype declared."""
+    if name not in _loaded:
+        info = build(name)
+        handle = ctypes.CDLL(info["path"])
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            f = getattr(handle, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        _loaded[name] = (handle, info)
+    return _loaded[name][0]
+
+
+def build_info(name):
+    """The build report of a loaded library (see `build`)."""
+    load(name)
+    return dict(_loaded[name][1])

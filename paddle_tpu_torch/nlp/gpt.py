@@ -1,0 +1,313 @@
+"""GPT decoder-only LM, serving methods (the port of
+`paddle_tpu/nlp/gpt.py`).
+
+Pre-norm blocks, fused QKV projection, tanh-GELU MLP, LayerNorm eps
+1e-5, LM head tied to the word embeddings (`h @ word_embeddings.T`).
+Submodules are named exactly as the JAX state dict names them
+(`gpt.blocks.0.attn.qkv_proj.weight`, ...), so `load_jax_state` copies a
+JAX model's weights across by name.
+
+This slice serves through the paged KV cache only: `init_paged_cache`,
+`decode_step` and `prefill_chunk` (with `frontier=`). The paged pools are
+updated IN PLACE by the scatters; the methods return the same pool
+objects so their signatures match the JAX package's.
+"""
+import math
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..device import resolve_device
+from ..nn.paged_attention import (paged_chunk_attention,
+                                  paged_decode_attention)
+from ..nn.transformer import scatter_block_kv_at, scatter_block_kv_chunk
+
+_TRAINING_SLICE = ("training and the dense prefill need flash-attention "
+                   "kernel K1 (ROADMAP Queue 1, slice 2: training)")
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
+                 num_heads=12, ffn_hidden_size=None, max_seq_len=1024,
+                 dropout=0.1, attn_dropout=0.1, initializer_range=0.02,
+                 moe_experts=0, attn_window=None):
+        if moe_experts:
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP Queue 1, "
+                "distributed slice: incubate/moe.py)")
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.ffn_hidden_size = ffn_hidden_size or 4 * hidden_size
+        self.max_seq_len = max_seq_len
+        self.dropout = dropout
+        self.attn_dropout = attn_dropout
+        self.initializer_range = initializer_range
+        self.moe_experts = 0
+        # causal sliding-window attention (last W keys per query)
+        self.attn_window = None if attn_window is None else int(attn_window)
+
+
+def gpt2_small(**kw):
+    return GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw)
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.head_dim = h // cfg.num_heads
+        self.qkv_proj = nn.Linear(h, 3 * h)
+        self.out_proj = nn.Linear(h, h)
+        self.attn_window = cfg.attn_window
+
+    def _split_heads(self, x):
+        """[B, S, 3H] -> q, k, v each [B, heads, S, head_dim]."""
+        b, s, _ = x.shape
+        a = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
+                                     self.head_dim)
+        a = a.permute(2, 0, 3, 1, 4)
+        return a[0], a[1], a[2]
+
+    def init_paged_cache(self, num_blocks, block_size, dtype, device):
+        """Block-pool KV cache [num_blocks, heads, block_size, head_dim]
+        x2 — requests claim blocks named by a host-managed table."""
+        shape = (num_blocks, self.num_heads, block_size, self.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    def decode(self, x_t, cache, pos, block_tables):
+        """One-token step for every lane: write K/V at `pos` through the
+        tables (in place), attend straight out of the pool."""
+        b = x_t.shape[0]
+        q, k_t, v_t = self._split_heads(x_t)
+        ck, cv = cache
+        scatter_block_kv_at(ck, k_t, block_tables, pos)
+        scatter_block_kv_at(cv, v_t, block_tables, pos)
+        out = paged_decode_attention(q, ck, cv, block_tables, pos,
+                                     1.0 / math.sqrt(self.head_dim),
+                                     window=self.attn_window)
+        out = out.permute(0, 2, 1, 3).reshape(b, 1, -1)
+        return self.out_proj(out.to(x_t.dtype))
+
+    def prefill_chunk(self, x, cache, block_tables, chunk_start, valid_len):
+        """One prompt chunk [1, C, H]: scatter its K/V through the table
+        at chunk_start + arange(C) (the padded tail past valid_len goes to
+        scratch), then attend the C queries over the pool."""
+        b, s, h = x.shape
+        q, k, v = self._split_heads(x)
+        ck, cv = cache
+        positions = chunk_start + torch.arange(s, device=x.device)
+        scatter_block_kv_chunk(ck, k, block_tables, positions, valid_len)
+        scatter_block_kv_chunk(cv, v, block_tables, positions, valid_len)
+        out = paged_chunk_attention(q, ck, cv, block_tables, chunk_start,
+                                    1.0 / math.sqrt(self.head_dim),
+                                    window=self.attn_window)
+        out = out.permute(0, 2, 1, 3).reshape(b, s, h)
+        return self.out_proj(out.to(x.dtype))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.fc_in = nn.Linear(cfg.hidden_size, cfg.ffn_hidden_size)
+        self.fc_out = nn.Linear(cfg.ffn_hidden_size, cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.dropout)
+
+    def forward(self, x):
+        return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
+                                               approximate="tanh")))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.attn = GPTAttention(cfg)
+        self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.mlp = GPTMLP(cfg)
+
+    def decode(self, x, cache, pos, block_tables):
+        x = x + self.attn.decode(self.ln_1(x), cache, pos, block_tables)
+        return x + self.mlp(self.ln_2(x))
+
+    def prefill_chunk(self, x, cache, block_tables, chunk_start, valid_len):
+        x = x + self.attn.prefill_chunk(self.ln_1(x), cache, block_tables,
+                                        chunk_start, valid_len)
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPTEmbeddings(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Embedding(cfg.max_seq_len,
+                                                cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.dropout)
+
+    def forward(self, input_ids, position_ids):
+        return self.dropout(self.word_embeddings(input_ids)
+                            + self.position_embeddings(position_ids))
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = GPTEmbeddings(cfg)
+        self.blocks = nn.ModuleList([GPTBlock(cfg)
+                                     for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+    def _position_ids(self, pos):
+        """Position-embedding rows, bounded to the table. Live positions
+        are < max_len <= max_seq_len and are never moved; only lanes
+        outside the wave (parked at max_len) or a chunk's padded tail
+        reach past it, and their rows are discarded."""
+        return torch.clamp(pos, 0, self.cfg.max_seq_len - 1)
+
+    def init_paged_cache(self, num_blocks, block_size, max_len, dtype,
+                         device):
+        """Per-layer block pools [num_blocks, heads, block_size, hd] x2.
+        max_len (the per-request horizon) must fit the position table."""
+        if max_len > self.cfg.max_seq_len:
+            raise ValueError(
+                f"decode length {max_len} exceeds max_seq_len "
+                f"{self.cfg.max_seq_len}")
+        return [blk.attn.init_paged_cache(num_blocks, block_size, dtype,
+                                          device)
+                for blk in self.blocks]
+
+    def decode_step(self, tok, caches, pos, block_tables):
+        """tok: [B, 1] ids; pos: [B] positions (or a scalar); the caches
+        are block pools, written in place. Returns (h, caches)."""
+        pos = torch.as_tensor(pos, device=tok.device).reshape(-1)
+        pos_ids = self._position_ids(pos.long()).expand(tok.shape[0])
+        x = self.embeddings(tok, pos_ids[:, None])
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.decode(x, cache, pos, block_tables)
+        return self.ln_f(x), caches
+
+    def prefill_chunk(self, tok_chunk, caches, block_tables, chunk_start,
+                      valid_len):
+        """One prompt chunk [1, C] at chunk_start + arange(C) against the
+        block pools. Returns (h, caches)."""
+        c = tok_chunk.shape[1]
+        pos_ids = chunk_start + torch.arange(c, device=tok_chunk.device)
+        x = self.embeddings(tok_chunk, self._position_ids(pos_ids)[None])
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.prefill_chunk(x, cache, block_tables, chunk_start,
+                                  valid_len)
+        return self.ln_f(x), caches
+
+
+class GPTForPretraining(nn.Module):
+    """GPT with the LM head tied to the word embeddings. Weights are
+    drawn from an explicit generator seeded with `seed` (normal(0,
+    initializer_range); output projections scaled by 1/sqrt(2 layers);
+    biases 0; LayerNorm 1/0, as the JAX package initialises), on the
+    CPU, then moved to `device` (None = the CUDA card) and `dtype`."""
+
+    def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
+        super().__init__()
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg)
+        self._init_weights(torch.Generator().manual_seed(int(seed)))
+        self.to(device=resolve_device(device), dtype=dtype)
+        self.eval()
+
+    @torch.no_grad()
+    def _init_weights(self, gen):
+        std = self.cfg.initializer_range
+        out_std = std / math.sqrt(2 * self.cfg.num_layers)
+        for name, mod in self.named_modules():
+            if isinstance(mod, nn.Linear):
+                proj_out = name.endswith(("out_proj", "fc_out"))
+                mod.weight.normal_(0.0, out_std if proj_out else std,
+                                   generator=gen)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.normal_(0.0, std, generator=gen)
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    @property
+    def device(self):
+        return self.gpt.ln_f.weight.device
+
+    def _head(self, h):
+        return h @ self.gpt.embeddings.word_embeddings.weight.T
+
+    def init_paged_cache(self, num_blocks, block_size, max_len,
+                         dtype=torch.float32):
+        return self.gpt.init_paged_cache(num_blocks, block_size, max_len,
+                                         dtype, self.device)
+
+    @torch.no_grad()
+    def decode_step(self, tok, caches, pos, block_tables=None):
+        if block_tables is None:
+            raise NotImplementedError(
+                "dense KV-cache decode is not ported yet (ROADMAP Queue 1: "
+                "dense ServingEngine)")
+        h, caches = self.gpt.decode_step(tok, caches, pos, block_tables)
+        return self._head(h), caches
+
+    @torch.no_grad()
+    def prefill_chunk(self, tok_chunk, caches, block_tables, chunk_start,
+                      valid_len, frontier=None):
+        """frontier (index WITHIN the chunk): logits for that one position
+        only — [1, 1, V] instead of [1, C, V]."""
+        h, caches = self.gpt.prefill_chunk(tok_chunk, caches, block_tables,
+                                           chunk_start, valid_len)
+        if frontier is not None:
+            h = h[:, int(frontier):int(frontier) + 1]
+        return self._head(h), caches
+
+    def forward(self, input_ids, position_ids=None):
+        raise NotImplementedError(f"GPT forward: {_TRAINING_SLICE}")
+
+    def prefill(self, input_ids, max_len, dtype=None, frontier=None):
+        raise NotImplementedError(f"GPT dense prefill: {_TRAINING_SLICE}")
+
+    def decode_chunk(self, tok_chunk, caches, block_tables, start,
+                     valid_len):
+        raise NotImplementedError(
+            "decode_chunk (speculative verify) is not ported yet (ROADMAP "
+            "Queue 1: LLaMA and speculative decoding)")
+
+
+def _linear_weight_names(model):
+    return {f"{name}.weight" for name, mod in model.named_modules()
+            if isinstance(mod, nn.Linear)}
+
+
+@torch.no_grad()
+def load_jax_state(model, state):
+    """Copy a JAX model's weights into the port's model. `state` is
+    {name: np.ndarray}, as `{k: v.numpy() for k, v in
+    jax_model.state_dict().items()}` gives it. Paddle's Linear weight is
+    [in, out] and torch's [out, in], so Linear weights are transposed.
+    Raises on a missing key, an extra key or a shape mismatch."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"state mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    linear = _linear_weight_names(model)
+    for name, dst in own.items():
+        arr = np.asarray(state[name])
+        if arr.dtype.name == "bfloat16":    # ml_dtypes: no torch view
+            arr = arr.astype(np.float32)
+        if name in linear:
+            arr = arr.T
+        if tuple(arr.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} (after "
+                             f"layout change) != {tuple(dst.shape)}")
+        dst.copy_(torch.tensor(arr))
+    return model

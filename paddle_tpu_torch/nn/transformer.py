@@ -1,0 +1,150 @@
+"""Paged KV-cache primitives and the dense attention cores they feed —
+the paged subset of `paddle_tpu/nn/transformer.py`.
+
+The pool is `[num_blocks, Hkv, block_size, D]`; a request's cache is the
+ordered sequence of pool blocks named by its block TABLE (int32 ids,
+host-managed by `serving.paged.BlockPool`). Block 0 is the scratch
+block: lanes outside the wave and padded chunk tails are redirected
+there, its contents are garbage by design and never read at an attended
+position.
+
+JAX clamps or drops an out-of-range gather/scatter index; on the card an
+out-of-range index is a device-side assert. Every table lookup below is
+therefore bounded explicitly, and the bound is chosen so that it never
+changes which rows a live lane writes (see each function).
+
+The scatters update the pools IN PLACE (`index_put_`) and return them:
+there is no donation in PyTorch, the engines simply keep mutating the
+same tensors.
+"""
+import torch
+
+
+def _positions(pos, b, device):
+    """[B] int64 positions from a Python int, a 0-d tensor or a [B]
+    tensor (the scalar is the lockstep broadcast of the vector form)."""
+    pos = torch.as_tensor(pos, device=device)
+    return pos.reshape(-1).to(torch.int64).expand(b)
+
+
+def _masked_softmax(scores, mask):
+    """Softmax with HARD exclusion of masked positions: -inf before the
+    max/exp, and fully-masked rows renormalise to exactly 0. The guard
+    keys on denom == 0, NOT > 0: a NaN denominator from a genuine
+    attended fault must divide through and propagate."""
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - torch.where(torch.isfinite(m), m,
+                                       torch.zeros_like(m)))
+    denom = e.sum(dim=-1, keepdim=True)
+    return torch.where(denom == 0, torch.zeros_like(e), e / denom)
+
+
+def _sanitize_unattended(cv, attended):
+    """Zero the V rows NO query attends (attended: [B, L] broadcastable
+    against cv [B, Hkv, L, D] after the caller's any-reduction). A
+    0-probability key with non-finite garbage would still give
+    0 * nan == nan in the probs @ V contraction."""
+    b = attended.shape[0]
+    keep = attended.reshape((b, 1) + tuple(attended.shape[1:]))
+    return torch.where(keep, cv, torch.zeros((), dtype=cv.dtype,
+                                             device=cv.device))
+
+
+def cached_decode_attention(q, ck, cv, pos, scale, window=None,
+                            sanitize=False):
+    """Single-token attention over a dense per-lane view. q: [B, H, 1, D];
+    ck/cv: [B, Hkv, L, D], grouped (GQA) when H > Hkv without repeating
+    the cache. `pos` is a scalar or a [B] vector: keys at ks <= pos are
+    attended (banded to the last `window`). Returns [B, H, 1, D] in
+    cv.dtype."""
+    b, h, _, d = q.shape
+    hkv, L = ck.shape[1], ck.shape[2]
+    rep = h // hkv
+    qf = q.float().reshape(b, hkv, rep, d)
+    scores = torch.einsum("bkrd,bkld->bkrl", qf, ck.float()) * scale
+    p = _positions(pos, b, q.device).reshape(b, 1, 1, 1)
+    ks = torch.arange(L, device=q.device).reshape(1, 1, 1, L)
+    mask = ks <= p
+    if window is not None:
+        mask = mask & (ks > p - window)
+    probs = _masked_softmax(scores, mask).to(cv.dtype)
+    if sanitize:
+        cv = _sanitize_unattended(cv, mask[:, 0, 0, :, None])
+    out = torch.einsum("bkrl,bkld->bkrd", probs, cv)
+    return out.reshape(b, h, 1, d)
+
+
+def chunk_attention(q, ck, cv, start, scale, window=None, sanitize=False):
+    """C queries per lane at absolute positions start + i over an
+    L-position view (which already holds the chunk's own K/V). q:
+    [B, H, C, D]; ck/cv: [B, Hkv, L, D]; `start` a scalar or [B]. Query
+    row i masks ks <= start + i (banded to the last `window` keys).
+    Returns [B, H, C, D] in cv.dtype."""
+    b, h, c, d = q.shape
+    hkv, L = ck.shape[1], ck.shape[2]
+    rep = h // hkv
+    qf = q.float().reshape(b, hkv, rep, c, d)
+    scores = torch.einsum("bkrcd,bkld->bkrcl", qf, ck.float()) * scale
+    s0 = _positions(start, b, q.device).reshape(b, 1, 1, 1, 1)
+    qpos = s0 + torch.arange(c, device=q.device).reshape(1, 1, 1, c, 1)
+    ks = torch.arange(L, device=q.device).reshape(1, 1, 1, 1, L)
+    mask = ks <= qpos
+    if window is not None:
+        mask = mask & (ks > qpos - window)
+    probs = _masked_softmax(scores, mask).to(cv.dtype)
+    if sanitize:
+        cv = _sanitize_unattended(cv, mask.any(dim=3)[:, 0, 0, :, None])
+    out = torch.einsum("bkrcl,bkld->bkrcd", probs, cv)
+    return out.reshape(b, h, c, d)
+
+
+def gather_block_kv(pool, tables):
+    """Materialise per-lane views from the block pool. pool:
+    [NB, Hkv, BS, D]; tables: [B, nblk] -> [B, Hkv, nblk*BS, D], position
+    p of lane b at pool[tables[b, p // BS], :, p % BS]. Table entries
+    are pool block ids handed out by the BlockPool, in range by
+    construction."""
+    g = pool[tables.long()]                    # [B, nblk, Hkv, BS, D]
+    b, nblk, hkv, bs, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, nblk * bs, d)
+
+
+def scatter_block_kv_at(pool, kv_t, tables, pos):
+    """Write one step's K or V [B, Hkv, 1, D] through block tables
+    [B, nblk] at per-lane positions pos [B], in place: lane b lands in
+    pool[tables[b, pos[b] // BS], :, pos[b] % BS].
+
+    The table column is clamped to [0, nblk - 1]. A live lane always has
+    pos < max_len = nblk * BS, so the clamp never moves its write; only
+    lanes outside the wave (a retired lane parked at pos == max_len) can
+    reach past the table, and the engine uploads all-scratch rows for
+    exactly those lanes, so their write lands in block 0 either way."""
+    bs, nblk = pool.shape[2], tables.shape[1]
+    pos = _positions(pos, kv_t.shape[0], pool.device)
+    col = torch.clamp(pos // bs, 0, nblk - 1)
+    blk = torch.gather(tables.long(), 1, col[:, None])[:, 0]
+    pool[blk, :, pos % bs, :] = kv_t[:, :, 0, :].to(pool.dtype)
+    return pool
+
+
+def scatter_block_kv_chunk(pool, kv_c, table, positions, valid_len):
+    """Write a prefill chunk's K or V [1, Hkv, C, D] through one lane's
+    block table [1, nblk] at absolute positions [C], in place. Positions
+    at or past valid_len (the padded tail of the last chunk) go to the
+    scratch block.
+
+    The table column is clamped to nblk - 1 BEFORE the lookup (a padded
+    tail can index past the table); those positions are redirected to
+    scratch regardless, and valid positions lie inside the table, so
+    the clamp moves no live write."""
+    nblk, bs = table.shape[1], pool.shape[2]
+    c = positions.shape[0]
+    positions = positions.to(torch.int64)
+    col = torch.clamp(positions // bs, 0, nblk - 1)
+    blk = table[0].long()[col]
+    valid = torch.arange(c, device=pool.device) < valid_len
+    blk = torch.where(valid, blk, torch.zeros_like(blk))
+    kv = kv_c[0].permute(1, 0, 2)              # [C, Hkv, D]
+    pool[blk, :, positions % bs, :] = kv.to(pool.dtype)
+    return pool

@@ -1,0 +1,107 @@
+"""Per-scheduler serving metrics (a subset of
+`paddle_tpu/serving/metrics.py` `ServingMetrics`): TTFT, TPOT, request
+latency, tokens, decode waves and prefill chunks.
+
+Percentiles are exact over the most recent `window` samples of each
+kind (a long-running server keeps a bounded tail, not every sample it
+ever saw). Times are host wall-clock seconds: the engine synchronises
+with the device once per wave when it reads the tokens back, so a token
+timestamp is taken after the device produced it.
+"""
+import collections
+import threading
+
+import numpy as np
+
+
+def _percentile(samples, q):
+    return float(np.percentile(np.asarray(samples), q)) if samples else None
+
+
+class ServingMetrics:
+    def __init__(self, num_slots, window=65536):
+        self.num_slots = int(num_slots)
+        self._lock = threading.Lock()
+        self._ttft = collections.deque(maxlen=window)
+        self._tpot = collections.deque(maxlen=window)
+        self._latency = collections.deque(maxlen=window)
+        self._tokens = 0
+        self._waves = 0
+        self._prefill_chunks = 0
+        self._prefills = 0
+        self._completed = 0
+        self._rejected = 0
+        self._active_slot_waves = 0
+        self._first_token_time = None
+        self._last_token_time = None
+        self._faults = {}
+
+    # ---------------------------------------------------------- recording
+    def on_reject(self):
+        with self._lock:
+            self._rejected += 1
+
+    def on_fault(self, kind):
+        with self._lock:
+            self._faults[kind] = self._faults.get(kind, 0) + 1
+
+    def on_prefill_chunk(self):
+        """One prefill-chunk program ran (one per chunk, not per prompt)."""
+        with self._lock:
+            self._prefill_chunks += 1
+
+    def on_prefill(self):
+        """One admission's prefill completed (its first token exists)."""
+        with self._lock:
+            self._prefills += 1
+
+    def on_wave(self, n_active):
+        """One dispatched decode wave with `n_active` lanes in it."""
+        with self._lock:
+            self._waves += 1
+            self._active_slot_waves += int(n_active)
+
+    def on_token(self, t_now, prev_t=None):
+        """One streamed token; `prev_t` is the same request's previous
+        token time (None for its first), so the gap is a TPOT sample."""
+        with self._lock:
+            self._tokens += 1
+            if prev_t is not None:
+                self._tpot.append(t_now - prev_t)
+            if self._first_token_time is None:
+                self._first_token_time = t_now
+            self._last_token_time = t_now
+
+    def on_complete(self, request):
+        with self._lock:
+            self._completed += 1
+            if request.ttft is not None:
+                self._ttft.append(request.ttft)
+            if request.latency is not None:
+                self._latency.append(request.latency)
+
+    # ---------------------------------------------------------- reporting
+    def snapshot(self):
+        """Point-in-time summary dict."""
+        with self._lock:
+            span = (None if self._first_token_time is None
+                    else self._last_token_time - self._first_token_time)
+            return {
+                "requests_completed": self._completed,
+                "rejected": self._rejected,
+                "tokens_generated": self._tokens,
+                "tokens_per_s": (self._tokens / span if span else None),
+                "decode_waves": self._waves,
+                "prefill_chunks": self._prefill_chunks,
+                "prefills": self._prefills,
+                "slot_occupancy": (self._active_slot_waves
+                                   / (self._waves * self.num_slots)
+                                   if self._waves else 0.0),
+                "ttft_p50_s": _percentile(self._ttft, 50),
+                "ttft_p99_s": _percentile(self._ttft, 99),
+                "tpot_p50_s": _percentile(self._tpot, 50),
+                "tpot_p99_s": _percentile(self._tpot, 99),
+                "latency_p50_s": _percentile(self._latency, 50),
+                "latency_p99_s": _percentile(self._latency, 99),
+                "faults": dict(self._faults),
+            }
