@@ -139,20 +139,21 @@ def make_case(form, dtype, gen, dev, sets=1):
 
 
 def bound(q, pk, start, window, peaks):
-    """Least time for the call: the bytes it must move (q, the K/V rows
-    the lanes attend, the used table entries and positions read once, the
-    output written once) over the HBM rate, against its operations
-    (q.k and p.v multiply-adds over the attended keys) over the peak for
-    the pool type. Returns (ms, "bytes" | "operations")."""
+    """Least time for the call: the bytes it must move (q, the K and V
+    rows each lane attends, the table entries of the blocks holding them
+    and the positions read once, the output written once) over the HBM
+    rate, against its operations (q.k and p.v multiply-adds over the
+    attended keys) over the peak for the pool type. Returns
+    (ms, "bytes" | "operations")."""
     b, h, c, d = q.shape
-    elt = pk.element_size()
+    hkv, elt = pk.shape[1], pk.element_size()
     nbytes = q.numel() * q.element_size() + b * h * c * d * elt + b * c * 4
     flops = 0
-    for i, s in enumerate(start.reshape(-1).tolist()):
-        hi = s + c - 1
+    for s in start.reshape(-1).tolist():
+        hi = s + c - 1                   # the lane's last attended key
         lo = 0 if window is None else max(0, s - window + 1)
-        blocks = hi // BLOCK + 1 - lo // BLOCK
-        nbytes += blocks * (2 * h * BLOCK * d * elt + 4)
+        nbytes += (hi - lo + 1) * 2 * hkv * d * elt      # K and V rows
+        nbytes += (hi // BLOCK - lo // BLOCK + 1) * 4     # table entries
         for r in range(c):
             keys = s + r + 1 - (0 if window is None
                                 else max(0, s + r - window + 1))
@@ -244,7 +245,7 @@ def kernels_phase(dev, peaks):
             "max_abs_err_f32_pools": worst[torch.float32],
             # device time of the wrapper (q cast, positions, kernel,
             # output cast), one pool set per call as the layers of a wave
-            "ms": graph_ms(run_kernel, LAYERS),
+            "kernel_ms": graph_ms(run_kernel, LAYERS),
             "eager_call_ms": time_ms(run_kernel, 60),
             "plain_ms": time_ms(run_plain, 6),
             "library_ms": graph_ms(run_library, LAYERS),
@@ -319,7 +320,12 @@ def parity_phase(dev):
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
 
     tol = 1e-3
-    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
+    # initializer 0.1: at the default 0.02 a random GPT's greedy stream
+    # repeats one token and proves little; at 0.2 (the 2-layer CPU tests'
+    # setting) 12 random layers amplify f32 summation-order differences
+    # in attention past the 1e-3 logit tolerance
+    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0,
+                                         initializer_range=0.1),
                               device=dev, dtype=torch.float32, seed=SEED)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, model.cfg.vocab_size, int(n)).tolist()
@@ -366,6 +372,7 @@ def serve_phase(dev):
     from paddle_tpu_torch import inference
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
     from paddle_tpu_torch.nn import paged_attention as pa
+    from paddle_tpu_torch.serving import ServingMetrics
 
     model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
                               device=dev, dtype=torch.bfloat16, seed=SEED)
@@ -384,6 +391,8 @@ def serve_phase(dev):
     waves0, chunks0 = eng.decode_waves_run, eng.prefill_chunks_run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the timed window's metrics leave out the warm-up request
+    pred.scheduler.metrics = ServingMetrics(eng.num_slots)
     pa.launches["decode"] = pa.launches["chunk"] = 0
     t0 = time.perf_counter()
     reqs = [pred.submit(prompt=p, max_tokens=64) for p in prompts]
@@ -447,10 +456,13 @@ def main():
     emit("kernels", **k)
     parity_phase(dev)
     launches = serve_phase(dev)
-    rows = [{"name": f"paged_attention_{form}", "route": "cuda",
-             "source": SOURCE, "replaces": REPLACES,
-             "launches": launches[form], **k[form]}
-            for form in ("decode", "chunk")]
+    rows = []
+    for form in ("decode", "chunk"):
+        row = dict(k[form])
+        rows.append({"name": f"paged_attention_{form}", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES,
+                     "launches": launches[form],
+                     "ms": row.pop("kernel_ms"), **row})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,11 @@
 // f32 [B, Hkv, rep * C, D]; pools are [NB, Hkv, BS, D] f32 or bf16;
 // tables [B, nblk] and qpos [B, C] are int32.
 //
+// Shapes: built for the serving path's GPT-2 small head_dim (D = 64) and
+// pool blocks of at most 16 keys (the path uses 16), so two lanes of a
+// warp share each key, each taking half of its q.k product. Any other
+// head_dim or block size is rejected at the entry point.
+//
 // NaN contract (that of _lax_core, paddle_tpu/nn/paged_attention.py):
 //   * masked scores are -inf before the max (a masked NaN never counts);
 //   * shift = 0 while the running max is -inf (no inf - inf);
@@ -67,7 +72,8 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowTile = 4;
-constexpr int kMaxBlockSize = 32;  // one key of a pool block per lane
+constexpr int kHeadDim = 64;
+constexpr int kMaxBlockSize = 16;  // one key per half-warp lane pair
 constexpr int kStaticSmem = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -144,13 +150,14 @@ __host__ int smem_bytes(int bs, int d) {
   return (kRowTile * d + kRowTile + (stage > merge ? stage : merge)) * 4;
 }
 
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ pk,
                   const T* __restrict__ pv, const int* __restrict__ tables,
                   const int* __restrict__ qpos, float* __restrict__ out,
                   int hkv, int rows, int c, int bs, int nblk, int nb,
                   float scale, int use_window, int window) {
+  constexpr int D = kHeadDim;
   constexpr int kDPerLane = D / 32;
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ float smem[];
@@ -209,11 +216,9 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ pk,
   int* keep_s = reinterpret_cast<int*>(v_s + bs * D);  // [kMaxBlockSize]
   float* p_s = v_s + bs * D + kMaxBlockSize;          // [kRowTile][32]
 
-  // two lanes share a key when the block has at most 16: each takes
-  // half of the q.k dot product
-  const bool split = bs <= 16;
-  const int key = split ? (lane & 15) : lane;
-  const int d0 = split ? (lane >> 4) * (D / 2) : 0;
+  // lanes l and l + 16 share key l: each takes half of the q.k product
+  const int key = lane & 15;
+  const int d0 = (lane >> 4) * (D / 2);
 
   float m[kRowTile], l[kRowTile], acc[kRowTile][kDPerLane];
 #pragma unroll
@@ -266,9 +271,9 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ pk,
       if (keep) {
         const float* qr = q_s + r * D + d0;
         const float* kr = k_s + key * (D + 1) + d0;
-        dot = split ? dot_product<D / 2>(qr, kr) : dot_product<D>(qr, kr);
+        dot = dot_product<D / 2>(qr, kr);
       }
-      if (split) dot += __shfl_xor_sync(kFull, dot, 16);
+      dot += __shfl_xor_sync(kFull, dot, 16);
       const float s = (lane < bs && keep) ? dot * scale : -INFINITY;
       const float m_new = nan_max(m[r], warp_max(s));
       const float shift = isfinite(m_new) ? m_new : 0.f;
@@ -332,20 +337,20 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ pk,
   }
 }
 
-template <typename T, int D>
+template <typename T>
 int launch(int b, int hkv, cudaStream_t stream, const void* q,
            const void* pk, const void* pv, const void* tables,
            const void* qpos, void* out, int rows, int c, int bs, int nblk,
            int nb, float scale, int use_window, int window) {
   const dim3 grid(b * hkv, (rows + kRowTile - 1) / kRowTile);
-  const int smem = smem_bytes(bs, D);
+  const int smem = smem_bytes(bs, kHeadDim);
   if (smem > kStaticSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
   }
-  paged_attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  paged_attn_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(pk),
       static_cast<const T*>(pv), static_cast<const int*>(tables),
       static_cast<const int*>(qpos), static_cast<float*>(out), hkv, rows, c,
@@ -353,33 +358,12 @@ int launch(int b, int hkv, cudaStream_t stream, const void* q,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int d, int b, int hkv, cudaStream_t stream, const void* q,
-               const void* pk, const void* pv, const void* tables,
-               const void* qpos, void* out, int rows, int c, int bs,
-               int nblk, int nb, float scale, int use_window, int window) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(b, hkv, stream, q, pk, pv, tables, qpos, out,
-                           rows, c, bs, nblk, nb, scale, use_window, window);
-    case 64:
-      return launch<T, 64>(b, hkv, stream, q, pk, pv, tables, qpos, out,
-                           rows, c, bs, nblk, nb, scale, use_window, window);
-    case 128:
-      return launch<T, 128>(b, hkv, stream, q, pk, pv, tables, qpos, out,
-                            rows, c, bs, nblk, nb, scale, use_window,
-                            window);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // dtype: 0 = float32 pools, 1 = bfloat16 pools. Returns the launch's
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
-// shape the kernel was not built for (head_dim 32/64/128, block size
-// 1..32). Pools must be 16-byte aligned.
+// shape the kernel was not built for (head_dim 64, block size 1..16).
+// Pools must be 16-byte aligned.
 extern "C" int paged_attention_fwd(const void* q, const void* pk,
                                    const void* pv, const void* tables,
                                    const void* qpos, void* out, int b,
@@ -387,17 +371,17 @@ extern "C" int paged_attention_fwd(const void* q, const void* pk,
                                    int nblk, int nb, float scale,
                                    int use_window, int window, int dtype,
                                    void* stream) {
-  if (bs < 1 || bs > kMaxBlockSize || c < 1 || nb < 1 || nblk < 1)
+  if (d != kHeadDim || bs < 1 || bs > kMaxBlockSize || c < 1 || nb < 1 ||
+      nblk < 1)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || hkv == 0 || rows == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(d, b, hkv, st, q, pk, pv, tables, qpos, out,
-                             rows, c, bs, nblk, nb, scale, use_window,
-                             window);
+    return launch<float>(b, hkv, st, q, pk, pv, tables, qpos, out, rows, c,
+                         bs, nblk, nb, scale, use_window, window);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, b, hkv, st, q, pk, pv, tables, qpos,
-                                     out, rows, c, bs, nblk, nb, scale,
-                                     use_window, window);
+    return launch<__nv_bfloat16>(b, hkv, st, q, pk, pv, tables, qpos, out,
+                                 rows, c, bs, nblk, nb, scale, use_window,
+                                 window);
   return (int)cudaErrorInvalidValue;
 }

@@ -192,8 +192,10 @@ def plain_core(q, pk, pv, tables, start, scale, window=None):
 # ---------------------------------------------------------------------------
 
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
-_MAX_BLOCK_SIZE = 32
+# the kernel is built for the serving path's shapes only: GPT-2 small's
+# head_dim and pool blocks of at most 16 keys
+_HEAD_DIM = 64
+_MAX_BLOCK_SIZE = 16
 
 
 def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk"):
@@ -222,13 +224,13 @@ def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk"):
                          f"{tuple(pk.shape)}/{tuple(pv.shape)}")
     b, h, c, d = q.shape
     nb, hkv, bs, dk = pk.shape
-    if dk != d or h % hkv or d not in _HEAD_DIMS \
+    if dk != d or h % hkv or d != _HEAD_DIM \
             or not 1 <= bs <= _MAX_BLOCK_SIZE or tables.dim() != 2 \
             or tables.shape[0] != b:
         raise ValueError(
             f"paged attention kernel: unsupported shapes q {tuple(q.shape)}"
             f", pools {tuple(pk.shape)}, tables {tuple(tables.shape)} "
-            f"(head_dim in {_HEAD_DIMS}, block_size <= {_MAX_BLOCK_SIZE})")
+            f"(head_dim {_HEAD_DIM}, block_size <= {_MAX_BLOCK_SIZE})")
     if not (pk.is_contiguous() and pv.is_contiguous()
             and tables.is_contiguous()):
         raise ValueError("paged attention kernel needs contiguous pools "
