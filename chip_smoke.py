@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE[,PHASE...]]
 
-Builds the port's CUDA kernel from the checkout (nvcc, sm_90a, into
-build/paddle_tpu_torch/), holds it against its plain PyTorch version at
-the serving path's shapes, checks the fp32 serving streams of GPT-2
-small width against the gather-then-attend reference kernel, then serves
-GPT-2 small in bf16 through the front door
-(`inference.Config().enable_llm_engine(paged=True, ...)` ->
-`create_llm_predictor` -> submit/run) and shows that the path launched
-the kernel. Each phase prints one JSON line; a failed check raises and
-exits non-zero. The last lines are the kernel summary, the card's name
-and power limit as nvidia-smi reports them, and
-{"ok": true, "device": {...}}.
+Builds the port's CUDA kernels from the checkout (one nvcc per source,
+all started together; sm_90a, into build/paddle_tpu_torch/), then runs
+its phases:
+
+  kernels       K4 (paged attention) against its plain PyTorch version
+                at the serving path's shapes;
+  flash         K1-K3 (flash attention forward, dK/dV, dQ) against
+                their plain versions at the training path's shapes, a
+                windowed case and a q_len < kv_len case, f32 and bf16,
+                with the NaN and fully-masked-row contracts, and timed;
+  parity        fp32 serving streams of GPT-2 small width through the
+                CUDA kernel against the gather-then-attend reference;
+  train_parity  fp32 GPT training (head_dim 64) through the CUDA
+                kernels against the dense reference: step-1 gradients,
+                5-step SGD and AdamW loss trajectories, window off/on;
+  serve         GPT-2 small in bf16 through the front door
+                (`inference.Config().enable_llm_engine(paged=True, ...)`
+                -> `create_llm_predictor` -> submit/run), showing the
+                path launched K4;
+  train         GPT-2 small in bf16 at bench.py's GPU shapes through
+                `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
+                in `jit.TrainStep`, 3 warm-up and 10 timed steps,
+                showing every layer launched K1-K3 once per step.
+
+Each phase prints one JSON line; a failed check raises and exits
+non-zero. `--only` runs a subset (for short checks); the full run, with
+no arguments, ends with the kernel summary, the card's name and power
+limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 
 Needs one CUDA card; exits non-zero without printing a result when there
 is none, or when run outside a checkout of the repository.
@@ -23,10 +40,19 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "paddle_tpu/nn/paged_attention.py:248"
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"fwd": "paddle_tpu/ops/pallas/flash_attention.py:137",
+                  "dkv": "paddle_tpu/ops/pallas/flash_attention.py:300",
+                  "dq": "paddle_tpu/ops/pallas/flash_attention.py:385"}
+# training shapes of bench.py's GPU configuration: GPT-2 small (12 heads
+# of 64), vocab 32768, batch 8, seq 1024
+TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
+PHASES = ("kernels", "flash", "parity", "train_parity", "serve", "train")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -427,6 +453,422 @@ def serve_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# flash: K1-K3 against their plain versions at the training path's shapes
+# ---------------------------------------------------------------------------
+
+def flash_inputs(b, sq, sk, dtype, gen, dev, bshd=True, qkv=True):
+    """q, k, v as the training path gives them (bshd: strided views of
+    one [B, S, 3, H, D] projection when sq == sk) and an upstream grad
+    dO in q's layout."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+    if bshd and qkv and sq == sk:
+        a = rnd(b, sq, 3, HEADS, HEAD_DIM)
+        q, k, v = a[:, :, 0], a[:, :, 1], a[:, :, 2]
+    elif bshd:
+        q = rnd(b, sq, HEADS, HEAD_DIM)
+        k, v = rnd(b, sk, HEADS, HEAD_DIM), rnd(b, sk, HEADS, HEAD_DIM)
+    else:
+        q = rnd(b, HEADS, sq, HEAD_DIM)
+        k, v = rnd(b, HEADS, sk, HEAD_DIM), rnd(b, HEADS, sk, HEAD_DIM)
+    return q, k, v, rnd(*q.shape)
+
+
+def flash_pairs(b, h, sq, sk, causal, window):
+    """(query, key) pairs the band keeps over the whole call."""
+    if not causal:
+        return b * h * sq * sk
+    off, n = sk - sq, 0
+    for r in range(sq):
+        qa = off + r
+        lo = 0 if window is None else max(0, qa - window + 1)
+        n += max(0, min(qa, sk - 1) - lo + 1)
+    return b * h * n
+
+
+def flash_bound(kind, q, k, causal, window, bshd, peaks):
+    """Least time of one K1 / K2 / K3 call: bytes (each input read once,
+    each output written once: q, k, v, out and lse for K1; q, k, v, dO,
+    lse, dd, dK and dV for K2; q, k, v, dO, lse, dd and dQ for K3) over
+    the HBM rate, against operations (2 * D multiply-adds per attended
+    pair per product: QK^T and PV for K1; QK^T, dO.V^T, P^T.dO and
+    dS^T.Q for K2; QK^T, dO.V^T and dS.K for K3) over the peak for the
+    input type. Returns (ms, "bytes" | "operations")."""
+    if bshd:
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+    else:
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+    elt = q.element_size()
+    qb, kb, stat = b * sq * h * d * elt, b * sk * h * d * elt, b * h * sq * 4
+    tiles = {"fwd": (2 * qb + 2 * kb + stat, 2),
+             "dkv": (2 * qb + 4 * kb + 2 * stat, 4),
+             "dq": (3 * qb + 2 * kb + 2 * stat, 3)}
+    nbytes, products = tiles[kind]
+    flops = products * 2 * d * flash_pairs(b, h, sq, sk, causal, window)
+    rate = peaks["bf16" if elt == 2 else "f32"]
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_run(fa, impl, q, k, v, do, causal, window, bshd):
+    """Forward, then dK/dV and dQ from the forward's own out and lse."""
+    fwd, dkv, dq = fa._IMPLS[impl]
+    scale = 1.0 / HEAD_DIM ** 0.5
+    out, lse = fwd(q, k, v, causal, scale, bshd, window)
+    dd = fa.row_dot(do, out, bshd)
+    dk, dv = dkv(q, k, v, do, lse, dd, causal, scale, bshd, window)
+    dqv = dq(q, k, v, do, lse, dd, causal, scale, bshd, window)
+    return {"out": out, "lse": lse, "dk": dk, "dv": dv, "dq": dqv}
+
+
+def flash_phase(dev, peaks):
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    # (name, batch, sq, sk, causal, window, bshd)
+    cases = [("main", TRAIN_B, TRAIN_S, TRAIN_S, True, None, True),
+             ("window256", 2, TRAIN_S, TRAIN_S, True, 256, True),
+             ("sq<sk", 2, 512, TRAIN_S, False, None, False),
+             ("sq<sk causal window", 2, 256, 640, True, 64, False)]
+    which = {"out": "fwd", "lse": "fwd", "dk": "dkv", "dv": "dkv",
+             "dq": "dq"}
+    worst = {}
+    for name, b, sq, sk, causal, window, bshd in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_inputs(b, sq, sk, dtype, gen, dev, bshd)
+            got = flash_run(fa, "cuda", q, k, v, do, causal, window, bshd)
+            ref = flash_run(fa, "plain", q, k, v, do, causal, window, bshd)
+            torch.cuda.synchronize()
+            for key, g in got.items():
+                r = ref[key].float()
+                check(torch.isfinite(g).all().item(),
+                      f"flash {name} {dtype} {key}: non-finite values")
+                err = (g.float() - r).abs()
+                lim = tol[dtype] * torch.clamp(r.abs(), min=1.0)
+                check(bool((err <= lim).all()),
+                      f"flash {name} {dtype} {key}: max abs err "
+                      f"{err.max().item()} over tolerance {tol[dtype]}")
+                slot = (which[key], str(dtype).split(".")[-1])
+                worst[slot] = max(worst.get(slot, 0.0), err.max().item())
+    # an attended NaN reaches the rows that attend it, and only those
+    q, k, v, do = flash_inputs(2, 512, 512, torch.bfloat16, gen, dev)
+    k = k.clone()
+    k[0, 300, 0, 0] = float("nan")
+    out, _ = fa.cuda_fwd(q, k, v, True, 0.125, True)
+    check(not torch.isfinite(out[0, 300:, 0]).any().item(),
+          "flash fwd: attended NaN did not propagate")
+    check(torch.isfinite(out[0, :300, 0]).all().item()
+          and torch.isfinite(out[:, :, 1:]).all().item()
+          and torch.isfinite(out[1]).all().item(),
+          "flash fwd: NaN leaked to rows or heads that do not attend it")
+    # q_len > kv_len, causal: the first 128 rows see no key -> exactly 0
+    q, k, v, do = flash_inputs(2, 256, 128, torch.float32, gen, dev,
+                               bshd=False)
+    got = flash_run(fa, "cuda", q, k, v, do, True, None, False)
+    check(bool((got["out"][:, :, :128] == 0).all())
+          and bool((got["dq"][:, :, :128] == 0).all()),
+          "flash: fully masked rows are not exactly 0")
+    check(torch.isfinite(got["out"]).all().item()
+          and torch.isfinite(got["dk"]).all().item(),
+          "flash: fully masked rows leaked non-finite values")
+
+    # times at the main path's shapes, one input set per layer
+    sets = [flash_inputs(TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, gen,
+                         dev) for _ in range(LAYERS)]
+    scale = 1.0 / HEAD_DIM ** 0.5
+    saved = []
+    for q, k, v, do in sets:
+        out, lse = fa.cuda_fwd(q, k, v, True, scale, True)
+        saved.append((out, lse, fa.row_dot(do, out, True)))
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % LAYERS
+        return sets[it["i"]] + saved[it["i"]]
+
+    def call(kind, impl):
+        fwd, dkv, dq = fa._IMPLS[impl]
+
+        def run():
+            q, k, v, do, out, lse, dd = nxt()
+            if kind == "fwd":
+                fwd(q, k, v, True, scale, True)
+            elif kind == "dkv":
+                dkv(q, k, v, do, lse, dd, True, scale, True)
+            else:
+                dq(q, k, v, do, lse, dd, True, scale, True)
+        return run
+
+    # library yardstick: SDPA over the same tensors as [B, H, S, D]
+    # views; its backward computes dQ, dK and dV together (no single
+    # library call computes dK/dV alone)
+    F = torch.nn.functional
+    lib_sets = [tuple(t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v)) + (do.transpose(1, 2),)
+                for q, k, v, do in sets]
+
+    def lib_fwd():
+        it["i"] = (it["i"] + 1) % LAYERS
+        q, k, v, _ = lib_sets[it["i"]]
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def lib_fwd_bwd():
+        it["i"] = (it["i"] + 1) % LAYERS
+        q, k, v, do = lib_sets[it["i"]]
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    def lib_fwd_eager():
+        it["i"] = (it["i"] + 1) % LAYERS
+        q, k, v, _ = lib_sets[it["i"]]
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    lib_bwd = time_ms(lib_fwd_bwd, 24) - time_ms(lib_fwd_eager, 24)
+    library = {"fwd": graph_ms(lib_fwd, LAYERS), "dkv": lib_bwd, "dq": None}
+    q0, k0 = sets[0][0], sets[0][1]
+    results = {}
+    for kind in ("fwd", "dkv", "dq"):
+        bound_ms, bound_by = flash_bound(kind, q0, k0, True, None, True,
+                                         peaks)
+        results[kind] = {
+            "max_abs_err": worst[(kind, "bfloat16")],
+            "max_abs_err_f32": worst[(kind, "float32")],
+            "kernel_ms": graph_ms(call(kind, "cuda"), LAYERS),
+            "eager_call_ms": time_ms(call(kind, "cuda"), 60),
+            "plain_ms": time_ms(call(kind, "plain"), 3),
+            "library_ms": library[kind],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    results["library_covers"] = {"fwd": "scaled_dot_product_attention",
+                                 "dkv": "its backward: dQ, dK and dV "
+                                        "together (K2 + K3)",
+                                 "dq": "in the dkv row"}
+    del sets, saved, lib_sets
+    return results
+
+
+# ---------------------------------------------------------------------------
+# train parity: fp32 training through K1-K3 against the dense reference
+# ---------------------------------------------------------------------------
+
+def train_parity_phase(dev):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    b, s = 2, 256
+    ids = torch.tensor(np.random.default_rng(SEED + 4).integers(
+        0, 512, (b, s)), device=dev)
+    report = {}
+    for window in (None, 64):
+        cfg = dict(vocab_size=512, hidden_size=256, num_layers=2,
+                   num_heads=4, max_seq_len=s, dropout=0.0,
+                   attn_dropout=0.0, initializer_range=0.1,
+                   attn_window=window)
+
+        def model():
+            return GPTForPretraining(GPTConfig(**cfg), device=dev,
+                                     dtype=torch.float32, seed=SEED)
+
+        grads = {}
+        for kernel in ("reference", "cuda"):
+            m = model().train()
+            with fa.kernel_scope(kernel):
+                gpt_pretrain_loss(m(ids), ids).backward()
+            grads[kernel] = {n: p.grad for n, p in m.named_parameters()}
+        gerr = 0.0
+        for n, g in grads["reference"].items():
+            err = (grads["cuda"][n] - g).abs().max().item()
+            lim = 1e-4 * max(1.0, g.abs().max().item())
+            check(err <= lim, f"train parity window={window}: grad {n} "
+                              f"differs by {err} > {lim}")
+            gerr = max(gerr, err)
+        traj = {}
+        for opt_name, make, rtol in (
+                ("sgd", lambda p: SGD(0.1, parameters=p), 1e-5),
+                ("adamw", lambda p: AdamW(1e-3, parameters=p), 1e-3)):
+            for kernel in ("reference", "cuda"):
+                m = model()
+                step = TrainStep(m, gpt_pretrain_loss, make(m.parameters()))
+                with fa.kernel_scope(kernel):
+                    traj[(opt_name, kernel)] = [float(step(ids, ids))
+                                                for _ in range(5)]
+            ref, got = traj[(opt_name, "reference")], traj[(opt_name, "cuda")]
+            check(np.allclose(got, ref, rtol=rtol, atol=0),
+                  f"train parity window={window} {opt_name}: losses {got} "
+                  f"vs {ref} (rtol {rtol})")
+        report[f"window={window}"] = {
+            "max_grad_err": gerr,
+            "sgd_losses": traj[("sgd", "cuda")],
+            "sgd_ref_losses": traj[("sgd", "reference")],
+            "adamw_losses": traj[("adamw", "cuda")],
+            "adamw_ref_losses": traj[("adamw", "reference")]}
+    emit("train_parity", dtype="float32", layers=2, hidden=256, heads=4,
+         vocab=512, batch=b, seq=s, initializer_range=0.1,
+         grad_tolerance="1e-4 * max(1, max|g|)", sgd_rtol=1e-5,
+         adamw_rtol=1e-3, **report)
+
+
+# ---------------------------------------------------------------------------
+# train: GPT-2 small at bench.py's GPU shapes, bf16, through TrainStep
+# ---------------------------------------------------------------------------
+
+def train_phase(dev, peaks):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=TRAIN_VOCAB, hidden_size=768, num_layers=12,
+                    num_heads=12, max_seq_len=TRAIN_S, dropout=0.0,
+                    attn_dropout=0.0)
+    model = GPTForPretraining(cfg, device=dev, dtype=torch.bfloat16,
+                              seed=SEED)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = TrainStep(model, gpt_pretrain_loss, opt, donate=True)
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int64"), device=dev)
+    for _ in range(3):                              # warm-up
+        float(step(ids, ids))
+    steps = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:
+        fa.launches[key] = 0
+    fa.routes["kernel"] = fa.routes["dense"] = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(ids, ids)
+    final = float(loss)                             # one sync at the end
+    dt = (time.perf_counter() - t0) / steps
+    launches = dict(fa.launches)
+    routes = dict(fa.routes)
+    peak_mem = torch.cuda.max_memory_allocated()
+    check(np.isfinite(final), f"train: non-finite loss {final}")
+    check(not step.last_nonfinite(), "train: non-finite grad norm")
+    check(all(n == LAYERS * steps for n in launches.values()),
+          f"train: launches {launches} != {LAYERS} x {steps} steps each")
+    check(routes == {"kernel": LAYERS * steps, "dense": 0},
+          f"train: attention routes {routes}: a layer took the dense path")
+
+    # where a step's time goes: CUDA events around its parts
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    parts = {"forward_loss": 0.0, "backward": 0.0, "sentinel": 0.0,
+             "optimizer": 0.0}
+    reps = 3
+    from paddle_tpu_torch.jit import grad_norm_sentinel
+    for _ in range(reps):
+        e0 = ev()
+        lo = gpt_pretrain_loss(model(ids), ids)
+        e1 = ev()
+        lo.backward()
+        e2 = ev()
+        grad_norm_sentinel(lo, [p.grad for p in model.parameters()])
+        e3 = ev()
+        opt.step()
+        opt.clear_grad()
+        e4 = ev()
+        torch.cuda.synchronize()
+        for key, (a, b) in zip(parts, ((e0, e1), (e1, e2), (e2, e3),
+                                       (e3, e4))):
+            parts[key] += a.elapsed_time(b) / reps
+    profile = profile_steps(step, ids, dt * 1e3)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = TRAIN_B * TRAIN_S / dt
+    emit("train", model="gpt2_small", dtype="bfloat16", vocab=TRAIN_VOCAB,
+         batch=TRAIN_B, seq=TRAIN_S, steps=steps, step_ms=dt * 1e3,
+         tokens_per_s=tokens_per_s, loss=final,
+         grad_norm=step.last_grad_norm(), params=n_params,
+         mfu=6 * n_params * tokens_per_s / peaks["bf16"],
+         max_memory_allocated=peak_mem, launches=launches, routes=routes,
+         step_parts_ms=parts, profile=profile)
+    return launches
+
+
+# kernel-name fragments -> category of a training step's device time
+PROFILE_GROUPS = (("flash attention (K1-K3)", ("flash_",)),
+                  ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+                  ("optimizer (foreach)", ("multi_tensor", "foreach")))
+
+
+def profile_steps(step, ids, step_ms, steps=2):
+    """Device time of `steps` training steps by kernel, from
+    torch.profiler (CUPTI): per-step ms by category, the device's idle
+    share of the unprofiled step time `step_ms` (the profiler slows the
+    host), and the top kernels. Returns "not measured: ..." when the
+    profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    float(step(ids, ids))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(ids, ids)
+        float(loss)
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = []
+    for e in prof.key_averages():
+        # device activities only: CPU ranges (ops, autograd Functions)
+        # carry their kernels' time too and would count it twice
+        us = e.self_device_time_total
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3 / steps, e.count // steps, e.key))
+    if not rows:
+        return "not measured: the profiler recorded no device time"
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["other (elementwise, norms, loss, copies)"] = 0.0
+    for ms, _, key in rows:
+        low = key.lower()
+        for name, frags in PROFILE_GROUPS:
+            if any(f in low for f in frags):
+                groups[name] += ms
+                break
+        else:
+            groups["other (elementwise, norms, loss, copies)"] += ms
+    return {"steps": steps, "profiled_wall_ms_per_step": wall,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": max(0.0, 1 - busy / step_ms),
+            "ms_per_step_by_group": groups,
+            "top_kernels": [{"ms": ms, "calls": n, "name": key[:90]}
+                            for ms, n, key in rows[:16]]}
+
+
+def build_all():
+    """Build every kernel library at once: one nvcc per source, started
+    together."""
+    from paddle_tpu_torch import kernels
+    names = sorted(kernels.SIGNATURES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        infos = dict(zip(names, pool.map(kernels.build, names)))
+    for name in names:
+        kernels.load(name)
+    return infos
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -438,30 +880,66 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, root)
-    from paddle_tpu_torch import kernels
+    only = PHASES
+    if len(sys.argv) > 1:
+        if len(sys.argv) != 3 or sys.argv[1] != "--only":
+            print("usage: chip_smoke.py [--only PHASE[,PHASE...]]",
+                  file=sys.stderr)
+            return 2
+        only = tuple(sys.argv[2].split(","))
+        check(set(only) <= set(PHASES), f"phases are {PHASES}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     peaks = PEAKS["pcie" if "pcie" in smi.lower() else "sxm"]
-    info = kernels.build_info("paged_attention")
+    t0 = time.perf_counter()
+    infos = build_all()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-         peaks=peaks, kernel_build_s=info["seconds"],
-         kernel_built=info["built"],
-         ptxas=[ln for ln in info["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln])
-    k = kernels_phase(dev, peaks)
-    emit("kernels", **k)
-    parity_phase(dev)
-    launches = serve_phase(dev)
+         peaks=peaks, build_wall_s=time.perf_counter() - t0,
+         kernel_build_s={n: i["seconds"] for n, i in infos.items()},
+         kernel_built={n: i["built"] for n, i in infos.items()},
+         ptxas={n: [ln for ln in i["ptxas"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for n, i in infos.items()})
+    timings = {}
+
+    def run(name, fn, *args):
+        if name not in only:
+            return None
+        t = time.perf_counter()
+        out = fn(*args)
+        timings[name] = time.perf_counter() - t
+        return out
+
+    k = run("kernels", kernels_phase, dev, peaks)
+    if k is not None:
+        emit("kernels", **k)
+    fl = run("flash", flash_phase, dev, peaks)
+    if fl is not None:
+        emit("flash", **fl)
+    run("parity", parity_phase, dev)
+    run("train_parity", train_parity_phase, dev)
+    serve_launches = run("serve", serve_phase, dev)
+    train_launches = run("train", train_phase, dev, peaks)
+    emit("phase_seconds", **timings)
+    if only != PHASES:
+        return 0
     rows = []
     for form in ("decode", "chunk"):
         row = dict(k[form])
         rows.append({"name": f"paged_attention_{form}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES,
-                     "launches": launches[form],
+                     "launches": serve_launches[form],
+                     "ms": row.pop("kernel_ms"), **row})
+    for kind in ("fwd", "dkv", "dq"):
+        row = dict(fl[kind])
+        rows.append({"name": f"flash_attention_{kind}", "route": "cuda",
+                     "source": FLASH_SOURCE,
+                     "replaces": FLASH_REPLACES[kind],
+                     "launches": train_launches[kind],
                      "ms": row.pop("kernel_ms"), **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,0 +1,956 @@
+// Flash attention for Hopper (sm_90a): forward (K1), dK/dV (K2) and dQ
+// (K3), recomputing P from the saved log-sum-exp in the backward so the
+// S x S score matrix never reaches device memory.
+//
+// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
+//   K1  _fwd_kernel      (:137, launched by _flash_fwd_pallas :225)
+//   K2  _bwd_dkv_kernel  (:300, first pallas_call of _flash_bwd_pallas :508)
+//   K3  _bwd_dq_kernel   (:385, second pallas_call :521)
+// Each computes what its TPU counterpart computes:
+//   * dot products take the input dtype (f32 or bf16) and accumulate in
+//     f32; `scale` applies after the dot, in f32; m, l and lse stay f32;
+//   * P is rounded to V's dtype before P.V (and to dO's before P^T.dO);
+//     dS is rounded to the input dtype before dS.K and dS^T.Q;
+//   * outputs are in the input dtype; lse is f32 [B, H, Sq].
+//
+// What bounds it: operations. At GPT-2 small's training shapes (S 1024,
+// D 64) every K/V tile is reused by 64 query rows, well above the card's
+// ridge point. bf16 inputs (the training path) run the products on the
+// tensor cores with mma.sync (m16n8k16, f32 accumulators in registers);
+// f32 inputs run them on the CUDA cores in f32, as the TPU kernels do for
+// f32. Neither is near its peak yet: tiles are loaded without cp.async or
+// TMA double buffering, and wgmma is later work.
+//
+// What the design does:
+//   * one CUDA block per (q tile of 64 rows, batch x head) for K1 and K3,
+//     per (k tile of 64 keys, batch x head) for K2: the TPU grid's
+//     sequential block axis becomes a loop inside the block, and dK/dV
+//     and dQ stay two kernels so no atomics are needed;
+//   * loop bounds skip tiles outside the causal / sliding-window band
+//     (_causal_block_bounds for K1 and K3; for K2 the transposed bounds,
+//     clamped so that `end` never falls below `start` — the Pallas K2's
+//     bounds are not, which gives wrong dK/dV for causal + window with
+//     q_len < kv_len);
+//   * q/k/v/dO are read, and out/dq/dk/dv written, through (batch, seq,
+//     head) element strides, so [B, S, H, D] views of the fused qkv
+//     projection and [B, H, S, D] tensors go through the same kernel;
+//   * f32 path: 256 threads, tiles in shared memory as f32 with a row
+//     stride of 65 floats so every product reads conflict-free; thread
+//     (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of
+//     each 64 x 64 product, and row maxima and sums are half-warp
+//     shuffles;
+//   * bf16 path: see "bf16 inputs" below.
+//
+// Masking and NaN contract (that of the Pallas kernels):
+//   * causal masking counts absolute query positions from kv_len - q_len;
+//     a window W keeps keys k with q - W < k <= q;
+//   * masked scores are -inf before the max; the shift is 0 while the
+//     running max is -inf; alpha is 0 while the old max is not finite;
+//   * lse = (m if finite else 0) + log(max(l, 1e-30)) and
+//     out = acc / max(l, 1e-30): a fully masked row is exactly 0;
+//   * in the backward P = exp(s - lse), zeroed where masked;
+//   * the max and the clamp propagate NaN (fmaxf would drop it).
+// Build without --use_fast_math: it changes expf, logf and isnan.
+//
+// Shapes: head_dim 64 only (GPT-2 small's), sequence lengths multiples
+// of 64; the entry points reject anything else. The kernels allocate
+// nothing: the caller allocates every output.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kD = 64;           // head_dim the kernels are built for
+constexpr int kTile = 64;        // rows of a q tile and of a k tile
+constexpr int kLd = kTile + 1;   // shared-memory row stride, in floats
+constexpr int kTileFloats = kTile * kLd;
+constexpr int kThreads = 256;    // 16 x 16 threads
+constexpr int kSub = 4;          // rows (and columns) per thread
+constexpr int kStaticSmem = 48 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Layout {
+  long long sb, ss, sh;          // element strides of batch, seq, head
+};
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  void* out;
+  void* dq;
+  void* dk;
+  void* dv;
+  float* lse;                    // written by K1, read by K2 and K3
+  const float* dd;               // rowsum(dO * O), [B, H, Sq]
+  Layout lq, lk, lv, ldo, lout, ldq, ldk, ldv;
+  int h, sq, sk;
+  float scale;
+  int causal, window;            // window <= 0: none
+  int vec;                       // bf16 rows 16-byte aligned: vector loads
+};
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (isnan(a)) return a;
+  if (isnan(b)) return b;
+  return fmaxf(a, b);
+}
+
+// reductions over the 16 threads of a row (one half-warp)
+__device__ __forceinline__ float row_max(float v) {
+  for (int o = 8; o > 0; o >>= 1)
+    v = nan_max(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ bool band_keep(int qa, int ka, int window) {
+  return ka <= qa && (window <= 0 || ka > qa - window);
+}
+
+__device__ __forceinline__ long long offset(const Layout& l, int b, int h,
+                                            int s) {
+  return b * l.sb + h * l.sh + s * l.ss;
+}
+
+// rows [s0, s0 + 64) of one (batch, head) -> f32 tile [64][kLd]
+__device__ __forceinline__ void load_tile(float* dst, const void* src,
+                                          const Layout& l, int b, int h,
+                                          int s0) {
+  const float* base = static_cast<const float*>(src) + offset(l, b, h, s0);
+  for (int idx = threadIdx.x; idx < kTile * kD; idx += kThreads) {
+    const int r = idx / kD, d = idx % kD;
+    dst[r * kLd + d] = base[r * l.ss + d];
+  }
+}
+
+__device__ __forceinline__ void store_rows(void* dst, const Layout& l,
+                                           int b, int h, int s0, int ty,
+                                           int tx, float (&val)[kSub][kSub]) {
+  float* base = static_cast<float*>(dst) + offset(l, b, h, s0);
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kSub; ++j)
+      base[(ty + 16 * i) * l.ss + tx + 16 * j] = val[i][j];
+}
+
+// key tiles [lo, hi) that q tile qt sees: the outer bounds of
+// _causal_block_bounds at 64-row tiles
+__device__ __forceinline__ void key_range(const Args& a, int qt, int* lo,
+                                          int* hi) {
+  const int nkb = a.sk / kTile;
+  *lo = 0;
+  *hi = nkb;
+  if (!a.causal) return;
+  const int off = a.sk - a.sq;
+  const int last = off + qt * kTile + kTile - 1;  // last query, absolute
+  *hi = last < 0 ? 0 : min(nkb, last / kTile + 1);
+  if (a.window > 0) {
+    const int first = off + qt * kTile - a.window + 1;  // first key seen
+    *lo = first <= 0 ? 0 : min(first / kTile, *hi);
+  }
+}
+
+// q tiles [lo, hi) that see k tile kt, hi clamped to at least lo
+__device__ __forceinline__ void query_range(const Args& a, int kt, int* lo,
+                                            int* hi) {
+  const int nqb = a.sq / kTile;
+  *lo = 0;
+  *hi = nqb;
+  if (!a.causal) return;
+  const int off = a.sk - a.sq;
+  const int first = kt * kTile - off;   // first query row seeing key kt*64
+  *lo = first <= 0 ? 0 : min(first / kTile, nqb);
+  if (a.window > 0) {
+    const int last = kt * kTile + kTile - 1 + a.window - 1 - off;
+    *hi = last < 0 ? 0 : min(nqb, last / kTile + 1);
+  }
+  *hi = max(*hi, *lo);
+}
+
+// s[i][j] += A[ty + 16 i][:] . B[tx + 16 j][:] over the head dim, and the
+// same for a second pair when `two` (the backward's S and dP)
+template <bool kTwo>
+__device__ __forceinline__ void tile_dots(const float* a0, const float* b0,
+                                          const float* a1, const float* b1,
+                                          int ty, int tx,
+                                          float (&s0)[kSub][kSub],
+                                          float (&s1)[kSub][kSub]) {
+#pragma unroll 4
+  for (int d = 0; d < kD; ++d) {
+    float av[kSub], bv[kSub], cv[kSub], ev[kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      av[i] = a0[(ty + 16 * i) * kLd + d];
+      bv[i] = b0[(tx + 16 * i) * kLd + d];
+      if (kTwo) {
+        cv[i] = a1[(ty + 16 * i) * kLd + d];
+        ev[i] = b1[(tx + 16 * i) * kLd + d];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        s0[i][j] = fmaf(av[i], bv[j], s0[i][j]);
+        if (kTwo) s1[i][j] = fmaf(cv[i], ev[j], s1[i][j]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 inputs, CUDA cores. K1: forward
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kTileFloats;
+  float* v_s = k_s + kTileFloats;
+  float* p_s = v_s + kTileFloats;
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = qt * kTile, off = a.sk - a.sq;
+
+  load_tile(q_s, a.q, a.lq, b, h, q0);
+  int lo, hi;
+  key_range(a, qt, &lo, &hi);
+
+  float m[kSub], l[kSub], acc[kSub][kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int jt = lo; jt < hi; ++jt) {
+    __syncthreads();             // readers of the previous tiles are done
+    load_tile(k_s, a.k, a.lk, b, h, jt * kTile);
+    load_tile(v_s, a.v, a.lv, b, h, jt * kTile);
+    __syncthreads();
+    float s[kSub][kSub] = {}, unused[kSub][kSub];
+    tile_dots<false>(q_s, k_s, nullptr, nullptr, ty, tx, s, unused);
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      const int qa = off + q0 + ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        float x = s[i][j] * a.scale;
+        if (a.causal && !band_keep(qa, jt * kTile + tx + 16 * j, a.window))
+          x = -INFINITY;
+        s[i][j] = x;
+        mx = nan_max(mx, x);
+      }
+      const float m_new = nan_max(m[i], row_max(mx));
+      const float shift = isfinite(m_new) ? m_new : 0.f;
+      const float alpha = isfinite(m[i]) ? expf(m[i] - shift) : 0.f;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const float p = expf(s[i][j] - shift);
+        psum += p;
+        p_s[(ty + 16 * i) * kLd + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(psum);
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) acc[i][j] *= alpha;
+      m[i] = m_new;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pv[kSub], vv[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        pv[i] = p_s[(ty + 16 * i) * kLd + kk];
+        vv[i] = v_s[kk * kLd + tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < kSub; ++i)
+#pragma unroll
+        for (int j = 0; j < kSub; ++j)
+          acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const float den = nan_max(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) acc[i][j] = acc[i][j] / den;
+    if (tx == 0)
+      a.lse[(long long)bh * a.sq + q0 + ty + 16 * i] =
+          (isfinite(m[i]) ? m[i] : 0.f) + logf(den);
+  }
+  store_rows(a.out, a.lout, b, h, q0, ty, tx, acc);
+}
+
+// ---------------------------------------------------------------------------
+// f32 backward: P and dS of one 64 x 64 tile pair
+// ---------------------------------------------------------------------------
+
+// From S = Q.K^T (unscaled) and dP = dO.V^T of the thread's entries,
+// write P (when p_s is given) and dS at [q row][key] of the tiles in
+// shared memory.
+__device__ __forceinline__ void p_and_ds(const Args& a, int q0, int k0,
+                                         int ty, int tx,
+                                         const float* lse_s,
+                                         const float* dd_s,
+                                         float (&s)[kSub][kSub],
+                                         float (&dp)[kSub][kSub],
+                                         float* p_s, float* ds_s) {
+  const int off = a.sk - a.sq;
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int r = ty + 16 * i;
+    const int qa = off + q0 + r;
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      const int c = tx + 16 * j;
+      float p = expf(s[i][j] * a.scale - lse_s[r]);
+      if (a.causal && !band_keep(qa, k0 + c, a.window)) p = 0.f;
+      if (p_s != nullptr) p_s[r * kLd + c] = p;
+      ds_s[r * kLd + c] = p * (dp[i][j] - dd_s[r]) * a.scale;
+    }
+  }
+}
+
+__device__ __forceinline__ void load_stats(const Args& a, int bh, int q0,
+                                           float* lse_s, float* dd_s) {
+  if (threadIdx.x < kTile) {
+    const long long row = (long long)bh * a.sq + q0 + threadIdx.x;
+    lse_s[threadIdx.x] = a.lse[row];
+    dd_s[threadIdx.x] = a.dd[row];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 K2: dK and dV of one k tile, over the q tiles that see it
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
+  extern __shared__ float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + kTileFloats;
+  float* q_s = v_s + kTileFloats;
+  float* do_s = q_s + kTileFloats;
+  float* p_s = do_s + kTileFloats;
+  float* ds_s = p_s + kTileFloats;
+  float* lse_s = ds_s + kTileFloats;
+  float* dd_s = lse_s + kTile;
+  const int kt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = kt * kTile;
+
+  load_tile(k_s, a.k, a.lk, b, h, k0);
+  load_tile(v_s, a.v, a.lv, b, h, k0);
+  int lo, hi;
+  query_range(a, kt, &lo, &hi);
+
+  // rows: keys ty + 16 i; columns: head dim tx + 16 j
+  float dk[kSub][kSub] = {}, dv[kSub][kSub] = {};
+  for (int it = lo; it < hi; ++it) {
+    const int q0 = it * kTile;
+    __syncthreads();
+    load_tile(q_s, a.q, a.lq, b, h, q0);
+    load_tile(do_s, a.dout, a.ldo, b, h, q0);
+    load_stats(a, bh, q0, lse_s, dd_s);
+    __syncthreads();
+    // entries [q row ty + 16 i][key tx + 16 j] of S and dP
+    float s[kSub][kSub] = {}, dp[kSub][kSub] = {};
+    tile_dots<true>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+    p_and_ds(a, q0, k0, ty, tx, lse_s, dd_s, s, dp, p_s, ds_s);
+    __syncthreads();
+#pragma unroll 2
+    for (int r = 0; r < kTile; ++r) {
+      float pv[kSub], sv[kSub], ov[kSub], qv[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        pv[i] = p_s[r * kLd + ty + 16 * i];
+        sv[i] = ds_s[r * kLd + ty + 16 * i];
+        ov[i] = do_s[r * kLd + tx + 16 * i];
+        qv[i] = q_s[r * kLd + tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < kSub; ++i)
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
+          dk[i][j] = fmaf(sv[i], qv[j], dk[i][j]);
+        }
+    }
+  }
+  store_rows(a.dk, a.ldk, b, h, k0, ty, tx, dk);
+  store_rows(a.dv, a.ldv, b, h, k0, ty, tx, dv);
+}
+
+// ---------------------------------------------------------------------------
+// f32 K3: dQ of one q tile, over the k tiles it sees
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + kTileFloats;
+  float* k_s = do_s + kTileFloats;
+  float* v_s = k_s + kTileFloats;
+  float* ds_s = v_s + kTileFloats;
+  float* lse_s = ds_s + kTileFloats;
+  float* dd_s = lse_s + kTile;
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = qt * kTile;
+
+  load_tile(q_s, a.q, a.lq, b, h, q0);
+  load_tile(do_s, a.dout, a.ldo, b, h, q0);
+  load_stats(a, bh, q0, lse_s, dd_s);
+  int lo, hi;
+  key_range(a, qt, &lo, &hi);
+
+  // rows: q rows ty + 16 i; columns: head dim tx + 16 j
+  float dq[kSub][kSub] = {};
+  for (int jt = lo; jt < hi; ++jt) {
+    const int k0 = jt * kTile;
+    __syncthreads();
+    load_tile(k_s, a.k, a.lk, b, h, k0);
+    load_tile(v_s, a.v, a.lv, b, h, k0);
+    __syncthreads();
+    float s[kSub][kSub] = {}, dp[kSub][kSub] = {};
+    tile_dots<true>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+    p_and_ds(a, q0, k0, ty, tx, lse_s, dd_s, s, dp, nullptr, ds_s);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float sv[kSub], kv[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        sv[i] = ds_s[(ty + 16 * i) * kLd + kk];
+        kv[i] = k_s[kk * kLd + tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < kSub; ++i)
+#pragma unroll
+        for (int j = 0; j < kSub; ++j)
+          dq[i][j] = fmaf(sv[i], kv[j], dq[i][j]);
+    }
+  }
+  store_rows(a.dq, a.ldq, b, h, q0, ty, tx, dq);
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 inputs: the same three kernels on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// mma.sync m16n8k16 (bf16 in, f32 accumulate). 128 threads = 4 warps per
+// CUDA block; warp w owns rows [16 w, 16 w + 16) of the block's 64-row
+// tile (q rows in K1 and K3, keys in K2) and holds its accumulators in
+// registers. Fragment layout (PTX ISA, lane = 4 g + t):
+//   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                      a3 (g+8, 2t+8..);
+//   B 16x8 col-major:  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
+//   C 16x8 f32:        c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1).
+// The C fragments of two adjacent 8-column tiles are the A fragment of
+// one 16-deep step, so P and dS go from the first product to the second
+// in registers, rounded to bf16 on the way (the casts of the TPU kernels).
+// Tiles are staged in shared memory as bf16, row-major, with a row stride
+// of 72 elements: the 32-bit fragment loads (row g, column 2t) hit 32
+// distinct banks, and so do the 16-byte rows of ldmatrix. The second
+// product's B operand (V in K1, K in K3, Q and dO in K2) is read down
+// its columns with ldmatrix.trans from the same row-major tile.
+
+constexpr int kMmaThreads = 128;
+constexpr int kLdh = kD + 8;               // bf16 row stride
+constexpr int kTileHalfs = kTile * kLdh;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 at tile[row][col], col even
+__device__ __forceinline__ uint32_t ld2(const bf16* tile, int row, int col) {
+  return *reinterpret_cast<const uint32_t*>(tile + row * kLdh + col);
+}
+
+// (lo, hi) rounded to bf16 (nearest even) and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [s0, s0 + 64) of one (batch, head) -> bf16 tile [64][kLdh].
+// vec: 16-byte loads (every row 16-byte aligned)
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const void* src,
+                                               const Layout& l, int b, int h,
+                                               int s0, int vec) {
+  const bf16* base = static_cast<const bf16*>(src) + offset(l, b, h, s0);
+  if (vec) {
+    for (int idx = threadIdx.x; idx < kTile * kD / 8; idx += kMmaThreads) {
+      const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
+      *reinterpret_cast<uint4*>(dst + r * kLdh + c) =
+          *reinterpret_cast<const uint4*>(base + r * l.ss + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kTile * kD; idx += kMmaThreads) {
+      const int r = idx / kD, c = idx % kD;
+      dst[r * kLdh + c] = base[r * l.ss + c];
+    }
+  }
+}
+
+// four 8x8 bf16 matrices, transposed: lanes 8 m .. 8 m + 7 give the row
+// addresses of matrix m; register m of lane 4 g + t gets its elements
+// (row 2t, column g) and (row 2t + 1, column g), the first in the low half
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* row) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// A fragments of rows [r0, r0 + 16) of a [row][d] tile, 4 steps over d
+__device__ __forceinline__ void load_a(const bf16* tile, int r0, int g, int t,
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    a[ks][0] = ld2(tile, r0 + g, ks * 16 + 2 * t);
+    a[ks][1] = ld2(tile, r0 + g + 8, ks * 16 + 2 * t);
+    a[ks][2] = ld2(tile, r0 + g, ks * 16 + 8 + 2 * t);
+    a[ks][3] = ld2(tile, r0 + g + 8, ks * 16 + 8 + 2 * t);
+  }
+}
+
+// acc[n][.] += A . B^T over d, for N/8 column tiles starting at column
+// tile n0 of a [column][d] tile (B = that tile read as col-major)
+template <int N>
+__device__ __forceinline__ void mma_rows(uint32_t (&a)[4][4],
+                                         const bf16* tile, int n0, int g,
+                                         int t, float (&acc)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      mma_bf16(acc[n], a[ks], ld2(tile, (n0 + n) * 8 + g, ks * 16 + 2 * t),
+               ld2(tile, (n0 + n) * 8 + g, ks * 16 + 8 + 2 * t));
+}
+
+// acc[n][.] += X . Y over K rows of Y, X held as C fragments x[K/8][4]
+// (rounded to bf16 here), Y a row-major [k][d] tile read from row k0 on.
+// One ldmatrix.x4.trans gives the B fragments (k 2t.., 2t+8..; n g) of
+// two adjacent 8-column tiles n and n + 1.
+template <int K>
+__device__ __forceinline__ void mma_cols(float (&x)[K / 8][4],
+                                         const bf16* y, int k0,
+                                         float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;  // matrices 1, 3: +8
+  const int ncol = (lane >> 4) * 8;                       // matrices 2, 3
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t a[4] = {pack2(x[2 * kk][0], x[2 * kk][1]),
+                     pack2(x[2 * kk][2], x[2 * kk][3]),
+                     pack2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                     pack2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t bfr[4];
+      ldsm_x4_trans(bfr, y + (k0 + kk * 16 + krow) * kLdh + n * 8 + ncol);
+      mma_bf16(acc[n], a, bfr[0], bfr[1]);
+      mma_bf16(acc[n + 1], a, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// rows r (g and g + 8 of the warp's 16) of C fragments -> bf16 output
+__device__ __forceinline__ void store_frag_rows(void* dst, const Layout& l,
+                                                int b, int h, int row0, int g,
+                                                int t, float (&acc)[8][4],
+                                                const float (&den)[2]) {
+  bf16* base = static_cast<bf16*>(dst) + offset(l, b, h, row0);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        base[(g + 8 * hr) * l.ss + n * 8 + 2 * t + e] =
+            __float2bfloat16(acc[n][2 * hr + e] / den[hr]);
+}
+
+__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Args a) {
+  __shared__ __align__(16) bf16 q_s[kTileHalfs];
+  __shared__ __align__(16) bf16 k_s[kTileHalfs];
+  __shared__ __align__(16) bf16 v_s[kTileHalfs];
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int q0 = qt * kTile, off = a.sk - a.sq, r0 = warp * 16;
+
+  load_tile_bf16(q_s, a.q, a.lq, b, h, q0, a.vec);
+  __syncthreads();
+  uint32_t qa[4][4];
+  load_a(q_s, r0, g, t, qa);
+  int lo, hi;
+  key_range(a, qt, &lo, &hi);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[8][4] = {};
+  for (int jt = lo; jt < hi; ++jt) {
+    __syncthreads();
+    load_tile_bf16(k_s, a.k, a.lk, b, h, jt * kTile, a.vec);
+    load_tile_bf16(v_s, a.v, a.lv, b, h, jt * kTile, a.vec);
+    __syncthreads();
+    float s[8][4] = {};
+    mma_rows<8>(qa, k_s, 0, g, t, s);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qa_abs = off + q0 + r0 + g + 8 * hr;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[n][2 * hr + e] * a.scale;
+          if (a.causal &&
+              !band_keep(qa_abs, jt * kTile + n * 8 + 2 * t + e, a.window))
+            x = -INFINITY;
+          s[n][2 * hr + e] = x;
+          mx = nan_max(mx, x);
+        }
+      mx = nan_max(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = nan_max(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = nan_max(m[hr], mx);
+      const float shift = isfinite(m_new) ? m_new : 0.f;
+      const float alpha = isfinite(m[hr]) ? expf(m[hr] - shift) : 0.f;
+      float ps = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[n][2 * hr + e] - shift);
+          s[n][2 * hr + e] = p;
+          ps += p;
+        }
+      ps += __shfl_xor_sync(kFull, ps, 1);
+      ps += __shfl_xor_sync(kFull, ps, 2);
+      l[hr] = l[hr] * alpha + ps;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[n][2 * hr] *= alpha;
+        o[n][2 * hr + 1] *= alpha;
+      }
+      m[hr] = m_new;
+    }
+    mma_cols<64>(s, v_s, 0, o);          // O += bf16(P) . V
+  }
+
+  float den[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    den[hr] = nan_max(l[hr], 1e-30f);
+    if (t == 0)
+      a.lse[(long long)bh * a.sq + q0 + r0 + g + 8 * hr] =
+          (isfinite(m[hr]) ? m[hr] : 0.f) + logf(den[hr]);
+  }
+  store_frag_rows(a.out, a.lout, b, h, q0 + r0, g, t, o, den);
+}
+
+// P and dS of C fragments x (scores) and y (dP): rows of x are `rows`
+// positions, columns `cols` positions; lse and dd are indexed by the q
+// side. The results overwrite x (P) and y (dS).
+template <int N, bool kRowsAreQueries>
+__device__ __forceinline__ void mma_p_ds(const Args& a, int row_abs0,
+                                         int col_abs0, int g, int t,
+                                         const float* lse_q, const float* dd_q,
+                                         float (&x)[N][4], float (&y)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = row_abs0 + g + 8 * hr, col = col_abs0 + n * 8 + 2 * t + e;
+        const int qa = kRowsAreQueries ? row : col;
+        const int ka = kRowsAreQueries ? col : row;
+        // index of the q row for lse / dd
+        const int qi = kRowsAreQueries ? g + 8 * hr : n * 8 + 2 * t + e;
+        float p = expf(x[n][2 * hr + e] * a.scale - lse_q[qi]);
+        if (a.causal && !band_keep(qa, ka, a.window)) p = 0.f;
+        x[n][2 * hr + e] = p;
+        y[n][2 * hr + e] = p * (y[n][2 * hr + e] - dd_q[qi]) * a.scale;
+      }
+}
+
+__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Args a) {
+  __shared__ __align__(16) bf16 buf_s[kTileHalfs];   // Q, then dO
+  __shared__ __align__(16) bf16 k_s[kTileHalfs];
+  __shared__ __align__(16) bf16 v_s[kTileHalfs];
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int q0 = qt * kTile, off = a.sk - a.sq, r0 = warp * 16;
+
+  __shared__ float lse_s[kTile], dd_s[kTile];
+  uint32_t qa[4][4], oa[4][4];
+  load_tile_bf16(buf_s, a.q, a.lq, b, h, q0, a.vec);
+  if (threadIdx.x < kTile) {
+    const long long row = (long long)bh * a.sq + q0 + threadIdx.x;
+    lse_s[threadIdx.x] = a.lse[row];
+    dd_s[threadIdx.x] = a.dd[row];
+  }
+  __syncthreads();
+  load_a(buf_s, r0, g, t, qa);
+  __syncthreads();
+  load_tile_bf16(buf_s, a.dout, a.ldo, b, h, q0, a.vec);
+  __syncthreads();
+  load_a(buf_s, r0, g, t, oa);
+  int lo, hi;
+  key_range(a, qt, &lo, &hi);
+
+  float dq[8][4] = {};
+  for (int jt = lo; jt < hi; ++jt) {
+    const int k0 = jt * kTile;
+    __syncthreads();
+    load_tile_bf16(k_s, a.k, a.lk, b, h, k0, a.vec);
+    load_tile_bf16(v_s, a.v, a.lv, b, h, k0, a.vec);
+    __syncthreads();
+    float s[8][4] = {}, dp[8][4] = {};
+    mma_rows<8>(qa, k_s, 0, g, t, s);
+    mma_rows<8>(oa, v_s, 0, g, t, dp);
+    mma_p_ds<8, true>(a, off + q0 + r0, k0, g, t, lse_s + r0, dd_s + r0, s,
+                      dp);
+    mma_cols<64>(dp, k_s, 0, dq);         // dQ += bf16(dS) . K
+  }
+  const float one[2] = {1.f, 1.f};
+  store_frag_rows(a.dq, a.ldq, b, h, q0 + r0, g, t, dq, one);
+}
+
+__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Args a) {
+  __shared__ __align__(16) bf16 q_s[kTileHalfs];
+  __shared__ __align__(16) bf16 do_s[kTileHalfs];
+  __shared__ float lse_s[kTile], dd_s[kTile];
+  const int kt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int k0 = kt * kTile, off = a.sk - a.sq, r0 = warp * 16;
+
+  uint32_t ka[4][4], va[4][4];     // the warp's 16 keys of K and V
+  load_tile_bf16(q_s, a.k, a.lk, b, h, k0, a.vec);
+  load_tile_bf16(do_s, a.v, a.lv, b, h, k0, a.vec);
+  __syncthreads();
+  load_a(q_s, r0, g, t, ka);
+  load_a(do_s, r0, g, t, va);
+  int lo, hi;
+  query_range(a, kt, &lo, &hi);
+
+  float dk[8][4] = {}, dv[8][4] = {};
+  for (int it = lo; it < hi; ++it) {
+    const int q0 = it * kTile;
+    __syncthreads();
+    load_tile_bf16(q_s, a.q, a.lq, b, h, q0, a.vec);
+    load_tile_bf16(do_s, a.dout, a.ldo, b, h, q0, a.vec);
+    if (threadIdx.x < kTile) {
+      const long long row = (long long)bh * a.sq + q0 + threadIdx.x;
+      lse_s[threadIdx.x] = a.lse[row];
+      dd_s[threadIdx.x] = a.dd[row];
+    }
+    __syncthreads();
+    // two halves of 32 queries: S^T = K Q^T and dP^T = V dO^T, then
+    // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over those queries
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float st[4][4] = {}, dpt[4][4] = {};
+      mma_rows<4>(ka, q_s, 4 * half, g, t, st);
+      mma_rows<4>(va, do_s, 4 * half, g, t, dpt);
+      mma_p_ds<4, false>(a, k0 + r0, off + q0 + 32 * half, g, t,
+                         lse_s + 32 * half, dd_s + 32 * half, st, dpt);
+      mma_cols<32>(st, do_s, 32 * half, dv);
+      mma_cols<32>(dpt, q_s, 32 * half, dk);
+    }
+  }
+  const float one[2] = {1.f, 1.f};
+  store_frag_rows(a.dk, a.ldk, b, h, k0 + r0, g, t, dk, one);
+  store_frag_rows(a.dv, a.ldv, b, h, k0 + r0, g, t, dv, one);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+constexpr int smem_bytes(int tiles, bool stats) {
+  return (tiles * kTileFloats + (stats ? 2 * kTile : 0)) *
+         (int)sizeof(float);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, int threads, int grid_x, int b, int smem,
+           void* stream, const Args& a) {
+  if (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(grid_x, b * a.h);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte vector loads are safe for a bf16 operand: aligned base and
+// every row start a multiple of 8 elements
+bool vec_ok(const void* p, const Layout& l) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.sb % 8 == 0 &&
+         l.ss % 8 == 0 && l.sh % 8 == 0;
+}
+
+Layout layout_at(const long long* s, int i) {
+  return Layout{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+// 0 when the shapes are ones the kernels were built for
+int check(int b, int h, int sq, int sk, int d, int window, int dtype) {
+  if (d != kD || sq <= 0 || sk <= 0 || sq % kTile || sk % kTile || b < 0 ||
+      h <= 0 || window < 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+Args base_args(int h, int sq, int sk, float scale, int causal, int window) {
+  Args a = {};
+  a.h = h;
+  a.sq = sq;
+  a.sk = sk;
+  a.scale = scale;
+  a.causal = causal;
+  a.window = causal ? window : 0;
+  return a;
+}
+
+}  // namespace
+
+// Every entry point returns the launch's cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for shapes the kernels were not
+// built for. `strides` holds (batch, seq, head) element strides of each
+// tensor argument in order; the last dimension must be contiguous.
+// dtype: 0 = float32, 1 = bfloat16. window: 0 = none.
+
+// K1. strides: q, k, v, out.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* out, void* lse,
+                                   const long long* strides, int b, int h,
+                                   int sq, int sk, int d, float scale,
+                                   int causal, int window, int dtype,
+                                   void* stream) {
+  const int bad = check(b, h, sq, sk, d, window, dtype);
+  if (bad) return bad;
+  if (b == 0) return 0;
+  Args a = base_args(h, sq, sk, scale, causal, window);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  a.lq = layout_at(strides, 0);
+  a.lk = layout_at(strides, 1);
+  a.lv = layout_at(strides, 2);
+  a.lout = layout_at(strides, 3);
+  if (dtype == 0)
+    return launch(flash_fwd_kernel, kThreads, sq / kTile, b,
+                  smem_bytes(4, false), stream, a);
+  a.vec = vec_ok(q, a.lq) && vec_ok(k, a.lk) && vec_ok(v, a.lv);
+  return launch(flash_fwd_mma, kMmaThreads, sq / kTile, b, 0, stream, a);
+}
+
+// K2. strides: q, k, v, dout, dk, dv.
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* dd,
+                                       void* dk, void* dv,
+                                       const long long* strides, int b,
+                                       int h, int sq, int sk, int d,
+                                       float scale, int causal, int window,
+                                       int dtype, void* stream) {
+  const int bad = check(b, h, sq, sk, d, window, dtype);
+  if (bad) return bad;
+  if (b == 0) return 0;
+  Args a = base_args(h, sq, sk, scale, causal, window);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = const_cast<float*>(static_cast<const float*>(lse));
+  a.dd = static_cast<const float*>(dd);
+  a.dk = dk;
+  a.dv = dv;
+  a.lq = layout_at(strides, 0);
+  a.lk = layout_at(strides, 1);
+  a.lv = layout_at(strides, 2);
+  a.ldo = layout_at(strides, 3);
+  a.ldk = layout_at(strides, 4);
+  a.ldv = layout_at(strides, 5);
+  if (dtype == 0)
+    return launch(flash_bwd_dkv_kernel, kThreads, sk / kTile, b,
+                  smem_bytes(6, true), stream, a);
+  a.vec = vec_ok(q, a.lq) && vec_ok(k, a.lk) && vec_ok(v, a.lv) &&
+          vec_ok(dout, a.ldo);
+  return launch(flash_bwd_dkv_mma, kMmaThreads, sk / kTile, b, 0, stream, a);
+}
+
+// K3. strides: q, k, v, dout, dq.
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* dd,
+                                      void* dq, const long long* strides,
+                                      int b, int h, int sq, int sk, int d,
+                                      float scale, int causal, int window,
+                                      int dtype, void* stream) {
+  const int bad = check(b, h, sq, sk, d, window, dtype);
+  if (bad) return bad;
+  if (b == 0) return 0;
+  Args a = base_args(h, sq, sk, scale, causal, window);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = const_cast<float*>(static_cast<const float*>(lse));
+  a.dd = static_cast<const float*>(dd);
+  a.dq = dq;
+  a.lq = layout_at(strides, 0);
+  a.lk = layout_at(strides, 1);
+  a.lv = layout_at(strides, 2);
+  a.ldo = layout_at(strides, 3);
+  a.ldq = layout_at(strides, 4);
+  if (dtype == 0)
+    return launch(flash_bwd_dq_kernel, kThreads, sq / kTile, b,
+                  smem_bytes(5, true), stream, a);
+  a.vec = vec_ok(q, a.lq) && vec_ok(k, a.lk) && vec_ok(v, a.lv) &&
+          vec_ok(dout, a.ldo);
+  return launch(flash_bwd_dq_mma, kMmaThreads, sq / kTile, b, 0, stream, a);
+}

@@ -24,6 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signature of every exported entry point, by library name
 SIGNATURES = {
     "paged_attention": {
@@ -32,6 +34,23 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _I, _I, _I,     # b hkv rows c d bs nblk nb
              ctypes.c_float, _I, _I, _I,         # scale use_window window
              _P],                                # dtype stream
+            ctypes.c_int),
+    },
+    "flash_attention": {
+        "flash_attention_fwd": (
+            [_P, _P, _P, _P, _P,                 # q k v out lse
+             _STRIDES, _I, _I, _I, _I, _I,       # strides b h sq sk d
+             _F, _I, _I, _I, _P],                # scale causal window
+            ctypes.c_int),                       # dtype stream
+        "flash_attention_bwd_dkv": (
+            [_P, _P, _P, _P, _P, _P, _P, _P,     # q k v dout lse dd dk dv
+             _STRIDES, _I, _I, _I, _I, _I,
+             _F, _I, _I, _I, _P],
+            ctypes.c_int),
+        "flash_attention_bwd_dq": (
+            [_P, _P, _P, _P, _P, _P, _P,         # q k v dout lse dd dq
+             _STRIDES, _I, _I, _I, _I, _I,
+             _F, _I, _I, _I, _P],
             ctypes.c_int),
     },
 }

@@ -1,5 +1,5 @@
-"""GPT decoder-only LM, serving methods (the port of
-`paddle_tpu/nlp/gpt.py`).
+"""GPT decoder-only LM (the port of `paddle_tpu/nlp/gpt.py`): training
+forward and loss, and the paged serving methods.
 
 Pre-norm blocks, fused QKV projection, tanh-GELU MLP, LayerNorm eps
 1e-5, LM head tied to the word embeddings (`h @ word_embeddings.T`).
@@ -7,36 +7,47 @@ Submodules are named exactly as the JAX state dict names them
 (`gpt.blocks.0.attn.qkv_proj.weight`, ...), so `load_jax_state` copies a
 JAX model's weights across by name.
 
-This slice serves through the paged KV cache only: `init_paged_cache`,
-`decode_step` and `prefill_chunk` (with `frontier=`). The paged pools are
-updated IN PLACE by the scatters; the methods return the same pool
+Training: `GPTForPretraining.forward` -> logits, `gpt_pretrain_loss`.
+Attention goes through `ops.flash_attention` — on the BSHD path q/k/v
+are strided views of the qkv projection, read by the kernels in place.
+Dropout draws from the model's own `torch.Generator` (`seed`).
+
+Serving goes through the paged KV cache only: `init_paged_cache`,
+`decode_step` and `prefill_chunk` (with `frontier=`). The paged pools
+are updated IN PLACE by the scatters; the methods return the same pool
 objects so their signatures match the JAX package's.
 """
 import math
+import os
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..nn.paged_attention import (paged_chunk_attention,
                                   paged_decode_attention)
 from ..nn.transformer import scatter_block_kv_at, scatter_block_kv_chunk
-
-_TRAINING_SLICE = ("training and the dense prefill need flash-attention "
-                   "kernel K1 (ROADMAP Queue 1, slice 2: training)")
+from ..ops.flash_attention import flash_attention
 
 
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, ffn_hidden_size=None, max_seq_len=1024,
                  dropout=0.1, attn_dropout=0.1, initializer_range=0.02,
-                 moe_experts=0, attn_window=None):
+                 use_recompute=False, sequence_parallel=False,
+                 moe_experts=0, fused_head_loss=None, attn_layout=None,
+                 attn_window=None):
         if moe_experts:
             raise NotImplementedError(
                 "MoE blocks are not ported yet (ROADMAP Queue 1, "
                 "distributed slice: incubate/moe.py)")
+        if sequence_parallel:
+            raise NotImplementedError(
+                "sequence parallelism is not ported yet (ROADMAP Queue 1, "
+                "distributed slice: ring_attention.py / ulysses.py)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -46,13 +57,45 @@ class GPTConfig:
         self.dropout = dropout
         self.attn_dropout = attn_dropout
         self.initializer_range = initializer_range
+        # torch.utils.checkpoint (non-reentrant) around every block
+        self.use_recompute = bool(use_recompute)
+        self.sequence_parallel = False
         self.moe_experts = 0
+        # vocab-chunked fused head + CE: None = auto by logits size (see
+        # _use_fused_head); not ported, gpt_pretrain_loss raises when on
+        self.fused_head_loss = (None if fused_head_loss is None
+                                else bool(fused_head_loss))
+        # attention layout: "bshd" (q/k/v are views of the qkv projection,
+        # no transposes) or "bhsd"; PT_ATTN_LAYOUT overrides the default
+        self.attn_layout = (attn_layout
+                            or os.environ.get("PT_ATTN_LAYOUT", "bshd"))
+        if self.attn_layout not in ("bshd", "bhsd"):
+            raise ValueError(f"attn_layout must be 'bshd' or 'bhsd', got "
+                             f"{self.attn_layout!r}")
         # causal sliding-window attention (last W keys per query)
         self.attn_window = None if attn_window is None else int(attn_window)
 
 
 def gpt2_small(**kw):
     return GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw)
+
+
+class Dropout(nn.Module):
+    """Dropout that draws its mask from an explicit generator (set by
+    GPTForPretraining to the model's own). Identity in eval mode or at
+    p == 0."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or not self.p:
+            return x
+        keep = torch.bernoulli(torch.full_like(x, 1.0 - self.p),
+                               generator=self.generator)
+        return x * keep / (1.0 - self.p)
 
 
 class GPTAttention(nn.Module):
@@ -63,7 +106,30 @@ class GPTAttention(nn.Module):
         self.head_dim = h // cfg.num_heads
         self.qkv_proj = nn.Linear(h, 3 * h)
         self.out_proj = nn.Linear(h, h)
+        self.attn_dropout_p = cfg.attn_dropout
+        self.attn_layout = cfg.attn_layout
         self.attn_window = cfg.attn_window
+        self.resid_dropout = Dropout(cfg.dropout)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
+                                       self.head_dim)
+        if self.attn_layout == "bshd" and \
+                not (self.attn_dropout_p and self.training):
+            # BSHD fast path: q/k/v are strided views of the projection
+            # (row stride 3 * H * D); the kernels read them in place
+            out = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                  causal=True, layout="bshd",
+                                  window=self.attn_window)
+            return self.resid_dropout(self.out_proj(out.reshape(b, s, h)))
+        qkv = qkv.permute(2, 0, 3, 1, 4)              # [3, B, H, S, D]
+        out = flash_attention(
+            qkv[0], qkv[1], qkv[2], causal=True, window=self.attn_window,
+            dropout_p=self.attn_dropout_p if self.training else 0.0,
+            generator=self.resid_dropout.generator)
+        out = out.permute(0, 2, 1, 3).reshape(b, s, h)
+        return self.resid_dropout(self.out_proj(out))
 
     def _split_heads(self, x):
         """[B, S, 3H] -> q, k, v each [B, heads, S, head_dim]."""
@@ -116,7 +182,7 @@ class GPTMLP(nn.Module):
         super().__init__()
         self.fc_in = nn.Linear(cfg.hidden_size, cfg.ffn_hidden_size)
         self.fc_out = nn.Linear(cfg.ffn_hidden_size, cfg.hidden_size)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
         return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
@@ -130,6 +196,10 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.mlp = GPTMLP(cfg)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
 
     def decode(self, x, cache, pos, block_tables):
         x = x + self.attn.decode(self.ln_1(x), cache, pos, block_tables)
@@ -147,11 +217,37 @@ class GPTEmbeddings(nn.Module):
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_seq_len,
                                                 cfg.hidden_size)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, input_ids, position_ids):
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)[None]
         return self.dropout(self.word_embeddings(input_ids)
                             + self.position_embeddings(position_ids))
+
+
+def _recompute(blk, x, gen):
+    """blk(x) under torch.utils.checkpoint (non-reentrant). checkpoint
+    replays only the default generators, and dropout here draws from the
+    model's own `gen`: the backward's recompute replays gen's state from
+    the first run, so it draws the same masks, and then puts gen back."""
+    if gen is None:
+        return checkpoint(blk, x, use_reentrant=False)
+    start = gen.get_state()
+    ran = []
+
+    def run(inp):
+        if not ran:                     # the forward
+            ran.append(True)
+            return blk(inp)
+        now = gen.get_state()           # the backward's recompute
+        gen.set_state(start)
+        try:
+            return blk(inp)
+        finally:
+            gen.set_state(now)
+    return checkpoint(run, x, use_reentrant=False)
 
 
 class GPTModel(nn.Module):
@@ -169,6 +265,19 @@ class GPTModel(nn.Module):
         outside the wave (parked at max_len) or a chunk's padded tail
         reach past it, and their rows are discarded."""
         return torch.clamp(pos, 0, self.cfg.max_seq_len - 1)
+
+    def forward(self, input_ids, position_ids=None):
+        """[B, S] ids -> hidden states [B, S, hidden] (after ln_f). With
+        cfg.use_recompute every block is checkpointed (non-reentrant):
+        its activations are recomputed in the backward."""
+        x = self.embeddings(input_ids, position_ids)
+        gen = self.embeddings.dropout.generator
+        for blk in self.blocks:
+            if self.cfg.use_recompute and torch.is_grad_enabled():
+                x = _recompute(blk, x, gen)
+            else:
+                x = blk(x)
+        return self.ln_f(x)
 
     def init_paged_cache(self, num_blocks, block_size, max_len, dtype,
                          device):
@@ -210,14 +319,22 @@ class GPTForPretraining(nn.Module):
     drawn from an explicit generator seeded with `seed` (normal(0,
     initializer_range); output projections scaled by 1/sqrt(2 layers);
     biases 0; LayerNorm 1/0, as the JAX package initialises), on the
-    CPU, then moved to `device` (None = the CUDA card) and `dtype`."""
+    CPU, then moved to `device` (None = the CUDA card) and `dtype`.
+    Dropout masks come from one generator on that device, seeded with
+    `seed` as well. The model starts in eval mode (serving); call
+    `.train()` to train, or let `jit.TrainStep` do it."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
         super().__init__()
         self.cfg = cfg
         self.gpt = GPTModel(cfg)
         self._init_weights(torch.Generator().manual_seed(int(seed)))
-        self.to(device=resolve_device(device), dtype=dtype)
+        dev = resolve_device(device)
+        self.to(device=dev, dtype=dtype)
+        self.generator = torch.Generator(device=dev).manual_seed(int(seed))
+        for mod in self.modules():
+            if isinstance(mod, Dropout):
+                mod.generator = self.generator
         self.eval()
 
     @torch.no_grad()
@@ -269,16 +386,62 @@ class GPTForPretraining(nn.Module):
         return self._head(h), caches
 
     def forward(self, input_ids, position_ids=None):
-        raise NotImplementedError(f"GPT forward: {_TRAINING_SLICE}")
+        """[B, S] ids -> logits [B, S, vocab] in the model's dtype. When
+        the config asks for the fused head (`_use_fused_head`), the logits
+        carry a `_fused_head` flag and `gpt_pretrain_loss` raises: the
+        vocab-chunked loss is not ported."""
+        logits = self._head(self.gpt(input_ids, position_ids))
+        if _use_fused_head(self.cfg, logits.shape):
+            logits._fused_head = True
+        return logits
+
+    def loss(self, logits, labels):
+        return gpt_pretrain_loss(logits, labels)
 
     def prefill(self, input_ids, max_len, dtype=None, frontier=None):
-        raise NotImplementedError(f"GPT dense prefill: {_TRAINING_SLICE}")
+        raise NotImplementedError(
+            "GPT dense prefill is not ported yet (ROADMAP Queue 1: the "
+            "dense ServingEngine and its dense KV cache)")
 
     def decode_chunk(self, tok_chunk, caches, block_tables, start,
                      valid_len):
         raise NotImplementedError(
             "decode_chunk (speculative verify) is not ported yet (ROADMAP "
             "Queue 1: LLaMA and speculative decoding)")
+
+
+# auto threshold for fused_head_loss=None: the fused head would be used
+# once the f32 logits exceed this (the JAX package's constant)
+CHUNKED_CE_AUTO_BYTES = 2 << 30
+
+
+def _use_fused_head(cfg, logits_shape):
+    if cfg.fused_head_loss is not None:
+        return cfg.fused_head_loss
+    b, s, v = (int(d) for d in logits_shape)
+    return b * s * v * 4 > CHUNKED_CE_AUTO_BYTES
+
+
+def gpt_pretrain_loss(logits, labels):
+    """Next-token cross entropy, averaged over the valid rows. The labels
+    are shifted (not the logits): position t is scored against
+    labels[t + 1] and the last position is padded with -1 and ignored,
+    as `_cross_entropy_raw` with ignore_index=-1 does (a mean over the
+    valid rows, at least one)."""
+    if getattr(logits, "_fused_head", False):
+        raise NotImplementedError(
+            "the vocab-chunked fused head + loss (chunked_lm_loss) is not "
+            "ported yet (ROADMAP Queue 1: chunked_lm_loss); set "
+            "GPTConfig(fused_head_loss=False) to train with the dense head")
+    b, s, v = logits.shape
+    shifted = torch.cat([labels[:, 1:].long(),
+                         torch.full((b, 1), -1, dtype=torch.long,
+                                    device=labels.device)], dim=1)
+    shifted = shifted.reshape(b * s)
+    total = F.cross_entropy(logits.reshape(b * s, v), shifted,
+                            ignore_index=-1, reduction="sum")
+    valid = (shifted != -1).sum().clamp(min=1)
+    return total / valid.to(total.dtype)
 
 
 def _linear_weight_names(model):
@@ -311,3 +474,41 @@ def load_jax_state(model, state):
                              f"layout change) != {tuple(dst.shape)}")
         dst.copy_(torch.tensor(arr))
     return model
+
+
+@torch.no_grad()
+def load_jax_optimizer_state(optimizer, state, model, global_step):
+    """Carry a JAX optimizer's per-parameter slots (Adam moments, the
+    multi_precision master) into the port's `optimizer`, by parameter
+    name, so a resumed run continues the JAX trajectory. `state` is
+    {param name: {slot: np.ndarray}}, as a JAX `TrainStep.opt_state`
+    holds it; `global_step` is the number of steps taken (the JAX
+    TrainStep's `_step_i`). The optimizer must have been built over
+    `model`'s parameters. Linear weights' slots are transposed as their
+    weights are. Raises on a name the model does not have."""
+    named = dict(model.named_parameters())
+    index = {id(p): i for i, p in enumerate(optimizer._parameters)}
+    linear = _linear_weight_names(model)
+    unknown = sorted(set(state) - set(named))
+    if unknown:
+        raise KeyError(f"optimizer state for unknown parameters {unknown}")
+    for name, slots in state.items():
+        p = named[name]
+        if id(p) not in index:
+            raise KeyError(f"{name} is not among the optimizer's "
+                           "parameters")
+        st = optimizer._ensure_state(index[id(p)])
+        for slot, arr in slots.items():
+            arr = np.asarray(arr)
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
+            if name in linear:
+                arr = arr.T
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}.{slot}: shape {tuple(arr.shape)} "
+                                 f"(after layout change) != "
+                                 f"{tuple(p.shape)}")
+            dtype = st[slot].dtype if slot in st else torch.float32
+            st[slot] = torch.tensor(arr).to(device=p.device, dtype=dtype)
+    optimizer._global_step = int(global_step)
+    return optimizer

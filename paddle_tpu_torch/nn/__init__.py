@@ -1,6 +1,8 @@
 """Neural-network pieces of the port: the paged KV-cache primitives
-(`transformer`) and the fused paged-attention dispatch
-(`paged_attention`)."""
-from . import paged_attention, transformer
+(`transformer`), the fused paged-attention dispatch (`paged_attention`)
+and gradient clipping (`clip`)."""
+from . import clip, paged_attention, transformer
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 
-__all__ = ["paged_attention", "transformer"]
+__all__ = ["clip", "paged_attention", "transformer", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue"]

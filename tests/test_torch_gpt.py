@@ -170,13 +170,17 @@ def test_decode_kernels_agree(pair, kernel):
 def test_unported_entry_points_name_the_roadmap(pair):
     _, tm = pair
     ids = torch.zeros((1, 4), dtype=torch.long)
-    for call in (lambda: tm(ids), lambda: tm.prefill(ids, 8),
+    # the training forward is ported (tests/test_torch_train.py)
+    assert tm(ids).shape == (1, 4, SMALL["vocab_size"])
+    for call in (lambda: tm.prefill(ids, 8),
                  lambda: tm.decode_chunk(ids, [], None, 0, 1),
                  lambda: tm.decode_step(ids[:, :1], [], 0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.GPTConfig(moe_experts=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgpt.GPTConfig(sequence_parallel=True)
 
 
 def test_paged_cache_horizon_is_checked(pair):

@@ -29,9 +29,12 @@ def test_imports_without_jax_and_without_the_jax_package():
         sys.meta_path.insert(0, Block())
         import paddle_tpu_torch
         import paddle_tpu_torch.inference
+        import paddle_tpu_torch.jit
         import paddle_tpu_torch.kernels
         import paddle_tpu_torch.nlp
         import paddle_tpu_torch.nn
+        import paddle_tpu_torch.ops
+        import paddle_tpu_torch.optimizer
         import paddle_tpu_torch.serving
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
