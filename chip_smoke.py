@@ -10,9 +10,12 @@ its phases:
   kernels       K4 (paged attention) against its plain PyTorch version
                 at the serving path's shapes;
   flash         K1-K3 (flash attention forward, dK/dV, dQ) against
-                their plain versions at the training path's shapes, a
-                windowed case and a q_len < kv_len case, f32 and bf16,
-                with the NaN and fully-masked-row contracts, and timed;
+                their plain versions at the training path's shapes
+                (BSHD views of the qkv projection, and BHSD), a windowed
+                case, q_len < kv_len cases and a single 128-row tile,
+                f32 and bf16, with the NaN and fully-masked-row
+                contracts and the bf16 alignment rule, and timed (K1 in
+                TFLOP/s too, beside its registers and shared memory);
   parity        fp32 serving streams of GPT-2 small width through the
                 CUDA kernel against the gather-then-attend reference;
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
@@ -489,14 +492,26 @@ def flash_pairs(b, h, sq, sk, causal, window):
     return b * h * n
 
 
+def flash_flops(kind, q, k, causal, window, bshd):
+    """Operations of one K1 / K2 / K3 call: 2 * D multiply-adds per
+    attended pair per product (QK^T and PV for K1; QK^T, dO.V^T, P^T.dO
+    and dS^T.Q for K2; QK^T, dO.V^T and dS.K for K3)."""
+    if bshd:
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+    else:
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+    products = {"fwd": 2, "dkv": 4, "dq": 3}[kind]
+    return products * 2 * d * flash_pairs(b, h, sq, sk, causal, window)
+
+
 def flash_bound(kind, q, k, causal, window, bshd, peaks):
     """Least time of one K1 / K2 / K3 call: bytes (each input read once,
     each output written once: q, k, v, out and lse for K1; q, k, v, dO,
     lse, dd, dK and dV for K2; q, k, v, dO, lse, dd and dQ for K3) over
-    the HBM rate, against operations (2 * D multiply-adds per attended
-    pair per product: QK^T and PV for K1; QK^T, dO.V^T, P^T.dO and
-    dS^T.Q for K2; QK^T, dO.V^T and dS.K for K3) over the peak for the
-    input type. Returns (ms, "bytes" | "operations")."""
+    the HBM rate, against `flash_flops` over the peak for the input
+    type. Returns (ms, "bytes" | "operations")."""
     if bshd:
         b, sq, h, d = q.shape
         sk = k.shape[1]
@@ -505,15 +520,34 @@ def flash_bound(kind, q, k, causal, window, bshd, peaks):
         sk = k.shape[2]
     elt = q.element_size()
     qb, kb, stat = b * sq * h * d * elt, b * sk * h * d * elt, b * h * sq * 4
-    tiles = {"fwd": (2 * qb + 2 * kb + stat, 2),
-             "dkv": (2 * qb + 4 * kb + 2 * stat, 4),
-             "dq": (3 * qb + 2 * kb + 2 * stat, 3)}
-    nbytes, products = tiles[kind]
-    flops = products * 2 * d * flash_pairs(b, h, sq, sk, causal, window)
+    nbytes = {"fwd": 2 * qb + 2 * kb + stat,
+              "dkv": 2 * qb + 4 * kb + 2 * stat,
+              "dq": 3 * qb + 2 * kb + 2 * stat}[kind]
+    flops = flash_flops(kind, q, k, causal, window, bshd)
     rate = peaks["bf16" if elt == 2 else "f32"]
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fwd_build_report():
+    """The bf16 K1 kernel's registers, spills and static shared memory
+    as ptxas reported them, and the dynamic shared memory it launches
+    with."""
+    from paddle_tpu_torch import kernels
+    lines, keep = [], False
+    for ln in kernels.build_info("flash_attention")["ptxas"].splitlines():
+        if "Compiling entry function" in ln:
+            keep = "flash_fwd_wgmma" in ln
+        elif keep:
+            lines.append(ln.strip())
+    regs = [int(w) for ln in lines if "registers" in ln
+            for w, nxt in zip(ln.split(), ln.split()[1:])
+            if nxt.startswith("registers")]
+    return {"registers": regs[0] if regs else None, "ptxas": lines,
+            "dynamic_smem_bytes":
+                kernels.load("flash_attention")
+                .flash_attention_fwd_smem_bytes()}
 
 
 def flash_run(fa, impl, q, k, v, do, causal, window, bshd):
@@ -535,9 +569,11 @@ def flash_phase(dev, peaks):
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     # (name, batch, sq, sk, causal, window, bshd)
     cases = [("main", TRAIN_B, TRAIN_S, TRAIN_S, True, None, True),
+             ("main bhsd", TRAIN_B, TRAIN_S, TRAIN_S, True, None, False),
              ("window256", 2, TRAIN_S, TRAIN_S, True, 256, True),
              ("sq<sk", 2, 512, TRAIN_S, False, None, False),
-             ("sq<sk causal window", 2, 256, 640, True, 64, False)]
+             ("sq<sk causal window", 2, 256, 640, True, 64, False),
+             ("single tile", 2, 128, 128, True, None, True)]
     which = {"out": "fwd", "lse": "fwd", "dk": "dkv", "dv": "dkv",
              "dq": "dq"}
     worst = {}
@@ -579,6 +615,23 @@ def flash_phase(dev, peaks):
     check(torch.isfinite(got["out"]).all().item()
           and torch.isfinite(got["dk"]).all().item(),
           "flash: fully masked rows leaked non-finite values")
+
+    # bf16 operands must be 16-byte aligned (TMA): a view one element
+    # into a flat buffer is refused by name, before any launch
+    flat = torch.zeros(2 * 128 * HEADS * HEAD_DIM + 1, dtype=torch.bfloat16,
+                       device=dev)
+    shifted = flat[1:].view(2, 128, HEADS, HEAD_DIM)
+    q, k, v, _ = flash_inputs(2, 128, 128, torch.bfloat16, gen, dev,
+                              qkv=False)
+    before = dict(fa.launches)
+    try:
+        fa.cuda_fwd(q, shifted, v, True, 0.125, True)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None and "bf16 k " in refused
+          and fa.launches == before,
+          f"flash fwd: misaligned bf16 k was not refused ({refused})")
 
     # times at the main path's shapes, one input set per layer
     sets = [flash_inputs(TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, gen,
@@ -639,15 +692,19 @@ def flash_phase(dev, peaks):
     for kind in ("fwd", "dkv", "dq"):
         bound_ms, bound_by = flash_bound(kind, q0, k0, True, None, True,
                                          peaks)
+        kernel_ms = graph_ms(call(kind, "cuda"), LAYERS)
         results[kind] = {
             "max_abs_err": worst[(kind, "bfloat16")],
             "max_abs_err_f32": worst[(kind, "float32")],
-            "kernel_ms": graph_ms(call(kind, "cuda"), LAYERS),
+            "kernel_ms": kernel_ms,
+            "tflops": flash_flops(kind, q0, k0, True, None, True)
+            / kernel_ms * 1e-9,
             "eager_call_ms": time_ms(call(kind, "cuda"), 60),
             "plain_ms": time_ms(call(kind, "plain"), 3),
             "library_ms": library[kind],
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+    results["fwd"]["build"] = fwd_build_report()
     results["library_covers"] = {"fwd": "scaled_dot_product_attention",
                                  "dkv": "its backward: dQ, dK and dV "
                                         "together (K2 + K3)",
@@ -902,7 +959,8 @@ def main():
          kernel_build_s={n: i["seconds"] for n, i in infos.items()},
          kernel_built={n: i["built"] for n, i in infos.items()},
          ptxas={n: [ln for ln in i["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "warning" in ln]
                 for n, i in infos.items()})
     timings = {}
 

@@ -13,19 +13,32 @@
 //     dS is rounded to the input dtype before dS.K and dS^T.Q;
 //   * outputs are in the input dtype; lse is f32 [B, H, Sq].
 //
-// What bounds it: operations. At GPT-2 small's training shapes (S 1024,
-// D 64) every K/V tile is reused by 64 query rows, well above the card's
-// ridge point. bf16 inputs (the training path) run the products on the
-// tensor cores with mma.sync (m16n8k16, f32 accumulators in registers);
-// f32 inputs run them on the CUDA cores in f32, as the TPU kernels do for
-// f32. Neither is near its peak yet: tiles are loaded without cp.async or
-// TMA double buffering, and wgmma is later work.
+// What bounds them: operations. At GPT-2 small's training shapes (S
+// 1024, D 64, causal) K1 does 12.9 GFLOP over 50.7 MB: 0.013 ms of
+// tensor-core time at 989 TFLOP/s against 0.015 ms of bytes at 3.35
+// TB/s, so both limits are near and the kernel has to keep the tensor
+// cores fed while it streams K/V. With D = 64 each (query, key) pair
+// costs 256 tensor-core operations and one exp2; an SM does about 4096
+// of the first and 16 of the second per clock, so the exp2s take as
+// long as the products and have to overlap with them.
 //
 // What the design does:
-//   * one CUDA block per (q tile of 64 rows, batch x head) for K1 and K3,
-//     per (k tile of 64 keys, batch x head) for K2: the TPU grid's
-//     sequential block axis becomes a loop inside the block, and dK/dV
-//     and dQ stay two kernels so no atomics are needed;
+//   * bf16 K1 (flash_fwd_wgmma, below): one block per (batch x head,
+//     128 q rows) with two consumer warpgroups and one producer warp.
+//     TMA brings Q once and K/V tiles of 128 keys into a 3-stage ring
+//     guarded by mbarriers, so loads overlap the products; wgmma runs
+//     both products (S = Q.K^T from shared memory, O += P.V with P from
+//     registers), so each K/V tile fetched serves 128 queries at the
+//     tensor cores' full rate; the two warpgroups' softmax and products
+//     interleave on the SM. The band mask runs only on tiles that
+//     straddle the diagonal or the window's edge, scores are exp2'd
+//     with scale * log2 e folded in, and blocks start heaviest first;
+//   * K2, K3 and the f32 kernels: one CUDA block per (q tile of 64
+//     rows, batch x head) for K3, per (k tile of 64 keys, batch x head)
+//     for K2: the TPU grid's sequential block axis becomes a loop inside
+//     the block, and dK/dV and dQ stay two kernels so no atomics are
+//     needed. They load tiles without overlap (cp.async/TMA and wgmma
+//     are their next steps);
 //   * loop bounds skip tiles outside the causal / sliding-window band
 //     (_causal_block_bounds for K1 and K3; for K2 the transposed bounds,
 //     clamped so that `end` never falls below `start` — the Pallas K2's
@@ -33,13 +46,14 @@
 //     q_len < kv_len);
 //   * q/k/v/dO are read, and out/dq/dk/dv written, through (batch, seq,
 //     head) element strides, so [B, S, H, D] views of the fused qkv
-//     projection and [B, H, S, D] tensors go through the same kernel;
+//     projection and [B, H, S, D] tensors go through the same kernel
+//     (bf16 operands need a 16-byte aligned base and strides);
 //   * f32 path: 256 threads, tiles in shared memory as f32 with a row
 //     stride of 65 floats so every product reads conflict-free; thread
 //     (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of
 //     each 64 x 64 product, and row maxima and sums are half-warp
-//     shuffles;
-//   * bf16 path: see "bf16 inputs" below.
+//     shuffles; f32 has no wgmma, so the f32 K1 stays on the CUDA cores;
+//   * bf16 K2/K3: see "bf16 inputs" below.
 //
 // Masking and NaN contract (that of the Pallas kernels):
 //   * causal masking counts absolute query positions from kv_len - q_len;
@@ -50,12 +64,17 @@
 //     out = acc / max(l, 1e-30): a fully masked row is exactly 0;
 //   * in the backward P = exp(s - lse), zeroed where masked;
 //   * the max and the clamp propagate NaN (fmaxf would drop it).
+//   bf16 K1 keeps m in log2 units (the max of the raw scores times
+//   scale * log2 e, which needs scale > 0), computes P = exp2(s * scale
+//   * log2 e - m) in one multiply-add and one exp2, and writes
+//   lse = m ln 2 + log(max(l, 1e-30)), the same natural-log lse.
 // Build without --use_fast_math: it changes expf, logf and isnan.
 //
 // Shapes: head_dim 64 only (GPT-2 small's), sequence lengths multiples
-// of 64; the entry points reject anything else. The kernels allocate
-// nothing: the caller allocates every output.
+// of 64 (of 128 for bf16 K1); the entry points reject anything else.
+// The kernels allocate nothing: the caller allocates every output.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,13 +110,13 @@ struct Args {
   int h, sq, sk;
   float scale;
   int causal, window;            // window <= 0: none
-  int vec;                       // bf16 rows 16-byte aligned: vector loads
 };
 
+// the max, NaN when either input is NaN (fmaxf would drop it)
 __device__ __forceinline__ float nan_max(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return fmaxf(a, b);
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // reductions over the 16 threads of a row (one half-warp)
@@ -144,19 +163,20 @@ __device__ __forceinline__ void store_rows(void* dst, const Layout& l,
 }
 
 // key tiles [lo, hi) that q tile qt sees: the outer bounds of
-// _causal_block_bounds at 64-row tiles
+// _causal_block_bounds at T-row tiles
+template <int T>
 __device__ __forceinline__ void key_range(const Args& a, int qt, int* lo,
                                           int* hi) {
-  const int nkb = a.sk / kTile;
+  const int nkb = a.sk / T;
   *lo = 0;
   *hi = nkb;
   if (!a.causal) return;
   const int off = a.sk - a.sq;
-  const int last = off + qt * kTile + kTile - 1;  // last query, absolute
-  *hi = last < 0 ? 0 : min(nkb, last / kTile + 1);
+  const int last = off + qt * T + T - 1;  // last query, absolute
+  *hi = last < 0 ? 0 : min(nkb, last / T + 1);
   if (a.window > 0) {
-    const int first = off + qt * kTile - a.window + 1;  // first key seen
-    *lo = first <= 0 ? 0 : min(first / kTile, *hi);
+    const int first = off + qt * T - a.window + 1;  // first key seen
+    *lo = first <= 0 ? 0 : min(first / T, *hi);
   }
 }
 
@@ -224,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
   load_tile(q_s, a.q, a.lq, b, h, q0);
   int lo, hi;
-  key_range(a, qt, &lo, &hi);
+  key_range<kTile>(a, qt, &lo, &hi);
 
   float m[kSub], l[kSub], acc[kSub][kSub];
 #pragma unroll
@@ -420,7 +440,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   load_tile(do_s, a.dout, a.ldo, b, h, q0);
   load_stats(a, bh, q0, lse_s, dd_s);
   int lo, hi;
-  key_range(a, qt, &lo, &hi);
+  key_range<kTile>(a, qt, &lo, &hi);
 
   // rows: q rows ty + 16 i; columns: head dim tx + 16 j
   float dq[kSub][kSub] = {};
@@ -452,14 +472,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   store_rows(a.dq, a.ldq, b, h, q0, ty, tx, dq);
 }
 
-
 // ---------------------------------------------------------------------------
-// bf16 inputs: the same three kernels on the tensor cores
+// bf16 inputs: K2 and K3 on the tensor cores (K1 further below)
 // ---------------------------------------------------------------------------
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate). 128 threads = 4 warps per
 // CUDA block; warp w owns rows [16 w, 16 w + 16) of the block's 64-row
-// tile (q rows in K1 and K3, keys in K2) and holds its accumulators in
+// tile (q rows in K3, keys in K2) and holds its accumulators in
 // registers. Fragment layout (PTX ISA, lane = 4 g + t):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                      a3 (g+8, 2t+8..);
@@ -471,7 +490,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 // Tiles are staged in shared memory as bf16, row-major, with a row stride
 // of 72 elements: the 32-bit fragment loads (row g, column 2t) hit 32
 // distinct banks, and so do the 16-byte rows of ldmatrix. The second
-// product's B operand (V in K1, K in K3, Q and dO in K2) is read down
+// product's B operand (K in K3, Q and dO in K2) is read down
 // its columns with ldmatrix.trans from the same row-major tile.
 
 constexpr int kMmaThreads = 128;
@@ -500,23 +519,16 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [s0, s0 + 64) of one (batch, head) -> bf16 tile [64][kLdh].
-// vec: 16-byte loads (every row 16-byte aligned)
+// rows [s0, s0 + 64) of one (batch, head) -> bf16 tile [64][kLdh], in
+// 16-byte loads (the entry points require 16-byte aligned rows)
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const void* src,
                                                const Layout& l, int b, int h,
-                                               int s0, int vec) {
+                                               int s0) {
   const bf16* base = static_cast<const bf16*>(src) + offset(l, b, h, s0);
-  if (vec) {
-    for (int idx = threadIdx.x; idx < kTile * kD / 8; idx += kMmaThreads) {
-      const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
-      *reinterpret_cast<uint4*>(dst + r * kLdh + c) =
-          *reinterpret_cast<const uint4*>(base + r * l.ss + c);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < kTile * kD; idx += kMmaThreads) {
-      const int r = idx / kD, c = idx % kD;
-      dst[r * kLdh + c] = base[r * l.ss + c];
-    }
+  for (int idx = threadIdx.x; idx < kTile * kD / 8; idx += kMmaThreads) {
+    const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + r * kLdh + c) =
+        *reinterpret_cast<const uint4*>(base + r * l.ss + c);
   }
 }
 
@@ -603,60 +615,307 @@ __device__ __forceinline__ void store_frag_rows(void* dst, const Layout& l,
             __float2bfloat16(acc[n][2 * hr + e] / den[hr]);
 }
 
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Args a) {
-  __shared__ __align__(16) bf16 q_s[kTileHalfs];
-  __shared__ __align__(16) bf16 k_s[kTileHalfs];
-  __shared__ __align__(16) bf16 v_s[kTileHalfs];
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.h, h = bh % a.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int q0 = qt * kTile, off = a.sk - a.sq, r0 = warp * 16;
+// ---------------------------------------------------------------------------
+// bf16 K1 on Hopper: TMA-fed K/V ring and wgmma
+// ---------------------------------------------------------------------------
+//
+// One CUDA block per (batch x head, 128 q rows): two consumer warpgroups
+// own 64 q rows each, one producer warp issues every load. Q (one box)
+// and each K and V tile (128 keys, one box each) come by TMA, 4-D maps
+// (head dim, head, seq, batch) built on the host from the (batch, seq,
+// head) strides, into shared memory in the 128-byte swizzle that wgmma
+// reads: a 64-element bf16 row is exactly one 128-byte swizzle row.
+// K/V tiles cycle through a ring of kStages stages; stage s has a
+// "full" mbarrier (the producer's arrive with expect_tx of both boxes'
+// bytes, completed by the copies) and an "empty" one (one arrive per
+// consumer warp once its P.V wgmma has retired). Per K/V tile each
+// warpgroup runs
+//   S = Q.K^T  wgmma m64n128k16, both operands K-major in shared
+//              memory, 4 steps of 16 head dims (+32 bytes each);
+//   softmax    in registers on the accumulators (the mma.sync C layout:
+//              rows g and g + 8 of each warp's 16, columns 8n + 2t),
+//              in log2 units (exp2 with scale * log2 e folded in), the
+//              band mask only on tiles that straddle the diagonal or
+//              the window's edge;
+//   O += P.V   wgmma m64n64k16 with A = P from registers (the
+//              accumulators packed to bf16 pairs) and B = the V tile,
+//              which is MN-major (head dim contiguous): transpose-B.
+// Blocks run heaviest first: blockIdx.y counts q tiles from the last.
 
-  load_tile_bf16(q_s, a.q, a.lq, b, h, q0, a.vec);
-  __syncthreads();
-  uint32_t qa[4][4];
-  load_a(q_s, r0, g, t, qa);
+constexpr int kBlk = 128;                  // q rows per block, keys per tile
+constexpr int kStages = 3;                 // depth of the K/V ring
+constexpr int kBoxBytes = kBlk * kD * 2;   // one TMA box: 128 rows x 64 bf16
+constexpr int kSwRow = 128;                // bytes of one swizzled row
+constexpr int kSwAtom = 8 * kSwRow;        // 8 rows: one swizzle period
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kFwdThreads = kConsumers + 32;
+// 1024-byte alignment slack, Q, the ring, 2 kStages + 1 mbarriers
+constexpr int kFwdSmem = 1024 + kBoxBytes * (1 + 2 * kStages) +
+                         8 * (2 * kStages + 1);
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// arrive once and add `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// one box (rows [s, s + 128) of head h, batch b) into shared memory at
+// dst; its bytes count toward `bar`'s transactions
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h),
+      "r"(s), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (in 16-byte units), layout 1 = 128-byte swizzle. Adding
+// n to it advances the start address by 16 n bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// K-major operand (rows of 64 bf16): 8-row swizzle atoms kSwAtom apart
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, kSwAtom);
+}
+
+// MN-major operand (V read as B[key][dim]): the 16 keys of one k-step
+// are two 8-key atoms kSwAtom apart; one 64-dim atom spans all of N
+constexpr uint32_t kVLbo = kBoxBytes, kVSbo = kSwAtom;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// pin register reads and writes on their side of a wgmma fence or wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[n][i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(d[n][i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both from shared memory;
+// accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_qk(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64]: A in registers (the mma.sync A
+// fragment layout), B MN-major in shared memory (transpose-B)
+__device__ __forceinline__ void wgmma_pv(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = q_s + kBoxBytes;   // stage s: K, then V
+  const uint32_t bars = ring + 2 * kBoxBytes * kStages;
+  const uint32_t q_bar = bars + 16 * kStages;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (kStages + s)
+  const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int q0 = qt * kBlk, off = a.sk - a.sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int lo, hi;
-  key_range(a, qt, &lo, &hi);
+  key_range<kBlk>(a, qt, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), kConsumers / 32);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {           // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, kBoxBytes);
+      tma_rows(q_s, &tq, q_bar, h, q0, b);
+      for (int j = lo, i = 0; j < hi; ++j, ++i) {
+        const int s = i % kStages;
+        if (i >= kStages)                  // tile i - kStages released
+          mbar_wait(bars + 8 * (kStages + s), (i / kStages - 1) & 1);
+        const uint32_t kv = ring + 2 * kBoxBytes * s;
+        mbar_expect_tx(bars + 8 * s, 2 * kBoxBytes);
+        tma_rows(kv, &tk, bars + 8 * s, h, j * kBlk, b);
+        tma_rows(kv + kBoxBytes, &tv, bars + 8 * s, h, j * kBlk, b);
+      }
+    }
+    return;
+  }
+
+  // warpgroup wg owns q rows [64 wg, 64 wg + 64); lane 4 g + t of its
+  // warp w holds rows 16 w + g and 16 w + g + 8
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * (warp & 3);
+  const int qlo = off + q0 + 64 * wg, qhi = qlo + 63;  // absolute rows
+  const float c = a.scale * kLog2e;
+  const uint64_t q_desc = kmajor_desc(q_s + 64 * wg * kSwRow);
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[8][4] = {};
-  for (int jt = lo; jt < hi; ++jt) {
-    __syncthreads();
-    load_tile_bf16(k_s, a.k, a.lk, b, h, jt * kTile, a.vec);
-    load_tile_bf16(v_s, a.v, a.lv, b, h, jt * kTile, a.vec);
-    __syncthreads();
-    float s[8][4] = {};
-    mma_rows<8>(qa, k_s, 0, g, t, s);
+  mbar_wait(q_bar, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages, k0 = j * kBlk;
+    const uint32_t kv = ring + 2 * kBoxBytes * s;
+    mbar_wait(bars + 8 * s, (i / kStages) & 1);
+
+    float sc[16][4];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks)
+      wgmma_qk(sc, q_desc + 2 * ks, kmajor_desc(kv) + 2 * ks, ks);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // -inf outside the band, on edge tiles only
+    if (a.causal && (k0 + kBlk - 1 > qlo ||
+                     (a.window > 0 && k0 <= qhi - a.window))) {
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!band_keep(off + q0 + r0 + g + 8 * (e >> 1),
+                         k0 + 8 * n + 2 * t + (e & 1), a.window))
+            sc[n][e] = -INFINITY;
+    }
+    // row maxima and sums in four independent chains each, so that two
+    // warps per scheduler are not held by the latency of one long chain
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int qa_abs = off + q0 + r0 + g + 8 * hr;
-      float mx = -INFINITY;
+      float part[4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 4; ++n)
+        part[n] = nan_max(sc[n][2 * hr], sc[n][2 * hr + 1]);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = s[n][2 * hr + e] * a.scale;
-          if (a.causal &&
-              !band_keep(qa_abs, jt * kTile + n * 8 + 2 * t + e, a.window))
-            x = -INFINITY;
-          s[n][2 * hr + e] = x;
-          mx = nan_max(mx, x);
-        }
+      for (int n = 4; n < 16; ++n)
+        part[n & 3] = nan_max(part[n & 3],
+                              nan_max(sc[n][2 * hr], sc[n][2 * hr + 1]));
+      float mx = nan_max(nan_max(part[0], part[1]), nan_max(part[2], part[3]));
       mx = nan_max(mx, __shfl_xor_sync(kFull, mx, 1));
       mx = nan_max(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = nan_max(m[hr], mx);
+      const float m_new = nan_max(m[hr], mx * c);   // c > 0
       const float shift = isfinite(m_new) ? m_new : 0.f;
-      const float alpha = isfinite(m[hr]) ? expf(m[hr] - shift) : 0.f;
-      float ps = 0.f;
+      const float alpha = isfinite(m[hr]) ? ex2(m[hr] - shift) : 0.f;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 4; ++n) part[n] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(s[n][2 * hr + e] - shift);
-          s[n][2 * hr + e] = p;
-          ps += p;
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+          sc[n][e] = ex2(fmaf(sc[n][e], c, -shift));
+          part[n & 3] += sc[n][e];
         }
+      float ps = (part[0] + part[1]) + (part[2] + part[3]);
       ps += __shfl_xor_sync(kFull, ps, 1);
       ps += __shfl_xor_sync(kFull, ps, 2);
       l[hr] = l[hr] * alpha + ps;
@@ -667,18 +926,44 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Args a) {
       }
       m[hr] = m_new;
     }
-    mma_cols<64>(s, v_s, 0, o);          // O += bf16(P) . V
+
+    // O += bf16(P) . V, 16 keys per step: columns 16 kk .. 16 kk + 15
+    // of S are its C tiles 2 kk and 2 kk + 1, i.e. one A fragment
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pa[kk][0] = pack2(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[kk][1] = pack2(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[kk][2] = pack2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[kk][3] = pack2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+    }
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_pv(o, pa[kk],
+               sw128_desc(kv + kBoxBytes + 2 * kk * kSwAtom, kVLbo, kVSbo));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + s));
   }
 
-  float den[2];
+  // lse in natural-log units; out in two bf16 per 32-bit store
+  bf16* out = static_cast<bf16*>(a.out) + offset(a.lout, b, h, q0 + r0 + g);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    den[hr] = nan_max(l[hr], 1e-30f);
+    const float den = nan_max(l[hr], 1e-30f);
     if (t == 0)
       a.lse[(long long)bh * a.sq + q0 + r0 + g + 8 * hr] =
-          (isfinite(m[hr]) ? m[hr] : 0.f) + logf(den[hr]);
+          (isfinite(m[hr]) ? m[hr] * kLn2 : 0.f) + logf(den);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * hr * a.lout.ss + 8 * n + 2 * t) =
+          pack2(o[n][2 * hr] / den, o[n][2 * hr + 1] / den);
   }
-  store_frag_rows(a.out, a.lout, b, h, q0 + r0, g, t, o, den);
 }
 
 // P and dS of C fragments x (scores) and y (dP): rows of x are `rows`
@@ -719,7 +1004,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Args a) {
 
   __shared__ float lse_s[kTile], dd_s[kTile];
   uint32_t qa[4][4], oa[4][4];
-  load_tile_bf16(buf_s, a.q, a.lq, b, h, q0, a.vec);
+  load_tile_bf16(buf_s, a.q, a.lq, b, h, q0);
   if (threadIdx.x < kTile) {
     const long long row = (long long)bh * a.sq + q0 + threadIdx.x;
     lse_s[threadIdx.x] = a.lse[row];
@@ -728,18 +1013,18 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Args a) {
   __syncthreads();
   load_a(buf_s, r0, g, t, qa);
   __syncthreads();
-  load_tile_bf16(buf_s, a.dout, a.ldo, b, h, q0, a.vec);
+  load_tile_bf16(buf_s, a.dout, a.ldo, b, h, q0);
   __syncthreads();
   load_a(buf_s, r0, g, t, oa);
   int lo, hi;
-  key_range(a, qt, &lo, &hi);
+  key_range<kTile>(a, qt, &lo, &hi);
 
   float dq[8][4] = {};
   for (int jt = lo; jt < hi; ++jt) {
     const int k0 = jt * kTile;
     __syncthreads();
-    load_tile_bf16(k_s, a.k, a.lk, b, h, k0, a.vec);
-    load_tile_bf16(v_s, a.v, a.lv, b, h, k0, a.vec);
+    load_tile_bf16(k_s, a.k, a.lk, b, h, k0);
+    load_tile_bf16(v_s, a.v, a.lv, b, h, k0);
     __syncthreads();
     float s[8][4] = {}, dp[8][4] = {};
     mma_rows<8>(qa, k_s, 0, g, t, s);
@@ -763,8 +1048,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Args a) {
   const int k0 = kt * kTile, off = a.sk - a.sq, r0 = warp * 16;
 
   uint32_t ka[4][4], va[4][4];     // the warp's 16 keys of K and V
-  load_tile_bf16(q_s, a.k, a.lk, b, h, k0, a.vec);
-  load_tile_bf16(do_s, a.v, a.lv, b, h, k0, a.vec);
+  load_tile_bf16(q_s, a.k, a.lk, b, h, k0);
+  load_tile_bf16(do_s, a.v, a.lv, b, h, k0);
   __syncthreads();
   load_a(q_s, r0, g, t, ka);
   load_a(do_s, r0, g, t, va);
@@ -775,8 +1060,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Args a) {
   for (int it = lo; it < hi; ++it) {
     const int q0 = it * kTile;
     __syncthreads();
-    load_tile_bf16(q_s, a.q, a.lq, b, h, q0, a.vec);
-    load_tile_bf16(do_s, a.dout, a.ldo, b, h, q0, a.vec);
+    load_tile_bf16(q_s, a.q, a.lq, b, h, q0);
+    load_tile_bf16(do_s, a.dout, a.ldo, b, h, q0);
     if (threadIdx.x < kTile) {
       const long long row = (long long)bh * a.sq + q0 + threadIdx.x;
       lse_s[threadIdx.x] = a.lse[row];
@@ -823,11 +1108,77 @@ int launch(Kernel kernel, int threads, int grid_x, int b, int smem,
   return (int)cudaGetLastError();
 }
 
-// 16-byte vector loads are safe for a bf16 operand: aligned base and
-// every row start a multiple of 8 elements
-bool vec_ok(const void* p, const Layout& l) {
+// a bf16 operand as TMA and the 16-byte loads need it: a 16-byte
+// aligned base and (batch, seq, head) strides of whole 16 bytes
+bool rows_aligned(const void* p, const Layout& l) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.sb % 8 == 0 &&
          l.ss % 8 == 0 && l.sh % 8 == 0;
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// 4-D map (head dim, head, seq, batch) of one bf16 operand with boxes
+// of 128 rows x 64 in the 128-byte swizzle
+int rows_map(CUtensorMap* map, const void* p, const Layout& l, int b, int h,
+             int s) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h, (cuuint64_t)s,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)l.sh * 2, (cuuint64_t)l.ss * 2,
+                                 (cuuint64_t)l.sb * 2};
+  const cuuint32_t box[4] = {kD, 1, kBlk, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int launch_fwd_wgmma(const Args& a, int b, void* stream) {
+  if (a.sq % kBlk || a.sk % kBlk || !(a.scale > 0.f) ||
+      !rows_aligned(a.q, a.lq) ||
+      !rows_aligned(a.k, a.lk) || !rows_aligned(a.v, a.lv))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int rc = rows_map(&tq, a.q, a.lq, b, a.h, a.sq);
+  if (rc == 0) rc = rows_map(&tk, a.k, a.lk, b, a.h, a.sk);
+  if (rc == 0) rc = rows_map(&tv, a.v, a.lv, b, a.h, a.sk);
+  if (rc != 0) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * a.h, a.sq / kBlk);
+  flash_fwd_wgmma<<<grid, kFwdThreads, kFwdSmem,
+                    static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
 }
 
 Layout layout_at(const long long* s, int i) {
@@ -857,9 +1208,12 @@ Args base_args(int h, int sq, int sk, float scale, int causal, int window) {
 
 // Every entry point returns the launch's cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for shapes the kernels were not
-// built for. `strides` holds (batch, seq, head) element strides of each
-// tensor argument in order; the last dimension must be contiguous.
-// dtype: 0 = float32, 1 = bfloat16. window: 0 = none.
+// built for and for bf16 operands that are not 16-byte aligned (base
+// and every stride). `strides` holds (batch, seq, head) element strides
+// of each tensor argument in order; the last dimension must be
+// contiguous. dtype: 0 = float32, 1 = bfloat16. window: 0 = none.
+// bf16 K1 takes sequence lengths that are multiples of 128 and a
+// positive scale.
 
 // K1. strides: q, k, v, out.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -884,9 +1238,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0)
     return launch(flash_fwd_kernel, kThreads, sq / kTile, b,
                   smem_bytes(4, false), stream, a);
-  a.vec = vec_ok(q, a.lq) && vec_ok(k, a.lk) && vec_ok(v, a.lv);
-  return launch(flash_fwd_mma, kMmaThreads, sq / kTile, b, 0, stream, a);
+  return launch_fwd_wgmma(a, b, stream);
 }
+
+// dynamic shared memory of the bf16 K1 launch, in bytes
+extern "C" int flash_attention_fwd_smem_bytes() { return kFwdSmem; }
 
 // K2. strides: q, k, v, dout, dk, dv.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -918,8 +1274,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (dtype == 0)
     return launch(flash_bwd_dkv_kernel, kThreads, sk / kTile, b,
                   smem_bytes(6, true), stream, a);
-  a.vec = vec_ok(q, a.lq) && vec_ok(k, a.lk) && vec_ok(v, a.lv) &&
-          vec_ok(dout, a.ldo);
+  if (!rows_aligned(q, a.lq) || !rows_aligned(k, a.lk) ||
+      !rows_aligned(v, a.lv) || !rows_aligned(dout, a.ldo))
+    return (int)cudaErrorInvalidValue;
   return launch(flash_bwd_dkv_mma, kMmaThreads, sk / kTile, b, 0, stream, a);
 }
 
@@ -950,7 +1307,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   if (dtype == 0)
     return launch(flash_bwd_dq_kernel, kThreads, sq / kTile, b,
                   smem_bytes(5, true), stream, a);
-  a.vec = vec_ok(q, a.lq) && vec_ok(k, a.lk) && vec_ok(v, a.lv) &&
-          vec_ok(dout, a.ldo);
+  if (!rows_aligned(q, a.lq) || !rows_aligned(k, a.lk) ||
+      !rows_aligned(v, a.lv) || !rows_aligned(dout, a.ldo))
+    return (int)cudaErrorInvalidValue;
   return launch(flash_bwd_dq_mma, kMmaThreads, sq / kTile, b, 0, stream, a);
 }

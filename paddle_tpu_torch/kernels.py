@@ -47,6 +47,7 @@ SIGNATURES = {
              _STRIDES, _I, _I, _I, _I, _I,
              _F, _I, _I, _I, _P],
             ctypes.c_int),
+        "flash_attention_fwd_smem_bytes": ([], ctypes.c_int),
         "flash_attention_bwd_dq": (
             [_P, _P, _P, _P, _P, _P, _P,         # q k v dout lse dd dq
              _STRIDES, _I, _I, _I, _I, _I,
@@ -56,6 +57,7 @@ SIGNATURES = {
 }
 
 _loaded = {}
+_fresh = {}      # report of each library this process compiled
 
 
 def nvcc_path():
@@ -73,12 +75,13 @@ def nvcc_path():
 def build(name):
     """Compile csrc/<name>.cu unless an up-to-date library exists.
     Returns {"path", "seconds", "built", "ptxas"} — `ptxas` holds the
-    compiler's register/shared-memory report of a fresh build."""
+    compiler's register/shared-memory report of a fresh build, and a
+    library this process compiled keeps that report."""
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
     if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
-        return {"path": str(lib), "seconds": 0.0, "built": False,
-                "ptxas": ""}
+        return dict(_fresh.get(name) or {"path": str(lib), "seconds": 0.0,
+                                         "built": False, "ptxas": ""})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -89,8 +92,9 @@ def build(name):
         raise RuntimeError(f"nvcc failed on {src} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
-    return {"path": str(lib), "seconds": seconds, "built": True,
-            "ptxas": proc.stderr}
+    _fresh[name] = {"path": str(lib), "seconds": seconds, "built": True,
+                    "ptxas": proc.stderr}
+    return dict(_fresh[name])
 
 
 def load(name):

@@ -14,7 +14,11 @@ Three implementations sit behind one dispatch point, the pattern of
   kernel="cuda"       the hand-written sm_90a kernels of
                       csrc/flash_attention.cu (K1 forward, K2 dK/dV, K3
                       dQ). They launch for CUDA tensors and raise for
-                      anything else — there is no fallback;
+                      anything else — there is no fallback. bf16
+                      operands must meet `tma_aligned` (16-byte base
+                      and strides; every view of the qkv projection
+                      does); the wrappers raise a ValueError naming the
+                      tensor that does not;
   kernel="auto"       "cuda" for CUDA tensors, "plain" for CPU tensors.
 
 "plain" and "cuda" run inside one `torch.autograd.Function` that saves
@@ -415,6 +419,26 @@ def _check_cuda(what, tensors, bshd):
     return b, h, sq, sk, d
 
 
+def tma_aligned(data_ptr, strides, element_size):
+    """Whether a bf16 operand meets the kernels' alignment rule: TMA (K1)
+    and the 16-byte loads (K2, K3) need a 16-byte-aligned base address
+    and (batch, seq, head) strides of whole 16 bytes."""
+    return data_ptr % 16 == 0 and all(s * element_size % 16 == 0
+                                      for s in strides)
+
+
+def _check_aligned(tensors, bshd):
+    """Raise for a bf16 operand that breaks `tma_aligned`, naming it."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and not tma_aligned(
+                t.data_ptr(), _strides(t, bshd), t.element_size()):
+            raise ValueError(
+                f"flash attention kernel: bf16 {name} needs a 16-byte "
+                f"aligned base and (batch, seq, head) strides of whole 16 "
+                f"bytes; got address {t.data_ptr():#x}, strides "
+                f"{_strides(t, bshd)}")
+
+
 def _launch(fn, what, *args):
     from .. import kernels
     lib = kernels.load("flash_attention")
@@ -438,6 +462,10 @@ def cuda_fwd(q, k, v, causal, scale, bshd=False, window=None):
     """Launch K1 (csrc/flash_attention.cu) on CUDA tensors. Returns (out
     in q's layout and dtype, lse [B, H, Sq] f32)."""
     b, h, sq, sk, d = _check_cuda("fwd", {"q": q, "k": k, "v": v}, bshd)
+    _check_aligned({"q": q, "k": k, "v": v}, bshd)
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"flash attention kernel: bf16 K1 takes a "
+                         f"positive scale, got {scale}")
     shape = (b, sq, h, d) if bshd else (b, h, sq, d)
     out = torch.empty(shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -466,6 +494,7 @@ def cuda_bwd_dkv(q, k, v, do, lse, dd, causal, scale, bshd=False,
     _check_stats(lse, dd, b, h, sq)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError("flash attention: dO must match q")
+    _check_aligned({"q": q, "k": k, "v": v, "do": do}, bshd)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _launch("flash_attention_bwd_dkv", "dkv", q.data_ptr(), k.data_ptr(),
@@ -486,6 +515,7 @@ def cuda_bwd_dq(q, k, v, do, lse, dd, causal, scale, bshd=False,
     _check_stats(lse, dd, b, h, sq)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError("flash attention: dO must match q")
+    _check_aligned({"q": q, "k": k, "v": v, "do": do}, bshd)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch("flash_attention_bwd_dq", "dq", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
@@ -523,8 +553,9 @@ class _FlashCore(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         causal, scale, bshd, window, impl = ctx.args
         _, dkv, dq = _IMPLS[impl]
-        if g.stride(-1) != 1:
-            g = g.contiguous()
+        if g.stride(-1) != 1 or not tma_aligned(
+                g.data_ptr(), _strides(g, bshd), g.element_size()):
+            g = g.clone(memory_format=torch.contiguous_format)
         dd = row_dot(g, out, bshd)
         dk, dv = dkv(q, k, v, g, lse, dd, causal, scale, bshd, window)
         dqv = dq(q, k, v, g, lse, dd, causal, scale, bshd, window)

@@ -174,6 +174,42 @@ def test_cuda_kernel_raises_for_cpu_tensors():
     assert fa.launches == {"fwd": 0, "dkv": 0, "dq": 0}
 
 
+# (data pointer, (batch, seq, head) strides in elements, element size)
+# -> whether a bf16 operand may be read by TMA / 16-byte loads
+ALIGNMENT_CASES = {
+    "qkv view": (0x7f0000000000 + 2 * 12 * 64, (1024 * 2304, 2304, 64), 2,
+                 True),
+    "bhsd": (0x7f0000000200, (12 * 1024 * 64, 64, 1024 * 64), 2, True),
+    "base 2 bytes off": (0x7f0000000002, (1024 * 768, 768, 64), 2, False),
+    "base 8 bytes off": (0x7f0000000008, (1024 * 768, 768, 64), 2, False),
+    "odd row stride": (0x7f0000000000, (1024 * 772, 772, 64), 2, False),
+    "head stride 4 elements": (0x7f0000000000, (4096, 64, 4), 2, False),
+    "f32, 4-element strides": (0x7f0000000000, (4096, 64, 4), 4, True),
+}
+
+
+@pytest.mark.parametrize("case", list(ALIGNMENT_CASES))
+def test_tma_alignment_rule(case):
+    ptr, strides, elt, ok = ALIGNMENT_CASES[case]
+    assert fa.tma_aligned(ptr, strides, elt) is ok
+
+
+def test_misaligned_bf16_operand_is_refused_by_name():
+    """A [B, S, H, 64] view one element into a flat bf16 buffer (base 2
+    bytes off 16) is refused, naming the tensor; aligned views of the
+    qkv projection pass."""
+    qkv = torch.zeros(2, 128, 3, 2, 64, dtype=torch.bfloat16)
+    views = {"q": qkv[:, :, 0], "k": qkv[:, :, 1], "v": qkv[:, :, 2]}
+    fa._check_aligned(views, bshd=True)
+    flat = torch.zeros(2 * 128 * 2 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 128, 2, 64)
+    assert shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="bf16 v needs a 16-byte"):
+        fa._check_aligned({**views, "v": shifted}, bshd=True)
+    # f32 operands go to the CUDA-core kernels, which take any alignment
+    fa._check_aligned({"q": shifted.float()[:, :, :, 1:]}, bshd=True)
+
+
 def test_window_requires_causal_and_a_positive_width():
     q = torch.zeros(1, 2, 128, 64)
     with pytest.raises(ValueError, match="causal"):
