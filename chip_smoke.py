@@ -7,8 +7,12 @@ Builds the port's CUDA kernels from the checkout (one nvcc per source,
 all started together; sm_90a, into build/paddle_tpu_torch/), then runs
 its phases:
 
-  kernels       K4 (paged attention) against its plain PyTorch version
-                at the serving path's shapes;
+  kernels       K4 (paged attention: split kernel and combine) against
+                its plain PyTorch version at the serving path's shapes
+                (both forms, f32 and bf16 pools, windows, strided and
+                misaligned q, GQA, ragged chunks, int32/int64/int
+                starts, the NaN contracts), timed, with a split-size
+                sweep and a profiler count of device kernels per call;
   flash         K1-K3 (flash attention forward, dK/dV, dQ) against
                 their plain versions at the training path's shapes
                 (BSHD views of the qkv projection, and BHSD), a windowed
@@ -133,21 +137,28 @@ def graph_ms(fn, calls, replays=20):
 # kernels: K4 against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def make_case(form, dtype, gen, dev, sets=1):
+def make_case(form, dtype, gen, dev, sets=1, hkv=HEADS, c=None,
+              start=None, strided_q=False):
     """Inputs of one K4 call as the serving path gives them: pools with
     NaN in scratch block 0, lane tables mapping distinct real blocks up
     to each lane's frontier and scratch past it. `sets` pool copies (one
     per layer) so timed launches find their pool cold, as each layer of
-    a wave does."""
+    a wave does. Decode: 8 lanes at seeded positions 128-831; chunk: one
+    lane of C = 64 queries from 512. `hkv` < HEADS gives GQA pools;
+    `strided_q` gives q as `_split_heads` does, a view of a [B, C, 3, H,
+    D] projection."""
     import torch
     if form == "decode":
         b, c = LANES, 1
-        start = torch.randint(128, 832, (b,), generator=gen,
-                              device="cpu").to(dev)
+        if start is None:
+            start = torch.randint(128, 832, (b,), generator=gen,
+                                  device="cpu")
     else:
-        b, c = 1, CHUNK
-        start = torch.tensor([512], device=dev)
-    last = (start + c - 1).tolist()
+        b, c = 1, CHUNK if c is None else c
+        if start is None:
+            start = torch.tensor([512])
+    start = torch.as_tensor(start).to(dev)
+    last = (start.expand(b) + c - 1).tolist()
     perm = (torch.randperm(NUM_BLOCKS - 1, generator=gen) + 1).tolist()
     tables = torch.zeros((b, NBLK), dtype=torch.int32)
     for i in range(b):
@@ -155,7 +166,7 @@ def make_case(form, dtype, gen, dev, sets=1):
         tables[i, :used] = torch.tensor(perm[:used])
         perm = perm[used:]
     tables = tables.to(dev)
-    shape = (NUM_BLOCKS, HEADS, BLOCK, HEAD_DIM)
+    shape = (NUM_BLOCKS, hkv, BLOCK, HEAD_DIM)
     pools = []
     for _ in range(sets):
         pk = torch.randn(shape, generator=gen).to(dev, dtype)
@@ -163,7 +174,12 @@ def make_case(form, dtype, gen, dev, sets=1):
         pk[0] = float("nan")
         pv[0] = float("nan")
         pools.append((pk, pv))
-    q = torch.randn((b, HEADS, c, HEAD_DIM), generator=gen).to(dev, dtype)
+    if strided_q:
+        qkv = torch.randn((b, c, 3, HEADS, HEAD_DIM), generator=gen)
+        q = qkv.to(dev, dtype).permute(2, 0, 3, 1, 4)[0]
+    else:
+        q = torch.randn((b, HEADS, c, HEAD_DIM), generator=gen).to(dev,
+                                                                   dtype)
     return q, pools, tables, start
 
 
@@ -193,47 +209,155 @@ def bound(q, pk, start, window, peaks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def profile_calls(fn, calls, name="paged_attn"):
+    """What `calls` eager calls of `fn` run on the device, from
+    torch.profiler (CUPTI): device activities (kernels, copies, fills)
+    per call, the device ms per call of the kernels whose name holds
+    `name` (K4's own), and device ms per call by name. Returns
+    "not measured: ..." when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not rows:
+        return "not measured: the profiler recorded no device activity"
+    return {
+        "device_kernels_per_call": sum(e.count for e in rows) / calls,
+        "k4_only_ms": sum(e.self_device_time_total for e in rows
+                          if name in e.key) / 1e3 / calls,
+        "device_ms_per_call_by_name": {
+            e.key[:72]: e.self_device_time_total / 1e3 / calls
+            for e in rows}}
+
+
+def held(name, out, ref, dtype, finite=True):
+    """K4's output against its plain version: the same non-finite
+    entries, the rest within 1e-4 (f32 pools) or 1e-2 (bf16) x max(1,
+    |ref|). Returns the max abs error over the finite entries."""
+    import torch
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dtype]
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == tuple(ref.shape) and out.dtype == ref.dtype,
+          f"{name}: {out.dtype}{tuple(out.shape)} against "
+          f"{ref.dtype}{tuple(ref.shape)}")
+    ok = torch.isfinite(ref)
+    check(bool((torch.isfinite(out) == ok).all()),
+          f"{name}: non-finite entries differ from plain's")
+    check(not finite or bool(ok.all()), f"{name}: scratch NaN leaked")
+    err = torch.where(ok, (out.float() - ref.float()).abs(), 0.0)
+    lim = tol * torch.clamp(ref.float().abs(), min=1.0)
+    check(bool((err <= lim)[ok].all()),
+          f"{name}: max abs err {err.max().item()} over tolerance {tol}")
+    return err.max().item()
+
+
+def kernels_checks(pa, dev, gen, scale):
+    """Every check of K4 against `plain_core`; returns the max abs error
+    by (form, dtype) over the main-shape cases."""
+    import torch
+    worst = {}
+    for form in ("decode", "chunk"):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{form} {str(dtype).split('.')[-1]}"
+
+            def run(name, q, pk, pv, tables, start, window=None,
+                    finite=True, main=False):
+                out = pa.cuda_core(q, pk, pv, tables, start, scale, window,
+                                   form=form)
+                ref = pa.plain_core(q, pk, pv, tables, start, scale,
+                                    window)
+                err = held(f"{tag} {name}", out, ref, dtype, finite)
+                if main:
+                    worst[(form, dtype)] = max(worst.get((form, dtype), 0.0),
+                                               err)
+                return out
+
+            q, pools, tables, start = make_case(form, dtype, gen, dev)
+            pk, pv = pools[0]
+            # windows 256 and 64 empty the leading splits of later lanes
+            for window in (None, 256, 64):
+                run(f"window={window}", q, pk, pv, tables, start, window,
+                    main=True)
+            # start as int32, int64 and a host int
+            run("int32 start", q, pk, pv, tables, start.int())
+            run("int64 start", q, pk, pv, tables, start.long())
+            run("int start", q, pk, pv, tables, int(start.min()))
+            # attended NaN reaches the output, and only its own lane
+            bad = tables.clone()
+            bad[0, 0] = 0
+            out = run("attended NaN", q, pk, pv, bad, start, finite=False)
+            check(not torch.isfinite(out[0]).all().item(),
+                  f"{tag}: attended NaN did not propagate")
+            check(torch.isfinite(out[1:]).all().item(),
+                  f"{tag}: attended NaN leaked to other lanes")
+            # a NaN in one split only (pool block 9: split 1 of 8 blocks)
+            # of the lane that reaches furthest
+            i = int(start.argmax())
+            check(int(start[i]) >= 10 * BLOCK, "no lane reaches block 9")
+            nan_k = pk.clone()
+            nan_k[tables[i, 9]] = float("nan")
+            out = run("NaN in split 1", q, nan_k, pv, tables, start,
+                      finite=False)
+            others = torch.arange(out.shape[0], device=dev) != i
+            check(not torch.isfinite(out[i]).all().item()
+                  and torch.isfinite(out[others]).all().item(),
+                  f"{tag}: a NaN in one split did not stay in its lane")
+            # rows with no attended key (every split empty) are exactly 0
+            neg = torch.full_like(start, -CHUNK)
+            out = run("no attended key", q, pk, pv, tables, neg)
+            check(bool((out == 0).all()),
+                  f"{tag}: fully masked rows are not exactly 0")
+            # q as the strided view `_split_heads` gives
+            q, pools, tables, start = make_case(form, dtype, gen, dev,
+                                                strided_q=True)
+            check(not q.is_contiguous(), "strided q case is contiguous")
+            run("strided q", q, *pools[0], tables, start)
+            run("strided q window=64", q, *pools[0], tables, start, 64)
+            # q one element into a flat buffer: rows not 16-byte aligned
+            flat = torch.randn(q.numel() + 1, generator=gen).to(dev, dtype)
+            run("misaligned q", flat[1:].view(q.shape), *pools[0], tables,
+                start)
+            # GQA: rep 2 and rep 4
+            for hkv in (HEADS // 2, HEADS // 4):
+                q, pools, tables, start = make_case(form, dtype, gen, dev,
+                                                    hkv=hkv)
+                run(f"hkv={hkv}", q, *pools[0], tables, start)
+                run(f"hkv={hkv} window=64", q, *pools[0], tables, start, 64)
+            if form == "decode":
+                # a lane at the table's last key
+                start = torch.randint(128, 832, (LANES,), generator=gen)
+                start[3] = NBLK * BLOCK - 1
+                q, pools, tables, start = make_case(form, dtype, gen, dev,
+                                                    start=start)
+                run("lane at the last key", q, *pools[0], tables, start)
+            else:
+                # C not a multiple of 16, and a chunk from position 0
+                for c, st in ((37, 512), (37, 980), (64, 0)):
+                    q, pools, tables, start = make_case(
+                        form, dtype, gen, dev, c=c, start=[st])
+                    run(f"C={c} start={st}", q, *pools[0], tables, start)
+                    run(f"C={c} start={st} window=64", q, *pools[0], tables,
+                        start, 64)
+    return worst
+
+
 def kernels_phase(dev, peaks):
     import torch
     from paddle_tpu_torch.nn import paged_attention as pa
 
     gen = torch.Generator().manual_seed(SEED)
     scale = 1.0 / HEAD_DIM ** 0.5
-    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    worst = kernels_checks(pa, dev, gen, scale)
     results = {}
     for form in ("decode", "chunk"):
-        worst = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            q, pools, tables, start = make_case(form, dtype, gen, dev)
-            pk, pv = pools[0]
-            for window in (None, 256):
-                out = pa.cuda_core(q, pk, pv, tables, start, scale, window,
-                                   form=form)
-                ref = pa.plain_core(q, pk, pv, tables, start, scale,
-                                    window)
-                torch.cuda.synchronize()
-                check(torch.isfinite(out).all().item(),
-                      f"{form} {dtype} window={window}: scratch NaN leaked")
-                err = (out.float() - ref.float()).abs()
-                lim = tol[dtype] * torch.clamp(ref.float().abs(), min=1.0)
-                check(bool((err <= lim).all()),
-                      f"{form} {dtype} window={window}: max abs err "
-                      f"{err.max().item()} over tolerance {tol[dtype]}")
-                worst[dtype] = max(worst.get(dtype, 0.0),
-                                   err.max().item())
-            # attended NaN reaches the output, and only its own lane
-            bad = tables.clone()
-            bad[0, 0] = 0
-            out = pa.cuda_core(q, pk, pv, bad, start, scale, form=form)
-            check(not torch.isfinite(out[0]).all().item(),
-                  f"{form} {dtype}: attended NaN did not propagate")
-            check(torch.isfinite(out[1:]).all().item(),
-                  f"{form} {dtype}: attended NaN leaked to other lanes")
-            # rows with no attended key are exactly 0
-            neg = torch.full_like(start, -CHUNK)
-            out = pa.cuda_core(q, pk, pv, tables, neg, scale, form=form)
-            check(bool((out == 0).all()),
-                  f"{form} {dtype}: fully masked rows are not exactly 0")
         # times at the main path's type (bf16 pools), pools cold per call
         q, pools, tables, start = make_case(form, torch.bfloat16, gen, dev,
                                             sets=LAYERS)
@@ -243,9 +367,12 @@ def kernels_phase(dev, peaks):
             it["i"] = (it["i"] + 1) % LAYERS
             return pools[it["i"]]
 
-        def run_kernel():
-            pk, pv = nxt()
-            pa.cuda_core(q, pk, pv, tables, start, scale, form=form)
+        def kernel(split=None):
+            def run():
+                pk, pv = nxt()
+                pa.cuda_core(q, pk, pv, tables, start, scale, form=form,
+                             split_blocks=split)
+            return run
 
         def run_plain():
             pk, pv = nxt()
@@ -270,15 +397,19 @@ def kernels_phase(dev, peaks):
         bound_ms, bound_by = bound(q, pools[0][0], start, None, peaks)
         results[form] = {
             # the main path's pool type; f32 pools reported beside it
-            "max_abs_err": worst[torch.bfloat16],
-            "max_abs_err_f32_pools": worst[torch.float32],
-            # device time of the wrapper (q cast, positions, kernel,
-            # output cast), one pool set per call as the layers of a wave
-            "kernel_ms": graph_ms(run_kernel, LAYERS),
-            "eager_call_ms": time_ms(run_kernel, 60),
+            "max_abs_err": worst[(form, torch.bfloat16)],
+            "max_abs_err_f32_pools": worst[(form, torch.float32)],
+            # device time of the whole call (the split kernel and the
+            # combine), one pool set per call as the layers of a wave
+            "kernel_ms": graph_ms(kernel(), LAYERS),
+            "eager_call_ms": time_ms(kernel(), 60),
             "plain_ms": time_ms(run_plain, 6),
             "library_ms": graph_ms(run_library, LAYERS),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "split_blocks": pa.SPLIT_BLOCKS[form],
+            "kernel_ms_by_split_blocks": {
+                p: graph_ms(kernel(p), LAYERS) for p in (4, 8, 16, NBLK)},
+            "profile": profile_calls(kernel(), LAYERS),
         }
         del pools, views
     return results

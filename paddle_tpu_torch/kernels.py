@@ -30,11 +30,13 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "paged_attention": {
         "paged_attention_fwd": (
-            [_P, _P, _P, _P, _P, _P,             # q pk pv tables qpos out
-             _I, _I, _I, _I, _I, _I, _I, _I,     # b hkv rows c d bs nblk nb
-             ctypes.c_float, _I, _I, _I,         # scale use_window window
-             _P],                                # dtype stream
-            ctypes.c_int),
+            [_P, _STRIDES, _I,                   # q, its strides, q dtype
+             _P, _P, _P,                         # pk pv tables
+             _P, ctypes.c_longlong, _I, _I,      # start: ptr scalar elt stride
+             _P, _P,                             # out work
+             _I, _I, _I, _I, _I, _I, _I, _I,     # b h hkv c d bs nblk nb
+             _I, _F, _I, _I, _I, _P],            # split scale use_window
+            ctypes.c_int),                       # window pool dtype stream
     },
     "flash_attention": {
         "flash_attention_fwd": (

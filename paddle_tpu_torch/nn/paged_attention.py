@@ -28,6 +28,7 @@ the `PT_PAGED_KERNEL` environment variable > `set_paged_kernel` >
 "auto".
 """
 import contextlib
+import ctypes
 import os
 
 import torch
@@ -141,27 +142,45 @@ def query_positions(start, b, c, device):
 # plain PyTorch: loop over pool blocks, flash-attention recurrence
 # ---------------------------------------------------------------------------
 
-def plain_core(q, pk, pv, tables, start, scale, window=None):
+def plain_core(q, pk, pv, tables, start, scale, window=None,
+               split_blocks=None):
     """Online-softmax attention streamed block by block out of the pool
     (the port of `_lax_core`). Carries (m, l, acc) across the nblk
     steps: block j of every lane is fetched ([B, Hkv, BS, D], the only
     gathered working set), scored, masked with -inf at ks > qpos (and
     outside the window) and folded in with alpha = exp(m_old - m_new).
-    Fully masked rows finish with l == 0 and renormalise to exactly 0."""
+    Fully masked rows finish with l == 0 and renormalise to exactly 0.
+
+    split_blocks=P walks the pool blocks in splits of P from a fresh
+    state each and merges the splits' states as the CUDA kernel's
+    combine does (`merge_states`); None walks them in one pass."""
     b, h, c, d = q.shape
-    hkv, bs = pk.shape[1], pk.shape[2]
+    hkv = pk.shape[1]
     nblk = tables.shape[1]
     rep = h // hkv
-    dev = q.device
     qf = q.float().reshape(b, hkv, rep, c, d)
-    qpos = query_positions(start, b, c, dev).long()        # [B, C]
+    qpos = query_positions(start, b, c, q.device).long()    # [B, C]
     tables = tables.long()
+    step = nblk if split_blocks is None else int(split_blocks)
+    states = [_walk(qf, pk, pv, tables, qpos, scale, window,
+                    range(j, min(j + step, nblk)))
+              for j in range(0, nblk, step)]
+    out = merge_states(*zip(*states))
+    return out.reshape(b, h, c, d).to(pv.dtype)
+
+
+def _walk(qf, pk, pv, tables, qpos, scale, window, blocks):
+    """(m, l, acc) of the online softmax over pool blocks `blocks`,
+    from the empty state (m = -inf, l = 0, acc = 0)."""
+    b, hkv, rep, c, d = qf.shape
+    bs = pk.shape[2]
+    dev = qf.device
     neg_inf = torch.tensor(float("-inf"), device=dev)
     zero = torch.zeros((), device=dev)
     m = torch.full((b, hkv, rep, c), float("-inf"), device=dev)
     l = torch.zeros((b, hkv, rep, c), device=dev)
     acc = torch.zeros((b, hkv, rep, c, d), device=dev)
-    for j in range(nblk):
+    for j in blocks:
         blk = tables[:, j]
         kblk = pk[blk].float()                              # [B,Hkv,BS,D]
         vblk = pv[blk].float()
@@ -182,30 +201,80 @@ def plain_core(q, pk, pv, tables, start, scale, window=None):
         acc = alpha[..., None] * acc + \
             torch.einsum("bkrcs,bksd->bkrcd", p, vblk)
         m = m_new
+    return m, l, acc
+
+
+def merge_states(ms, ls, accs):
+    """Output rows from the (m, l, acc) states of disjoint key ranges:
+    each state rescaled against the common max (NaN-propagating; shift 0
+    while it is -inf), then out = (l == 0) ? 0 : acc / l."""
+    m = torch.stack(ms)
+    mx = m.amax(dim=0)                    # amax propagates NaN
+    shift = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    wt = torch.exp(m - shift)
+    l = (wt * torch.stack(ls)).sum(dim=0)
+    acc = (wt[..., None] * torch.stack(accs)).sum(dim=0)
     # == 0, not > 0: a nan denominator must propagate
-    out = torch.where(l[..., None] == 0, zero, acc / l[..., None])
-    return out.reshape(b, h, c, d).to(pv.dtype)
+    return torch.where(l[..., None] == 0, torch.zeros_like(acc),
+                       acc / l[..., None])
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel is built for the serving path's shapes only: GPT-2 small's
 # head_dim and pool blocks of at most 16 keys
 _HEAD_DIM = 64
 _MAX_BLOCK_SIZE = 16
+#: pool blocks per split of the CUDA kernel, by form (of 16-key blocks:
+#: 128 keys for decode, 64 for the chunk, whose 64-row tiles fill fewer
+#: CUDA blocks; the fastest on the card over 4, 8, 16 and 64, PERF.md)
+SPLIT_BLOCKS = {"decode": 8, "chunk": 4}
 
 
-def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk"):
+def _start_arg(start, b, dev):
+    """(pointer, scalar, element bytes, stride) of the lanes' start
+    positions as the kernel reads them: a device int32/int64 tensor of
+    one or B values in place, anything else as one host integer."""
+    if isinstance(start, torch.Tensor):
+        if start.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"paged attention: start must be int32 or "
+                            f"int64, got {start.dtype}")
+        if start.numel() not in (1, b):
+            raise ValueError(f"paged attention: start holds "
+                             f"{start.numel()} values for {b} lanes")
+        if start.device.type != "cuda":
+            if start.numel() != 1:
+                raise RuntimeError("paged attention kernel 'cuda': a "
+                                   "per-lane start must be on the device")
+            return None, int(start), 4, 0
+        if start.device != dev:
+            raise RuntimeError("paged attention: start is on "
+                               f"{start.device}, q on {dev}")
+        flat = start.reshape(-1)
+        if flat.numel() > 1 and flat.stride(0) != 1:
+            raise ValueError("paged attention kernel: start must be "
+                             "contiguous")
+        return (flat.data_ptr(), 0, flat.element_size(),
+                1 if flat.numel() > 1 else 0)
+    return None, int(start), 4, 0
+
+
+def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk",
+              split_blocks=None):
     """Launch csrc/paged_attention.cu on CUDA tensors (the port of
-    `_pallas_core`). Checks device, dtype, shape and contiguity, raises
-    on anything the kernel does not take, and raises if the launch
-    reports an error. q is cast to f32 and viewed as
-    [B, Hkv, rep * C, D] (group-major, query-minor rows); the kernel
-    writes f32, cast here to the pool dtype. `form` ("decode" or
-    "chunk") names the launch counter to advance."""
+    `_pallas_core`): its split kernel and its combine kernel, and no
+    other device work. Checks device, dtype, shape and layout, raises on
+    anything the kernel does not take, and raises if a launch reports an
+    error. q (f32 or bf16, any strides with a contiguous head dim) and
+    start (a scalar, or a device int32/int64 tensor of 1 or B values)
+    are read in place; the kernel writes the output in the pool dtype
+    into a [B, C, H, D] buffer, returned as its [B, H, C, D] view, and
+    the splits' states into an f32 workspace allocated here.
+    `split_blocks` pool blocks per split (default SPLIT_BLOCKS[form]).
+    `form` ("decode" or "chunk") names the launch counter to advance."""
     for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tables", tables)):
         if t.device.type != "cuda":
             raise RuntimeError(f"paged attention kernel 'cuda' needs CUDA "
@@ -214,9 +283,12 @@ def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk"):
     if any(t.device != dev for t in (pk, pv, tables)):
         raise RuntimeError("paged attention: q, pools and tables must be "
                            "on one device")
-    if pk.dtype not in _POOL_DTYPES or pv.dtype != pk.dtype:
+    if pk.dtype not in _DTYPES or pv.dtype != pk.dtype:
         raise TypeError(f"paged attention kernel takes float32 or bfloat16 "
                         f"pools of one dtype, got {pk.dtype}/{pv.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged attention kernel takes float32 or bfloat16 "
+                        f"q, got {q.dtype}")
     if tables.dtype != torch.int32:
         raise TypeError(f"block tables must be int32, got {tables.dtype}")
     if q.dim() != 4 or pk.dim() != 4 or pk.shape != pv.shape:
@@ -231,6 +303,9 @@ def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk"):
             f"paged attention kernel: unsupported shapes q {tuple(q.shape)}"
             f", pools {tuple(pk.shape)}, tables {tuple(tables.shape)} "
             f"(head_dim {_HEAD_DIM}, block_size <= {_MAX_BLOCK_SIZE})")
+    if q.stride(3) != 1:
+        raise ValueError("paged attention kernel reads q with a contiguous "
+                         "head dim")
     if not (pk.is_contiguous() and pv.is_contiguous()
             and tables.is_contiguous()):
         raise ValueError("paged attention kernel needs contiguous pools "
@@ -238,23 +313,25 @@ def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk"):
     if pk.data_ptr() % 16 or pv.data_ptr() % 16:
         raise ValueError("paged attention kernel reads the pools in "
                          "16-byte vectors: they must be 16-byte aligned")
-    rep = h // hkv
+    split = SPLIT_BLOCKS[form] if split_blocks is None else int(split_blocks)
+    start_ptr, start_val, start_elt, start_stride = _start_arg(start, b, dev)
     nblk = tables.shape[1]
-    qr = q.float().reshape(b, hkv, rep * c, d).contiguous()
-    qpos = query_positions(start, b, c, dev).contiguous()
-    out = torch.empty((b, hkv, rep * c, d), dtype=torch.float32,
-                      device=dev)
+    nsplit = -(-nblk // split)
+    out = torch.empty((b, c, h, d), dtype=pv.dtype, device=dev)
+    work = torch.empty((b, hkv, nsplit, h // hkv * c, d + 2),
+                       dtype=torch.float32, device=dev)
     from .. import kernels
     lib = kernels.load("paged_attention")
+    strides = (ctypes.c_longlong * 3)(*q.stride()[:3])
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.paged_attention_fwd(
-        qr.data_ptr(), pk.data_ptr(), pv.data_ptr(), tables.data_ptr(),
-        qpos.data_ptr(), out.data_ptr(), b, hkv, rep * c, c, d, bs, nblk,
-        nb, float(scale), 0 if window is None else 1,
-        0 if window is None else int(window), _POOL_DTYPES[pk.dtype],
-        stream)
+        q.data_ptr(), strides, _DTYPES[q.dtype], pk.data_ptr(),
+        pv.data_ptr(), tables.data_ptr(), start_ptr, start_val, start_elt,
+        start_stride, out.data_ptr(), work.data_ptr(), b, h, hkv, c, d, bs,
+        nblk, nb, split, float(scale), 0 if window is None else 1,
+        0 if window is None else int(window), _DTYPES[pk.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches[form] += 1
-    return out.reshape(b, h, c, d).to(pv.dtype)
+    return out.permute(0, 2, 1, 3)

@@ -203,3 +203,142 @@ def test_unknown_kernel_rejected(monkeypatch):
     monkeypatch.setenv("PT_PAGED_KERNEL", "bogus")
     with pytest.raises(ValueError, match="unknown paged kernel"):
         tpa.resolve_kernel()
+
+
+# ---------------------------------------------------------------------------
+# the split plain version (the CUDA kernel's split-K and combine rule)
+# ---------------------------------------------------------------------------
+
+SPLITS = (1, 2, 5)          # one pool block, two, and the whole table
+
+
+def _split(q, pk, pv, tables, start, split, window=None):
+    return tpa.plain_core(torch.from_numpy(q), torch.from_numpy(pk),
+                          torch.from_numpy(pv), torch.from_numpy(tables),
+                          start, SCALE, window, split_blocks=split).numpy()
+
+
+def _all_jax(form, q, pk, pv, tables, pos, window=None):
+    return {k: _jax(form, k, q, pk, pv, tables, pos, window) for k in JAX}
+
+
+def _assert_matches(out, refs):
+    """Within 1e-5 of every JAX path, with non-finite entries at the same
+    places (assert_allclose treats NaN == NaN)."""
+    for jk, ref in refs.items():
+        np.testing.assert_array_equal(np.isfinite(out), np.isfinite(ref),
+                                      err_msg=f"finite pattern vs jax {jk}")
+        np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"split plain vs jax {jk}")
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("form", ["decode", "chunk"])
+def test_split_plain_matches_jax(form, window, split):
+    spec = _FORMS[form]
+    q, pk, pv, tables = _case(spec["seed"], c=spec["c"])
+    out = _split(q, pk, pv, tables, torch.as_tensor(spec["pos"]), split,
+                 window)
+    _assert_matches(out, _jax_outputs(form, window))
+
+
+@functools.lru_cache(maxsize=None)
+def _nan_split_case():
+    """Lane 2 (pos 17, 4-key blocks) maps a NaN block at table entry 3
+    (keys 12-15): split 1 of 2-block splits, split 3 of 1-block ones; no
+    other lane maps it."""
+    q, pk, pv, tables = _case(9, c=1)
+    pk = np.concatenate([pk, np.full_like(pk[:1], np.nan)])
+    pv = np.concatenate([pv, np.ones_like(pv[:1])])
+    tables[2, 3] = pk.shape[0] - 1
+    pos = np.array([3, 9, 17], np.int32)
+    return (q, pk, pv, tables, pos), _all_jax("decode", q, pk, pv, tables,
+                                              pos)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_split_nan_in_one_split_stays_in_its_lane(split):
+    (q, pk, pv, tables, pos), refs = _nan_split_case()
+    out = _split(q, pk, pv, tables, torch.as_tensor(pos), split)
+    assert not np.isfinite(out[2]).any()
+    assert np.isfinite(out[:2]).all()
+    _assert_matches(out, refs)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_case():
+    """Window 3 at pos 17 keeps keys 15-17 (blocks 3 and 4): every split
+    before them is empty, over a poisoned scratch block."""
+    q, pk, pv, tables = _case(10, c=1, poison_scratch=True)
+    pos = np.array([3, 9, 17], np.int32)
+    return (q, pk, pv, tables, pos), _all_jax("decode", q, pk, pv, tables,
+                                              pos, window=3)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_split_window_empties_leading_splits(split):
+    (q, pk, pv, tables, pos), refs = _window_case()
+    out = _split(q, pk, pv, tables, torch.as_tensor(pos), split, window=3)
+    assert np.isfinite(out).all()
+    _assert_matches(out, refs)
+
+
+@functools.lru_cache(maxsize=None)
+def _empty_lane_case():
+    q, pk, pv, tables = _case(11, c=1, poison_scratch=True)
+    pos = np.array([-1, 9, 17], np.int32)
+    return (q, pk, pv, tables, pos), _all_jax("decode", q, pk, pv, tables,
+                                              pos)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_split_lane_with_no_attended_key_is_exactly_zero(split):
+    (q, pk, pv, tables, pos), refs = _empty_lane_case()
+    out = _split(q, pk, pv, tables, torch.as_tensor(pos), split)
+    assert (out[0] == 0).all()
+    _assert_matches(out, refs)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("form", ["decode", "chunk"])
+def test_split_gqa_rep2_matches_jax(form, split):
+    q, pk, pv, tables = _case(12, h=6, hkv=3, c=1 if form == "decode" else 3)
+    pos = np.array([5, 11, 18], np.int32)
+    out = _split(q, pk, pv, tables, torch.as_tensor(pos), split)
+    _assert_matches(out, _all_jax(form, q, pk, pv, tables, pos))
+
+
+@functools.lru_cache(maxsize=None)
+def _start_case():
+    q, pk, pv, tables = _case(13, c=3)
+    return (q, pk, pv, tables), _all_jax("chunk", q, pk, pv, tables,
+                                         np.int32(6))
+
+
+@pytest.mark.parametrize("start", ["int", "int32", "int64"])
+def test_split_start_as_int_or_tensor(start):
+    """start as a Python int, an int32 tensor and an int64 tensor of one
+    value per lane give JAX's result for the same positions."""
+    (q, pk, pv, tables), refs = _start_case()
+    arg = {"int": 6,
+           "int32": torch.full((3,), 6, dtype=torch.int32),
+           "int64": torch.full((3,), 6, dtype=torch.int64)}[start]
+    _assert_matches(_split(q, pk, pv, tables, arg, 2), refs)
+
+
+def test_merge_states_rules():
+    """The combine rule on hand-made states: a NaN max or accumulator
+    survives, the shift is 0 while the max is -inf, and l == 0 gives 0."""
+    inf, nan = float("inf"), float("nan")
+    m = [torch.tensor([1.0, -inf, nan, -inf]),
+         torch.tensor([-inf, -inf, 0.5, 2.0])]
+    l = [torch.tensor([2.0, 0.0, 1.0, 0.0]),
+         torch.tensor([0.0, 0.0, 1.0, 4.0])]
+    acc = [torch.tensor([[4.0], [0.0], [1.0], [0.0]]),
+           torch.tensor([[0.0], [0.0], [1.0], [8.0]])]
+    out = tpa.merge_states(m, l, acc)[:, 0]
+    assert out[0].item() == 2.0          # one state, the other empty
+    assert out[1].item() == 0.0          # every state empty: exactly 0
+    assert np.isnan(out[2].item())       # a NaN max propagates
+    assert out[3].item() == 2.0          # an empty state before a live one
