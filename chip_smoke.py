@@ -15,11 +15,14 @@ its phases:
                 sweep and a profiler count of device kernels per call;
   flash         K1-K3 (flash attention forward, dK/dV, dQ) against
                 their plain versions at the training path's shapes
-                (BSHD views of the qkv projection, and BHSD), a windowed
-                case, q_len < kv_len cases and a single 128-row tile,
-                f32 and bf16, with the NaN and fully-masked-row
-                contracts and the bf16 alignment rule, and timed (K1 in
-                TFLOP/s too, beside its registers and shared memory);
+                (BSHD views of the qkv projection, and BHSD), windowed
+                cases, q_len < kv_len and q_len > kv_len cases and a
+                single 128-row tile, f32 and bf16, with the NaN and
+                fully-masked-row contracts and the bf16 alignment rule;
+                timed by CUDA-graph replay (in TFLOP/s too, K1's and
+                K2's registers and shared memory beside), with the
+                port's whole backward against SDPA's, both captured in
+                CUDA graphs;
   parity        fp32 serving streams of GPT-2 small width through the
                 CUDA kernel against the gather-then-attend reference;
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
@@ -231,6 +234,8 @@ def profile_calls(fn, calls, name="paged_attn"):
         return "not measured: the profiler recorded no device activity"
     return {
         "device_kernels_per_call": sum(e.count for e in rows) / calls,
+        "device_ms_per_call": sum(e.self_device_time_total
+                                  for e in rows) / 1e3 / calls,
         "k4_only_ms": sum(e.self_device_time_total for e in rows
                           if name in e.key) / 1e3 / calls,
         "device_ms_per_call_by_name": {
@@ -661,24 +666,26 @@ def flash_bound(kind, q, k, causal, window, bshd, peaks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fwd_build_report():
-    """The bf16 K1 kernel's registers, spills and static shared memory
+def build_report(kernel, smem_fn):
+    """A flash kernel's registers, spill bytes and static shared memory
     as ptxas reported them, and the dynamic shared memory it launches
-    with."""
+    with (from the library's entry point `smem_fn`)."""
+    import re
     from paddle_tpu_torch import kernels
     lines, keep = [], False
     for ln in kernels.build_info("flash_attention")["ptxas"].splitlines():
         if "Compiling entry function" in ln:
-            keep = "flash_fwd_wgmma" in ln
+            keep = kernel in ln
         elif keep:
             lines.append(ln.strip())
-    regs = [int(w) for ln in lines if "registers" in ln
-            for w, nxt in zip(ln.split(), ln.split()[1:])
-            if nxt.startswith("registers")]
-    return {"registers": regs[0] if regs else None, "ptxas": lines,
+    text = " ".join(lines)
+    regs = re.search(r"Used (\d+) registers", text)
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
+    return {"registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": sum(spills) if spills else None,
+            "ptxas": lines,
             "dynamic_smem_bytes":
-                kernels.load("flash_attention")
-                .flash_attention_fwd_smem_bytes()}
+                getattr(kernels.load("flash_attention"), smem_fn)()}
 
 
 def flash_run(fa, impl, q, k, v, do, causal, window, bshd):
@@ -704,7 +711,13 @@ def flash_phase(dev, peaks):
              ("window256", 2, TRAIN_S, TRAIN_S, True, 256, True),
              ("sq<sk", 2, 512, TRAIN_S, False, None, False),
              ("sq<sk causal window", 2, 256, 640, True, 64, False),
-             ("single tile", 2, 128, 128, True, None, True)]
+             ("single tile", 2, 128, 128, True, None, True),
+             # a window that is no multiple of a tile
+             ("window100", 2, TRAIN_S, TRAIN_S, True, 100, True),
+             # k blocks 0-2 see no query: K2 writes zeros there
+             ("sq<sk causal window64", 2, 128, 640, True, 64, False),
+             # q rows 0-127 see no key
+             ("sq>sk causal", 2, 256, 128, True, None, False)]
     which = {"out": "fwd", "lse": "fwd", "dk": "dkv", "dv": "dkv",
              "dq": "dq"}
     worst = {}
@@ -725,17 +738,43 @@ def flash_phase(dev, peaks):
                       f"{err.max().item()} over tolerance {tol[dtype]}")
                 slot = (which[key], str(dtype).split(".")[-1])
                 worst[slot] = max(worst.get(slot, 0.0), err.max().item())
+            # keys no query attends get exactly 0 in dK and dV; q rows
+            # that attend no key exactly 0 in out and dQ (BHSD cases)
+            unseen = sk - sq - (window or sk) + 1
+            if causal and not bshd and unseen > 0:
+                check(bool((got["dk"][:, :, :unseen] == 0).all())
+                      and bool((got["dv"][:, :, :unseen] == 0).all()),
+                      f"flash {name} {dtype}: dK/dV of keys no query "
+                      f"attends are not exactly 0")
+            if causal and not bshd and sq > sk:
+                check(bool((got["out"][:, :, :sq - sk] == 0).all())
+                      and bool((got["dq"][:, :, :sq - sk] == 0).all()),
+                      f"flash {name} {dtype}: fully masked rows are not "
+                      f"exactly 0")
     # an attended NaN reaches the rows that attend it, and only those
     q, k, v, do = flash_inputs(2, 512, 512, torch.bfloat16, gen, dev)
     k = k.clone()
     k[0, 300, 0, 0] = float("nan")
-    out, _ = fa.cuda_fwd(q, k, v, True, 0.125, True)
+    out, lse = fa.cuda_fwd(q, k, v, True, 0.125, True)
     check(not torch.isfinite(out[0, 300:, 0]).any().item(),
           "flash fwd: attended NaN did not propagate")
     check(torch.isfinite(out[0, :300, 0]).all().item()
           and torch.isfinite(out[:, :, 1:]).all().item()
           and torch.isfinite(out[1]).all().item(),
           "flash fwd: NaN leaked to rows or heads that do not attend it")
+    # ... and through K2 to the dK/dV entries plain's schedule of 64-row
+    # q tiles over 128-key blocks gives, in that head and batch only
+    dd = fa.row_dot(do, out, True)
+    dk, dv = fa.cuda_bwd_dkv(q, k, v, do, lse, dd, True, 0.125, True)
+    rk, rv = fa.plain_bwd_dkv(q, k, v, do, lse, dd, True, 0.125, True,
+                              bq=64, bk=128)
+    for name, g, r in (("dk", dk, rk), ("dv", dv, rv)):
+        check(bool((torch.isfinite(g) == torch.isfinite(r)).all())
+              and not torch.isfinite(g[0, 300, 0]).all().item()
+              and torch.isfinite(g[1]).all().item()
+              and torch.isfinite(g[:, :, 1:]).all().item(),
+              f"flash dkv: a NaN in key 300 gives non-finite {name} "
+              f"entries other than plain's, or in another head/batch")
     # q_len > kv_len, causal: the first 128 rows see no key -> exactly 0
     q, k, v, do = flash_inputs(2, 256, 128, torch.float32, gen, dev,
                                bshd=False)
@@ -791,35 +830,23 @@ def flash_phase(dev, peaks):
                 dq(q, k, v, do, lse, dd, True, scale, True)
         return run
 
-    # library yardstick: SDPA over the same tensors as [B, H, S, D]
-    # views; its backward computes dQ, dK and dV together (no single
-    # library call computes dK/dV alone)
-    F = torch.nn.functional
-    lib_sets = [tuple(t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v)) + (do.transpose(1, 2),)
-                for q, k, v, do in sets]
+    def port_bwd():
+        # the port's whole backward, as _FlashCore.backward runs it
+        q, k, v, do, out, lse, _ = nxt()
+        dd = fa.row_dot(do, out, True)
+        fa.cuda_bwd_dkv(q, k, v, do, lse, dd, True, scale, True)
+        fa.cuda_bwd_dq(q, k, v, do, lse, dd, True, scale, True)
 
-    def lib_fwd():
-        it["i"] = (it["i"] + 1) % LAYERS
-        q, k, v, _ = lib_sets[it["i"]]
-        with torch.no_grad():
-            F.scaled_dot_product_attention(q, k, v, is_causal=True)
-
-    def lib_fwd_bwd():
-        it["i"] = (it["i"] + 1) % LAYERS
-        q, k, v, do = lib_sets[it["i"]]
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        torch.autograd.grad(out, (q, k, v), do)
-
-    def lib_fwd_eager():
-        it["i"] = (it["i"] + 1) % LAYERS
-        q, k, v, _ = lib_sets[it["i"]]
-        F.scaled_dot_product_attention(q, k, v, is_causal=True)
-
-    lib_bwd = time_ms(lib_fwd_bwd, 24) - time_ms(lib_fwd_eager, 24)
-    library = {"fwd": graph_ms(lib_fwd, LAYERS), "dkv": lib_bwd, "dq": None}
+    lib = sdpa_yardstick(sets)
+    library = {"fwd": lib["fwd_ms"], "dkv": lib["bwd_ms"],
+               "dq": lib["bwd_ms"]}
     q0, k0 = sets[0][0], sets[0][1]
-    results = {}
+    results = {"bwd": {"bwd_ms": graph_ms(port_bwd, LAYERS),
+                       "library_bwd_ms": lib["bwd_ms"],
+                       "what": "bwd_ms: row_dot + K2 + K3 by graph "
+                               "replay; library_bwd_ms: SDPA's backward "
+                               "(dQ, dK and dV) on the same inputs",
+                       "library": lib}}
     for kind in ("fwd", "dkv", "dq"):
         bound_ms, bound_by = flash_bound(kind, q0, k0, True, None, True,
                                          peaks)
@@ -835,13 +862,79 @@ def flash_phase(dev, peaks):
             "library_ms": library[kind],
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-    results["fwd"]["build"] = fwd_build_report()
-    results["library_covers"] = {"fwd": "scaled_dot_product_attention",
-                                 "dkv": "its backward: dQ, dK and dV "
-                                        "together (K2 + K3)",
-                                 "dq": "in the dkv row"}
-    del sets, saved, lib_sets
+    results["fwd"]["build"] = build_report(
+        "flash_fwd_wgmma", "flash_attention_fwd_smem_bytes")
+    results["dkv"]["build"] = build_report(
+        "flash_bwd_dkv_wgmma", "flash_attention_bwd_dkv_smem_bytes")
+    check(results["dkv"]["build"]["spill_bytes"] == 0,
+          f"flash dkv: ptxas reports spills: {results['dkv']['build']}")
+    results["library_covers"] = {
+        "fwd": "scaled_dot_product_attention",
+        "dkv": "its backward: dQ, dK and dV together, to hold against "
+               "K2 + K3 (bwd.bwd_ms); no library call computes dK/dV "
+               "alone",
+        "dq": "the same backward as the dkv row"}
+    del sets, saved
     return results
+
+
+def sdpa_yardstick(sets):
+    """SDPA's forward and backward on the training shapes, as [B, H, S,
+    D] views of the same tensors, timed as the kernels are: calls
+    captured in a CUDA graph and replayed. The backward is graph(forward
+    + torch.autograd.grad) minus graph(forward with grad enabled), three
+    times; torch.profiler's device time of the same two (the backward's
+    kernels summed) cross-checks it. If capture is refused, the refusal
+    is named and the profiler sum is the time: never an eager
+    difference, which holds autograd's host time."""
+    import torch
+    F = torch.nn.functional
+    lib_sets = [tuple(t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v)) + (do.transpose(1, 2),)
+                for q, k, v, do in sets]
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % LAYERS
+        return lib_sets[it["i"]]
+
+    def fwd_no_grad():
+        q, k, v, _ = nxt()
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def fwd():
+        q, k, v, _ = nxt()
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def fwd_bwd():
+        q, k, v, do = nxt()
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    runs, refused = [], None
+    try:
+        for _ in range(3):
+            runs.append(graph_ms(fwd_bwd, LAYERS) - graph_ms(fwd, LAYERS))
+    except RuntimeError as exc:
+        refused = f"{type(exc).__name__}: {exc}"[:400]
+    torch.cuda.synchronize()
+    pf, pfb = profile_calls(fwd, LAYERS), profile_calls(fwd_bwd, LAYERS)
+    prof_ms, bwd_kernels = None, None
+    if isinstance(pf, dict) and isinstance(pfb, dict):
+        prof_ms = pfb["device_ms_per_call"] - pf["device_ms_per_call"]
+        bwd_kernels = {n: ms for n, ms in
+                       pfb["device_ms_per_call_by_name"].items()
+                       if n not in pf["device_ms_per_call_by_name"]}
+    check(not refused or prof_ms is not None,
+          f"SDPA backward: graph capture refused ({refused}) and the "
+          f"profiler recorded no device time")
+    return {"fwd_ms": graph_ms(fwd_no_grad, LAYERS),
+            "bwd_ms": prof_ms if refused else sorted(runs)[1],
+            "bwd_graph_ms_runs": runs,
+            "bwd_graph_capture": refused or "captured",
+            "bwd_profiler_ms": prof_ms,
+            "bwd_profiler_kernels_ms": bwd_kernels}
 
 
 # ---------------------------------------------------------------------------

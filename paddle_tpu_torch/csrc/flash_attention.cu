@@ -20,7 +20,10 @@
 // cores fed while it streams K/V. With D = 64 each (query, key) pair
 // costs 256 tensor-core operations and one exp2; an SM does about 4096
 // of the first and 16 of the second per clock, so the exp2s take as
-// long as the products and have to overlap with them.
+// long as the products and have to overlap with them. K2 does four
+// products per pair (S^T, dP^T, dV and dK): 25.8 GFLOP at those shapes
+// over 76.3 MB, 0.026 ms of tensor-core time against 0.023 ms of bytes:
+// bound by operations, but barely, and with one exp per pair again.
 //
 // What the design does:
 //   * bf16 K1 (flash_fwd_wgmma, below): one block per (batch x head,
@@ -33,12 +36,20 @@
 //     interleave on the SM. The band mask runs only on tiles that
 //     straddle the diagonal or the window's edge, scores are exp2'd
 //     with scale * log2 e folded in, and blocks start heaviest first;
-//   * K2, K3 and the f32 kernels: one CUDA block per (q tile of 64
-//     rows, batch x head) for K3, per (k tile of 64 keys, batch x head)
-//     for K2: the TPU grid's sequential block axis becomes a loop inside
-//     the block, and dK/dV and dQ stay two kernels so no atomics are
-//     needed. They load tiles without overlap (cp.async/TMA and wgmma
-//     are their next steps);
+//   * bf16 K2 (flash_bwd_dkv_wgmma, below) is K1's design turned
+//     around: one block per (batch x head, 128 keys), K and V brought
+//     once by TMA, q tiles of 64 rows (Q, dO, lse, dd) streamed through
+//     a 3-stage ring, all four products on wgmma with the Q and dO
+//     tiles read by the tensor cores straight from the ring (K-major
+//     for S^T and dP^T, MN-major for dK and dV), so each q tile fetched
+//     serves 128 keys and no warp copies a tile through registers; the
+//     mask only on straddling tiles, and dK/dV leave in 16-byte stores;
+//   * K3 and the f32 kernels: one CUDA block per (q tile of 64 rows,
+//     batch x head) for K3, per (k tile of 64 keys, batch x head) for
+//     the f32 K2: the TPU grid's sequential block axis becomes a loop
+//     inside the block, and dK/dV and dQ stay two kernels so no atomics
+//     are needed. They load tiles without overlap (cp.async/TMA and
+//     wgmma are K3's next steps);
 //   * loop bounds skip tiles outside the causal / sliding-window band
 //     (_causal_block_bounds for K1 and K3; for K2 the transposed bounds,
 //     clamped so that `end` never falls below `start` — the Pallas K2's
@@ -53,7 +64,7 @@
 //     (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of
 //     each 64 x 64 product, and row maxima and sums are half-warp
 //     shuffles; f32 has no wgmma, so the f32 K1 stays on the CUDA cores;
-//   * bf16 K2/K3: see "bf16 inputs" below.
+//   * bf16 K3: see "bf16 inputs" below.
 //
 // Masking and NaN contract (that of the Pallas kernels):
 //   * causal masking counts absolute query positions from kv_len - q_len;
@@ -71,7 +82,8 @@
 // Build without --use_fast_math: it changes expf, logf and isnan.
 //
 // Shapes: head_dim 64 only (GPT-2 small's), sequence lengths multiples
-// of 64 (of 128 for bf16 K1); the entry points reject anything else.
+// of 64 (of 128 for bf16 K1, and kv_len for bf16 K2); the entry points
+// reject anything else.
 // The kernels allocate nothing: the caller allocates every output.
 
 #include <cuda.h>
@@ -180,19 +192,21 @@ __device__ __forceinline__ void key_range(const Args& a, int qt, int* lo,
   }
 }
 
-// q tiles [lo, hi) that see k tile kt, hi clamped to at least lo
+// q tiles [lo, hi) of BQ rows that see k tile kt of BK keys, hi clamped
+// to at least lo: _dkv_block_bounds
+template <int BQ, int BK>
 __device__ __forceinline__ void query_range(const Args& a, int kt, int* lo,
                                             int* hi) {
-  const int nqb = a.sq / kTile;
+  const int nqb = a.sq / BQ;
   *lo = 0;
   *hi = nqb;
   if (!a.causal) return;
   const int off = a.sk - a.sq;
-  const int first = kt * kTile - off;   // first query row seeing key kt*64
-  *lo = first <= 0 ? 0 : min(first / kTile, nqb);
+  const int first = kt * BK - off;      // first query row seeing key kt*BK
+  *lo = first <= 0 ? 0 : min(first / BQ, nqb);
   if (a.window > 0) {
-    const int last = kt * kTile + kTile - 1 + a.window - 1 - off;
-    *hi = last < 0 ? 0 : min(nqb, last / kTile + 1);
+    const int last = kt * BK + BK - 1 + a.window - 1 - off;
+    *hi = last < 0 ? 0 : min(nqb, last / BQ + 1);
   }
   *hi = max(*hi, *lo);
 }
@@ -379,7 +393,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   load_tile(k_s, a.k, a.lk, b, h, k0);
   load_tile(v_s, a.v, a.lv, b, h, k0);
   int lo, hi;
-  query_range(a, kt, &lo, &hi);
+  query_range<kTile, kTile>(a, kt, &lo, &hi);
 
   // rows: keys ty + 16 i; columns: head dim tx + 16 j
   float dk[kSub][kSub] = {}, dv[kSub][kSub] = {};
@@ -473,13 +487,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: K2 and K3 on the tensor cores (K1 further below)
+// bf16 inputs: K3 on the tensor cores (K1 and K2 further below)
 // ---------------------------------------------------------------------------
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate). 128 threads = 4 warps per
-// CUDA block; warp w owns rows [16 w, 16 w + 16) of the block's 64-row
-// tile (q rows in K3, keys in K2) and holds its accumulators in
-// registers. Fragment layout (PTX ISA, lane = 4 g + t):
+// CUDA block; warp w owns q rows [16 w, 16 w + 16) of the block's 64-row
+// tile and holds its accumulators in registers. Fragment layout (PTX ISA, lane = 4 g + t):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                      a3 (g+8, 2t+8..);
 //   B 16x8 col-major:  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
@@ -490,8 +503,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 // Tiles are staged in shared memory as bf16, row-major, with a row stride
 // of 72 elements: the 32-bit fragment loads (row g, column 2t) hit 32
 // distinct banks, and so do the 16-byte rows of ldmatrix. The second
-// product's B operand (K in K3, Q and dO in K2) is read down
-// its columns with ldmatrix.trans from the same row-major tile.
+// product's B operand (K) is read down its columns with ldmatrix.trans
+// from the same row-major tile.
 
 constexpr int kMmaThreads = 128;
 constexpr int kLdh = kD + 8;               // bf16 row stride
@@ -558,33 +571,30 @@ __device__ __forceinline__ void load_a(const bf16* tile, int r0, int g, int t,
   }
 }
 
-// acc[n][.] += A . B^T over d, for N/8 column tiles starting at column
-// tile n0 of a [column][d] tile (B = that tile read as col-major)
-template <int N>
+// acc[n][.] += A . B^T over d, for the 8 column tiles of a [column][d]
+// tile (B = that tile read as col-major)
 __device__ __forceinline__ void mma_rows(uint32_t (&a)[4][4],
-                                         const bf16* tile, int n0, int g,
-                                         int t, float (&acc)[N][4]) {
+                                         const bf16* tile, int g, int t,
+                                         float (&acc)[8][4]) {
 #pragma unroll
-  for (int n = 0; n < N; ++n)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
-      mma_bf16(acc[n], a[ks], ld2(tile, (n0 + n) * 8 + g, ks * 16 + 2 * t),
-               ld2(tile, (n0 + n) * 8 + g, ks * 16 + 8 + 2 * t));
+      mma_bf16(acc[n], a[ks], ld2(tile, n * 8 + g, ks * 16 + 2 * t),
+               ld2(tile, n * 8 + g, ks * 16 + 8 + 2 * t));
 }
 
-// acc[n][.] += X . Y over K rows of Y, X held as C fragments x[K/8][4]
-// (rounded to bf16 here), Y a row-major [k][d] tile read from row k0 on.
-// One ldmatrix.x4.trans gives the B fragments (k 2t.., 2t+8..; n g) of
-// two adjacent 8-column tiles n and n + 1.
-template <int K>
-__device__ __forceinline__ void mma_cols(float (&x)[K / 8][4],
-                                         const bf16* y, int k0,
+// acc[n][.] += X . Y over the 64 rows of Y, X held as C fragments
+// x[8][4] (rounded to bf16 here), Y a row-major [k][d] tile. One
+// ldmatrix.x4.trans gives the B fragments (k 2t.., 2t+8..; n g) of two
+// adjacent 8-column tiles n and n + 1.
+__device__ __forceinline__ void mma_cols(float (&x)[8][4], const bf16* y,
                                          float (&acc)[8][4]) {
   const int lane = threadIdx.x & 31;
   const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;  // matrices 1, 3: +8
   const int ncol = (lane >> 4) * 8;                       // matrices 2, 3
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
+  for (int kk = 0; kk < 4; ++kk) {
     uint32_t a[4] = {pack2(x[2 * kk][0], x[2 * kk][1]),
                      pack2(x[2 * kk][2], x[2 * kk][3]),
                      pack2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
@@ -592,7 +602,7 @@ __device__ __forceinline__ void mma_cols(float (&x)[K / 8][4],
 #pragma unroll
     for (int n = 0; n < 8; n += 2) {
       uint32_t bfr[4];
-      ldsm_x4_trans(bfr, y + (k0 + kk * 16 + krow) * kLdh + n * 8 + ncol);
+      ldsm_x4_trans(bfr, y + (kk * 16 + krow) * kLdh + n * 8 + ncol);
       mma_bf16(acc[n], a, bfr[0], bfr[1]);
       mma_bf16(acc[n + 1], a, bfr[2], bfr[3]);
     }
@@ -602,8 +612,7 @@ __device__ __forceinline__ void mma_cols(float (&x)[K / 8][4],
 // rows r (g and g + 8 of the warp's 16) of C fragments -> bf16 output
 __device__ __forceinline__ void store_frag_rows(void* dst, const Layout& l,
                                                 int b, int h, int row0, int g,
-                                                int t, float (&acc)[8][4],
-                                                const float (&den)[2]) {
+                                                int t, float (&acc)[8][4]) {
   bf16* base = static_cast<bf16*>(dst) + offset(l, b, h, row0);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr)
@@ -612,7 +621,7 @@ __device__ __forceinline__ void store_frag_rows(void* dst, const Layout& l,
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         base[(g + 8 * hr) * l.ss + n * 8 + 2 * t + e] =
-            __float2bfloat16(acc[n][2 * hr + e] / den[hr]);
+            __float2bfloat16(acc[n][2 * hr + e]);
 }
 
 // ---------------------------------------------------------------------------
@@ -648,7 +657,7 @@ constexpr int kBoxBytes = kBlk * kD * 2;   // one TMA box: 128 rows x 64 bf16
 constexpr int kSwRow = 128;                // bytes of one swizzled row
 constexpr int kSwAtom = 8 * kSwRow;        // 8 rows: one swizzle period
 constexpr int kConsumers = 256;            // two warpgroups
-constexpr int kFwdThreads = kConsumers + 32;
+constexpr int kWgThreads = kConsumers + 32;
 // 1024-byte alignment slack, Q, the ring, 2 kStages + 1 mbarriers
 constexpr int kFwdSmem = 1024 + kBoxBytes * (1 + 2 * kStages) +
                          8 * (2 * kStages + 1);
@@ -691,8 +700,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
 }
 
-// one box (rows [s, s + 128) of head h, batch b) into shared memory at
-// dst; its bytes count toward `bar`'s transactions
+// one box (rows [s, s + box rows) of head h, batch b) into shared memory
+// at dst; its bytes count toward `bar`'s transactions
 __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int h, int s, int b) {
   asm volatile(
@@ -700,6 +709,17 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h),
       "r"(s), "r"(b)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned; they count toward `bar`'s transactions
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -781,6 +801,27 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared
+// memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 64] += A[64 x 16] . B[16 x 64]: A in registers (the mma.sync A
 // fragment layout), B MN-major in shared memory (transpose-B)
 __device__ __forceinline__ void wgmma_pv(float (&d)[8][4],
@@ -809,7 +850,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Args a) {
@@ -966,27 +1007,24 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// P and dS of C fragments x (scores) and y (dP): rows of x are `rows`
-// positions, columns `cols` positions; lse and dd are indexed by the q
-// side. The results overwrite x (P) and y (dS).
-template <int N, bool kRowsAreQueries>
-__device__ __forceinline__ void mma_p_ds(const Args& a, int row_abs0,
-                                         int col_abs0, int g, int t,
-                                         const float* lse_q, const float* dd_q,
-                                         float (&x)[N][4], float (&y)[N][4]) {
+// P and dS of C fragments x (scores) and y (dP), rows queries from
+// qa0, columns keys from ka0; lse and dd are indexed by the row. The
+// results overwrite x (P) and y (dS).
+__device__ __forceinline__ void mma_p_ds(const Args& a, int qa0, int ka0,
+                                         int g, int t, const float* lse_q,
+                                         const float* dd_q, float (&x)[8][4],
+                                         float (&y)[8][4]) {
 #pragma unroll
-  for (int n = 0; n < N; ++n)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int row = row_abs0 + g + 8 * hr, col = col_abs0 + n * 8 + 2 * t + e;
-        const int qa = kRowsAreQueries ? row : col;
-        const int ka = kRowsAreQueries ? col : row;
-        // index of the q row for lse / dd
-        const int qi = kRowsAreQueries ? g + 8 * hr : n * 8 + 2 * t + e;
+        const int qi = g + 8 * hr;
         float p = expf(x[n][2 * hr + e] * a.scale - lse_q[qi]);
-        if (a.causal && !band_keep(qa, ka, a.window)) p = 0.f;
+        if (a.causal && !band_keep(qa0 + qi, ka0 + n * 8 + 2 * t + e,
+                                   a.window))
+          p = 0.f;
         x[n][2 * hr + e] = p;
         y[n][2 * hr + e] = p * (y[n][2 * hr + e] - dd_q[qi]) * a.scale;
       }
@@ -1027,63 +1065,243 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Args a) {
     load_tile_bf16(v_s, a.v, a.lv, b, h, k0);
     __syncthreads();
     float s[8][4] = {}, dp[8][4] = {};
-    mma_rows<8>(qa, k_s, 0, g, t, s);
-    mma_rows<8>(oa, v_s, 0, g, t, dp);
-    mma_p_ds<8, true>(a, off + q0 + r0, k0, g, t, lse_s + r0, dd_s + r0, s,
-                      dp);
-    mma_cols<64>(dp, k_s, 0, dq);         // dQ += bf16(dS) . K
+    mma_rows(qa, k_s, g, t, s);
+    mma_rows(oa, v_s, g, t, dp);
+    mma_p_ds(a, off + q0 + r0, k0, g, t, lse_s + r0, dd_s + r0, s, dp);
+    mma_cols(dp, k_s, dq);                // dQ += bf16(dS) . K
   }
-  const float one[2] = {1.f, 1.f};
-  store_frag_rows(a.dq, a.ldq, b, h, q0 + r0, g, t, dq, one);
+  store_frag_rows(a.dq, a.ldq, b, h, q0 + r0, g, t, dq);
 }
 
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Args a) {
-  __shared__ __align__(16) bf16 q_s[kTileHalfs];
-  __shared__ __align__(16) bf16 do_s[kTileHalfs];
-  __shared__ float lse_s[kTile], dd_s[kTile];
-  const int kt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.h, h = bh % a.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int k0 = kt * kTile, off = a.sk - a.sq, r0 = warp * 16;
+// ---------------------------------------------------------------------------
+// bf16 K2 on Hopper: TMA-fed Q/dO ring and wgmma
+// ---------------------------------------------------------------------------
+//
+// One CUDA block per (batch x head, 128 keys): two consumer warpgroups
+// own 64 keys each, one producer warp issues every load. K and V of the
+// block's keys come by TMA once (one 128-row box each) and stay in
+// shared memory as the A operands of the first two products. q tiles of
+// 64 rows stream through a ring of kBwdStages stages; stage s holds the
+// tile's Q and dO boxes (64 rows, 128-byte swizzle) and its lse and dd
+// (256 bytes each, cp.async.bulk), behind a "full" mbarrier (the
+// producer's expect_tx, completed by the copies) and an "empty" one
+// (one arrive per consumer warp once its last product has retired).
+// Per q tile each warpgroup runs
+//   S^T = K.Q^T, dP^T = V.dO^T  wgmma m64n64k16, both operands K-major
+//                               in shared memory; one wait for both;
+//   P, dS                       in registers on the accumulators, whose
+//                               rows are keys (g and g + 8 of each warp's
+//                               16) and columns queries (8n + 2t): lse
+//                               and dd are read by column; the band mask
+//                               only where the tile straddles the
+//                               diagonal or the window's edge over the
+//                               warpgroup's 64 keys;
+//   dV += P^T.dO, dK += dS^T.Q  wgmma m64n64k16 with A = bf16(P^T) and
+//                               bf16(dS^T) packed from the accumulators
+//                               and B the dO / Q tile read MN-major
+//                               (transpose-B, as K1 reads V): the same
+//                               swizzled tile the first products read
+//                               K-major.
+// All four accumulators (dK, dV, S^T, dP^T: 128 f32 registers a thread)
+// are live at once, at 168 registers, the most ptxas gives a 288-thread
+// block; so the products of one tile are not overlapped with its
+// exponentials (doing so spilled and ran slower).
+// The epilogue stages each warpgroup's dK and dV in bf16 in its own 64
+// rows of the K and V tiles, which its last product has finished
+// reading (16-byte chunk c of row r at chunk c ^ (r & 7), so neither the
+// fragment writes nor the row reads conflict on banks), then writes them
+// out in 16-byte stores. A block whose q range is empty loads nothing
+// and writes zeros. Blocks run heaviest first: under causal masking k
+// block 0 is seen by every q tile.
 
-  uint32_t ka[4][4], va[4][4];     // the warp's 16 keys of K and V
-  load_tile_bf16(q_s, a.k, a.lk, b, h, k0);
-  load_tile_bf16(do_s, a.v, a.lv, b, h, k0);
-  __syncthreads();
-  load_a(q_s, r0, g, t, ka);
-  load_a(do_s, r0, g, t, va);
+constexpr int kBwdQ = 64;                    // q rows per ring stage
+constexpr int kBwdStages = 3;                // depth of the Q/dO ring
+constexpr int kQBoxBytes = kBwdQ * kD * 2;   // one TMA box: 64 rows x 64 bf16
+constexpr int kStatBytes = kBwdQ * 4;        // lse or dd of one q tile
+// 1024-byte alignment slack, K, V, the ring's boxes and statistics,
+// 2 kBwdStages + 1 mbarriers
+constexpr int kBwdSmem = 1024 + 2 * kBoxBytes +
+                         kBwdStages * 2 * (kQBoxBytes + kStatBytes) +
+                         8 * (2 * kBwdStages + 1);
+
+// C fragments of a 64 x 64 tile -> the bf16 A fragments of 4 k-steps
+// of 16 columns: columns 16 kk .. 16 kk + 15 are C tiles 2 kk, 2 kk + 1
+__device__ __forceinline__ void pack_a(const float (&c)[8][4],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack2(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack2(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kBoxBytes;
+  const uint32_t ring = v_s + kBoxBytes;   // stage s: Q, then dO
+  const uint32_t stats = ring + 2 * kQBoxBytes * kBwdStages;  // lse, dd
+  const uint32_t bars = stats + 2 * kStatBytes * kBwdStages;
+  const uint32_t kv_bar = bars + 16 * kBwdStages;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (kBwdStages + s)
+  uint8_t* const k_ptr = smem_raw + (k_s - raw);   // generic pointer to K
+  const int bh = blockIdx.x, kt = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int k0 = kt * kBlk, off = a.sk - a.sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int lo, hi;
-  query_range(a, kt, &lo, &hi);
+  query_range<kBwdQ, kBlk>(a, kt, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kBwdStages + s), kConsumers / 32);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {           // the producer warp
+    if (lane == 0 && lo < hi) {
+      mbar_expect_tx(kv_bar, 2 * kBoxBytes);
+      tma_rows(k_s, &tk, kv_bar, h, k0, b);
+      tma_rows(v_s, &tv, kv_bar, h, k0, b);
+      const float* lse = a.lse + (long long)bh * a.sq;
+      const float* dd = a.dd + (long long)bh * a.sq;
+      for (int it = lo, i = 0; it < hi; ++it, ++i) {
+        const int s = i % kBwdStages, q0 = it * kBwdQ;
+        if (i >= kBwdStages)               // tile i - kBwdStages released
+          mbar_wait(bars + 8 * (kBwdStages + s), (i / kBwdStages - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t qd = ring + 2 * kQBoxBytes * s;
+        const uint32_t st = stats + 2 * kStatBytes * s;
+        mbar_expect_tx(full, 2 * (kQBoxBytes + kStatBytes));
+        tma_rows(qd, &tq, full, h, q0, b);
+        tma_rows(qd + kQBoxBytes, &tdo, full, h, q0, b);
+        bulk_copy(st, lse + q0, kStatBytes, full);
+        bulk_copy(st + kStatBytes, dd + q0, kStatBytes, full);
+      }
+    }
+    return;
+  }
+
+  // warpgroup wg owns keys [64 wg, 64 wg + 64) of the block; lane 4 g + t
+  // of its warp w holds keys 16 w + g and 16 w + g + 8 of them
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3);               // the warp's first key in wg
+  const int kw = k0 + 64 * wg;                  // wg's first key, absolute
+  const uint64_t k_desc = kmajor_desc(k_s + 64 * wg * kSwRow);
+  const uint64_t v_desc = kmajor_desc(v_s + 64 * wg * kSwRow);
 
   float dk[8][4] = {}, dv[8][4] = {};
-  for (int it = lo; it < hi; ++it) {
-    const int q0 = it * kTile;
-    __syncthreads();
-    load_tile_bf16(q_s, a.q, a.lq, b, h, q0);
-    load_tile_bf16(do_s, a.dout, a.ldo, b, h, q0);
-    if (threadIdx.x < kTile) {
-      const long long row = (long long)bh * a.sq + q0 + threadIdx.x;
-      lse_s[threadIdx.x] = a.lse[row];
-      dd_s[threadIdx.x] = a.dd[row];
-    }
-    __syncthreads();
-    // two halves of 32 queries: S^T = K Q^T and dP^T = V dO^T, then
-    // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over those queries
+  if (lo < hi) mbar_wait(kv_bar, 0);
+  for (int it = lo, i = 0; it < hi; ++it, ++i) {
+    const int s = i % kBwdStages, qa = off + it * kBwdQ;  // first query
+    const uint32_t q_tile = ring + 2 * kQBoxBytes * s;
+    const uint32_t do_tile = q_tile + kQBoxBytes;
+    mbar_wait(bars + 8 * s, (i / kBwdStages) & 1);
+
+    float st[8][4], dpt[8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float st[4][4] = {}, dpt[4][4] = {};
-      mma_rows<4>(ka, q_s, 4 * half, g, t, st);
-      mma_rows<4>(va, do_s, 4 * half, g, t, dpt);
-      mma_p_ds<4, false>(a, k0 + r0, off + q0 + 32 * half, g, t,
-                         lse_s + 32 * half, dd_s + 32 * half, st, dpt);
-      mma_cols<32>(st, do_s, 32 * half, dv);
-      mma_cols<32>(dpt, q_s, 32 * half, dk);
+    for (int ks = 0; ks < kD / 16; ++ks)
+      wgmma_ss64(st, k_desc + 2 * ks, kmajor_desc(q_tile) + 2 * ks, ks);
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks)
+      wgmma_ss64(dpt, v_desc + 2 * ks, kmajor_desc(do_tile) + 2 * ks, ks);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P = exp(S scale - lse), zeroed outside the band (edge tiles only),
+    // and dS = P (dP - dd) scale; columns 8n + 2t + e are queries
+    const float* lse = reinterpret_cast<const float*>(
+        k_ptr + (stats - k_s) + 2 * kStatBytes * s);
+    const float* dd = lse + kBwdQ;
+    const bool edge = a.causal && (kw + 63 > qa || (a.window > 0 &&
+                                                    kw <= qa + 63 - a.window));
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * n + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1;
+        float p = expf(st[n][e] * a.scale - (c ? l2.y : l2.x));
+        if (edge && !band_keep(qa + 8 * n + 2 * t + c,
+                               kw + r0 + g + 8 * (e >> 1), a.window))
+          p = 0.f;
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - (c ? d2.y : d2.x)) * a.scale;
+      }
+    }
+
+    // dV += bf16(P^T) . dO and dK += bf16(dS^T) . Q, 16 queries a step
+    uint32_t pa[4][4], da[4][4];
+    pack_a(st, pa);
+    pack_a(dpt, da);
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv(dv, pa[kk], sw128_desc(do_tile + 2 * kk * kSwAtom, kVLbo,
+                                      kVSbo));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv(dk, da[kk], sw128_desc(q_tile + 2 * kk * kSwAtom, kVLbo,
+                                      kVSbo));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kBwdStages + s));
+  }
+
+  // stage dK and dV in bf16 in the warpgroup's rows of the K and V tiles
+  uint8_t* const dk_s = k_ptr + 64 * wg * kSwRow;
+  uint8_t* const dv_s = dk_s + kBoxBytes;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + g + 8 * hr;             // r & 7 == g
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int at = r * kSwRow + ((n ^ g) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(dk_s + at) =
+          pack2(dk[n][2 * hr], dk[n][2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dv_s + at) =
+          pack2(dv[n][2 * hr], dv[n][2 * hr + 1]);
     }
   }
-  const float one[2] = {1.f, 1.f};
-  store_frag_rows(a.dk, a.ldk, b, h, k0 + r0, g, t, dk, one);
-  store_frag_rows(a.dv, a.ldv, b, h, k0 + r0, g, t, dv, one);
+  named_sync(1 + wg, 128);
+  // 64 rows x 8 chunks of 16 bytes each, 4 of each tile per thread
+  bf16* const dk_g = static_cast<bf16*>(a.dk) + offset(a.ldk, b, h, kw);
+  bf16* const dv_g = static_cast<bf16*>(a.dv) + offset(a.ldv, b, h, kw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int idx = (threadIdx.x & 127) + 128 * j, r = idx >> 3, c = idx & 7;
+    const int at = r * kSwRow + ((c ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(dk_g + r * a.ldk.ss + 8 * c) =
+        *reinterpret_cast<const uint4*>(dk_s + at);
+    *reinterpret_cast<uint4*>(dv_g + r * a.ldv.ss + 8 * c) =
+        *reinterpret_cast<const uint4*>(dv_s + at);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1143,16 +1361,16 @@ EncodeTiled encode_tiled() {
 }
 
 // 4-D map (head dim, head, seq, batch) of one bf16 operand with boxes
-// of 128 rows x 64 in the 128-byte swizzle
+// of `rows` rows x 64 in the 128-byte swizzle
 int rows_map(CUtensorMap* map, const void* p, const Layout& l, int b, int h,
-             int s) {
+             int s, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h, (cuuint64_t)s,
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)l.sh * 2, (cuuint64_t)l.ss * 2,
                                  (cuuint64_t)l.sb * 2};
-  const cuuint32_t box[4] = {kD, 1, kBlk, 1};
+  const cuuint32_t box[4] = {kD, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
@@ -1168,16 +1386,40 @@ int launch_fwd_wgmma(const Args& a, int b, void* stream) {
       !rows_aligned(a.k, a.lk) || !rows_aligned(a.v, a.lv))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  int rc = rows_map(&tq, a.q, a.lq, b, a.h, a.sq);
-  if (rc == 0) rc = rows_map(&tk, a.k, a.lk, b, a.h, a.sk);
-  if (rc == 0) rc = rows_map(&tv, a.v, a.lv, b, a.h, a.sk);
+  int rc = rows_map(&tq, a.q, a.lq, b, a.h, a.sq, kBlk);
+  if (rc == 0) rc = rows_map(&tk, a.k, a.lk, b, a.h, a.sk, kBlk);
+  if (rc == 0) rc = rows_map(&tv, a.v, a.lv, b, a.h, a.sk, kBlk);
   if (rc != 0) return rc;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(b * a.h, a.sq / kBlk);
-  flash_fwd_wgmma<<<grid, kFwdThreads, kFwdSmem,
+  flash_fwd_wgmma<<<grid, kWgThreads, kFwdSmem,
                     static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_dkv_wgmma(const Args& a, int b, void* stream) {
+  if (a.sk % kBlk || a.sq % kBwdQ || !rows_aligned(a.q, a.lq) ||
+      !rows_aligned(a.k, a.lk) || !rows_aligned(a.v, a.lv) ||
+      !rows_aligned(a.dout, a.ldo) || !rows_aligned(a.dk, a.ldk) ||
+      !rows_aligned(a.dv, a.ldv) || reinterpret_cast<uintptr_t>(a.lse) % 16 ||
+      reinterpret_cast<uintptr_t>(a.dd) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = rows_map(&tq, a.q, a.lq, b, a.h, a.sq, kBwdQ);
+  if (rc == 0) rc = rows_map(&tk, a.k, a.lk, b, a.h, a.sk, kBlk);
+  if (rc == 0) rc = rows_map(&tv, a.v, a.lv, b, a.h, a.sk, kBlk);
+  if (rc == 0) rc = rows_map(&tdo, a.dout, a.ldo, b, a.h, a.sq, kBwdQ);
+  if (rc != 0) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * a.h, a.sk / kBlk);
+  flash_bwd_dkv_wgmma<<<grid, kWgThreads, kBwdSmem,
+                        static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, tdo,
+                                                             a);
   return (int)cudaGetLastError();
 }
 
@@ -1213,7 +1455,8 @@ Args base_args(int h, int sq, int sk, float scale, int causal, int window) {
 // of each tensor argument in order; the last dimension must be
 // contiguous. dtype: 0 = float32, 1 = bfloat16. window: 0 = none.
 // bf16 K1 takes sequence lengths that are multiples of 128 and a
-// positive scale.
+// positive scale; bf16 K2 a kv_len that is a multiple of 128 and lse
+// and dd 16-byte aligned.
 
 // K1. strides: q, k, v, out.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -1274,11 +1517,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (dtype == 0)
     return launch(flash_bwd_dkv_kernel, kThreads, sk / kTile, b,
                   smem_bytes(6, true), stream, a);
-  if (!rows_aligned(q, a.lq) || !rows_aligned(k, a.lk) ||
-      !rows_aligned(v, a.lv) || !rows_aligned(dout, a.ldo))
-    return (int)cudaErrorInvalidValue;
-  return launch(flash_bwd_dkv_mma, kMmaThreads, sk / kTile, b, 0, stream, a);
+  return launch_bwd_dkv_wgmma(a, b, stream);
 }
+
+// dynamic shared memory of the bf16 K2 launch, in bytes
+extern "C" int flash_attention_bwd_dkv_smem_bytes() { return kBwdSmem; }
 
 // K3. strides: q, k, v, dout, dq.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,

@@ -6,10 +6,11 @@ This slice serves through the paged engine only: `paged=True`.
 """
 
 _NOT_PORTED = {
-    "paged=False": "the dense ServingEngine needs flash-attention kernel "
-                   "K1 (ROADMAP Queue 1: dense ServingEngine and prefill)",
+    "paged=False": "the dense ServingEngine, its KV cache and GPT "
+                   "prefill are not ported yet (ROADMAP Queue 1 item 3: "
+                   "dense ServingEngine and prefill)",
     "speculative=True": "speculative decoding is not ported yet (ROADMAP "
-                        "Queue 1: LLaMA and speculative decoding)",
+                        "Queue 1 item 3: speculative decoding)",
 }
 
 

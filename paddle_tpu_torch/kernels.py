@@ -50,6 +50,7 @@ SIGNATURES = {
              _F, _I, _I, _I, _P],
             ctypes.c_int),
         "flash_attention_fwd_smem_bytes": ([], ctypes.c_int),
+        "flash_attention_bwd_dkv_smem_bytes": ([], ctypes.c_int),
         "flash_attention_bwd_dq": (
             [_P, _P, _P, _P, _P, _P, _P,         # q k v dout lse dd dq
              _STRIDES, _I, _I, _I, _I, _I,
@@ -77,13 +78,16 @@ def nvcc_path():
 def build(name):
     """Compile csrc/<name>.cu unless an up-to-date library exists.
     Returns {"path", "seconds", "built", "ptxas"} — `ptxas` holds the
-    compiler's register/shared-memory report of a fresh build, and a
-    library this process compiled keeps that report."""
+    compiler's register/shared-memory report of the build, kept beside
+    the library so that a later process that finds it built reads the
+    same report."""
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
+    report = lib.with_suffix(".ptxas")
     if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
-        return dict(_fresh.get(name) or {"path": str(lib), "seconds": 0.0,
-                                         "built": False, "ptxas": ""})
+        return dict(_fresh.get(name) or {
+            "path": str(lib), "seconds": 0.0, "built": False,
+            "ptxas": report.read_text() if report.exists() else ""})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -93,6 +97,7 @@ def build(name):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    report.write_text(proc.stderr)
     os.replace(tmp, lib)
     _fresh[name] = {"path": str(lib), "seconds": seconds, "built": True,
                     "ptxas": proc.stderr}

@@ -143,6 +143,16 @@ def _dkv_block_bounds(off, kb, bq, bk, nqb, window):
     return start, max(end, start)
 
 
+def _tile_straddles(off, q0, k0, bq, bk, window):
+    """Whether the causal(+window) band cuts the tile of q rows [q0, q0 +
+    bq) (counted from the start of q) and keys [k0, k0 + bk): the bf16
+    kernels mask only such tiles, since every other tile keeps all of
+    its pairs."""
+    qa = off + q0
+    return k0 + bk - 1 > qa or (window is not None
+                                and k0 <= qa + bq - 1 - window)
+
+
 # ---------------------------------------------------------------------------
 # reference and dense paths (torch autograd)
 # ---------------------------------------------------------------------------
@@ -281,36 +291,38 @@ def plain_fwd(q, k, v, causal, scale, bshd=False, window=None):
 
 
 def plain_bwd_dkv(q, k, v, do, lse, dd, causal, scale, bshd=False,
-                  window=None):
+                  window=None, bq=_PLAIN_BLOCK, bk=_PLAIN_BLOCK):
     """dK and dV over q blocks, P recomputed from the saved lse (K2's
-    arithmetic). lse and dd are [B, H, Sq] f32. Returns (dk, dv) in k's
+    arithmetic). lse and dd are [B, H, Sq] f32. `bq` x `bk` is the
+    schedule of q tiles against k blocks (the bf16 kernel walks 64-row q
+    tiles over 128-key blocks): it decides which masked pairs are
+    visited, and so where a NaN in dd spreads. Returns (dk, dv) in k's
     and v's layout and dtype."""
     q, k, v, do = (_bhsd(t, bshd) for t in (q, k, v, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     off = sk - sq
-    blk = _PLAIN_BLOCK
     dev = q.device
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=dev)
-    for kb in range(sk // blk):
-        kt = k[:, :, kb * blk:(kb + 1) * blk].float()
-        vt = v[:, :, kb * blk:(kb + 1) * blk].float()
-        start, end = 0, sq // blk
+    for kb in range(sk // bk):
+        k0 = kb * bk
+        kt = k[:, :, k0:k0 + bk].float()
+        vt = v[:, :, k0:k0 + bk].float()
+        start, end = 0, sq // bq
         if causal:
-            start, end = _dkv_block_bounds(off, kb, blk, blk, sq // blk,
-                                           window)
-        dk_acc = torch.zeros((b, h, blk, d), device=dev)
-        dv_acc = torch.zeros((b, h, blk, d), device=dev)
+            start, end = _dkv_block_bounds(off, kb, bq, bk, sq // bq, window)
+        dk_acc = torch.zeros((b, h, bk, d), device=dev)
+        dv_acc = torch.zeros((b, h, bk, d), device=dev)
         for i in range(start, end):
-            rows = slice(i * blk, (i + 1) * blk)
+            rows = slice(i * bq, (i + 1) * bq)
             qt = q[:, :, rows]
             dot = do[:, :, rows]
             s = qt.float() @ kt.transpose(-1, -2) * scale
             p = torch.exp(s - lse[:, :, rows, None])
-            if causal:
-                p = torch.where(_keep_tile(off, i * blk, kb * blk, blk, blk,
-                                           window, dev), p,
+            if causal and _tile_straddles(off, i * bq, k0, bq, bk, window):
+                p = torch.where(_keep_tile(off, i * bq, k0, bq, bk, window,
+                                           dev), p,
                                 torch.zeros((), device=dev))
             dv_acc = dv_acc + p.to(dot.dtype).float().transpose(-1, -2) \
                 @ dot.float()
@@ -318,8 +330,8 @@ def plain_bwd_dkv(q, k, v, do, lse, dd, causal, scale, bshd=False,
             ds = p * (dp - dd[:, :, rows, None]) * scale
             dk_acc = dk_acc + ds.to(qt.dtype).float().transpose(-1, -2) \
                 @ qt.float()
-        dk[:, :, kb * blk:(kb + 1) * blk] = dk_acc.to(k.dtype)
-        dv[:, :, kb * blk:(kb + 1) * blk] = dv_acc.to(v.dtype)
+        dk[:, :, k0:k0 + bk] = dk_acc.to(k.dtype)
+        dv[:, :, k0:k0 + bk] = dv_acc.to(v.dtype)
     if bshd:
         return dk.transpose(1, 2).contiguous(), dv.transpose(1, 2).contiguous()
     return dk, dv
@@ -420,8 +432,8 @@ def _check_cuda(what, tensors, bshd):
 
 
 def tma_aligned(data_ptr, strides, element_size):
-    """Whether a bf16 operand meets the kernels' alignment rule: TMA (K1)
-    and the 16-byte loads (K2, K3) need a 16-byte-aligned base address
+    """Whether a bf16 operand meets the kernels' alignment rule: TMA (K1,
+    K2) and the 16-byte loads (K3) need a 16-byte-aligned base address
     and (batch, seq, head) strides of whole 16 bytes."""
     return data_ptr % 16 == 0 and all(s * element_size % 16 == 0
                                       for s in strides)

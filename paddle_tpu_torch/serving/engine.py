@@ -158,9 +158,9 @@ class ServingEngine:
 
     def _make_caches(self):
         raise NotImplementedError(
-            "the dense KV-cache engine and its prefill need flash-attention "
-            "kernel K1 (ROADMAP Queue 1: dense ServingEngine); use "
-            "serving.PagedServingEngine")
+            "the dense ServingEngine, its KV cache and GPT prefill are not "
+            "ported yet (ROADMAP Queue 1 item 3: dense ServingEngine and "
+            "prefill); use serving.PagedServingEngine")
 
     # ------------------------------------------------------------- slots
     def free_slots(self):

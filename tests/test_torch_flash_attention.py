@@ -94,6 +94,30 @@ def test_forward_and_grads_match_jax(layout, mode, shape, dtype, impl):
                                    **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_plain_dkv_on_the_kernel_schedule_matches_jax(layout, mode, shape,
+                                                      dtype):
+    """plain_bwd_dkv walking the bf16 K2's schedule (64-row q tiles over
+    128-key blocks) gives the JAX package's dK and dV (the dense
+    reference's where the Pallas K2's bounds are wrong, see `_case`)."""
+    (q, k, v, g), want = _case(layout, mode, shape, dtype)
+    causal, window = MODES[mode]
+    bshd = layout == "bshd"
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.tensor(x).to(tdt) for x in (q, k, v, g))
+    out, lse = fa.plain_fwd(tq, tk, tv, causal, 0.125, bshd, window)
+    dd = fa.row_dot(tg, out, bshd)
+    dk, dv = fa.plain_bwd_dkv(tq, tk, tv, tg, lse, dd, causal, 0.125, bshd,
+                              window, bq=64, bk=128)
+    for name, a, b in (("dk", dk, want[2]), ("dv", dv, want[3])):
+        assert a.dtype == tdt and a.shape == tk.shape, name
+        np.testing.assert_allclose(a.float().numpy(), b, err_msg=name,
+                                   **TOL[dtype])
+
+
 def test_plain_lse_matches_the_dense_logsumexp():
     rng = np.random.RandomState(5)
     q, k, v = (torch.tensor(rng.randn(2, 3, 256, 64).astype("f4"))
@@ -158,6 +182,49 @@ def test_dkv_bounds_are_clamped_where_the_pallas_bounds_are_not():
             ki = kb * bk + np.arange(bk)[None, :]
             if fa._band_keep(qi, ki, window).any():
                 assert (i, kb) in seen
+
+
+@pytest.mark.parametrize("sq,sk", [(512, 512), (128, 640), (256, 640)])
+@pytest.mark.parametrize("window", [None, 64, 100, 256])
+def test_dkv_bounds_on_the_kernel_schedule(window, sq, sk):
+    """At the bf16 K2's 64-row q tiles and 128-key blocks, causal: every
+    (q, k) pair in the band lies in a visited tile, and the first and
+    last tile of each k block's range hold a kept pair."""
+    bq, bk = 64, 128
+    off, nqb = sk - sq, sq // bq
+    qi = off + np.arange(sq)[:, None]
+    keep = fa._band_keep(qi, np.arange(sk)[None, :], window)
+    for kb in range(sk // bk):
+        start, end = fa._dkv_block_bounds(off, kb, bq, bk, nqb, window)
+        assert 0 <= start <= end <= nqb
+        cols = keep[:, kb * bk:(kb + 1) * bk]
+        rows = np.nonzero(cols.any(axis=1))[0]
+        if rows.size == 0:
+            assert start == end
+            continue
+        assert start <= rows[0] // bq and rows[-1] // bq < end
+        assert cols[start * bq:(start + 1) * bq].any()
+        assert cols[(end - 1) * bq:end * bq].any()
+
+
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("window", [None, 64, 100, 256])
+def test_tiles_that_do_not_straddle_keep_every_pair(window, bk):
+    """The bf16 kernels mask only tiles that straddle the band's edge:
+    every other tile keeps all of its pairs, so skipping the mask there
+    changes nothing. A window narrower than bq + bk - 1 cuts every tile
+    it reaches."""
+    bq, seen = 64, set()
+    for off in (-128, 0, 512):
+        for q0 in range(0, 512, bq):
+            for k0 in range(0, 1024, bk):
+                straddles = fa._tile_straddles(off, q0, k0, bq, bk, window)
+                seen.add(straddles)
+                if not straddles:
+                    assert bool(fa._keep_tile(off, q0, k0, bq, bk, window,
+                                              "cpu").all())
+    assert True in seen
+    assert (False in seen) == (window is None or window >= bq + bk - 1)
 
 
 def test_cuda_kernel_raises_for_cpu_tensors():
