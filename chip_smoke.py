@@ -13,16 +13,16 @@ its phases:
                 misaligned q, GQA, ragged chunks, int32/int64/int
                 starts, the NaN contracts), timed, with a split-size
                 sweep and a profiler count of device kernels per call;
-  flash         K1-K3 (flash attention forward, dK/dV, dQ) against
-                their plain versions at the training path's shapes
-                (BSHD views of the qkv projection, and BHSD), windowed
-                cases, q_len < kv_len and q_len > kv_len cases and a
-                single 128-row tile, f32 and bf16, with the NaN and
-                fully-masked-row contracts and the bf16 alignment rule;
-                timed by CUDA-graph replay (in TFLOP/s too, K1's and
-                K2's registers and shared memory beside), with the
-                port's whole backward against SDPA's, both captured in
-                CUDA graphs;
+  flash         K1-K3 (flash attention forward, dK/dV, dQ) and the dd
+                kernel (rowsum(dO * O)) against their plain versions at
+                the training path's shapes (BSHD views of the qkv
+                projection, and BHSD), windowed cases, q_len < kv_len
+                and q_len > kv_len cases and a single 128-row tile, f32
+                and bf16, with the NaN and fully-masked-row contracts
+                and the alignment rules; timed by CUDA-graph replay (in
+                TFLOP/s too, K1-K3's registers, spills and shared memory
+                beside), with the port's whole backward against SDPA's,
+                both captured in CUDA graphs;
   parity        fp32 serving streams of GPT-2 small width through the
                 CUDA kernel against the gather-then-attend reference;
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
@@ -35,7 +35,8 @@ its phases:
   train         GPT-2 small in bf16 at bench.py's GPU shapes through
                 `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
                 in `jit.TrainStep`, 3 warm-up and 10 timed steps,
-                showing every layer launched K1-K3 once per step.
+                showing every layer launched K1-K3 and the dd kernel
+                once per step.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -58,7 +59,12 @@ REPLACES = "paddle_tpu/nn/paged_attention.py:248"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {"fwd": "paddle_tpu/ops/pallas/flash_attention.py:137",
                   "dkv": "paddle_tpu/ops/pallas/flash_attention.py:300",
-                  "dq": "paddle_tpu/ops/pallas/flash_attention.py:385"}
+                  "dq": "paddle_tpu/ops/pallas/flash_attention.py:385",
+                  "dd": "no Pallas counterpart: XLA-fused jnp in "
+                        "_flash_bwd_pallas, paddle_tpu/ops/pallas/"
+                        "flash_attention.py:466-469"}
+FLASH_NAMES = {"fwd": "flash_attention_fwd", "dkv": "flash_attention_dkv",
+               "dq": "flash_attention_dq", "dd": "flash_attention_row_dot"}
 # training shapes of bench.py's GPU configuration: GPT-2 small (12 heads
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
@@ -643,11 +649,13 @@ def flash_flops(kind, q, k, causal, window, bshd):
 
 
 def flash_bound(kind, q, k, causal, window, bshd, peaks):
-    """Least time of one K1 / K2 / K3 call: bytes (each input read once,
-    each output written once: q, k, v, out and lse for K1; q, k, v, dO,
-    lse, dd, dK and dV for K2; q, k, v, dO, lse, dd and dQ for K3) over
-    the HBM rate, against `flash_flops` over the peak for the input
-    type. Returns (ms, "bytes" | "operations")."""
+    """Least time of one K1 / K2 / K3 / dd call: bytes (each input read
+    once, each output written once: q, k, v, out and lse for K1; q, k,
+    v, dO, lse, dd, dK and dV for K2; q, k, v, dO, lse, dd and dQ for
+    K3; dO, out and dd for the dd kernel) over the HBM rate, against
+    `flash_flops` over the peak for the input type (the dd kernel's
+    2 * D operations a row over the f32 peak: it runs on the CUDA
+    cores). Returns (ms, "bytes" | "operations")."""
     if bshd:
         b, sq, h, d = q.shape
         sk = k.shape[1]
@@ -658,9 +666,13 @@ def flash_bound(kind, q, k, causal, window, bshd, peaks):
     qb, kb, stat = b * sq * h * d * elt, b * sk * h * d * elt, b * h * sq * 4
     nbytes = {"fwd": 2 * qb + 2 * kb + stat,
               "dkv": 2 * qb + 4 * kb + 2 * stat,
-              "dq": 3 * qb + 2 * kb + 2 * stat}[kind]
-    flops = flash_flops(kind, q, k, causal, window, bshd)
-    rate = peaks["bf16" if elt == 2 else "f32"]
+              "dq": 3 * qb + 2 * kb + 2 * stat,
+              "dd": 2 * qb + stat}[kind]
+    if kind == "dd":
+        flops, rate = 2 * b * sq * h * d, peaks["f32"]
+    else:
+        flops = flash_flops(kind, q, k, causal, window, bshd)
+        rate = peaks["bf16" if elt == 2 else "f32"]
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -689,14 +701,36 @@ def build_report(kernel, smem_fn):
 
 
 def flash_run(fa, impl, q, k, v, do, causal, window, bshd):
-    """Forward, then dK/dV and dQ from the forward's own out and lse."""
+    """Forward, then dd, dK/dV and dQ from the forward's own out and
+    lse."""
     fwd, dkv, dq = fa._IMPLS[impl]
     scale = 1.0 / HEAD_DIM ** 0.5
     out, lse = fwd(q, k, v, causal, scale, bshd, window)
-    dd = fa.row_dot(do, out, bshd)
+    dd = fa.row_dot(do, out, bshd, impl)
     dk, dv = dkv(q, k, v, do, lse, dd, causal, scale, bshd, window)
     dqv = dq(q, k, v, do, lse, dd, causal, scale, bshd, window)
     return {"out": out, "lse": lse, "dk": dk, "dv": dv, "dq": dqv}
+
+
+def dd_held(fa, name, do, out, bshd):
+    """The dd kernel against `plain_row_dot` on the same dO and O: the
+    same non-finite entries, the rest within 1e-4 x max(1, |ref|) for
+    f32 and bf16 inputs alike (the sum is f32 in both). Returns (the
+    kernel's dd, the max abs error over the finite entries)."""
+    import torch
+    got = fa.cuda_row_dot(do, out, bshd)
+    ref = fa.plain_row_dot(do, out, bshd)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == torch.float32
+          and got.is_contiguous(), f"dd {name}: {got.dtype}"
+          f"{tuple(got.shape)} against {tuple(ref.shape)}")
+    ok = torch.isfinite(ref)
+    check(bool((torch.isfinite(got) == ok).all()),
+          f"dd {name}: non-finite entries differ from plain's")
+    err = torch.where(ok, (got - ref).abs(), 0.0)
+    check(bool((err <= 1e-4 * torch.clamp(ref.abs(), min=1.0))[ok].all()),
+          f"dd {name}: max abs err {err.max().item()} over tolerance 1e-4")
+    return got, err.max().item()
 
 
 def flash_phase(dev, peaks):
@@ -738,6 +772,9 @@ def flash_phase(dev, peaks):
                       f"{err.max().item()} over tolerance {tol[dtype]}")
                 slot = (which[key], str(dtype).split(".")[-1])
                 worst[slot] = max(worst.get(slot, 0.0), err.max().item())
+            _, err = dd_held(fa, f"{name} {dtype}", do, got["out"], bshd)
+            slot = ("dd", str(dtype).split(".")[-1])
+            worst[slot] = max(worst.get(slot, 0.0), err)
             # keys no query attends get exactly 0 in dK and dV; q rows
             # that attend no key exactly 0 in out and dQ (BHSD cases)
             unseen = sk - sq - (window or sk) + 1
@@ -762,9 +799,15 @@ def flash_phase(dev, peaks):
           and torch.isfinite(out[:, :, 1:]).all().item()
           and torch.isfinite(out[1]).all().item(),
           "flash fwd: NaN leaked to rows or heads that do not attend it")
-    # ... and through K2 to the dK/dV entries plain's schedule of 64-row
-    # q tiles over 128-key blocks gives, in that head and batch only
-    dd = fa.row_dot(do, out, True)
+    # ... through the dd kernel to those rows' dd only ...
+    dd, _ = dd_held(fa, "attended NaN", do, out, True)
+    check(not torch.isfinite(dd[0, 0, 300:]).any().item()
+          and torch.isfinite(dd[0, 0, :300]).all().item()
+          and torch.isfinite(dd[0, 1:]).all().item()
+          and torch.isfinite(dd[1]).all().item(),
+          "flash dd: NaN rows of O did not stay in their rows of dd")
+    # ... through K2 to the dK/dV entries plain's schedule of 64-row q
+    # tiles over 128-key blocks gives, in that head and batch only
     dk, dv = fa.cuda_bwd_dkv(q, k, v, do, lse, dd, True, 0.125, True)
     rk, rv = fa.plain_bwd_dkv(q, k, v, do, lse, dd, True, 0.125, True,
                               bq=64, bk=128)
@@ -775,6 +818,26 @@ def flash_phase(dev, peaks):
               and torch.isfinite(g[:, :, 1:]).all().item(),
               f"flash dkv: a NaN in key 300 gives non-finite {name} "
               f"entries other than plain's, or in another head/batch")
+    # ... and through K3 (dS = 0 times the NaN key) to the dQ entries of
+    # plain's schedule of 128-row q blocks over 64-key tiles: rows
+    # 256-299 too, in dimension 0, in that head and batch only
+    dq = fa.cuda_bwd_dq(q, k, v, do, lse, dd, True, 0.125, True)
+    rq = fa.plain_bwd_dq(q, k, v, do, lse, dd, True, 0.125, True, bq=128,
+                         bk=64)
+    check(bool((torch.isfinite(dq) == torch.isfinite(rq)).all())
+          and not torch.isfinite(dq[0, 256:, 0, 0]).any().item()
+          and torch.isfinite(dq[0, :256, 0]).all().item()
+          and torch.isfinite(dq[1]).all().item()
+          and torch.isfinite(dq[:, :, 1:]).all().item(),
+          "flash dq: a NaN in key 300 gives non-finite dQ entries other "
+          "than plain's, or in another head/batch")
+    # a NaN in one element of dO stays in its row of dd
+    bad = do.clone()
+    bad[1, 5, 3, 7] = float("nan")
+    dd, _ = dd_held(fa, "NaN in dO", bad, out, True)
+    check(not torch.isfinite(dd[1, 3, 5]).item()
+          and int((~torch.isfinite(dd[1])).sum()) == 1,
+          "flash dd: a NaN in dO did not stay in its row")
     # q_len > kv_len, causal: the first 128 rows see no key -> exactly 0
     q, k, v, do = flash_inputs(2, 256, 128, torch.float32, gen, dev,
                                bshd=False)
@@ -802,6 +865,14 @@ def flash_phase(dev, peaks):
     check(refused is not None and "bf16 k " in refused
           and fa.launches == before,
           f"flash fwd: misaligned bf16 k was not refused ({refused})")
+    try:
+        fa.cuda_row_dot(shifted, q, True)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None and "do needs" in refused
+          and fa.launches == before,
+          f"flash dd: misaligned dO was not refused ({refused})")
 
     # times at the main path's shapes, one input set per layer
     sets = [flash_inputs(TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, gen,
@@ -810,7 +881,7 @@ def flash_phase(dev, peaks):
     saved = []
     for q, k, v, do in sets:
         out, lse = fa.cuda_fwd(q, k, v, True, scale, True)
-        saved.append((out, lse, fa.row_dot(do, out, True)))
+        saved.append((out, lse, fa.cuda_row_dot(do, out, True)))
     it = {"i": 0}
 
     def nxt():
@@ -824,6 +895,8 @@ def flash_phase(dev, peaks):
             q, k, v, do, out, lse, dd = nxt()
             if kind == "fwd":
                 fwd(q, k, v, True, scale, True)
+            elif kind == "dd":
+                fa.row_dot(do, out, True, impl)
             elif kind == "dkv":
                 dkv(q, k, v, do, lse, dd, True, scale, True)
             else:
@@ -833,21 +906,28 @@ def flash_phase(dev, peaks):
     def port_bwd():
         # the port's whole backward, as _FlashCore.backward runs it
         q, k, v, do, out, lse, _ = nxt()
-        dd = fa.row_dot(do, out, True)
+        dd = fa.cuda_row_dot(do, out, True)
         fa.cuda_bwd_dkv(q, k, v, do, lse, dd, True, scale, True)
         fa.cuda_bwd_dq(q, k, v, do, lse, dd, True, scale, True)
 
     lib = sdpa_yardstick(sets)
+    # dd: no one PyTorch call computes rowsum(dO * O) in f32 from bf16
+    # inputs; cuDNN's dot_do_o inside SDPA's backward is the reference
+    # figure, reported beside the row
     library = {"fwd": lib["fwd_ms"], "dkv": lib["bwd_ms"],
-               "dq": lib["bwd_ms"]}
+               "dq": lib["bwd_ms"], "dd": None}
+    dot_do_o = None
+    if lib["bwd_profiler_kernels_ms"]:
+        dot_do_o = sum(ms for n, ms in lib["bwd_profiler_kernels_ms"].items()
+                       if "dot_do_o" in n) or None
     q0, k0 = sets[0][0], sets[0][1]
     results = {"bwd": {"bwd_ms": graph_ms(port_bwd, LAYERS),
                        "library_bwd_ms": lib["bwd_ms"],
-                       "what": "bwd_ms: row_dot + K2 + K3 by graph "
-                               "replay; library_bwd_ms: SDPA's backward "
-                               "(dQ, dK and dV) on the same inputs",
+                       "what": "bwd_ms: dd + K2 + K3 by graph replay; "
+                               "library_bwd_ms: SDPA's backward (dQ, dK "
+                               "and dV) on the same inputs",
                        "library": lib}}
-    for kind in ("fwd", "dkv", "dq"):
+    for kind in ("fwd", "dkv", "dq", "dd"):
         bound_ms, bound_by = flash_bound(kind, q0, k0, True, None, True,
                                          peaks)
         kernel_ms = graph_ms(call(kind, "cuda"), LAYERS)
@@ -855,25 +935,37 @@ def flash_phase(dev, peaks):
             "max_abs_err": worst[(kind, "bfloat16")],
             "max_abs_err_f32": worst[(kind, "float32")],
             "kernel_ms": kernel_ms,
-            "tflops": flash_flops(kind, q0, k0, True, None, True)
-            / kernel_ms * 1e-9,
             "eager_call_ms": time_ms(call(kind, "cuda"), 60),
             "plain_ms": time_ms(call(kind, "plain"), 3),
             "library_ms": library[kind],
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-    results["fwd"]["build"] = build_report(
-        "flash_fwd_wgmma", "flash_attention_fwd_smem_bytes")
-    results["dkv"]["build"] = build_report(
-        "flash_bwd_dkv_wgmma", "flash_attention_bwd_dkv_smem_bytes")
-    check(results["dkv"]["build"]["spill_bytes"] == 0,
-          f"flash dkv: ptxas reports spills: {results['dkv']['build']}")
+        if kind != "dd":
+            results[kind]["tflops"] = flash_flops(
+                kind, q0, k0, True, None, True) / kernel_ms * 1e-9
+    q0b = q0.numel() * q0.element_size()
+    results["dd"]["gbytes_per_s"] = (2 * q0b + q0.numel() // HEAD_DIM * 4
+                                     ) / results["dd"]["kernel_ms"] * 1e-6
+    results["dd"]["cudnn_dot_do_o_ms"] = dot_do_o
+    for kind, kernel, smem in (
+            ("fwd", "flash_fwd_wgmma", "flash_attention_fwd_smem_bytes"),
+            ("dkv", "flash_bwd_dkv_wgmma",
+             "flash_attention_bwd_dkv_smem_bytes"),
+            ("dq", "flash_bwd_dq_wgmma", "flash_attention_bwd_dq_smem_bytes")):
+        results[kind]["build"] = build_report(kernel, smem)
+    for kind in ("dkv", "dq"):
+        check(results[kind]["build"]["spill_bytes"] == 0,
+              f"flash {kind}: ptxas reports spills: "
+              f"{results[kind]['build']}")
     results["library_covers"] = {
         "fwd": "scaled_dot_product_attention",
         "dkv": "its backward: dQ, dK and dV together, to hold against "
                "K2 + K3 (bwd.bwd_ms); no library call computes dK/dV "
                "alone",
-        "dq": "the same backward as the dkv row"}
+        "dq": "the same backward as the dkv row",
+        "dd": "none: no one PyTorch call computes rowsum(dO * O) in f32 "
+              "from bf16 inputs; cudnn_dot_do_o_ms is cuDNN's kernel for "
+              "it inside SDPA's backward (profiler)"}
     del sets, saved
     return results
 
@@ -1086,7 +1178,7 @@ def train_phase(dev, peaks):
 
 
 # kernel-name fragments -> category of a training step's device time
-PROFILE_GROUPS = (("flash attention (K1-K3)", ("flash_",)),
+PROFILE_GROUPS = (("flash attention (K1-K3, dd)", ("flash_", "row_dot")),
                   ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                   ("optimizer (foreach)", ("multi_tensor", "foreach")))
 
@@ -1216,9 +1308,9 @@ def main():
                      "source": SOURCE, "replaces": REPLACES,
                      "launches": serve_launches[form],
                      "ms": row.pop("kernel_ms"), **row})
-    for kind in ("fwd", "dkv", "dq"):
+    for kind in ("fwd", "dkv", "dq", "dd"):
         row = dict(fl[kind])
-        rows.append({"name": f"flash_attention_{kind}", "route": "cuda",
+        rows.append({"name": FLASH_NAMES[kind], "route": "cuda",
                      "source": FLASH_SOURCE,
                      "replaces": FLASH_REPLACES[kind],
                      "launches": train_launches[kind],

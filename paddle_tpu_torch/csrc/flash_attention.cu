@@ -14,16 +14,18 @@
 //   * outputs are in the input dtype; lse is f32 [B, H, Sq].
 //
 // What bounds them: operations. At GPT-2 small's training shapes (S
-// 1024, D 64, causal) K1 does 12.9 GFLOP over 50.7 MB: 0.013 ms of
-// tensor-core time at 989 TFLOP/s against 0.015 ms of bytes at 3.35
-// TB/s, so both limits are near and the kernel has to keep the tensor
-// cores fed while it streams K/V. With D = 64 each (query, key) pair
-// costs 256 tensor-core operations and one exp2; an SM does about 4096
-// of the first and 16 of the second per clock, so the exp2s take as
-// long as the products and have to overlap with them. K2 does four
-// products per pair (S^T, dP^T, dV and dK): 25.8 GFLOP at those shapes
-// over 76.3 MB, 0.026 ms of tensor-core time against 0.023 ms of bytes:
-// bound by operations, but barely, and with one exp per pair again.
+// 1024, D 64, causal: 50.4M attended (query, key) pairs) K1 does 12.9
+// GFLOP over 50.7 MB: 0.013 ms of tensor-core time at 989 TFLOP/s
+// against 0.015 ms of bytes at 3.35 TB/s, so both limits are near and
+// the kernel has to keep the tensor cores fed while it streams K/V. With
+// D = 64 each pair costs 256 tensor-core operations and one exp2; an SM
+// does about 4096 of the first and 16 of the second per clock, so the
+// exp2s take as long as the products and have to overlap with them. K2
+// does four products per pair (S^T, dP^T, dV and dK): 25.8 GFLOP over
+// 76.3 MB, 0.026 ms of tensor-core time against 0.023 ms of bytes. K3
+// does three (S, dP and dQ): 19.3 GFLOP over 63.7 MB, 0.0196 ms against
+// 0.019 ms. Both are bound by operations, but barely, with one exp per
+// pair again.
 //
 // What the design does:
 //   * bf16 K1 (flash_fwd_wgmma, below): one block per (batch x head,
@@ -44,12 +46,18 @@
 //     for S^T and dP^T, MN-major for dK and dV), so each q tile fetched
 //     serves 128 keys and no warp copies a tile through registers; the
 //     mask only on straddling tiles, and dK/dV leave in 16-byte stores;
-//   * K3 and the f32 kernels: one CUDA block per (q tile of 64 rows,
-//     batch x head) for K3, per (k tile of 64 keys, batch x head) for
-//     the f32 K2: the TPU grid's sequential block axis becomes a loop
-//     inside the block, and dK/dV and dQ stay two kernels so no atomics
-//     are needed. They load tiles without overlap (cp.async/TMA and
-//     wgmma are K3's next steps);
+//   * bf16 K3 (flash_bwd_dq_wgmma, below) is K1's shape with a second
+//     score-like product: one block per (batch x head, 128 q rows), Q,
+//     dO, lse and dd brought once, K/V tiles of 64 keys through a
+//     4-stage TMA ring, S, dP and dQ += dS.K on wgmma (K read K-major for
+//     S and MN-major for dQ from the same swizzled tile), the mask only
+//     on straddling tiles, and dQ out in 16-byte stores;
+//   * dd = rowsum(dO * O) is a kernel of its own (row_dot_kernel, below),
+//     bound by bytes, which K2 and K3 read;
+//   * f32 kernels: one CUDA block per (q tile of 64 rows, batch x head)
+//     for K1 and K3, per (k tile of 64 keys, batch x head) for K2: the
+//     TPU grid's sequential block axis becomes a loop inside the block,
+//     and dK/dV and dQ stay two kernels so no atomics are needed;
 //   * loop bounds skip tiles outside the causal / sliding-window band
 //     (_causal_block_bounds for K1 and K3; for K2 the transposed bounds,
 //     clamped so that `end` never falls below `start` — the Pallas K2's
@@ -63,8 +71,8 @@
 //     stride of 65 floats so every product reads conflict-free; thread
 //     (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of
 //     each 64 x 64 product, and row maxima and sums are half-warp
-//     shuffles; f32 has no wgmma, so the f32 K1 stays on the CUDA cores;
-//   * bf16 K3: see "bf16 inputs" below.
+//     shuffles; f32 has no wgmma, so the f32 kernels stay on the CUDA
+//     cores.
 //
 // Masking and NaN contract (that of the Pallas kernels):
 //   * causal masking counts absolute query positions from kv_len - q_len;
@@ -82,8 +90,8 @@
 // Build without --use_fast_math: it changes expf, logf and isnan.
 //
 // Shapes: head_dim 64 only (GPT-2 small's), sequence lengths multiples
-// of 64 (of 128 for bf16 K1, and kv_len for bf16 K2); the entry points
-// reject anything else.
+// of 64 (of 128 for bf16 K1, kv_len for bf16 K2 and q_len for bf16 K3);
+// the entry points reject anything else.
 // The kernels allocate nothing: the caller allocates every output.
 
 #include <cuda.h>
@@ -174,21 +182,21 @@ __device__ __forceinline__ void store_rows(void* dst, const Layout& l,
       base[(ty + 16 * i) * l.ss + tx + 16 * j] = val[i][j];
 }
 
-// key tiles [lo, hi) that q tile qt sees: the outer bounds of
-// _causal_block_bounds at T-row tiles
-template <int T>
+// key tiles [lo, hi) of BK keys that q tile qt of BQ rows sees: the
+// outer bounds of _causal_block_bounds
+template <int BQ, int BK>
 __device__ __forceinline__ void key_range(const Args& a, int qt, int* lo,
                                           int* hi) {
-  const int nkb = a.sk / T;
+  const int nkb = a.sk / BK;
   *lo = 0;
   *hi = nkb;
   if (!a.causal) return;
   const int off = a.sk - a.sq;
-  const int last = off + qt * T + T - 1;  // last query, absolute
-  *hi = last < 0 ? 0 : min(nkb, last / T + 1);
+  const int last = off + qt * BQ + BQ - 1;  // last query, absolute
+  *hi = last < 0 ? 0 : min(nkb, last / BK + 1);
   if (a.window > 0) {
-    const int first = off + qt * T - a.window + 1;  // first key seen
-    *lo = first <= 0 ? 0 : min(first / T, *hi);
+    const int first = off + qt * BQ - a.window + 1;  // first key seen
+    *lo = first <= 0 ? 0 : min(first / BK, *hi);
   }
 }
 
@@ -258,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
   load_tile(q_s, a.q, a.lq, b, h, q0);
   int lo, hi;
-  key_range<kTile>(a, qt, &lo, &hi);
+  key_range<kTile, kTile>(a, qt, &lo, &hi);
 
   float m[kSub], l[kSub], acc[kSub][kSub];
 #pragma unroll
@@ -454,7 +462,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   load_tile(do_s, a.dout, a.ldo, b, h, q0);
   load_stats(a, bh, q0, lse_s, dd_s);
   int lo, hi;
-  key_range<kTile>(a, qt, &lo, &hi);
+  key_range<kTile, kTile>(a, qt, &lo, &hi);
 
   // rows: q rows ty + 16 i; columns: head dim tx + 16 j
   float dq[kSub][kSub] = {};
@@ -484,144 +492,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     }
   }
   store_rows(a.dq, a.ldq, b, h, q0, ty, tx, dq);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 inputs: K3 on the tensor cores (K1 and K2 further below)
-// ---------------------------------------------------------------------------
-//
-// mma.sync m16n8k16 (bf16 in, f32 accumulate). 128 threads = 4 warps per
-// CUDA block; warp w owns q rows [16 w, 16 w + 16) of the block's 64-row
-// tile and holds its accumulators in registers. Fragment layout (PTX ISA, lane = 4 g + t):
-//   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                      a3 (g+8, 2t+8..);
-//   B 16x8 col-major:  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
-//   C 16x8 f32:        c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1).
-// The C fragments of two adjacent 8-column tiles are the A fragment of
-// one 16-deep step, so P and dS go from the first product to the second
-// in registers, rounded to bf16 on the way (the casts of the TPU kernels).
-// Tiles are staged in shared memory as bf16, row-major, with a row stride
-// of 72 elements: the 32-bit fragment loads (row g, column 2t) hit 32
-// distinct banks, and so do the 16-byte rows of ldmatrix. The second
-// product's B operand (K) is read down its columns with ldmatrix.trans
-// from the same row-major tile.
-
-constexpr int kMmaThreads = 128;
-constexpr int kLdh = kD + 8;               // bf16 row stride
-constexpr int kTileHalfs = kTile * kLdh;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 at tile[row][col], col even
-__device__ __forceinline__ uint32_t ld2(const bf16* tile, int row, int col) {
-  return *reinterpret_cast<const uint32_t*>(tile + row * kLdh + col);
-}
-
-// (lo, hi) rounded to bf16 (nearest even) and packed, lo in the low half
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [s0, s0 + 64) of one (batch, head) -> bf16 tile [64][kLdh], in
-// 16-byte loads (the entry points require 16-byte aligned rows)
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const void* src,
-                                               const Layout& l, int b, int h,
-                                               int s0) {
-  const bf16* base = static_cast<const bf16*>(src) + offset(l, b, h, s0);
-  for (int idx = threadIdx.x; idx < kTile * kD / 8; idx += kMmaThreads) {
-    const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) =
-        *reinterpret_cast<const uint4*>(base + r * l.ss + c);
-  }
-}
-
-// four 8x8 bf16 matrices, transposed: lanes 8 m .. 8 m + 7 give the row
-// addresses of matrix m; register m of lane 4 g + t gets its elements
-// (row 2t, column g) and (row 2t + 1, column g), the first in the low half
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// A fragments of rows [r0, r0 + 16) of a [row][d] tile, 4 steps over d
-__device__ __forceinline__ void load_a(const bf16* tile, int r0, int g, int t,
-                                       uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = ld2(tile, r0 + g, ks * 16 + 2 * t);
-    a[ks][1] = ld2(tile, r0 + g + 8, ks * 16 + 2 * t);
-    a[ks][2] = ld2(tile, r0 + g, ks * 16 + 8 + 2 * t);
-    a[ks][3] = ld2(tile, r0 + g + 8, ks * 16 + 8 + 2 * t);
-  }
-}
-
-// acc[n][.] += A . B^T over d, for the 8 column tiles of a [column][d]
-// tile (B = that tile read as col-major)
-__device__ __forceinline__ void mma_rows(uint32_t (&a)[4][4],
-                                         const bf16* tile, int g, int t,
-                                         float (&acc)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      mma_bf16(acc[n], a[ks], ld2(tile, n * 8 + g, ks * 16 + 2 * t),
-               ld2(tile, n * 8 + g, ks * 16 + 8 + 2 * t));
-}
-
-// acc[n][.] += X . Y over the 64 rows of Y, X held as C fragments
-// x[8][4] (rounded to bf16 here), Y a row-major [k][d] tile. One
-// ldmatrix.x4.trans gives the B fragments (k 2t.., 2t+8..; n g) of two
-// adjacent 8-column tiles n and n + 1.
-__device__ __forceinline__ void mma_cols(float (&x)[8][4], const bf16* y,
-                                         float (&acc)[8][4]) {
-  const int lane = threadIdx.x & 31;
-  const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;  // matrices 1, 3: +8
-  const int ncol = (lane >> 4) * 8;                       // matrices 2, 3
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4] = {pack2(x[2 * kk][0], x[2 * kk][1]),
-                     pack2(x[2 * kk][2], x[2 * kk][3]),
-                     pack2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                     pack2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t bfr[4];
-      ldsm_x4_trans(bfr, y + (kk * 16 + krow) * kLdh + n * 8 + ncol);
-      mma_bf16(acc[n], a, bfr[0], bfr[1]);
-      mma_bf16(acc[n + 1], a, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// rows r (g and g + 8 of the warp's 16) of C fragments -> bf16 output
-__device__ __forceinline__ void store_frag_rows(void* dst, const Layout& l,
-                                                int b, int h, int row0, int g,
-                                                int t, float (&acc)[8][4]) {
-  bf16* base = static_cast<bf16*>(dst) + offset(l, b, h, row0);
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        base[(g + 8 * hr) * l.ss + n * 8 + 2 * t + e] =
-            __float2bfloat16(acc[n][2 * hr + e]);
 }
 
 // ---------------------------------------------------------------------------
@@ -663,6 +533,14 @@ constexpr int kFwdSmem = 1024 + kBoxBytes * (1 + 2 * kStages) +
                          8 * (2 * kStages + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+typedef __nv_bfloat16 bf16;
+
+// (lo, hi) rounded to bf16 (nearest even) and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -823,7 +701,9 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t da,
 }
 
 // d[64 x 64] += A[64 x 16] . B[16 x 64]: A in registers (the mma.sync A
-// fragment layout), B MN-major in shared memory (transpose-B)
+// fragment layout: lane 4 g + t of warp w holds rows 16 w + g and
+// 16 w + g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9, in bf16 pairs),
+// B MN-major in shared memory (transpose-B)
 __device__ __forceinline__ void wgmma_pv(float (&d)[8][4],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -865,7 +745,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int q0 = qt * kBlk, off = a.sk - a.sq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int lo, hi;
-  key_range<kBlk>(a, qt, &lo, &hi);
+  key_range<kBlk, kBlk>(a, qt, &lo, &hi);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -1005,72 +885,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       *reinterpret_cast<uint32_t*>(out + 8 * hr * a.lout.ss + 8 * n + 2 * t) =
           pack2(o[n][2 * hr] / den, o[n][2 * hr + 1] / den);
   }
-}
-
-// P and dS of C fragments x (scores) and y (dP), rows queries from
-// qa0, columns keys from ka0; lse and dd are indexed by the row. The
-// results overwrite x (P) and y (dS).
-__device__ __forceinline__ void mma_p_ds(const Args& a, int qa0, int ka0,
-                                         int g, int t, const float* lse_q,
-                                         const float* dd_q, float (&x)[8][4],
-                                         float (&y)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qi = g + 8 * hr;
-        float p = expf(x[n][2 * hr + e] * a.scale - lse_q[qi]);
-        if (a.causal && !band_keep(qa0 + qi, ka0 + n * 8 + 2 * t + e,
-                                   a.window))
-          p = 0.f;
-        x[n][2 * hr + e] = p;
-        y[n][2 * hr + e] = p * (y[n][2 * hr + e] - dd_q[qi]) * a.scale;
-      }
-}
-
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Args a) {
-  __shared__ __align__(16) bf16 buf_s[kTileHalfs];   // Q, then dO
-  __shared__ __align__(16) bf16 k_s[kTileHalfs];
-  __shared__ __align__(16) bf16 v_s[kTileHalfs];
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.h, h = bh % a.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int q0 = qt * kTile, off = a.sk - a.sq, r0 = warp * 16;
-
-  __shared__ float lse_s[kTile], dd_s[kTile];
-  uint32_t qa[4][4], oa[4][4];
-  load_tile_bf16(buf_s, a.q, a.lq, b, h, q0);
-  if (threadIdx.x < kTile) {
-    const long long row = (long long)bh * a.sq + q0 + threadIdx.x;
-    lse_s[threadIdx.x] = a.lse[row];
-    dd_s[threadIdx.x] = a.dd[row];
-  }
-  __syncthreads();
-  load_a(buf_s, r0, g, t, qa);
-  __syncthreads();
-  load_tile_bf16(buf_s, a.dout, a.ldo, b, h, q0);
-  __syncthreads();
-  load_a(buf_s, r0, g, t, oa);
-  int lo, hi;
-  key_range<kTile>(a, qt, &lo, &hi);
-
-  float dq[8][4] = {};
-  for (int jt = lo; jt < hi; ++jt) {
-    const int k0 = jt * kTile;
-    __syncthreads();
-    load_tile_bf16(k_s, a.k, a.lk, b, h, k0);
-    load_tile_bf16(v_s, a.v, a.lv, b, h, k0);
-    __syncthreads();
-    float s[8][4] = {}, dp[8][4] = {};
-    mma_rows(qa, k_s, g, t, s);
-    mma_rows(oa, v_s, g, t, dp);
-    mma_p_ds(a, off + q0 + r0, k0, g, t, lse_s + r0, dd_s + r0, s, dp);
-    mma_cols(dp, k_s, dq);                // dQ += bf16(dS) . K
-  }
-  store_frag_rows(a.dq, a.ldq, b, h, q0 + r0, g, t, dq);
 }
 
 // ---------------------------------------------------------------------------
@@ -1305,6 +1119,266 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 K3 on Hopper: TMA-fed K/V ring and wgmma
+// ---------------------------------------------------------------------------
+//
+// K1's shape with a second score-like product and no online softmax. One
+// CUDA block per (batch x head, 128 q rows): two consumer warpgroups own
+// 64 q rows each, one producer warp issues every load. Q and dO of the
+// block's rows come by TMA once (one 128-row box each), lse and dd by
+// cp.async.bulk (512 bytes each), all behind one mbarrier; K/V tiles of
+// 64 keys stream through a ring of kDqStages stages, a 64-row K box and
+// a 64-row V box a stage, guarded by "full" and "empty" mbarriers as in
+// K2's ring. Per K/V tile each warpgroup runs
+//   S = Q.K^T, dP = dO.V^T  wgmma m64n64k16, both operands K-major in
+//                           shared memory; one wait for both;
+//   P, dS                   in registers on the accumulators, whose rows
+//                           are q rows (g and g + 8 of each warp's 16)
+//                           and columns keys (8n + 2t): P = exp2(S scale
+//                           log2 e - lse log2 e), zeroed outside the band
+//                           on tiles that straddle the diagonal or the
+//                           window's edge over the warpgroup's 64 rows,
+//                           and dS = P (dP - dd) scale;
+//   dQ += dS.K              wgmma m64n64k16 with A = bf16(dS) packed from
+//                           the accumulators and B the same swizzled K
+//                           tile read MN-major (transpose-B, as K1 reads
+//                           V).
+// 64-key tiles keep dQ, S and dP at 96 f32 registers a thread, under the
+// 168 that ptxas gives a 288-thread block (128-key tiles would need 160).
+// Both warpgroups walk the block's key range, _causal_block_bounds at
+// bq 128 and bk 64; under causal masking warpgroup 0 so also visits the
+// 64 keys past its diagonal, every pair masked. Which tiles a row visits
+// decides which dQ rows a NaN in K reaches (dS = 0 times a NaN key is
+// NaN): plain_bwd_dq(bq=128, bk=64) walks the same schedule.
+// The epilogue stages dQ in bf16 in the warpgroup's own rows of the Q
+// tile, which its last S product has finished reading (16-byte chunk c
+// of row r at chunk c ^ (r & 7), as K2's), then writes it out in 16-byte
+// stores. A block whose key range is empty loads nothing and writes
+// zeros. Blocks run heaviest first, as K1's.
+
+constexpr int kDqK = 64;                      // keys per ring stage
+constexpr int kDqStages = 4;                  // depth of the K/V ring
+constexpr int kKvBoxBytes = kDqK * kD * 2;    // one box: 64 rows x 64 bf16
+constexpr int kRowStatBytes = kBlk * 4;       // lse or dd of the block
+// 1024-byte alignment slack, Q, dO, the ring, lse and dd, 2 kDqStages + 1
+// mbarriers
+constexpr int kDqSmem = 1024 + 2 * kBoxBytes + kDqStages * 2 * kKvBoxBytes +
+                        2 * kRowStatBytes + 8 * (2 * kDqStages + 1);
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kBoxBytes;
+  const uint32_t ring = do_s + kBoxBytes;  // stage s: K, then V
+  const uint32_t stats = ring + 2 * kKvBoxBytes * kDqStages;  // lse, dd
+  const uint32_t bars = stats + 2 * kRowStatBytes;
+  const uint32_t qd_bar = bars + 16 * kDqStages;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (kDqStages + s)
+  uint8_t* const q_ptr = smem_raw + (q_s - raw);   // generic pointer to Q
+  const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int q0 = qt * kBlk, off = a.sk - a.sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int lo, hi;
+  key_range<kBlk, kDqK>(a, qt, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kDqStages + s), kConsumers / 32);
+    }
+    mbar_init(qd_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {           // the producer warp
+    if (lane == 0 && lo < hi) {
+      const long long row = (long long)bh * a.sq + q0;
+      mbar_expect_tx(qd_bar, 2 * (kBoxBytes + kRowStatBytes));
+      tma_rows(q_s, &tq, qd_bar, h, q0, b);
+      tma_rows(do_s, &tdo, qd_bar, h, q0, b);
+      bulk_copy(stats, a.lse + row, kRowStatBytes, qd_bar);
+      bulk_copy(stats + kRowStatBytes, a.dd + row, kRowStatBytes, qd_bar);
+      for (int j = lo, i = 0; j < hi; ++j, ++i) {
+        const int s = i % kDqStages;
+        if (i >= kDqStages)                // tile i - kDqStages released
+          mbar_wait(bars + 8 * (kDqStages + s), (i / kDqStages - 1) & 1);
+        const uint32_t kv = ring + 2 * kKvBoxBytes * s;
+        mbar_expect_tx(bars + 8 * s, 2 * kKvBoxBytes);
+        tma_rows(kv, &tk, bars + 8 * s, h, j * kDqK, b);
+        tma_rows(kv + kKvBoxBytes, &tv, bars + 8 * s, h, j * kDqK, b);
+      }
+    }
+    return;
+  }
+
+  // warpgroup wg owns q rows [64 wg, 64 wg + 64) of the block; lane 4 g +
+  // t of its warp w holds rows 16 w + g and 16 w + g + 8 of them
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3);               // the warp's first row in wg
+  const int qw = off + q0 + 64 * wg;            // wg's first query, absolute
+  const float c = a.scale * kLog2e;
+  const uint64_t q_desc = kmajor_desc(q_s + 64 * wg * kSwRow);
+  const uint64_t do_desc = kmajor_desc(do_s + 64 * wg * kSwRow);
+
+  // lse (in log2 units) and dd of the thread's rows r0 + g + 8 hr
+  float dq[8][4] = {}, lse2[2] = {}, dd2[2] = {};
+  if (lo < hi) {
+    mbar_wait(qd_bar, 0);
+    const float* st = reinterpret_cast<const float*>(q_ptr + (stats - q_s));
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 64 * wg + r0 + g + 8 * hr;
+      lse2[hr] = st[r] * kLog2e;
+      dd2[hr] = st[kBlk + r];
+    }
+  }
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kDqStages, k0 = j * kDqK;
+    const uint32_t k_tile = ring + 2 * kKvBoxBytes * s;
+    const uint32_t v_tile = k_tile + kKvBoxBytes;
+    mbar_wait(bars + 8 * s, (i / kDqStages) & 1);
+
+    float sc[8][4], dp[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks)
+      wgmma_ss64(sc, q_desc + 2 * ks, kmajor_desc(k_tile) + 2 * ks, ks);
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks)
+      wgmma_ss64(dp, do_desc + 2 * ks, kmajor_desc(v_tile) + 2 * ks, ks);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P, zeroed outside the band (edge tiles only), then dS over dP
+    const bool edge = a.causal && (k0 + kDqK - 1 > qw ||
+                                   (a.window > 0 && k0 <= qw + 63 - a.window));
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        float p = ex2(fmaf(sc[n][e], c, -lse2[hr]));
+        if (edge && !band_keep(qw + r0 + g + 8 * hr,
+                               k0 + 8 * n + 2 * t + (e & 1), a.window))
+          p = 0.f;
+        dp[n][e] = p * (dp[n][e] - dd2[hr]) * a.scale;
+      }
+
+    // dQ += bf16(dS) . K, 16 keys a step
+    uint32_t da[4][4];
+    pack_a(dp, da);
+    fence_regs(dq);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv(dq, da[kk], sw128_desc(k_tile + 2 * kk * kSwAtom, kVLbo,
+                                      kVSbo));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kDqStages + s));
+  }
+
+  // stage dQ in bf16 in the warpgroup's rows of the Q tile
+  uint8_t* const dq_s = q_ptr + 64 * wg * kSwRow;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + g + 8 * hr;             // r & 7 == g
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(dq_s + r * kSwRow + ((n ^ g) << 4) +
+                                   4 * t) =
+          pack2(dq[n][2 * hr], dq[n][2 * hr + 1]);
+  }
+  named_sync(1 + wg, 128);
+  // 64 rows x 8 chunks of 16 bytes, 4 per thread
+  bf16* const dq_g =
+      static_cast<bf16*>(a.dq) + offset(a.ldq, b, h, q0 + 64 * wg);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int idx = (threadIdx.x & 127) + 128 * j, r = idx >> 3, cc = idx & 7;
+    *reinterpret_cast<uint4*>(dq_g + r * a.ldq.ss + 8 * cc) =
+        *reinterpret_cast<const uint4*>(dq_s + r * kSwRow +
+                                        ((cc ^ (r & 7)) << 4));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dd = rowsum(dO * O), the backward's row statistic
+// ---------------------------------------------------------------------------
+//
+// No Pallas counterpart: _flash_bwd_pallas computes it with jnp ops that
+// XLA fuses (paddle_tpu/ops/pallas/flash_attention.py:466-469, 489-492).
+// Bound by bytes: it reads dO and O once and writes 4 bytes a row (at
+// GPT-2 small's training shapes 2 x 12.6 MB + 0.4 MB, 7.6 us at 3.35
+// TB/s). Eight lanes own a row of 64: each reads 16 bytes of dO and of
+// O (32 for f32), multiplies and sums in f32, and three shuffles finish
+// the row; a warp does 4 rows, a block 32. Rows run in [B, H, Sq] order,
+// so the output is written contiguously. The sums propagate NaN.
+
+constexpr int kDotThreads = 256;
+constexpr int kDotRows = kDotThreads / 8;
+
+__device__ __forceinline__ float chunk_dot(const bf16* x, const bf16* y) {
+  const uint4 xv = *reinterpret_cast<const uint4*>(x);
+  const uint4 yv = *reinterpret_cast<const uint4*>(y);
+  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
+  const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yv);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(x2[i]);
+    const float2 yf = __bfloat1622float2(y2[i]);
+    sum = fmaf(xf.x, yf.x, sum);
+    sum = fmaf(xf.y, yf.y, sum);
+  }
+  return sum;
+}
+
+__device__ __forceinline__ float chunk_dot(const float* x, const float* y) {
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 xv = reinterpret_cast<const float4*>(x)[i];
+    const float4 yv = reinterpret_cast<const float4*>(y)[i];
+    sum = fmaf(xv.x, yv.x, sum);
+    sum = fmaf(xv.y, yv.y, sum);
+    sum = fmaf(xv.z, yv.z, sum);
+    sum = fmaf(xv.w, yv.w, sum);
+  }
+  return sum;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDotThreads)
+    row_dot_kernel(const T* dout, const T* out, Layout ldo, Layout lout,
+                   float* dd, int h, int sq, int rows) {
+  const int row = blockIdx.x * kDotRows + (threadIdx.x >> 3);
+  const int c = threadIdx.x & 7;          // the lane's 8 elements of the row
+  float sum = 0.f;
+  if (row < rows) {
+    const int s = row % sq, bh = row / sq, b = bh / h, hh = bh % h;
+    sum = chunk_dot(dout + offset(ldo, b, hh, s) + 8 * c,
+                    out + offset(lout, b, hh, s) + 8 * c);
+  }
+  sum += __shfl_xor_sync(kFull, sum, 1);
+  sum += __shfl_xor_sync(kFull, sum, 2);
+  sum += __shfl_xor_sync(kFull, sum, 4);
+  if (row < rows && c == 0) dd[row] = sum;
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1326,11 +1400,12 @@ int launch(Kernel kernel, int threads, int grid_x, int b, int smem,
   return (int)cudaGetLastError();
 }
 
-// a bf16 operand as TMA and the 16-byte loads need it: a 16-byte
-// aligned base and (batch, seq, head) strides of whole 16 bytes
-bool rows_aligned(const void* p, const Layout& l) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.sb % 8 == 0 &&
-         l.ss % 8 == 0 && l.sh % 8 == 0;
+// an operand (bf16 unless told) as TMA and the 16-byte loads need it: a
+// 16-byte aligned base and (batch, seq, head) strides of whole 16 bytes
+bool rows_aligned(const void* p, const Layout& l, int elem_bytes = 2) {
+  const int n = 16 / elem_bytes;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.sb % n == 0 &&
+         l.ss % n == 0 && l.sh % n == 0;
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime so
@@ -1423,6 +1498,30 @@ int launch_bwd_dkv_wgmma(const Args& a, int b, void* stream) {
   return (int)cudaGetLastError();
 }
 
+int launch_bwd_dq_wgmma(const Args& a, int b, void* stream) {
+  if (a.sq % kBlk || a.sk % kDqK || !rows_aligned(a.q, a.lq) ||
+      !rows_aligned(a.k, a.lk) || !rows_aligned(a.v, a.lv) ||
+      !rows_aligned(a.dout, a.ldo) || !rows_aligned(a.dq, a.ldq) ||
+      reinterpret_cast<uintptr_t>(a.lse) % 16 ||
+      reinterpret_cast<uintptr_t>(a.dd) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = rows_map(&tq, a.q, a.lq, b, a.h, a.sq, kBlk);
+  if (rc == 0) rc = rows_map(&tk, a.k, a.lk, b, a.h, a.sk, kDqK);
+  if (rc == 0) rc = rows_map(&tv, a.v, a.lv, b, a.h, a.sk, kDqK);
+  if (rc == 0) rc = rows_map(&tdo, a.dout, a.ldo, b, a.h, a.sq, kBlk);
+  if (rc != 0) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * a.h, a.sq / kBlk);
+  flash_bwd_dq_wgmma<<<grid, kWgThreads, kDqSmem,
+                       static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, tdo,
+                                                            a);
+  return (int)cudaGetLastError();
+}
+
 Layout layout_at(const long long* s, int i) {
   return Layout{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -1455,8 +1554,8 @@ Args base_args(int h, int sq, int sk, float scale, int causal, int window) {
 // of each tensor argument in order; the last dimension must be
 // contiguous. dtype: 0 = float32, 1 = bfloat16. window: 0 = none.
 // bf16 K1 takes sequence lengths that are multiples of 128 and a
-// positive scale; bf16 K2 a kv_len that is a multiple of 128 and lse
-// and dd 16-byte aligned.
+// positive scale; bf16 K2 a kv_len that is a multiple of 128, bf16 K3
+// a q_len that is one, and both lse and dd 16-byte aligned.
 
 // K1. strides: q, k, v, out.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -1550,8 +1649,39 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   if (dtype == 0)
     return launch(flash_bwd_dq_kernel, kThreads, sq / kTile, b,
                   smem_bytes(5, true), stream, a);
-  if (!rows_aligned(q, a.lq) || !rows_aligned(k, a.lk) ||
-      !rows_aligned(v, a.lv) || !rows_aligned(dout, a.ldo))
+  return launch_bwd_dq_wgmma(a, b, stream);
+}
+
+// dynamic shared memory of the bf16 K3 launch, in bytes
+extern "C" int flash_attention_bwd_dq_smem_bytes() { return kDqSmem; }
+
+// dd = rowsum(dO * O) in f32 into dd, [B, H, Sq] contiguous. strides:
+// dout, out; both need a 16-byte aligned base and strides of whole 16
+// bytes, f32 or bf16 alike.
+extern "C" int flash_attention_row_dot(const void* dout, const void* out,
+                                       void* dd, const long long* strides,
+                                       int b, int h, int sq, int d,
+                                       int dtype, void* stream) {
+  if (d != kD || b < 0 || h <= 0 || sq <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return launch(flash_bwd_dq_mma, kMmaThreads, sq / kTile, b, 0, stream, a);
+  const Layout ldo = layout_at(strides, 0), lout = layout_at(strides, 1);
+  const int elem_bytes = dtype == 0 ? 4 : 2;
+  if (!rows_aligned(dout, ldo, elem_bytes) ||
+      !rows_aligned(out, lout, elem_bytes) ||
+      (long long)b * h * sq > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int rows = b * h * sq;
+  if (rows == 0) return 0;
+  const int grid = (rows + kDotRows - 1) / kDotRows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* const o = static_cast<float*>(dd);
+  if (dtype == 0)
+    row_dot_kernel<float><<<grid, kDotThreads, 0, s>>>(
+        static_cast<const float*>(dout), static_cast<const float*>(out), ldo,
+        lout, o, h, sq, rows);
+  else
+    row_dot_kernel<bf16><<<grid, kDotThreads, 0, s>>>(
+        static_cast<const bf16*>(dout), static_cast<const bf16*>(out), ldo,
+        lout, o, h, sq, rows);
+  return (int)cudaGetLastError();
 }

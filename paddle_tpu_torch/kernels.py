@@ -56,6 +56,11 @@ SIGNATURES = {
              _STRIDES, _I, _I, _I, _I, _I,
              _F, _I, _I, _I, _P],
             ctypes.c_int),
+        "flash_attention_bwd_dq_smem_bytes": ([], ctypes.c_int),
+        "flash_attention_row_dot": (
+            [_P, _P, _P, _STRIDES,               # dout out dd strides
+             _I, _I, _I, _I, _I, _P],            # b h sq d dtype stream
+            ctypes.c_int),
     },
 }
 

@@ -13,8 +13,9 @@ Three implementations sit behind one dispatch point, the pattern of
                       kernels on the card;
   kernel="cuda"       the hand-written sm_90a kernels of
                       csrc/flash_attention.cu (K1 forward, K2 dK/dV, K3
-                      dQ). They launch for CUDA tensors and raise for
-                      anything else — there is no fallback. bf16
+                      dQ, and dd = rowsum(dO * O)). They launch for
+                      CUDA tensors and raise for anything else — there
+                      is no fallback. bf16
                       operands must meet `tma_aligned` (16-byte base
                       and strides; every view of the qkv projection
                       does); the wrappers raise a ValueError naming the
@@ -23,9 +24,10 @@ Three implementations sit behind one dispatch point, the pattern of
 
 "plain" and "cuda" run inside one `torch.autograd.Function` that saves
 (q, k, v, out, lse); its backward computes dd = rowsum(dO * O) in f32
-with torch ops and then runs dK/dV and dQ, as `_flash_core`'s
-custom_vjp does. A mask, attention dropout, or sequence lengths that
-are not multiples of 128 take the dense path, as `_flash_array` does.
+(`row_dot`: torch ops, or a kernel of its own) and then runs dK/dV and
+dQ, as `_flash_core`'s custom_vjp does. A mask, attention dropout, or
+sequence lengths that are not multiples of 128 take the dense path, as
+`_flash_array` does.
 
 Layouts: "bhsd" ([B, H, S, D]) and "bshd" ([B, S, H, D], the GPT
 default). The kernels read both through (batch, seq, head) strides, so
@@ -57,8 +59,8 @@ _SCOPE_STACK = []           # innermost kernel_scope override, LIFO
 #: launches of the CUDA kernels since the last reset — plain integers,
 #: incremented by the wrappers where they launch and nowhere else
 #: (chip_smoke.py zeroes them before driving the training path and
-#: reads them after)
-launches = {"fwd": 0, "dkv": 0, "dq": 0}
+#: reads them after); "dd" counts the rowsum(dO * O) kernel
+launches = {"fwd": 0, "dkv": 0, "dq": 0, "dd": 0}
 #: calls of `flash_attention` by route: "kernel" (the autograd Function
 #: over plain or cuda) and "dense" (a mask, dropout or an ineligible
 #: shape); chip_smoke.py checks that the training path never went dense
@@ -338,34 +340,37 @@ def plain_bwd_dkv(q, k, v, do, lse, dd, causal, scale, bshd=False,
 
 
 def plain_bwd_dq(q, k, v, do, lse, dd, causal, scale, bshd=False,
-                 window=None):
-    """dQ over k blocks with K1's bounds (K3's arithmetic). Returns dq in
+                 window=None, bq=_PLAIN_BLOCK, bk=_PLAIN_BLOCK):
+    """dQ over k blocks with K1's bounds (K3's arithmetic). `bq` x `bk` is
+    the schedule of q blocks against k tiles (the bf16 kernel walks
+    128-row q blocks over 64-key tiles): it decides which masked pairs
+    are visited, and so which dQ rows a NaN in K reaches. Returns dq in
     q's layout and dtype."""
     q, k, v, do = (_bhsd(t, bshd) for t in (q, k, v, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     off = sk - sq
-    blk = _PLAIN_BLOCK
     dev = q.device
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
-    for qb in range(sq // blk):
-        rows = slice(qb * blk, (qb + 1) * blk)
+    for qb in range(sq // bq):
+        q0 = qb * bq
+        rows = slice(q0, q0 + bq)
         qt = q[:, :, rows].float()
         dot = do[:, :, rows].float()
         lse_t = lse[:, :, rows, None]
         dd_t = dd[:, :, rows, None]
-        lower, upper = 0, sk // blk
+        lower, upper = 0, sk // bk
         if causal:
-            lower, upper = _causal_block_bounds(off, qb, blk, blk,
-                                                sk // blk, window)
-        acc = torch.zeros((b, h, blk, d), device=dev)
+            lower, upper = _causal_block_bounds(off, qb, bq, bk, sk // bk,
+                                                window)
+        acc = torch.zeros((b, h, bq, d), device=dev)
         for j in range(lower, upper):
-            kt = k[:, :, j * blk:(j + 1) * blk]
-            vt = v[:, :, j * blk:(j + 1) * blk].float()
+            kt = k[:, :, j * bk:(j + 1) * bk]
+            vt = v[:, :, j * bk:(j + 1) * bk].float()
             p = torch.exp(qt @ kt.float().transpose(-1, -2) * scale - lse_t)
-            if causal:
-                p = torch.where(_keep_tile(off, qb * blk, j * blk, blk, blk,
-                                           window, dev), p,
+            if causal and _tile_straddles(off, q0, j * bk, bq, bk, window):
+                p = torch.where(_keep_tile(off, q0, j * bk, bq, bk, window,
+                                           dev), p,
                                 torch.zeros((), device=dev))
             dp = dot @ vt.transpose(-1, -2)
             ds = p * (dp - dd_t) * scale
@@ -432,9 +437,10 @@ def _check_cuda(what, tensors, bshd):
 
 
 def tma_aligned(data_ptr, strides, element_size):
-    """Whether a bf16 operand meets the kernels' alignment rule: TMA (K1,
-    K2) and the 16-byte loads (K3) need a 16-byte-aligned base address
-    and (batch, seq, head) strides of whole 16 bytes."""
+    """Whether an operand meets the kernels' alignment rule: TMA (bf16
+    K1-K3) and the 16-byte loads (the dd kernel, f32 or bf16) need a
+    16-byte-aligned base address and (batch, seq, head) strides of whole
+    16 bytes."""
     return data_ptr % 16 == 0 and all(s * element_size % 16 == 0
                                       for s in strides)
 
@@ -538,18 +544,62 @@ def cuda_bwd_dq(q, k, v, do, lse, dd, causal, scale, bshd=False,
     return dq
 
 
-_IMPLS = {"plain": (plain_fwd, plain_bwd_dkv, plain_bwd_dq),
-          "cuda": (cuda_fwd, cuda_bwd_dkv, cuda_bwd_dq)}
-
-
-def row_dot(do, out, bshd):
-    """dd = rowsum(dO * O) in f32, [B, H, Sq]."""
+def plain_row_dot(do, out, bshd):
+    """dd = rowsum(dO * O) in f32, [B, H, Sq] contiguous."""
     dd = (do.float() * out.float()).sum(dim=-1)
     return (dd.transpose(1, 2) if bshd else dd).contiguous()
 
 
+def cuda_row_dot(do, out, bshd):
+    """Launch the dd kernel (csrc/flash_attention.cu): rowsum(dO * O) in
+    f32, [B, H, Sq] contiguous, from f32 or bf16 dO and O in the same
+    layout. Both need a contiguous last dimension of 64, a 16-byte-aligned
+    base and strides of whole 16 bytes."""
+    for name, t in (("do", do), ("out", out)):
+        if t.device.type != "cuda":
+            raise RuntimeError(f"flash attention kernel 'cuda' (dd) needs "
+                               f"CUDA tensors; {name} is on {t.device}")
+    if do.device != out.device:
+        raise RuntimeError("flash attention: inputs must be on one device")
+    if do.dtype not in _DTYPES or out.dtype != do.dtype:
+        raise TypeError(f"flash attention dd kernel takes float32 or "
+                        f"bfloat16 dO and O of one dtype, got {do.dtype}/"
+                        f"{out.dtype}")
+    if do.dim() != 4 or do.shape != out.shape or do.shape[-1] != _HEAD_DIM:
+        raise ValueError(f"flash attention dd kernel: unsupported shapes dO "
+                         f"{tuple(do.shape)}, O {tuple(out.shape)} "
+                         f"(head_dim {_HEAD_DIM})")
+    for name, t in (("do", do), ("out", out)):
+        if t.stride(-1) != 1 or not tma_aligned(
+                t.data_ptr(), _strides(t, bshd), t.element_size()):
+            raise ValueError(
+                f"flash attention dd kernel: {name} needs a contiguous "
+                f"last dimension, a 16-byte aligned base and (batch, seq, "
+                f"head) strides of whole 16 bytes; got address "
+                f"{t.data_ptr():#x}, strides {t.stride()}")
+    b, sq, h, d = do.shape if bshd else (do.shape[0], do.shape[2],
+                                         do.shape[1], do.shape[3])
+    dd = torch.empty((b, h, sq), dtype=torch.float32, device=do.device)
+    _launch("flash_attention_row_dot", "dd", do.data_ptr(), out.data_ptr(),
+            dd.data_ptr(), _stride_array((do, out), bshd), b, h, sq, d,
+            _DTYPES[do.dtype],
+            torch.cuda.current_stream(do.device).cuda_stream)
+    return dd
+
+
+_IMPLS = {"plain": (plain_fwd, plain_bwd_dkv, plain_bwd_dq),
+          "cuda": (cuda_fwd, cuda_bwd_dkv, cuda_bwd_dq)}
+_ROW_DOTS = {"plain": plain_row_dot, "cuda": cuda_row_dot}
+
+
+def row_dot(do, out, bshd, impl):
+    """dd = rowsum(dO * O) in f32, [B, H, Sq], by `impl` ("plain" or
+    "cuda")."""
+    return _ROW_DOTS[impl](do, out, bshd)
+
+
 class _FlashCore(torch.autograd.Function):
-    """Forward K1, backward K2 then K3 (or their plain versions): the
+    """Forward K1, backward dd, K2 then K3 (or their plain versions): the
     counterpart of `_flash_core`'s custom_vjp."""
 
     @staticmethod
@@ -568,7 +618,7 @@ class _FlashCore(torch.autograd.Function):
         if g.stride(-1) != 1 or not tma_aligned(
                 g.data_ptr(), _strides(g, bshd), g.element_size()):
             g = g.clone(memory_format=torch.contiguous_format)
-        dd = row_dot(g, out, bshd)
+        dd = row_dot(g, out, bshd, impl)
         dk, dv = dkv(q, k, v, g, lse, dd, causal, scale, bshd, window)
         dqv = dq(q, k, v, g, lse, dd, causal, scale, bshd, window)
         return dqv, dk, dv, None, None, None, None, None

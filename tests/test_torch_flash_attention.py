@@ -109,13 +109,91 @@ def test_plain_dkv_on_the_kernel_schedule_matches_jax(layout, mode, shape,
     tdt = getattr(torch, dtype)
     tq, tk, tv, tg = (torch.tensor(x).to(tdt) for x in (q, k, v, g))
     out, lse = fa.plain_fwd(tq, tk, tv, causal, 0.125, bshd, window)
-    dd = fa.row_dot(tg, out, bshd)
+    dd = fa.row_dot(tg, out, bshd, "plain")
     dk, dv = fa.plain_bwd_dkv(tq, tk, tv, tg, lse, dd, causal, 0.125, bshd,
                               window, bq=64, bk=128)
     for name, a, b in (("dk", dk, want[2]), ("dv", dv, want[3])):
         assert a.dtype == tdt and a.shape == tk.shape, name
         np.testing.assert_allclose(a.float().numpy(), b, err_msg=name,
                                    **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_plain_dq_on_the_kernel_schedule_matches_jax(layout, mode, shape,
+                                                     dtype):
+    """plain_bwd_dq walking the bf16 K3's schedule (128-row q blocks over
+    64-key tiles, the mask on straddling tiles only) gives the JAX
+    package's dQ (the dense reference's where `_case` takes it)."""
+    (q, k, v, g), want = _case(layout, mode, shape, dtype)
+    causal, window = MODES[mode]
+    bshd = layout == "bshd"
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.tensor(x).to(tdt) for x in (q, k, v, g))
+    out, lse = fa.plain_fwd(tq, tk, tv, causal, 0.125, bshd, window)
+    dd = fa.row_dot(tg, out, bshd, "plain")
+    dq = fa.plain_bwd_dq(tq, tk, tv, tg, lse, dd, causal, 0.125, bshd,
+                         window, bq=128, bk=64)
+    assert dq.dtype == tdt and dq.shape == tq.shape
+    np.testing.assert_allclose(dq.float().numpy(), want[1], err_msg="dq",
+                               **TOL[dtype])
+
+
+def test_plain_dq_nan_in_k_reaches_the_rows_its_schedule_visits():
+    """A NaN in key 300 reaches dQ through dS = 0 times a NaN key in
+    every row whose q block visits key 300's tile: at 128-row q blocks
+    over 64-key tiles (causal), rows 256-299 as well as the rows that
+    attend key 300, and no row before 256."""
+    rng = np.random.RandomState(10)
+    q, k, v, do = (torch.tensor(rng.randn(1, 2, 512, 64).astype("f4"))
+                   for _ in range(4))
+    k[0, 0, 300, 0] = float("nan")
+    out, lse = fa.plain_fwd(q, k, v, True, 0.125)
+    dd = fa.row_dot(do, out, False, "plain")
+    dq = fa.plain_bwd_dq(q, k, v, do, lse, dd, True, 0.125, bq=128, bk=64)
+    bad = ~torch.isfinite(dq[0, 0]).all(dim=-1)
+    assert bool(bad[256:].all()) and not bool(bad[:256].any())
+    assert bool(torch.isfinite(dq[0, 0, 256:300, 1:]).all())
+    assert bool(torch.isfinite(dq[0, 1]).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_plain_row_dot_is_the_f32_rowsum(layout, dtype):
+    """row_dot(impl="plain") is rowsum(dO * O) in f32, [B, H, Sq]
+    contiguous, from either layout and either input dtype."""
+    rng = np.random.RandomState(11)
+    shp = (2, 128, 3, 64) if layout == "bshd" else (2, 3, 128, 64)
+    do, out = (rng.randn(*shp).astype("f4") for _ in range(2))
+    tdt = getattr(torch, dtype)
+    tdo, tout = torch.tensor(do).to(tdt), torch.tensor(out).to(tdt)
+    dd = fa.row_dot(tdo, tout, layout == "bshd", "plain")
+    want = (tdo.float() * tout.float()).numpy().astype("f8").sum(-1)
+    if layout == "bshd":
+        want = want.transpose(0, 2, 1)
+    assert dd.dtype == torch.float32 and dd.shape == (2, 3, 128)
+    assert dd.is_contiguous()
+    np.testing.assert_allclose(dd.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_takes_dd_from_its_impl(monkeypatch):
+    """_FlashCore.backward computes dd through `row_dot` with the impl of
+    its forward."""
+    calls = []
+    plain = fa._ROW_DOTS["plain"]
+
+    def counted(do, out, bshd):
+        calls.append(bshd)
+        return plain(do, out, bshd)
+    monkeypatch.setitem(fa._ROW_DOTS, "plain", counted)
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.tensor(rng.randn(1, 128, 2, 64).astype("f4"),
+                            requires_grad=True) for _ in range(3))
+    fa.flash_attention(q, k, v, causal=True, layout="bshd",
+                       kernel="plain").sum().backward()
+    assert calls == [True]
 
 
 def test_plain_lse_matches_the_dense_logsumexp():
@@ -213,18 +291,46 @@ def test_tiles_that_do_not_straddle_keep_every_pair(window, bk):
     """The bf16 kernels mask only tiles that straddle the band's edge:
     every other tile keeps all of its pairs, so skipping the mask there
     changes nothing. A window narrower than bq + bk - 1 cuts every tile
-    it reaches."""
-    bq, seen = 64, set()
-    for off in (-128, 0, 512):
-        for q0 in range(0, 512, bq):
-            for k0 in range(0, 1024, bk):
-                straddles = fa._tile_straddles(off, q0, k0, bq, bk, window)
-                seen.add(straddles)
-                if not straddles:
-                    assert bool(fa._keep_tile(off, q0, k0, bq, bk, window,
-                                              "cpu").all())
-    assert True in seen
-    assert (False in seen) == (window is None or window >= bq + bk - 1)
+    it reaches. Tile shapes: K2's 64 q rows over 64 or 128 keys, and
+    K3's 64 keys against a warpgroup's 64 q rows or plain's 128."""
+    for bq in ((64, 128) if bk == 64 else (64,)):
+        seen = set()
+        for off in (-128, 0, 512):
+            for q0 in range(0, 512, bq):
+                for k0 in range(0, 1024, bk):
+                    straddles = fa._tile_straddles(off, q0, k0, bq, bk,
+                                                   window)
+                    seen.add(straddles)
+                    if not straddles:
+                        assert bool(fa._keep_tile(off, q0, k0, bq, bk,
+                                                  window, "cpu").all())
+        assert True in seen
+        assert (False in seen) == (window is None or window >= bq + bk - 1)
+
+
+@pytest.mark.parametrize("sq,sk", [(512, 512), (128, 640), (256, 640),
+                                   (256, 128)])
+@pytest.mark.parametrize("window", [None, 64, 100, 256])
+def test_dq_bounds_on_the_kernel_schedule(window, sq, sk):
+    """At the bf16 K3's 128-row q blocks and 64-key tiles, causal: every
+    (q, k) pair in the band lies in a visited tile, the last tile of each
+    block's range holds a kept pair, and a block whose rows see no key
+    visits none."""
+    bq, bk = 128, 64
+    off = sk - sq
+    keep = fa._band_keep(off + np.arange(sq)[:, None],
+                         np.arange(sk)[None, :], window)
+    for qb in range(sq // bq):
+        lower, upper = fa._causal_block_bounds(off, qb, bq, bk, sk // bk,
+                                               window)
+        rows = keep[qb * bq:(qb + 1) * bq]
+        cols = np.nonzero(rows.any(axis=0))[0]
+        if cols.size == 0:
+            assert upper <= max(lower, 0)
+            continue
+        assert 0 <= lower <= cols[0] // bk and cols[-1] // bk < upper
+        assert upper <= sk // bk
+        assert rows[:, (upper - 1) * bk:upper * bk].any()
 
 
 def test_cuda_kernel_raises_for_cpu_tensors():
@@ -238,7 +344,20 @@ def test_cuda_kernel_raises_for_cpu_tensors():
         fa.cuda_bwd_dkv(q, q, q, q, lse, lse, True, 0.125)
     with pytest.raises(RuntimeError, match="CUDA"):
         fa.cuda_bwd_dq(q, q, q, q, lse, lse, True, 0.125)
-    assert fa.launches == {"fwd": 0, "dkv": 0, "dq": 0}
+    assert fa.launches == {"fwd": 0, "dkv": 0, "dq": 0, "dd": 0}
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_cuda_row_dot_raises_for_cpu_tensors(layout):
+    """The dd kernel's wrapper raises for CPU tensors, whatever the
+    dispatch asked for, and counts no launch."""
+    before = dict(fa.launches)
+    x = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fa.cuda_row_dot(x, x, layout == "bshd")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fa.row_dot(x, x, layout == "bshd", "cuda")
+    assert fa.launches == before
 
 
 # (data pointer, (batch, seq, head) strides in elements, element size)
