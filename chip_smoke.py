@@ -23,20 +23,35 @@ its phases:
                 TFLOP/s too, K1-K3's registers, spills and shared memory
                 beside), with the port's whole backward against SDPA's,
                 both captured in CUDA graphs;
+  optimizer     the fused Adam/AdamW kernel against its plain
+                `_foreach_*` twin over GPT-2 small's 148 parameter
+                shapes (AdamW with bf16 and f32 weights and with bf16
+                weights and f32 masters, Adam with an L2 decay; 3 steps
+                with the learning rate changed before the third), odd
+                sizes and more tensors than one launch carries, the NaN
+                contract and the refusals; one whole optimizer step
+                timed by CUDA-graph replay against its byte bound, the
+                plain twin and torch.optim.AdamW(fused=True);
   parity        fp32 serving streams of GPT-2 small width through the
                 CUDA kernel against the gather-then-attend reference;
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
                 kernels against the dense reference: step-1 gradients,
                 5-step SGD and AdamW loss trajectories, window off/on;
+                the graphed TrainStep against the eager sequence, with
+                and without a set_lr before step 4; two replays at lr 0
+                equal without dropout and different with it;
   serve         GPT-2 small in bf16 through the front door
                 (`inference.Config().enable_llm_engine(paged=True, ...)`
                 -> `create_llm_predictor` -> submit/run), showing the
                 path launched K4;
   train         GPT-2 small in bf16 at bench.py's GPU shapes through
                 `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
-                in `jit.TrainStep`, 3 warm-up and 10 timed steps,
-                showing every layer launched K1-K3 and the dd kernel
-                once per step.
+                in `jit.TrainStep`, one CUDA graph per step after the
+                eager first call and the capture, 10 timed replays,
+                showing every layer's K1-K3 and dd kernels and one
+                optimizer kernel in each replay (the captured launches
+                times the replays, against the profiler's count of
+                each kernel per step), with the eager step beside it.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -65,10 +80,21 @@ FLASH_REPLACES = {"fwd": "paddle_tpu/ops/pallas/flash_attention.py:137",
                         "flash_attention.py:466-469"}
 FLASH_NAMES = {"fwd": "flash_attention_fwd", "dkv": "flash_attention_dkv",
                "dq": "flash_attention_dq", "dd": "flash_attention_row_dot"}
+# device kernel names (torch.profiler) of each counted launch
+DEVICE_NAMES = {"flash_attention.fwd": "flash_fwd_wgmma",
+                "flash_attention.dkv": "flash_bwd_dkv_wgmma",
+                "flash_attention.dq": "flash_bwd_dq_wgmma",
+                "flash_attention.dd": "row_dot_kernel",
+                "optimizer.adam": "adam_kernel"}
+OPT_SOURCE = "paddle_tpu_torch/csrc/optimizer.cu"
+OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
+                "the compiled train step, Adam._update / AdamW._update, "
+                "paddle_tpu/optimizer/optimizer.py:372-382, 413-425")
 # training shapes of bench.py's GPU configuration: GPT-2 small (12 heads
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
-PHASES = ("kernels", "flash", "parity", "train_parity", "serve", "train")
+PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
+          "serve", "train")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -423,6 +449,256 @@ def kernels_phase(dev, peaks):
             "profile": profile_calls(kernel(), LAYERS),
         }
         del pools, views
+    return results
+
+
+# ---------------------------------------------------------------------------
+# optimizer: the fused Adam/AdamW kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+def train_config(**over):
+    """The train phase's model: bench.py's GPU configuration."""
+    from paddle_tpu_torch.nlp import GPTConfig
+    return GPTConfig(**{**dict(vocab_size=TRAIN_VOCAB, hidden_size=768,
+                               num_layers=12, num_heads=12,
+                               max_seq_len=TRAIN_S, dropout=0.0,
+                               attn_dropout=0.0), **over})
+
+
+def gpt2_param_shapes():
+    """The 148 parameter shapes of the train phase's GPT-2 small."""
+    import torch
+    from paddle_tpu_torch.nlp.gpt import GPTModel
+    with torch.device("meta"):
+        model = GPTModel(train_config())
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance in bf16 ulps (bit patterns mapped onto one
+    monotone integer line)."""
+    import torch
+
+    def line(x):
+        i = x.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (line(a) - line(b)).abs()
+
+
+def opt_slots(opt, params):
+    """The weights and each state slot of `opt`, as lists."""
+    slots = {"weight": list(params)}
+    for name in ("moment1", "moment2", "master"):
+        if name in opt._state[0]:
+            slots[name] = [opt._state[i][name] for i in range(len(params))]
+    return slots
+
+
+def opt_held(name, got, ref):
+    """The kernel's weights and state (`got`, from `opt_slots`) against
+    the plain twin's: the same non-finite entries; moments within rtol
+    1e-5 and atol 1e-9; f32 weights and masters within 1e-6 absolute;
+    bf16 weights equal in at least 99.9% of elements and never more than
+    one bf16 ulp apart. Returns the error figures."""
+    import torch
+    stats = {}
+    for slot, gl in got.items():
+        g = torch.cat([t.detach().reshape(-1) for t in gl])
+        r = torch.cat([t.detach().reshape(-1) for t in ref[slot]])
+        fin = torch.isfinite(r)
+        check(bool((torch.isfinite(g) == fin).all()),
+              f"optimizer {name}: {slot} non-finite entries differ from "
+              f"plain's")
+        err = torch.where(fin, (g.float() - r.float()).abs(), 0.0)
+        stats[f"{slot}_max_abs_err"] = err.max().item()
+        if slot in ("moment1", "moment2"):
+            ok = err <= 1e-9 + 1e-5 * r.float().abs()
+            check(bool(ok[fin].all()),
+                  f"optimizer {name}: {slot} max abs err "
+                  f"{stats[f'{slot}_max_abs_err']} over rtol 1e-5 / atol "
+                  f"1e-9")
+        elif g.dtype == torch.float32:
+            check(stats[f"{slot}_max_abs_err"] <= 1e-6,
+                  f"optimizer {name}: {slot} max abs err "
+                  f"{stats[f'{slot}_max_abs_err']} over 1e-6")
+        else:
+            ulps = torch.where(fin, bf16_ulps(g, r), 0)
+            stats["weight_equal_share"] = (ulps == 0).float().mean().item()
+            stats["weight_max_ulps"] = int(ulps.max())
+            check(stats["weight_equal_share"] >= 0.999
+                  and stats["weight_max_ulps"] <= 1,
+                  f"optimizer {name}: bf16 weights equal in "
+                  f"{stats['weight_equal_share']} of elements (needs "
+                  f">= 0.999), {stats['weight_max_ulps']} ulps apart at "
+                  f"most (needs <= 1)")
+    return stats
+
+
+def opt_case(name, make, dtype, shapes, gen, dev, steps=3, nan_at=None):
+    """The kernel (kernel="cuda") and the plain twin (kernel="plain")
+    from the same weights over `steps` steps of the same seeded grads,
+    the learning rate halved before step 3, held against each other
+    after every step. `nan_at` = (tensor, flat index) poisons that grad
+    element at step 1. Returns (the last step's figures, kernel launches
+    a step)."""
+    import torch
+    from paddle_tpu_torch.optimizer import fused_adam
+    init = [torch.randn(s, generator=gen, device=dev) * 0.05 for s in shapes]
+    pk = [torch.nn.Parameter(t.to(dtype, copy=True)) for t in init]
+    pp = [torch.nn.Parameter(t.to(dtype, copy=True)) for t in init]
+    del init
+    check(all(a.data_ptr() != b.data_ptr() for a, b in zip(pk, pp)),
+          f"optimizer {name}: the two sides share weights")
+    ok, op = make(pk, "cuda"), make(pp, "plain")
+    lr = ok.get_lr()
+    for step in range(1, steps + 1):
+        if step == 3:
+            ok.set_lr(lr / 2)
+            op.set_lr(lr / 2)
+        for i, (a, b) in enumerate(zip(pk, pp)):
+            g = (torch.randn(a.shape, generator=gen, device=dev)
+                 * 1e-2).to(dtype)
+            if nan_at is not None and step == 1 and i == nan_at[0]:
+                g.view(-1)[nan_at[1]] = float("nan")
+            a.grad = b.grad = g
+        before = fused_adam.launches["adam"]
+        ok.step()
+        op.step()
+        per_step = fused_adam.launches["adam"] - before
+        stats = opt_held(f"{name} step {step}", opt_slots(ok, pk),
+                         opt_slots(op, pp))
+    if nan_at is not None:
+        t, j = nan_at
+        for slot, tensors in opt_slots(ok, pk).items():
+            bad = [int((~torch.isfinite(x)).sum()) for x in tensors]
+            check(sum(bad) == 1 and bad[t] == 1
+                  and not torch.isfinite(tensors[t].view(-1)[j]).item(),
+                  f"optimizer {name}: a NaN grad element reached {slot} "
+                  f"other than at its own element ({sum(bad)} non-finite)")
+    return stats, per_step
+
+
+def opt_bound(params, master, peaks):
+    """Least time of one step: each weight (read and written), grad
+    (read) and f32 moment and master (read and written) moved once over
+    the HBM rate, against about 20 f32 operations an element over the
+    f32 peak. Returns (ms, "bytes" | "operations", bytes)."""
+    nbytes = sum(p.numel() * (3 * p.element_size() + 16 + (8 if master
+                                                           else 0))
+                 for p in params)
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = 20 * sum(p.numel() for p in params) / peaks["f32"] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (nbytes,)
+
+
+def optimizer_phase(dev, peaks):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.optimizer import Adam, AdamW, fused_adam
+
+    shapes = gpt2_param_shapes()
+    check(len(shapes) == 148 and sum(int(np.prod(s)) for s in shapes)
+          == 111008256, f"GPT-2 small: {len(shapes)} parameter tensors")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def adamw(**kw):
+        return lambda ps, k: AdamW(1e-3, parameters=ps, weight_decay=0.01,
+                                   kernel=k, **kw)
+
+    def adam_l2(ps, k):
+        return Adam(1e-3, parameters=ps, weight_decay=0.01, kernel=k)
+
+    cases = {}
+    for name, make, dtype in (("adamw bf16", adamw(), bf16),
+                              ("adamw f32", adamw(), f32),
+                              ("adamw bf16 multi_precision",
+                               adamw(multi_precision=True), bf16),
+                              ("adam l2 bf16", adam_l2, bf16)):
+        stats, per_step = opt_case(name, make, dtype, shapes, gen, dev)
+        check(per_step == 1, f"optimizer {name}: {per_step} launches a "
+                             f"step, not 1")
+        cases[name] = stats
+        torch.cuda.empty_cache()
+    # odd sizes (the scalar tail) and 300 tensors (two launches a step)
+    rng = np.random.default_rng(SEED + 6)
+    ragged = [(int(n),) for n in rng.integers(1, 20000, 300)]
+    for name, make, dtype in (("ragged adamw bf16 multi_precision",
+                               adamw(multi_precision=True), bf16),
+                              ("ragged adam l2 f32", adam_l2, f32)):
+        stats, per_step = opt_case(name, make, dtype, ragged, gen, dev)
+        check(per_step == 2, f"optimizer {name}: {per_step} launches a "
+                             f"step for 300 tensors, not 2")
+        cases[name] = stats
+    # a NaN in one grad element reaches only that element
+    cases["nan"], _ = opt_case("nan", adamw(), bf16, shapes, gen, dev,
+                               steps=1, nan_at=(4, 12345))
+    torch.cuda.empty_cache()
+
+    # refusals, before any launch: a CPU tensor, a misaligned view
+    p = torch.zeros(1024, dtype=bf16, device=dev)
+    m = torch.zeros(1024, device=dev)
+    sc = torch.zeros(2, device=dev)
+    flat = torch.zeros(1025, dtype=bf16, device=dev)
+    before = dict(fused_adam.launches)
+    for what, args, want in (
+            ("a CPU weight", ([p.cpu()], [p], [m], [m]), "param 0 is on cpu"),
+            ("a misaligned weight", ([flat[1:]], [p], [m], [m]),
+             "param 0 needs"),
+            ("a misaligned grad", ([p], [flat[1:]], [m], [m]),
+             "grad 0 needs")):
+        try:
+            fused_adam.cuda_adam(*args, None, sc, 0.9, 0.999, 1e-8)
+            refused = None
+        except (RuntimeError, ValueError) as exc:
+            refused = str(exc)
+        check(refused is not None and want in refused
+              and fused_adam.launches == before,
+              f"optimizer: {what} was not refused by name ({refused})")
+
+    # times: one whole AdamW step over GPT-2 small's bf16 weights
+    init = [torch.randn(s, generator=gen, device=dev).to(bf16) * 0.05
+            for s in shapes]
+    sets = []
+    for _ in range(3):
+        ps = [torch.nn.Parameter(t.clone()) for t in init]
+        for q in ps:
+            q.grad = (torch.randn(q.shape, generator=gen, device=dev)
+                      * 1e-2).to(bf16)
+        sets.append(ps)
+    del init
+    ok = AdamW(1e-4, parameters=sets[0], weight_decay=0.01, kernel="cuda")
+    op = AdamW(1e-4, parameters=sets[1], weight_decay=0.01, kernel="plain")
+    bound_ms, bound_by, nbytes = opt_bound(sets[0], False, peaks)
+    kernel_ms = graph_ms(ok.step, 1)
+    results = {
+        "cases": cases, "tensors": len(shapes),
+        "params": sum(q.numel() for q in sets[0]),
+        "max_abs_err": cases["adamw bf16"]["weight_max_abs_err"],
+        "kernel_ms": kernel_ms,
+        "gbytes_per_s": nbytes / kernel_ms * 1e-6,
+        "eager_call_ms": time_ms(ok.step, 20),
+        "plain_ms": graph_ms(op.step, 1),
+        "plain_eager_ms": time_ms(op.step, 5),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "what": "kernel_ms / plain_ms / library_ms: one optimizer step "
+                "captured in a CUDA graph and replayed; eager_call_ms and "
+                "plain_eager_ms: eager calls, CUDA events (host time)"}
+    try:
+        lib = torch.optim.AdamW(sets[2], lr=1e-4, weight_decay=0.01,
+                                fused=True, capturable=True)
+        results["library_ms"] = graph_ms(lib.step, 1)
+        results["library"] = (
+            "torch.optim.AdamW(fused=True, capturable=True) on the same "
+            "bf16 weights and grads: not the same rule, since it keeps its "
+            "moments in the weights' dtype (bf16: 14 bytes a parameter, "
+            "not 22) and decays p by (1 - lr wd) before the update")
+    except RuntimeError as exc:
+        results["library_ms"] = None
+        results["library"] = f"null: {type(exc).__name__}: {exc}"[:400]
+    del sets, ok, op
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1069,30 +1345,74 @@ def train_parity_phase(dev):
             check(err <= lim, f"train parity window={window}: grad {n} "
                               f"differs by {err} > {lim}")
             gerr = max(gerr, err)
+        def run(make, kernel, graphed, lr_change=False):
+            """Five losses of a TrainStep over a fresh model; with
+            lr_change, set_lr(0.3 x lr) before step 4."""
+            m = model()
+            opt = make(m.parameters())
+            step = TrainStep(m, gpt_pretrain_loss, opt, cuda_graph=graphed)
+            losses = []
+            with fa.kernel_scope(kernel):
+                for i in range(5):
+                    if lr_change and i == 3:
+                        opt.set_lr(0.3 * opt.get_lr())
+                    losses.append(float(step(ids, ids)))
+            graphs = list(step.graphs.values())
+            check(not graphed or (len(graphs) == 1 and graphs[0].replays
+                                  == 4), f"train parity: {graphs} replays")
+            return losses
+
         traj = {}
         for opt_name, make, rtol in (
                 ("sgd", lambda p: SGD(0.1, parameters=p), 1e-5),
                 ("adamw", lambda p: AdamW(1e-3, parameters=p), 1e-3)):
             for kernel in ("reference", "cuda"):
-                m = model()
-                step = TrainStep(m, gpt_pretrain_loss, make(m.parameters()))
-                with fa.kernel_scope(kernel):
-                    traj[(opt_name, kernel)] = [float(step(ids, ids))
-                                                for _ in range(5)]
-            ref, got = traj[(opt_name, "reference")], traj[(opt_name, "cuda")]
-            check(np.allclose(got, ref, rtol=rtol, atol=0),
-                  f"train parity window={window} {opt_name}: losses {got} "
-                  f"vs {ref} (rtol {rtol})")
+                traj[(opt_name, kernel)] = run(make, kernel, False)
+            traj[(opt_name, "graph")] = run(make, "cuda", True)
+            traj[(opt_name, "lr")] = run(make, "cuda", False, True)
+            traj[(opt_name, "graph lr")] = run(make, "cuda", True, True)
+            for a, b in (("cuda", "reference"), ("graph", "cuda"),
+                         ("graph lr", "lr")):
+                got, ref = traj[(opt_name, a)], traj[(opt_name, b)]
+                check(np.allclose(got, ref, rtol=rtol, atol=0),
+                      f"train parity window={window} {opt_name}: {a} "
+                      f"losses {got} vs {b} {ref} (rtol {rtol})")
+            check(traj[(opt_name, "graph lr")][4]
+                  != traj[(opt_name, "graph")][4],
+                  f"train parity window={window} {opt_name}: set_lr did "
+                  f"not reach the graphed step")
         report[f"window={window}"] = {
             "max_grad_err": gerr,
-            "sgd_losses": traj[("sgd", "cuda")],
-            "sgd_ref_losses": traj[("sgd", "reference")],
-            "adamw_losses": traj[("adamw", "cuda")],
-            "adamw_ref_losses": traj[("adamw", "reference")]}
+            **{f"{o}{suffix}_losses": traj[(o, k)]
+               for o in ("sgd", "adamw")
+               for k, suffix in (("cuda", ""), ("reference", "_ref"),
+                                 ("graph", "_graph"),
+                                 ("lr", "_eager_set_lr"),
+                                 ("graph lr", "_graph_set_lr"))}}
+
+    # two replays on one batch at lr 0: equal without dropout, and
+    # different with it (the graph draws fresh masks from the model's
+    # registered generator)
+    replays = {}
+    for p in (0.0, 0.1):
+        m = GPTForPretraining(GPTConfig(
+            vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+            max_seq_len=s, dropout=p, attn_dropout=p,
+            initializer_range=0.1), device=dev, dtype=torch.float32,
+            seed=SEED)
+        step = TrainStep(m, gpt_pretrain_loss,
+                         SGD(0.0, parameters=m.parameters()))
+        losses = [step(ids, ids) for _ in range(3)]
+        replays[p] = [float(x) for x in losses[1:]]
+        same = torch.equal(losses[1], losses[2])
+        check(same == (p == 0.0) and all(np.isfinite(replays[p])),
+              f"train parity: lr 0, dropout {p}: replay losses "
+              f"{replays[p]} {'differ' if p == 0.0 else 'are equal'}")
     emit("train_parity", dtype="float32", layers=2, hidden=256, heads=4,
          vocab=512, batch=b, seq=s, initializer_range=0.1,
          grad_tolerance="1e-4 * max(1, max|g|)", sgd_rtol=1e-5,
-         adamw_rtol=1e-3, **report)
+         adamw_rtol=1e-3, lr0_replay_losses_dropout0=replays[0.0],
+         lr0_replay_losses_dropout01=replays[0.1], **report)
 
 
 # ---------------------------------------------------------------------------
@@ -1102,45 +1422,89 @@ def train_parity_phase(dev):
 def train_phase(dev, peaks):
     import numpy as np
     import torch
-    from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
-    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep, grad_norm_sentinel
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = GPTConfig(vocab_size=TRAIN_VOCAB, hidden_size=768, num_layers=12,
-                    num_heads=12, max_seq_len=TRAIN_S, dropout=0.0,
-                    attn_dropout=0.0)
-    model = GPTForPretraining(cfg, device=dev, dtype=torch.bfloat16,
-                              seed=SEED)
+    model = GPTForPretraining(train_config(), device=dev,
+                              dtype=torch.bfloat16, seed=SEED)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    step = TrainStep(model, gpt_pretrain_loss, opt, donate=True)
     ids = torch.tensor(np.random.RandomState(0).randint(
         0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int64"), device=dev)
-    for _ in range(3):                              # warm-up
-        float(step(ids, ids))
     steps = 10
+    # the main path's run, from building the step to its last timed
+    # call: every count is 0 before it and read after
+    for counts in kernels.COUNTERS.values():
+        for key in counts:
+            counts[key] = 0
+    fa.routes["kernel"] = fa.routes["dense"] = 0
+    step = TrainStep(model, gpt_pretrain_loss, opt, donate=True)
+    # call 1 runs eagerly on a side stream, call 2 captures the step and
+    # replays it, call 3 replays
+    for _ in range(3):
+        float(step(ids, ids))
+    graphs = list(step.graphs.values())
+    check(len(graphs) == 1 and graphs[0] is not None,
+          f"train: {len(graphs)} graphs after three calls")
+    graph = graphs[0]
+    per_step = dict(graph.launches)
+    want = {f"flash_attention.{k}": LAYERS for k in ("fwd", "dkv", "dq",
+                                                     "dd")}
+    want["optimizer.adam"] = 1
+    check(per_step == want, f"train: the graph holds the launches "
+                            f"{per_step}, not {want}")
+    routes = dict(fa.routes)
+    check(routes == {"kernel": 2 * LAYERS, "dense": 0},
+          f"train: attention routes {routes} in the eager call and the "
+          f"capture: a layer took the dense path")
+    warm = kernels.launch_counts()
+    replays0 = graph.replays
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in fa.launches:
-        fa.launches[key] = 0
-    fa.routes["kernel"] = fa.routes["dense"] = 0
     t0 = time.perf_counter()
     for _ in range(steps):
         loss = step(ids, ids)
     final = float(loss)                             # one sync at the end
     dt = (time.perf_counter() - t0) / steps
-    launches = dict(fa.launches)
-    routes = dict(fa.routes)
     peak_mem = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    counts = kernels.launch_counts()
+    check(counts == warm, "train: a timed call launched kernels from "
+                          "Python instead of replaying the graph")
+    check(graph.replays - replays0 == steps,
+          f"train: {graph.replays - replays0} replays in {steps} calls")
     check(np.isfinite(final), f"train: non-finite loss {final}")
     check(not step.last_nonfinite(), "train: non-finite grad norm")
-    check(all(n == LAYERS * steps for n in launches.values()),
-          f"train: launches {launches} != {LAYERS} x {steps} steps each")
-    check(routes == {"kernel": LAYERS * steps, "dense": 0},
-          f"train: attention routes {routes}: a layer took the dense path")
+    # kernels that ran in the timed calls: the graph's launches times
+    # its replays (the profiler's count of each kernel per replay checks
+    # it below)
+    launches = {k.split(".")[1]: n * steps for k, n in per_step.items()}
+    grad_norm = step.last_grad_norm()
+    profile = profile_steps(step, ids, dt * 1e3)
+    check(isinstance(profile, dict), f"train: profile {profile}")
+    for key, name in DEVICE_NAMES.items():
+        seen = profile["kernel_calls_per_step"][name]
+        check(seen == per_step[key],
+              f"train: the profiler saw {name} {seen} times a step, the "
+              f"graph holds {per_step[key]} launches of it")
 
-    # where a step's time goes: CUDA events around its parts
+    # the eager sequence on the same model and optimizer, for comparison
+    eager = TrainStep(model, gpt_pretrain_loss, opt, cuda_graph=False)
+    for _ in range(2):
+        float(eager(ids, ids))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = eager(ids, ids)
+    float(loss)
+    eager_dt = (time.perf_counter() - t0) / steps
+    eager_profile = profile_steps(eager, ids, eager_dt * 1e3)
+    if isinstance(eager_profile, dict):
+        del eager_profile["top_kernels"]
+
+    # where an eager step's time goes: CUDA events around its parts
     def ev():
         e = torch.cuda.Event(enable_timing=True)
         e.record()
@@ -1148,7 +1512,6 @@ def train_phase(dev, peaks):
     parts = {"forward_loss": 0.0, "backward": 0.0, "sentinel": 0.0,
              "optimizer": 0.0}
     reps = 3
-    from paddle_tpu_torch.jit import grad_norm_sentinel
     for _ in range(reps):
         e0 = ev()
         lo = gpt_pretrain_loss(model(ids), ids)
@@ -1164,31 +1527,39 @@ def train_phase(dev, peaks):
         for key, (a, b) in zip(parts, ((e0, e1), (e1, e2), (e2, e3),
                                        (e3, e4))):
             parts[key] += a.elapsed_time(b) / reps
-    profile = profile_steps(step, ids, dt * 1e3)
     n_params = sum(p.numel() for p in model.parameters())
     tokens_per_s = TRAIN_B * TRAIN_S / dt
     emit("train", model="gpt2_small", dtype="bfloat16", vocab=TRAIN_VOCAB,
-         batch=TRAIN_B, seq=TRAIN_S, steps=steps, step_ms=dt * 1e3,
-         tokens_per_s=tokens_per_s, loss=final,
-         grad_norm=step.last_grad_norm(), params=n_params,
-         mfu=6 * n_params * tokens_per_s / peaks["bf16"],
-         max_memory_allocated=peak_mem, launches=launches, routes=routes,
-         step_parts_ms=parts, profile=profile)
+         batch=TRAIN_B, seq=TRAIN_S, steps=steps,
+         step="one CUDA graph replay per call", step_ms=dt * 1e3,
+         tokens_per_s=tokens_per_s, loss=final, grad_norm=grad_norm,
+         params=n_params, mfu=6 * n_params * tokens_per_s / peaks["bf16"],
+         max_memory_allocated=peak_mem, memory_reserved=reserved,
+         memory_note="a graph's activations sit in its pool, reserved and "
+                     "not allocated between replays",
+         eager_step_ms=eager_dt * 1e3,
+         eager_tokens_per_s=TRAIN_B * TRAIN_S / eager_dt,
+         launches_per_step=per_step, launches=launches,
+         wrapper_counts={k: n for k, n in counts.items() if n},
+         routes=routes, step_parts_ms_eager=parts, profile=profile,
+         eager_profile=eager_profile)
     return launches
 
 
 # kernel-name fragments -> category of a training step's device time
 PROFILE_GROUPS = (("flash attention (K1-K3, dd)", ("flash_", "row_dot")),
                   ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
-                  ("optimizer (foreach)", ("multi_tensor", "foreach")))
+                  ("optimizer (fused adam, foreach)",
+                   ("adam_kernel", "multi_tensor", "foreach")))
 
 
 def profile_steps(step, ids, step_ms, steps=2):
     """Device time of `steps` training steps by kernel, from
     torch.profiler (CUPTI): per-step ms by category, the device's idle
-    share of the unprofiled step time `step_ms` (the profiler slows the
-    host), and the top kernels. Returns "not measured: ..." when the
-    profiler records no device time."""
+    share, the calls per step of each kernel in DEVICE_NAMES, and the top
+    kernels. The idle share is that of the profiled window; beside it,
+    the busy time against the unprofiled step time `step_ms`. Returns
+    "not measured: ..." when the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1207,7 +1578,7 @@ def profile_steps(step, ids, step_ms, steps=2):
         # carry their kernels' time too and would count it twice
         us = e.self_device_time_total
         if e.device_type == DeviceType.CUDA and us > 0:
-            rows.append((us / 1e3 / steps, e.count // steps, e.key))
+            rows.append((us / 1e3 / steps, e.count / steps, e.key))
     if not rows:
         return "not measured: the profiler recorded no device time"
     rows.sort(reverse=True)
@@ -1224,7 +1595,15 @@ def profile_steps(step, ids, step_ms, steps=2):
             groups["other (elementwise, norms, loss, copies)"] += ms
     return {"steps": steps, "profiled_wall_ms_per_step": wall,
             "device_busy_ms_per_step": busy,
-            "device_idle_share": max(0.0, 1 - busy / step_ms),
+            "kernel_calls_per_step": {
+                name: sum(n for _, n, key in rows if name in key)
+                for name in DEVICE_NAMES.values()},
+            # both from the profiled window (the profiler slows the
+            # kernels as well as the host)
+            "device_idle_share": 1 - busy / wall,
+            # against the unprofiled step: below 0 when the profiler's
+            # slowdown of the kernels exceeds the idle time
+            "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
             "ms_per_step_by_group": groups,
             "top_kernels": [{"ms": ms, "calls": n, "name": key[:90]}
                             for ms, n, key in rows[:16]]}
@@ -1294,6 +1673,9 @@ def main():
     fl = run("flash", flash_phase, dev, peaks)
     if fl is not None:
         emit("flash", **fl)
+    op = run("optimizer", optimizer_phase, dev, peaks)
+    if op is not None:
+        emit("optimizer", **op)
     run("parity", parity_phase, dev)
     run("train_parity", train_parity_phase, dev)
     serve_launches = run("serve", serve_phase, dev)
@@ -1315,6 +1697,12 @@ def main():
                      "replaces": FLASH_REPLACES[kind],
                      "launches": train_launches[kind],
                      "ms": row.pop("kernel_ms"), **row})
+    row = {k: op[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
+    rows.append({"name": "fused_adam", "route": "cuda",
+                 "source": OPT_SOURCE, "replaces": OPT_REPLACES,
+                 "launches": train_launches["adam"], "ms": op["kernel_ms"],
+                 **row})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

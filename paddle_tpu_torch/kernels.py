@@ -26,6 +26,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
 # C signature of every exported entry point, by library name
 SIGNATURES = {
     "paged_attention": {
@@ -62,7 +63,28 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _P],            # b h sq d dtype stream
             ctypes.c_int),
     },
+    "optimizer": {
+        "optimizer_adam_step": (
+            [_PTRS, _STRIDES, _I, _P,            # ptrs numels count scalars
+             _F, _F, _F, _F, _F, _F,             # b1 b2 1-b1 1-b2 eps decay
+             _I, _I, _I, _P],                    # mode dtype master stream
+            ctypes.c_int),
+        "optimizer_adam_max_tensors": ([], ctypes.c_int),
+    },
 }
+
+#: every kernel wrapper module's dict of launch counts, by library name.
+#: Each module registers its own `launches` here when it is imported and
+#: increments it where it launches and nowhere else; `launch_counts`
+#: reads them all (jit.TrainStep records what a CUDA graph captured).
+COUNTERS = {}
+
+
+def launch_counts():
+    """{"<library>.<kernel>": launches so far} over every registered
+    counter."""
+    return {f"{lib}.{key}": n for lib, counts in COUNTERS.items()
+            for key, n in counts.items()}
 
 _loaded = {}
 _fresh = {}      # report of each library this process compiled

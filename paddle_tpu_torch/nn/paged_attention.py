@@ -33,6 +33,7 @@ import os
 
 import torch
 
+from .. import kernels
 from .transformer import (cached_decode_attention, chunk_attention,
                           gather_block_kv)
 
@@ -46,6 +47,7 @@ _SCOPE_STACK = []           # innermost kernel_scope override, LIFO
 #: else (chip_smoke.py zeroes them before driving the serving path and
 #: reads them after)
 launches = {"decode": 0, "chunk": 0}
+kernels.COUNTERS["paged_attention"] = launches
 
 
 def set_paged_kernel(kernel):
@@ -320,7 +322,6 @@ def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk",
     out = torch.empty((b, c, h, d), dtype=pv.dtype, device=dev)
     work = torch.empty((b, hkv, nsplit, h // hkv * c, d + 2),
                        dtype=torch.float32, device=dev)
-    from .. import kernels
     lib = kernels.load("paged_attention")
     strides = (ctypes.c_longlong * 3)(*q.stride()[:3])
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -51,6 +51,8 @@ import os
 
 import torch
 
+from .. import kernels
+
 KERNELS = ("auto", "reference", "plain", "cuda")
 
 _DEFAULT_KERNEL = "auto"
@@ -61,6 +63,7 @@ _SCOPE_STACK = []           # innermost kernel_scope override, LIFO
 #: (chip_smoke.py zeroes them before driving the training path and
 #: reads them after); "dd" counts the rowsum(dO * O) kernel
 launches = {"fwd": 0, "dkv": 0, "dq": 0, "dd": 0}
+kernels.COUNTERS["flash_attention"] = launches
 #: calls of `flash_attention` by route: "kernel" (the autograd Function
 #: over plain or cuda) and "dense" (a mask, dropout or an ineligible
 #: shape); chip_smoke.py checks that the training path never went dense
@@ -173,14 +176,15 @@ def _causal_mask(logits, window):
     dev = logits.device
     qi = torch.arange(qlen, device=dev)[:, None] + (klen - qlen)
     ki = torch.arange(klen, device=dev)[None, :]
+    # a fill, not a host-to-device copy: a CUDA graph can capture it
     return torch.where(_band_keep(qi, ki, window), logits,
-                       torch.tensor(float("-inf"), device=dev))
+                       torch.full((), float("-inf"), device=dev))
 
 
 def _apply_mask(logits, mask):
     if mask.dtype == torch.bool:
-        return torch.where(mask, logits,
-                           torch.tensor(float("-inf"), device=logits.device))
+        return torch.where(mask, logits, torch.full(
+            (), float("-inf"), device=logits.device))
     return logits + mask.float()
 
 
@@ -256,7 +260,7 @@ def plain_fwd(q, k, v, causal, scale, bshd=False, window=None):
     blk = _PLAIN_BLOCK
     dev = q.device
     zero = torch.zeros((), device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    neg_inf = torch.full((), float("-inf"), device=dev)
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     for qb in range(sq // blk):
@@ -458,7 +462,6 @@ def _check_aligned(tensors, bshd):
 
 
 def _launch(fn, what, *args):
-    from .. import kernels
     lib = kernels.load("flash_attention")
     rc = getattr(lib, fn)(*args)
     if rc != 0:
