@@ -33,7 +33,11 @@ its phases:
                 timed by CUDA-graph replay against its byte bound, the
                 plain twin and torch.optim.AdamW(fused=True);
   parity        fp32 serving streams of GPT-2 small width through the
-                CUDA kernel against the gather-then-attend reference;
+                CUDA kernel against the gather-then-attend reference
+                (both eager); the graphed engine against the eager one
+                (equal streams, logits within 1e-6 relative, one decode
+                and one prefill graph); two graphed sampling engines with
+                one seed against each other, and against the eager one;
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
                 kernels against the dense reference: step-1 gradients,
                 5-step SGD and AdamW loss trajectories, window off/on;
@@ -42,8 +46,13 @@ its phases:
                 equal without dropout and different with it;
   serve         GPT-2 small in bf16 through the front door
                 (`inference.Config().enable_llm_engine(paged=True, ...)`
-                -> `create_llm_predictor` -> submit/run), showing the
-                path launched K4;
+                -> `create_llm_predictor` -> submit/run), 16 requests
+                served with the wave and the chunk as CUDA graphs and
+                eagerly (`switch_ir_optim(False)`) in turns, showing the
+                path launched K4 (the graphs' captured launches times
+                their replays, and none from Python); a torch.profiler
+                window of 20 steady rounds (device time per wave and per
+                chunk, idle share, host time per round);
   train         GPT-2 small in bf16 at bench.py's GPU shapes through
                 `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
                 in `jit.TrainStep`, one CUDA graph per step after the
@@ -706,62 +715,61 @@ def optimizer_phase(dev, peaks):
 # parity: the CUDA kernel against the reference kernel through serving
 # ---------------------------------------------------------------------------
 
-def record_streams(model, kernel, prompts, max_tokens, dev):
-    """Serve `prompts` greedily through create_llm_predictor and record
-    the logits row behind every emitted token of every request."""
+def record_streams(model, kernel, prompts, max_tokens, dev, graphed,
+                   **sampling):
+    """Serve `prompts` through create_llm_predictor, as CUDA graphs or
+    eagerly (`switch_ir_optim`), and record the f32 logits row behind
+    every emitted token of every request. The rows are read from the
+    engine's program outputs after each wave and each final prefill
+    chunk: under graph replay the model's methods run only at capture.
+    Returns the streams, the rows and the engine."""
     import torch
     from paddle_tpu_torch import inference
 
-    cfg = inference.Config().enable_llm_engine(
-        paged=True, num_slots=4, max_len=256, block_size=BLOCK,
-        prefill_len=CHUNK, paged_kernel=kernel, device=dev)
+    cfg = inference.Config()
+    cfg.switch_ir_optim(graphed)
+    cfg.enable_llm_engine(paged=True, num_slots=4, max_len=256,
+                          block_size=BLOCK, prefill_len=CHUNK,
+                          paged_kernel=kernel, device=dev)
     pred = inference.create_llm_predictor(cfg, model=model)
     eng, sched = pred.engine, pred.scheduler
     reqs = []
     steps = [[] for _ in prompts]
-    last_chunk = {}
-    orig_step = eng.prefill_step
-
-    def prefill_step(slot):
-        st = eng._pending_prefill[slot]
-        last_chunk["slot"] = slot
-        last_chunk["last"] = st["next"] + eng.prefill_chunk_len >= st["n"]
-        return orig_step(slot)
 
     def owner(slot):
         req = sched._slot_req[slot]
         return next(i for i, r in enumerate(reqs) if r is req)
 
-    orig_prefill, orig_decode = model.prefill_chunk, model.decode_step
+    orig_prefill, orig_wave = eng.prefill_step, eng.decode_wave
 
-    def prefill_chunk(*a, **k):
-        logits, caches = orig_prefill(*a, **k)
-        if last_chunk["last"]:
-            steps[owner(last_chunk["slot"])].append(
-                logits[0, 0].float().cpu())
-        return logits, caches
+    def prefill_step(slot):
+        st = eng._pending_prefill[slot]
+        last = st["next"] + eng.prefill_chunk_len >= st["n"]
+        first = orig_prefill(slot)
+        if last:
+            steps[owner(slot)].append(
+                eng.last_prefill_logits.to("cpu", copy=True))
+        return first
 
-    def decode_step(*a, **k):
-        logits, caches = orig_decode(*a, **k)
-        rows = logits[:, 0].float().cpu()
-        for s, live in enumerate(eng.slot_active):
-            if live and s not in eng.last_starved_slots:
+    def decode_wave():
+        live = [s for s, a in enumerate(eng.slot_active) if a]
+        out = orig_wave()
+        waved = [s for s in live if s not in eng.last_starved_slots]
+        if waved:
+            rows = eng.last_wave_logits.to("cpu", copy=True)
+            for s in waved:
                 steps[owner(s)].append(rows[s])
-        return logits, caches
+        return out
 
-    eng.prefill_step = prefill_step
-    model.prefill_chunk, model.decode_step = prefill_chunk, decode_step
-    try:
-        reqs.extend(pred.submit(prompt=p, max_tokens=max_tokens)
-                    for p in prompts)
-        pred.run()
-    finally:
-        del model.prefill_chunk, model.decode_step
+    eng.prefill_step, eng.decode_wave = prefill_step, decode_wave
+    reqs.extend(pred.submit(prompt=p, max_tokens=max_tokens, **sampling)
+                for p in prompts)
+    pred.run()
     torch.cuda.synchronize()
-    return [r.output_tokens for r in reqs], steps
+    return [r.output_tokens for r in reqs], steps, eng
 
 
-def parity_phase(dev):
+def parity_phase(dev, smi):
     import numpy as np
     import torch
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
@@ -777,9 +785,10 @@ def parity_phase(dev):
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, model.cfg.vocab_size, int(n)).tolist()
                for n in (37, 64, 100, 150)]
-    ref_toks, ref_steps = record_streams(model, "reference", prompts, 16,
-                                         dev)
-    out_toks, out_steps = record_streams(model, "cuda", prompts, 16, dev)
+    ref_toks, ref_steps, _ = record_streams(model, "reference", prompts,
+                                            16, dev, graphed=False)
+    out_toks, out_steps, _ = record_streams(model, "cuda", prompts, 16, dev,
+                                            graphed=False)
     near_ties, max_err, compared, scale = 0, 0.0, 0, 0.0
     for i in range(len(prompts)):
         check(len(out_toks[i]) == len(ref_toks[i]) == 16,
@@ -802,76 +811,328 @@ def parity_phase(dev):
                                  f" with top-2 gap {gap} >= {tol}")
                 near_ties += 1
                 break               # the streams diverge from here on
+
+    # the graphed engine against the eager one: the same kernels on the
+    # same inputs, so equal streams and logits equal to 1e-6 relative
+    g_toks, g_steps, g_eng = record_streams(model, "cuda", prompts, 16, dev,
+                                            graphed=True)
+    graph_tol = 1e-6
+    check(g_toks == out_toks, f"graphed streams {g_toks} != eager {out_toks}")
+    graph_err, graph_share = 0.0, 0.0
+    for i in range(len(prompts)):
+        check(len(g_steps[i]) == len(out_steps[i]) == 16,
+              f"request {i}: {len(g_steps[i])} graphed logits rows")
+        for t, (le, lg) in enumerate(zip(out_steps[i], g_steps[i])):
+            err = (le - lg).abs().max().item()
+            bound = graph_tol * max(1.0, le.abs().max().item())
+            graph_err = max(graph_err, err)
+            graph_share = max(graph_share, err / bound)
+            check(err <= bound, f"request {i} step {t}: graphed logits "
+                                f"differ from eager by {err} > {bound}")
+    compiles = {"decode": g_eng.decode_compiles,
+                "prefill": g_eng.prefill_compiles}
+    check(compiles == {"decode": 1, "prefill": 1},
+          f"graphed greedy engine compiled {compiles}")
+    replays = {"decode": g_eng.wave_program.replays,
+               "prefill": g_eng.prefill_program.replays}
+
+    # sampled streams: two graphed engines with one seed, and the eager one
+    knobs = dict(do_sample=True, top_k=50, top_p=0.9)
+    s1, _, s_eng = record_streams(model, "cuda", prompts, 16, dev,
+                                  graphed=True, **knobs)
+    s2, _, _ = record_streams(model, "cuda", prompts, 16, dev, graphed=True,
+                              **knobs)
+    s_eager, _, _ = record_streams(model, "cuda", prompts, 16, dev,
+                                   graphed=False, **knobs)
+    check(s1 == s2, f"two graphed sampled engines with one seed differ: "
+                    f"{s1} vs {s2}")
     emit("parity", dtype="float32", layers=LAYERS, requests=len(prompts),
          steps_compared=compared, max_logit_err=max_err, tolerance=tol,
          max_abs_logit=scale, near_tie_steps=near_ties,
          streams_equal=ref_toks == out_toks,
-         distinct_tokens=[len(set(t)) for t in ref_toks])
+         distinct_tokens=[len(set(t)) for t in ref_toks],
+         graphed_vs_eager={
+             "streams_equal": g_toks == out_toks,
+             "max_logit_err": graph_err,
+             "max_err_over_bound": graph_share,
+             "tolerance": f"{graph_tol} x max(1, |eager logits|)",
+             "compiles": compiles, "replays": replays},
+         sampled={"knobs": knobs, "graphed_twice_equal": s1 == s2,
+                  "graphed_equals_eager": s1 == s_eager,
+                  "equals_greedy": s1 == g_toks,
+                  "compiles": {"decode": s_eng.decode_compiles,
+                               "prefill": s_eng.prefill_compiles},
+                  "distinct_tokens": [len(set(t)) for t in s1]},
+         nvidia_smi=smi)
 
 
 # ---------------------------------------------------------------------------
-# serve: GPT-2 small, bf16, through the front door
+# serve: GPT-2 small, bf16, through the front door, graphed and eager
 # ---------------------------------------------------------------------------
 
-def serve_phase(dev):
-    import numpy as np
-    import torch
+def serve_predictor(model, graphed):
+    """The serve configuration through the front door, CUDA graphs on or
+    off, warmed up: a two-chunk prompt and three tokens run each
+    program's eager first call and (graphed) its capture."""
     from paddle_tpu_torch import inference
-    from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
-    from paddle_tpu_torch.nn import paged_attention as pa
-    from paddle_tpu_torch.serving import ServingMetrics
-
-    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
-                              device=dev, dtype=torch.bfloat16, seed=SEED)
-    cfg = inference.Config().enable_llm_engine(
-        paged=True, num_slots=LANES, max_len=NBLK * BLOCK,
-        block_size=BLOCK, prefill_len=CHUNK)
+    cfg = inference.Config()
+    cfg.switch_ir_optim(graphed)
+    cfg.enable_llm_engine(paged=True, num_slots=LANES, max_len=NBLK * BLOCK,
+                          block_size=BLOCK, prefill_len=CHUNK)
     pred = inference.create_llm_predictor(cfg, model=model)
     check(pred.engine.paged_kernel == "cuda",
           f"engine resolved kernel {pred.engine.paged_kernel!r}")
-    pred.generate(list(range(1, 70)), max_tokens=2)        # warm-up
-    rng = np.random.default_rng(SEED + 2)
-    prompts = [rng.integers(0, model.cfg.vocab_size,
-                            int(rng.integers(128, 769))).tolist()
-               for _ in range(16)]
+    pred.generate(list(range(1, 70)), max_tokens=3)
+    return pred
+
+
+def serve_run(pred, prompts):
+    """One timed run of the 16 requests on a warmed-up predictor, with
+    its K4 launches: from Python (eager), or the graphs' captured
+    launches times their replays in the run, which must launch nothing
+    from Python."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import ServingMetrics
+
     eng = pred.engine
+    graphed = eng.wave_program.graphed
     waves0, chunks0 = eng.decode_waves_run, eng.prefill_chunks_run
+    replays0 = (eng.wave_program.replays, eng.prefill_program.replays)
+    before = kernels.launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the timed window's metrics leave out the warm-up request
     pred.scheduler.metrics = ServingMetrics(eng.num_slots)
-    pa.launches["decode"] = pa.launches["chunk"] = 0
     t0 = time.perf_counter()
     reqs = [pred.submit(prompt=p, max_tokens=64) for p in prompts]
-    pred.run()
+    rounds = pred.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(pa.launches)
+    python = {k.split(".")[1]: n - before.get(k, 0)
+              for k, n in kernels.launch_counts().items()
+              if k.startswith("paged_attention.")}
     waves = eng.decode_waves_run - waves0
     chunks = eng.prefill_chunks_run - chunks0
     snap = pred.metrics.snapshot()
     done = [r for r in reqs if r.finish_reason == "max_tokens"]
     check(len(done) == 16, "finish reasons "
           f"{[r.finish_reason for r in reqs]}")
-    vocab = model.cfg.vocab_size
+    vocab = pred.engine.model.cfg.vocab_size
     check(all(len(r.output_tokens) == 64
               and all(0 <= t < vocab for t in r.output_tokens)
               for r in reqs), "every request yields 64 in-vocab tokens")
-    total = launches["decode"] + launches["chunk"]
-    check(total > 0, "the serving path never launched the kernel")
-    check(launches["decode"] == LAYERS * waves
-          and launches["chunk"] == LAYERS * chunks,
+    compiles = {"decode": eng.decode_compiles,
+                "prefill": eng.prefill_compiles}
+    if graphed:
+        check(compiles == {"decode": 1, "prefill": 1},
+              f"graphed serve compiled {compiles}")
+        captured = {"decode": eng.wave_program.graphs[False].launches,
+                    "chunk": eng.prefill_program.graphs[False].launches}
+        check(captured == {"decode": {"paged_attention.decode": LAYERS},
+                           "chunk": {"paged_attention.chunk": LAYERS}},
+              f"the graphs hold the K4 launches {captured}")
+        check(python == {"decode": 0, "chunk": 0},
+              f"a graphed run launched K4 from Python: {python}")
+        replays = {"decode": eng.wave_program.replays - replays0[0],
+                   "chunk": eng.prefill_program.replays - replays0[1]}
+        check(replays == {"decode": waves, "chunk": chunks},
+              f"replays {replays} for {waves} waves, {chunks} chunks")
+        launches = {k: LAYERS * n for k, n in replays.items()}
+    else:
+        check(compiles == {"decode": 0, "prefill": 0},
+              f"eager serve compiled {compiles}")
+        launches = python
+    check(launches["decode"] + launches["chunk"] > 0,
+          "the serving path never launched the kernel")
+    check(launches == {"decode": LAYERS * waves, "chunk": LAYERS * chunks},
           f"launches {launches} != {LAYERS} x (waves {waves}, prefill "
           f"chunks {chunks})")
     tokens = sum(len(r.output_tokens) for r in reqs)
+    return {"graphed": graphed, "tokens_generated": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "ttft_p50_s": snap["ttft_p50_s"],
+            "tpot_p50_s": snap["tpot_p50_s"], "rounds": rounds,
+            "host_ms_per_round": wall * 1e3 / rounds, "decode_waves": waves,
+            "prefill_chunks": chunks, "compiles": compiles,
+            "k4_launches": launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+SERVE_RANGES = ("serving.decode_wave", "serving.prefill_chunk")
+K4_DEVICE_NAMES = ("paged_attn_split_kernel", "paged_attn_chunk_mma",
+                   "paged_attn_combine")
+# kernel-name fragments -> category of a serving round's device time
+SERVE_GROUPS = (("K4 (paged attention)", ("paged_attn",)),
+                ("matmul", ("gemm", "gemv", "xmma", "cutlass", "sm90_",
+                            "nvjet")),
+                ("sort (sampling filter)", ("sort", "radix")),
+                ("copies", ("memcpy", "memset")))
+
+
+def profile_serve(pred, prompts, warm_rounds=8, rounds=20):
+    """torch.profiler over `rounds` steady scheduling rounds of a graphed
+    predictor serving `prompts` (after `warm_rounds` rounds): the
+    device's busy time (the union of its kernel and copy intervals) and
+    the window's idle share, host ms per round, device ms per wave and
+    per chunk (each program's range as the profiler mirrors it on the
+    device's timeline), device ms per round by kernel group and the top
+    kernels, and the profiler's count of K4's kernels per replay. Then
+    each graph replayed alone, back to back, by CUDA events. Returns
+    "not measured: ..." when the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, sched = pred.engine, pred.scheduler
+    for p in prompts:
+        pred.submit(prompt=p, max_tokens=64)
+    for _ in range(warm_rounds):
+        sched.step()
+    torch.cuda.synchronize()
+    waves0, chunks0 = eng.decode_waves_run, eng.prefill_chunks_run
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            sched.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    waves = eng.decode_waves_run - waves0
+    chunks = eng.prefill_chunks_run - chunks0
+    pred.run()
+    intervals, calls = [], dict.fromkeys(K4_DEVICE_NAMES, 0)
+    spans = {k: [] for k in SERVE_RANGES}
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in SERVE_RANGES:
+            # the program's range mirrored on the device's timeline (the
+            # host range gets no device time: the graph's kernels are
+            # not attributed to it)
+            spans[e.name].append(e.time_range.elapsed_us() / 1e3)
+        elif not getattr(e, "is_user_annotation", False):
+            intervals.append((e.time_range.start, e.time_range.end))
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            for name in K4_DEVICE_NAMES:
+                if name in e.name:
+                    calls[name] += 1
+    if not intervals:
+        return "not measured: the profiler recorded no device time"
+    busy, reach = 0.0, None
+    for a, b in sorted(intervals):
+        if reach is None or a > reach:
+            busy, reach = busy + (b - a), b
+        elif b > reach:
+            busy, reach = busy + (b - reach), b
+    busy /= 1e3
+    check(waves > 0 and chunks > 0,
+          f"profiled window ran {waves} waves, {chunks} chunks")
+    per_replay = {
+        "split": calls["paged_attn_split_kernel"] / waves,
+        "chunk_mma": calls["paged_attn_chunk_mma"] / chunks,
+        "combine": calls["paged_attn_combine"] / (waves + chunks)}
+    check(per_replay == {"split": LAYERS, "chunk_mma": LAYERS,
+                         "combine": LAYERS},
+          f"the profiler saw K4 kernels per replay {per_replay}")
+    # each graph alone, back to back: its device time with no host gaps
+    alone = {}
+    for key, prog in (("wave", eng.wave_program),
+                      ("chunk", eng.prefill_program)):
+        graph = prog.graphs[False].graph
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        alone[key] = start.elapsed_time(end) / 20
+    groups = {name: 0.0 for name, _ in SERVE_GROUPS}
+    groups["other (elementwise, norms, scatters, selection)"] = 0.0
+    for key, (ms, _) in by_name.items():
+        low = key.lower()
+        group = next((name for name, frags in SERVE_GROUPS
+                      if any(f in low for f in frags)),
+                     "other (elementwise, norms, scatters, selection)")
+        groups[group] += ms / rounds
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"rounds": rounds, "decode_waves": waves, "prefill_chunks": chunks,
+            "profiled_wall_ms": wall, "host_ms_per_round": wall / rounds,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+            "device_ms_per_round_by_group": groups,
+            "top_kernels": [{"ms_per_round": ms / rounds,
+                             "calls_per_round": n / rounds,
+                             "name": key[:90]} for key, (ms, n) in top],
+            "device_span_ms_per_program": {
+                k: (sum(v) / len(v) if v else None)
+                for k, v in spans.items()},
+            "k4_kernels_per_replay": per_replay,
+            "replay_alone_ms": alone}
+
+
+def serve_phase(dev, smi):
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
+
+    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
+                              device=dev, dtype=torch.bfloat16, seed=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, model.cfg.vocab_size,
+                            int(rng.integers(128, 769))).tolist()
+               for _ in range(16)]
+    runs, main_launches = [], None
+    # graphed and eager in turns, each run on a fresh predictor (the
+    # prefix cache would otherwise skip the repeated prompts' prefill)
+    for graphed in (True, False, True, False, True):
+        if main_launches is None:
+            # the main path's run, from building the predictor to its
+            # last timed request: every count is 0 before it
+            for counts in kernels.COUNTERS.values():
+                for key in counts:
+                    counts[key] = 0
+        pred = serve_predictor(model, graphed)
+        run = serve_run(pred, prompts)
+        if main_launches is None:
+            main_launches = run["k4_launches"]
+        runs.append(run)
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    pred = serve_predictor(model, True)
+    profile = profile_serve(pred, prompts)
+    check(isinstance(profile, dict), f"serve: profile {profile}")
+    # the device's share of a graphed run's wall time, from each graph's
+    # time replayed alone and the run's replays
+    alone = profile["replay_alone_ms"]
+    for run in runs:
+        if run["graphed"]:
+            run["device_share_by_replay_alone"] = (
+                run["decode_waves"] * alone["wave"]
+                + run["prefill_chunks"] * alone["chunk"]) / (
+                    run["wall_s"] * 1e3)
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def median(graphed, key):
+        return statistics.median(r[key] for r in runs
+                                 if r["graphed"] == graphed)
+    keys = ("tokens_per_s", "tpot_p50_s", "ttft_p50_s", "host_ms_per_round")
     emit("serve", model="gpt2_small", dtype="bfloat16", requests=16,
-         completed=len(done), tokens_generated=tokens, wall_s=wall,
-         tokens_per_s=tokens / wall, ttft_p50_s=snap["ttft_p50_s"],
-         tpot_p50_s=snap["tpot_p50_s"], decode_waves=waves,
-         prefill_chunks=chunks, k4_launches=total,
-         k4_launches_by_form=launches,
-         max_memory_allocated=torch.cuda.max_memory_allocated())
-    return launches
+         order="graphed, eager, graphed, eager, graphed", runs=runs,
+         median_graphed={k: median(True, k) for k in keys},
+         median_eager={k: median(False, k) for k in keys},
+         profile=profile, nvidia_smi=smi)
+    return main_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1676,9 +1937,9 @@ def main():
     op = run("optimizer", optimizer_phase, dev, peaks)
     if op is not None:
         emit("optimizer", **op)
-    run("parity", parity_phase, dev)
+    run("parity", parity_phase, dev, smi)
     run("train_parity", train_parity_phase, dev)
-    serve_launches = run("serve", serve_phase, dev)
+    serve_launches = run("serve", serve_phase, dev, smi)
     train_launches = run("train", train_phase, dev, peaks)
     emit("phase_seconds", **timings)
     if only != PHASES:

@@ -2,7 +2,11 @@
 `Config.enable_llm_engine`, `LLMPredictor` and `create_llm_predictor`
 from `paddle_tpu/inference/__init__.py`).
 
-This slice serves through the paged engine only: `paged=True`.
+This slice serves through the paged engine only: `paged=True`. The
+Config's `ir_optim` (on by default, `switch_ir_optim`) selects how the
+engine runs its decode wave and prefill chunk on the card: as CUDA-graph
+replays, or eagerly (`switch_ir_optim(False)`), the counterpart of the
+JAX package's `jit_compile=config.ir_optim()`.
 """
 
 _NOT_PORTED = {
@@ -19,6 +23,17 @@ class Config:
 
     def __init__(self):
         self._llm_opts = None
+        self._ir_optim = True
+
+    def switch_ir_optim(self, flag=True):
+        """ir_optim (the reference's SwitchIrOptim): True serves each
+        decode wave and prefill chunk as a CUDA-graph replay on the card;
+        False runs them eagerly, one dispatch per op (for debugging, and
+        as the yardstick of the graphs). The CPU always runs eagerly."""
+        self._ir_optim = bool(flag)
+
+    def ir_optim(self):
+        return self._ir_optim
 
     def enable_llm_engine(self, num_slots=4, max_len=256, prefill_len=None,
                           eos_token_id=None, max_queue=None, paged=False,
@@ -75,7 +90,8 @@ class LLMPredictor:
             model, num_slots=opts["num_slots"], max_len=opts["max_len"],
             block_size=opts["block_size"], num_blocks=opts["num_blocks"],
             prefill_chunk_len=opts["prefill_len"],
-            paged_kernel=opts["paged_kernel"], device=opts["device"])
+            paged_kernel=opts["paged_kernel"], device=opts["device"],
+            cuda_graph=config.ir_optim())
         self.scheduler = Scheduler(self.engine, max_queue=opts["max_queue"])
 
     def generate(self, prompt, **kw):

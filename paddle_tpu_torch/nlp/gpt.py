@@ -304,7 +304,10 @@ class GPTModel(nn.Module):
     def prefill_chunk(self, tok_chunk, caches, block_tables, chunk_start,
                       valid_len):
         """One prompt chunk [1, C] at chunk_start + arange(C) against the
-        block pools. Returns (h, caches)."""
+        block pools. Returns (h, caches). `chunk_start` and `valid_len`
+        are Python ints or 0-d device tensors; as tensors they are read
+        on the device (K4 reads the start in place), so a CUDA graph of
+        the chunk replays whatever offset its buffers hold."""
         c = tok_chunk.shape[1]
         pos_ids = chunk_start + torch.arange(c, device=tok_chunk.device)
         x = self.embeddings(tok_chunk, self._position_ids(pos_ids)[None])
@@ -377,12 +380,14 @@ class GPTForPretraining(nn.Module):
     @torch.no_grad()
     def prefill_chunk(self, tok_chunk, caches, block_tables, chunk_start,
                       valid_len, frontier=None):
-        """frontier (index WITHIN the chunk): logits for that one position
-        only — [1, 1, V] instead of [1, C, V]."""
+        """frontier (index WITHIN the chunk; an int or a 0-d device
+        tensor, read on the device): logits for that one position only —
+        [1, 1, V] instead of [1, C, V]."""
         h, caches = self.gpt.prefill_chunk(tok_chunk, caches, block_tables,
                                            chunk_start, valid_len)
         if frontier is not None:
-            h = h[:, int(frontier):int(frontier) + 1]
+            h = h.index_select(1, torch.as_tensor(
+                frontier, device=h.device).reshape(1))
         return self._head(h), caches
 
     def forward(self, input_ids, position_ids=None):

@@ -45,7 +45,9 @@ _SCOPE_STACK = []           # innermost kernel_scope override, LIFO
 #: launches of the CUDA kernel by form since the last reset — plain
 #: integers, incremented by the wrapper where it launches and nowhere
 #: else (chip_smoke.py zeroes them before driving the serving path and
-#: reads them after)
+#: reads them after). A CUDA-graph replay runs no Python and advances
+#: nothing: the serving engines' programs record the launches each graph
+#: captured and count its replays
 launches = {"decode": 0, "chunk": 0}
 kernels.COUNTERS["paged_attention"] = launches
 
@@ -177,7 +179,7 @@ def _walk(qf, pk, pv, tables, qpos, scale, window, blocks):
     b, hkv, rep, c, d = qf.shape
     bs = pk.shape[2]
     dev = qf.device
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    neg_inf = torch.full((), float("-inf"), device=dev)
     zero = torch.zeros((), device=dev)
     m = torch.full((b, hkv, rep, c), float("-inf"), device=dev)
     l = torch.zeros((b, hkv, rep, c), device=dev)

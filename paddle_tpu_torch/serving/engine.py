@@ -2,15 +2,31 @@
 decode wave (the port of `paddle_tpu/serving/engine.py`).
 
 The engine owns `num_slots` decode slots. Slot bookkeeping (positions,
-tokens, sampling knobs) is host-authoritative: a handful of tiny [S]
-uploads per wave, and one device-to-host read of the wave's tokens and
-finite flags, which is the one unavoidable sync per wave (the tokens are
-the product being streamed).
+tokens, sampling knobs, block tables) is host-authoritative. Every input
+of a program lives in a device buffer allocated once per engine
+(`StaticInputs`): before each run the host writes the values into one
+pinned staging buffer and one host-to-device copy moves them; the
+[S, V] logit-bias matrix moves only the rows that changed. A wave ends
+with one device-to-host read of its tokens and finite flags, the one
+unavoidable sync per wave (the tokens are the product being streamed).
 
-The wave runs eagerly: there is no jit and no donation. The KV pools are
-updated in place by the model's scatters. Sampling draws its Gumbel noise
-from a `torch.Generator` seeded with `seed`, so a fresh engine with the
-same seed replays sampled streams; it does not reproduce JAX's bits.
+Each program — the decode wave here, the prefill chunk in the paged
+engine — reads only those buffers and writes its own output tensors
+(`Program`). With `cuda_graph=True` (the default; the JAX package's
+`jit_compile`) an engine on the card runs each program as one CUDA graph
+per key, the key being whether a lane samples: the first call with a key
+runs eagerly on a side stream, the second captures and replays, every
+later call replays. A greedy stream thus holds one decode and one
+prefill graph (`decode_compiles`, `prefill_compiles`), the JAX package's
+compile-once contract. A capture that fails raises; nothing falls back
+to the eager program. On the CPU, or with `cuda_graph=False`, the same
+program functions run eagerly and both counters stay 0.
+
+The KV pools are updated in place by the model's scatters: there is no
+donation. Sampling draws its Gumbel noise inside the program from a
+`torch.Generator` seeded with `seed` and registered with every graph, so
+each replay draws fresh noise and a fresh engine with the same seed
+replays sampled streams; it does not reproduce JAX's bits.
 
 The dense engine's own prefill needs flash-attention kernel K1 and is not
 ported yet; `PagedServingEngine` (serving/paged) is the engine this slice
@@ -19,9 +35,12 @@ serves with.
 import numpy as np
 import torch
 
+from .. import kernels
 from ..device import resolve_device
 
 _NEG = -1e9     # the logit-bias "forbidden" value and the filter fill
+_NUMPY = {torch.int64: np.int64, torch.int32: np.int32,
+          torch.float32: np.float32, torch.bool: np.bool_}
 
 
 def _infer_cache_dtype(model):
@@ -50,11 +69,12 @@ def _filter_top_k_top_p(lo, top_k, top_p):
     kth = torch.gather(sorted_lo, -1,
                        (torch.clamp(top_k, 1, v) - 1).long()[:, None])
     in_k = (sorted_lo >= kth) | (top_k <= 0)[:, None]
-    neg = torch.tensor(_NEG, dtype=lo.dtype, device=lo.device)
+    # a fill, not a host-to-device copy: the wave is captured in a graph
+    neg = torch.full((), _NEG, dtype=lo.dtype, device=lo.device)
     probs = torch.softmax(torch.where(in_k, sorted_lo, neg), dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep_sorted = ((cum - probs) < top_p[:, None]) | (top_p >= 1.0)[:, None]
-    keep_sorted[:, 0] = True
+    keep_sorted[:, 0].fill_(True)
     keep_sorted &= in_k
     inv = torch.argsort(sort_idx, dim=-1)
     keep = torch.gather(keep_sorted, -1, inv)
@@ -92,14 +112,156 @@ def _select_wave_tokens(lo, tok, pos, active, sample, temps, top_k, top_p,
 
 def _select_first_token(lo, sample, temp, top_k, top_p, bias, gumbel):
     """First-token selection from the prefill's frontier logits [V]: the
-    same temperature/top-k/top-p/bias as the decode tail."""
+    same temperature/top-k/top-p/bias as the decode tail. The knobs are
+    0-d device tensors (host scalars are taken too); `gumbel` [V] is None
+    when the request does not sample, and the pick is then the greedy
+    one."""
     lo = lo + bias
-    if not sample:
-        return torch.argmax(lo)
-    scaled = (lo / max(float(temp), 1e-6))[None, :]
-    knob_k = torch.tensor([int(top_k)], device=lo.device)
-    knob_p = torch.tensor([float(top_p)], device=lo.device)
-    return _sample(scaled, knob_k, knob_p, gumbel[None, :])[0]
+    greedy = torch.argmax(lo)
+    if gumbel is None:
+        return greedy
+    sample, temp, top_k, top_p = (torch.as_tensor(x, device=lo.device)
+                                  for x in (sample, temp, top_k, top_p))
+    scaled = (lo / torch.clamp(temp, min=1e-6))[None, :]
+    sampled = _sample(scaled, top_k.reshape(1), top_p.reshape(1),
+                      gumbel[None, :])[0]
+    return torch.where(sample, sampled, greedy)
+
+
+def _gumbel_(buf, gen):
+    """Fill `buf` in place with Gumbel(0, 1) noise from `gen`: torch.rand's
+    uniform draw, then -log(-log(u))."""
+    buf.uniform_(0, 1, generator=gen)
+    tiny = torch.finfo(torch.float32).tiny
+    return buf.clamp_(min=tiny).log_().neg_().log_().neg_()
+
+
+class StaticInputs:
+    """The input buffers of one engine program, allocated once and never
+    replaced: a CUDA graph replays on the addresses it captured.
+
+    `fields` [(name, dtype, shape)] are typed views (`tensors[name]`) of
+    one device byte buffer, written through numpy views (`host[name]`)
+    of one pinned host byte buffer and moved by one copy per run:
+    `stage()` returns the host views once the previous run's copy has
+    read them (a run that ends without a sync may still be queued behind
+    it), `upload()` enqueues the copy. `add` registers a device buffer
+    the program reads that moves by other means (the logit bias, the
+    Gumbel noise the program draws)."""
+
+    def __init__(self, fields, device):
+        spans, size = {}, 0
+        for name, dtype, shape in fields:
+            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            spans[name] = (size, size + nbytes)
+            size += -(-nbytes // 16) * 16
+        self.device = device
+        self._dev = torch.empty(size, dtype=torch.uint8, device=device)
+        self._host = torch.empty(size, dtype=torch.uint8,
+                                 pin_memory=device.type == "cuda")
+        raw = self._host.numpy()
+        self.host, self.tensors = {}, {}
+        for name, dtype, shape in fields:
+            a, b = spans[name]
+            self.host[name] = raw[a:b].view(_NUMPY[dtype]).reshape(shape)
+            self.tensors[name] = self._dev[a:b].view(dtype).reshape(shape)
+        self._copied = None
+
+    def add(self, name, tensor):
+        self.tensors[name] = tensor
+
+    def stage(self):
+        if self._copied is not None:
+            self._copied.synchronize()
+            self._copied = None
+        return self.host
+
+    def upload(self):
+        self._dev.copy_(self._host, non_blocking=True)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+
+class _Graph:
+    """One captured program: the graph, its output tensors, the kernel
+    launches it holds (by `kernels.launch_counts` key) and its replays."""
+
+    def __init__(self, graph, outs, launches):
+        self.graph = graph
+        self.outs = outs
+        self.launches = launches
+        self.replays = 0
+
+
+class Program:
+    """One engine program, `fn(key)` over the engine's static buffers,
+    returning its output tensors. Eager on the CPU or with
+    `cuda_graph=False`. Otherwise one CUDA graph per key, captured as
+    `jit.TrainStep` captures a step: the first call with a key runs `fn`
+    eagerly on a side stream, the second captures it (the generator
+    registered, so every replay draws fresh noise) and replays, every
+    later call replays and returns the graph's own output tensors, which
+    the next replay overwrites. `graphs` maps each key to its `_Graph`
+    (None after its eager first call). The graphs of one program share a
+    memory pool; each engine program has its own."""
+
+    def __init__(self, name, fn, device, cuda_graph, generator):
+        self.name = name
+        self._fn = fn
+        self._device = device
+        self._generator = generator
+        self.graphed = bool(cuda_graph) and device.type == "cuda"
+        self.graphs = {}
+        self._pool = None
+
+    @property
+    def compiles(self):
+        return sum(g is not None for g in self.graphs.values())
+
+    @property
+    def replays(self):
+        return sum(g.replays for g in self.graphs.values() if g is not None)
+
+    def __call__(self, key):
+        with torch.profiler.record_function(self.name):
+            if not self.graphed:
+                return self._fn(key)
+            if key not in self.graphs:
+                self.graphs[key] = None
+                return self._warm_up(key)
+            g = self.graphs[key]
+            if g is None:
+                g = self.graphs[key] = self._capture(key)
+            g.graph.replay()
+            g.replays += 1
+            return g.outs
+
+    def _warm_up(self, key):
+        current = torch.cuda.current_stream(self._device)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            outs = self._fn(key)
+        current.wait_stream(side)
+        return outs
+
+    def _capture(self, key):
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._generator)
+        before = kernels.launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                outs = self._fn(key)
+        except Exception as exc:
+            raise RuntimeError(f"{self.name}: CUDA-graph capture failed: "
+                               f"{exc}") from exc
+        after = kernels.launch_counts()
+        if self._pool is None:
+            self._pool = graph.pool()
+        return _Graph(graph, outs,
+                      {k: n - before.get(k, 0) for k, n in after.items()
+                       if n != before.get(k, 0)})
 
 
 class ServingEngine:
@@ -111,10 +273,13 @@ class ServingEngine:
     max_len: per-slot horizon (prompt + generated tokens).
     device: where the engine runs; None = the CUDA card (RuntimeError
         when there is none — pass device="cpu" for the host).
+    cuda_graph: on the card, run each program as CUDA-graph replays
+        (the default; the inference Config's `ir_optim`); False runs
+        them eagerly. The CPU always runs them eagerly.
     """
 
     def __init__(self, model, num_slots=4, max_len=256, cache_dtype=None,
-                 seed=0, device=None):
+                 seed=0, device=None, cuda_graph=True):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 2:
@@ -143,18 +308,43 @@ class ServingEngine:
         self.slot_top_k = [0] * S
         self.slot_top_p = [1.0] * S
         self._slot_bias = np.zeros((S, self.vocab_size), np.float32)
-        # device copy of the [S, V] bias matrix, re-uploaded only when a
-        # row changes (the common case is all zeros)
-        self._slot_bias_dev = None
         self._slot_bias_nonzero = [False] * S
+        # rows of the device bias matrix to copy before the next wave
+        # (the common case is all zeros and no copy)
+        self._bias_dirty = set()
         # admissions mid-prefill (slot -> engine-specific state)
         self._pending_prefill = {}
         self.last_nonfinite_slots = []
         self.last_starved_slots = []
         # programs run (each decode wave and each prefill chunk is one
-        # eager pass through every layer)
+        # pass through every layer: eager, or one graph replay)
         self.decode_waves_run = 0
         self.prefill_chunks_run = 0
+        self.cuda_graph = bool(cuda_graph)
+        self.wave_inputs = StaticInputs(self._wave_fields(), self.device)
+        for name in ("bias", "gumbel"):
+            self.wave_inputs.add(name, torch.zeros(
+                (S, self.vocab_size), device=self.device))
+        self.wave_program = Program("serving.decode_wave",
+                                    self._wave_program, self.device,
+                                    cuda_graph, self._gen)
+        # f32 logits [S, V] of the latest wave: the program's output,
+        # overwritten by the next wave
+        self.last_wave_logits = None
+
+    @property
+    def decode_compiles(self):
+        """CUDA graphs captured for the decode wave: 1 over a greedy
+        stream, 2 once a lane has sampled; 0 on the eager path."""
+        return self.wave_program.compiles
+
+    def _wave_fields(self):
+        """(name, dtype, shape) of the wave's staged inputs."""
+        S = self.num_slots
+        return [("tok", torch.int64, (S,)), ("pos", torch.int64, (S,)),
+                ("top_k", torch.int64, (S,)), ("temps", torch.float32, (S,)),
+                ("top_p", torch.float32, (S,)), ("active", torch.bool, (S,)),
+                ("sample", torch.bool, (S,))]
 
     def _make_caches(self):
         raise NotImplementedError(
@@ -194,7 +384,7 @@ class ServingEngine:
     def _set_bias_row(self, slot, row):
         nonzero = bool(np.any(row))
         if nonzero or self._slot_bias_nonzero[slot]:
-            self._slot_bias_dev = None
+            self._bias_dirty.add(slot)
         self._slot_bias[slot] = row
         self._slot_bias_nonzero[slot] = nonzero
 
@@ -216,12 +406,6 @@ class ServingEngine:
                 "top_k": int(top_k), "top_p": float(top_p),
                 "bias": self._normalize_bias(logit_bias)}
 
-    def _gumbel(self, shape):
-        """Gumbel(0, 1) noise from the engine's generator."""
-        u = torch.rand(shape, generator=self._gen, device=self.device)
-        tiny = torch.finfo(torch.float32).tiny
-        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
-
     # ------------------------------------------------------------- waves
     def decode_wave(self):
         """One batched decode step over all slots. Returns {slot: token}
@@ -240,26 +424,26 @@ class ServingEngine:
         if not any(active_now):
             self.last_nonfinite_slots = []
             return {}
-        dev = self.device
-        if self._slot_bias_dev is None:
-            self._slot_bias_dev = torch.tensor(self._slot_bias, device=dev)
-        sample = torch.tensor(self.slot_sample, device=dev)
-        gumbel = (self._gumbel((self.num_slots, self.vocab_size))
-                  if any(s and a for s, a in zip(self.slot_sample,
-                                                 active_now)) else None)
-        tok, finite = self._run_wave(
-            active_now,
-            torch.tensor(self.slot_tok, dtype=torch.long, device=dev),
-            torch.tensor(self.slot_pos, dtype=torch.long, device=dev),
-            torch.tensor(active_now, device=dev), sample,
-            torch.tensor(self.slot_temp, dtype=torch.float32, device=dev),
-            torch.tensor(self.slot_top_k, device=dev),
-            torch.tensor(self.slot_top_p, dtype=torch.float32, device=dev),
-            self._slot_bias_dev, gumbel)
+        host = self.wave_inputs.stage()
+        host["tok"][:] = self.slot_tok
+        host["pos"][:] = self.slot_pos
+        host["active"][:] = active_now
+        host["sample"][:] = self.slot_sample
+        host["temps"][:] = self.slot_temp
+        host["top_k"][:] = self.slot_top_k
+        host["top_p"][:] = self.slot_top_p
+        self._stage_wave(host, active_now)
+        self.wave_inputs.upload()
+        bias = self.wave_inputs.tensors["bias"]
+        for s in sorted(self._bias_dirty):
+            bias[s].copy_(torch.from_numpy(self._slot_bias[s]))
+        self._bias_dirty.clear()
+        sampled = any(s and a for s, a in zip(self.slot_sample, active_now))
+        picked, self.last_wave_logits = self.wave_program(sampled)
         self.decode_waves_run += 1
         # the one device->host sync of the wave
-        host = torch.cat([tok, finite.long()]).tolist()
-        tok, finite = host[:self.num_slots], host[self.num_slots:]
+        read = picked.tolist()
+        tok, finite = read[:self.num_slots], read[self.num_slots:]
         out, bad = {}, []
         for s, was_active in enumerate(active_now):
             if not was_active:
@@ -277,10 +461,24 @@ class ServingEngine:
         self.last_starved_slots = []
         return active_now
 
-    def _run_wave(self, active_now, tok, pos, active, sample, temps, top_k,
-                  top_p, bias, gumbel):
-        """Run the model over every lane and select tokens; returns the
-        device tensors (next tokens [S], finite [S])."""
+    def _stage_wave(self, host, active_now):
+        """Write the engine's own staged wave inputs (none here)."""
+
+    def _wave_program(self, sampled):
+        """The decode wave over the static buffers: the model over every
+        lane, then token selection (Gumbel noise drawn in place when a
+        lane samples). Returns the [2S] int64 next tokens and finite
+        flags, and the f32 logits [S, V]."""
+        w = self.wave_inputs.tensors
+        gumbel = _gumbel_(w["gumbel"], self._gen) if sampled else None
+        lo = self._wave_logits(w)
+        nxt, _, finite = _select_wave_tokens(
+            lo, w["tok"], w["pos"], w["active"], w["sample"], w["temps"],
+            w["top_k"], w["top_p"], w["bias"], gumbel)
+        return torch.cat([nxt, finite.long()]), lo
+
+    def _wave_logits(self, w):
+        """f32 logits [S, V] of one decode step over the wave buffers."""
         raise NotImplementedError
 
     def slot_full(self, slot):

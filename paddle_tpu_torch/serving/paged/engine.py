@@ -8,25 +8,32 @@ head_dim]` KV blocks per layer; slots reference block TABLES
 blocks configured, utilisation with the tokens actually held, and
 identical prompt prefixes dedupe onto shared blocks.
 
-Two eager passes, both through the paged-attention dispatch pinned to
-this engine's kernel:
+Two programs (`serving.engine.Program`: CUDA-graph replays on the card,
+eager on the CPU or with cuda_graph=False), both through the
+paged-attention dispatch pinned to this engine's kernel and both reading
+only their static input buffers:
 
   * decode wave — one token for every slot, each lane's K/V scattered
     through its table row and attention read straight out of the pools;
   * prefill chunk — one fixed-size chunk of one slot's prompt at an
-    absolute offset. Long prompts run chunk by chunk BETWEEN decode
-    waves (the scheduler advances one chunk per round); chunks fully
-    covered by prefix-cache hits are skipped.
+    absolute offset (chunk start, valid length and frontier as 0-d
+    device tensors), with the first-token selection. Long prompts run
+    chunk by chunk BETWEEN decode waves (the scheduler advances one
+    chunk per round); chunks fully covered by prefix-cache hits are
+    skipped. Only the final chunk's token is read back, and only that
+    chunk of a sampling request draws noise.
 
-Allocation happens between waves; a lane that cannot get a block (pool
-exhausted) is excluded from the wave and reported in
-`last_starved_slots` for the scheduler to preempt by recompute.
+Allocation happens between waves, and so does the copy-on-write copy of
+a shared block, eagerly; a lane that cannot get a block (pool exhausted)
+is excluded from the wave and reported in `last_starved_slots` for the
+scheduler to preempt by recompute.
 """
 import numpy as np
 import torch
 
 from ...nn import paged_attention
-from ..engine import ServingEngine, _select_first_token, _select_wave_tokens
+from ..engine import (Program, ServingEngine, StaticInputs, _gumbel_,
+                      _select_first_token)
 from .block_pool import BlockPool, BlockPoolExhausted
 
 
@@ -45,12 +52,13 @@ class PagedServingEngine(ServingEngine):
         to PT_PAGED_KERNEL, then "auto": "cuda" on the card, "plain" on
         the CPU). Resolved at construction and pinned for every wave.
     device: None = the CUDA card; pass device="cpu" for the host.
+    cuda_graph: see ServingEngine.
     """
 
     def __init__(self, model, num_slots=4, max_len=256, block_size=16,
                  num_blocks=None, prefill_chunk_len=None, cache_dtype=None,
                  seed=0, prefix_sharing=True, paged_kernel=None,
-                 device=None):
+                 device=None, cuda_graph=True):
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"block_size {block_size}")
@@ -66,12 +74,40 @@ class PagedServingEngine(ServingEngine):
         self.prefix_sharing = bool(prefix_sharing)
         self.block_pool = BlockPool(num_blocks, self.block_size)
         super().__init__(model, num_slots=num_slots, max_len=max_len,
-                         cache_dtype=cache_dtype, seed=seed, device=device)
+                         cache_dtype=cache_dtype, seed=seed, device=device,
+                         cuda_graph=cuda_graph)
         self.paged_kernel = paged_attention.resolve_kernel(paged_kernel,
                                                            self.device)
         self._slot_blocks = [[] for _ in range(self.num_slots)]
         self._tables = np.zeros((self.num_slots, self.blocks_per_slot),
                                 np.int32)
+        self.prefill_inputs = StaticInputs([
+            ("chunk", torch.int64, (1, self.prefill_chunk_len)),
+            ("table", torch.int32, (1, self.blocks_per_slot)),
+            ("chunk_start", torch.int64, ()), ("valid_len", torch.int64, ()),
+            ("frontier", torch.int64, ()), ("sample", torch.bool, ()),
+            ("temp", torch.float32, ()), ("top_k", torch.int64, ()),
+            ("top_p", torch.float32, ())], self.device)
+        for name in ("bias", "gumbel"):
+            self.prefill_inputs.add(name, torch.zeros(
+                (self.vocab_size,), device=self.device))
+        self._prefill_bias_nonzero = False
+        self.prefill_program = Program("serving.prefill_chunk",
+                                       self._prefill_program, self.device,
+                                       cuda_graph, self._gen)
+        # f32 frontier logits [V] of the latest chunk (the program's
+        # output, overwritten by the next chunk)
+        self.last_prefill_logits = None
+
+    @property
+    def prefill_compiles(self):
+        """CUDA graphs captured for the prefill chunk: 1 over a greedy
+        stream; 0 on the eager path."""
+        return self.prefill_program.compiles
+
+    def _wave_fields(self):
+        return super()._wave_fields() + [
+            ("tables", torch.int32, (self.num_slots, self.blocks_per_slot))]
 
     def _make_caches(self):
         return self.model.init_paged_cache(self.block_pool.num_blocks,
@@ -143,17 +179,30 @@ class PagedServingEngine(ServingEngine):
         c0, C, n, bs = (st["next"], self.prefill_chunk_len, st["n"],
                         self.block_size)
         valid = min(C, n - c0)
-        chunk = np.zeros((1, C), np.int64)
-        chunk[0, :valid] = st["prompt"][c0:c0 + valid]
         last = c0 + C >= n
-        frontier = (n - 1) - c0 if last else 0
         sampling = st["sampling"]
-        dev = self.device
-        table = torch.tensor(self._tables[slot:slot + 1], device=dev)
-        with paged_attention.kernel_scope(self.paged_kernel):
-            logits, _ = self.model.prefill_chunk(
-                torch.tensor(chunk, device=dev), self._caches, table, c0,
-                valid, frontier=frontier)
+        sampled = last and sampling["sample"]
+        host = self.prefill_inputs.stage()
+        host["chunk"][...] = 0
+        host["chunk"][0, :valid] = st["prompt"][c0:c0 + valid]
+        host["table"][...] = self._tables[slot:slot + 1]
+        host["chunk_start"][...] = c0
+        host["valid_len"][...] = valid
+        host["frontier"][...] = (n - 1) - c0 if last else 0
+        host["sample"][...] = sampled
+        host["temp"][...] = sampling["temp"]
+        host["top_k"][...] = sampling["top_k"]
+        host["top_p"][...] = sampling["top_p"]
+        self.prefill_inputs.upload()
+        if last:
+            # only the final chunk's selection is read: the bias row
+            # moves then, and only when it or the one before is not zero
+            nonzero = bool(np.any(sampling["bias"]))
+            if nonzero or self._prefill_bias_nonzero:
+                self.prefill_inputs.tensors["bias"].copy_(
+                    torch.from_numpy(sampling["bias"]))
+            self._prefill_bias_nonzero = nonzero
+        first, self.last_prefill_logits = self.prefill_program(sampled)
         self.prefill_chunks_run += 1
         # full prompt blocks written by this chunk enter the prefix cache
         # only now, once their content is on the device
@@ -169,15 +218,24 @@ class PagedServingEngine(ServingEngine):
         if not last:
             return None
         del self._pending_prefill[slot]
-        lo = logits[0, 0].float()
-        gumbel = (self._gumbel((self.vocab_size,)) if sampling["sample"]
-                  else None)
-        first = _select_first_token(
-            lo, sampling["sample"], sampling["temp"], sampling["top_k"],
-            sampling["top_p"], torch.tensor(sampling["bias"], device=dev),
-            gumbel).item()
+        first = int(first.item())
         self._arm_slot(slot, first, n, sampling)
         return first
+
+    def _prefill_program(self, sampled):
+        """One prompt chunk over the static buffers, and the first-token
+        selection from its frontier logits (Gumbel noise drawn in place
+        when `sampled`). Returns the token (0-d) and the f32 frontier
+        logits [V]."""
+        p = self.prefill_inputs.tensors
+        gumbel = _gumbel_(p["gumbel"], self._gen) if sampled else None
+        with paged_attention.kernel_scope(self.paged_kernel):
+            logits, _ = self.model.prefill_chunk(
+                p["chunk"], self._caches, p["table"], p["chunk_start"],
+                p["valid_len"], frontier=p["frontier"])
+        lo = logits[0, 0].float()
+        return _select_first_token(lo, p["sample"], p["temp"], p["top_k"],
+                                   p["top_p"], p["bias"], gumbel), lo
 
     # ------------------------------------------------------------- waves
     def _prepare_wave(self, active_now):
@@ -203,23 +261,22 @@ class PagedServingEngine(ServingEngine):
         self.last_starved_slots = starved
         return active_now
 
-    def _run_wave(self, active_now, tok, pos, active, sample, temps, top_k,
-                  top_p, bias, gumbel):
+    def _stage_wave(self, host, active_now):
         # every lane's K/V is scattered (fixed shapes); a lane not in THIS
         # wave (free, mid-prefill, starved) would write its stale token
         # through its table into a live — possibly shared — block, so its
-        # table row is uploaded as all-scratch and the write lands in
-        # block 0 by design
-        tables = np.where(np.asarray(active_now, bool)[:, None],
-                          self._tables, np.int32(BlockPool.SCRATCH))
+        # table row is staged as all-scratch and the write lands in block
+        # 0 by design
+        host["tables"][...] = np.where(
+            np.asarray(active_now, bool)[:, None], self._tables,
+            np.int32(BlockPool.SCRATCH))
+
+    def _wave_logits(self, w):
         with paged_attention.kernel_scope(self.paged_kernel):
             logits, _ = self.model.decode_step(
-                tok[:, None], self._caches, pos,
-                block_tables=torch.tensor(tables, device=self.device))
-        nxt, _, finite = _select_wave_tokens(
-            logits[:, 0, :].float(), tok, pos, active, sample, temps, top_k,
-            top_p, bias, gumbel)
-        return nxt, finite
+                w["tok"][:, None], self._caches, w["pos"],
+                block_tables=w["tables"])
+        return logits[:, 0, :].float()
 
     # ----------------------------------------------------- copy-on-write
     def _ensure_private(self, slot, bi):
