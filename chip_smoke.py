@@ -26,12 +26,20 @@ its phases:
   optimizer     the fused Adam/AdamW kernel against its plain
                 `_foreach_*` twin over GPT-2 small's 148 parameter
                 shapes (AdamW with bf16 and f32 weights and with bf16
-                weights and f32 masters, Adam with an L2 decay; 3 steps
-                with the learning rate changed before the third), odd
-                sizes and more tensors than one launch carries, the NaN
-                contract and the refusals; one whole optimizer step
-                timed by CUDA-graph replay against its byte bound, the
-                plain twin and torch.optim.AdamW(fused=True);
+                weights and f32 masters, Adam with an L2 decay, the L1
+                and L2 regularizer terms with and without the decoupled
+                decay, a learning-rate multiplier, four groups in one
+                step; 3 steps with the learning rate changed before the
+                third), odd sizes and more tensors than one launch
+                carries, the NaN contract and the refusals; one whole
+                optimizer step timed by CUDA-graph replay against its
+                byte bound, the plain twin and
+                torch.optim.AdamW(fused=True), and the four-group step;
+                the nine other optimizers (Momentum ... Dpsgd) over the
+                same shapes in f32, each step() captured in a CUDA graph:
+                graphed equal to eager, within rtol 1e-5 of a CPU run,
+                one step timed against its byte bound; Dpsgd's noise
+                drawn fresh by every replay, at its stated std;
   parity        fp32 serving streams of GPT-2 small width through the
                 CUDA kernel against the gather-then-attend reference
                 (both eager); the graphed engine against the eager one
@@ -43,7 +51,12 @@ its phases:
                 5-step SGD and AdamW loss trajectories, window off/on;
                 the graphed TrainStep against the eager sequence, with
                 and without a set_lr before step 4; two replays at lr 0
-                equal without dropout and different with it;
+                equal without dropout and different with it; the
+                vocab-chunked fused head against the dense head (loss,
+                every gradient, the tied embedding's); the graphed
+                TrainStep against the eager one under LinearWarmup over
+                CosineAnnealingDecay, the device lr the schedule's at
+                every replay;
   serve         GPT-2 small in bf16 through the front door
                 (`inference.Config().enable_llm_engine(paged=True, ...)`
                 -> `create_llm_predictor` -> submit/run), 16 requests
@@ -60,7 +73,16 @@ its phases:
                 showing every layer's K1-K3 and dd kernels and one
                 optimizer kernel in each replay (the captured launches
                 times the replays, against the profiler's count of
-                each kernel per step), with the eager step beside it.
+                each kernel per step), with the eager step beside it;
+  train_fused_head
+                GPT-2 small with its padded vocab 50304, batch 16 x seq
+                1024, bf16, AdamW, the head on auto: the f32 logits
+                (3.30 GB) pass 2 GiB, so the vocab-chunked fused head
+                trains it; the graphed step's ms, tokens/s, MFU, peak
+                memory and device time by group, the chunked head's
+                forward and backward timed alone, the dense head never
+                called on the loss path; then the same model with
+                fused_head_loss=False: its step ms and peak memory.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -70,6 +92,7 @@ limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without printing a result when there
 is none, or when run outside a checkout of the repository.
 """
+import gc
 import json
 import os
 import subprocess
@@ -103,7 +126,7 @@ OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
-          "serve", "train")
+          "serve", "train", "train_fused_head")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -601,10 +624,38 @@ def opt_bound(params, master, peaks):
             else (t_ops, "operations")) + (nbytes,)
 
 
+def with_attrs(make, attrs):
+    """`make` over parameters given the attributes attrs(i) first."""
+    def made(ps, kernel):
+        for i, p in enumerate(ps):
+            for key, val in attrs(i).items():
+                setattr(p, key, val)
+        return make(ps, kernel)
+    return made
+
+
+def all_l1(i):
+    from paddle_tpu_torch.regularizer import L1Decay
+    return {"regularizer": L1Decay(1e-3)}
+
+
+def l2_half(i):
+    from paddle_tpu_torch.regularizer import L2Decay
+    return {"regularizer": L2Decay(1e-2), "learning_rate": 0.5}
+
+
+def mixed_groups(i):
+    """Four groups: L1, lr x 2, L2 with lr x 0.5, the defaults."""
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+    return ({"regularizer": L1Decay(1e-3)}, {"learning_rate": 2.0},
+            {"regularizer": L2Decay(1e-2), "learning_rate": 0.5}, {})[i % 4]
+
+
 def optimizer_phase(dev, peaks):
     import numpy as np
     import torch
     from paddle_tpu_torch.optimizer import Adam, AdamW, fused_adam
+    from paddle_tpu_torch.regularizer import L1Decay
 
     shapes = gpt2_param_shapes()
     check(len(shapes) == 148 and sum(int(np.prod(s)) for s in shapes)
@@ -618,6 +669,10 @@ def optimizer_phase(dev, peaks):
 
     def adam_l2(ps, k):
         return Adam(1e-3, parameters=ps, weight_decay=0.01, kernel=k)
+
+    def adam_l1(ps, k):
+        return Adam(1e-3, parameters=ps, weight_decay=L1Decay(1e-3),
+                    kernel=k)
 
     cases = {}
     for name, make, dtype in (("adamw bf16", adamw(), bf16),
@@ -644,6 +699,23 @@ def optimizer_phase(dev, peaks):
     cases["nan"], _ = opt_case("nan", adamw(), bf16, shapes, gen, dev,
                                steps=1, nan_at=(4, 12345))
     torch.cuda.empty_cache()
+    # the regularizer's gradient term (L1, L2) with and without AdamW's
+    # decoupled decay, a learning-rate multiplier, and four groups in one
+    # step (a launch each)
+    for name, make, dtype, want in (
+            ("adam l1 bf16", adam_l1, bf16, 1),
+            ("adamw l1 bf16 multi_precision",
+             with_attrs(adamw(multi_precision=True), all_l1), bf16, 1),
+            ("adamw l2 lr_scale 0.5 f32", with_attrs(adamw(), l2_half), f32,
+             1),
+            ("adamw mixed groups bf16 multi_precision",
+             with_attrs(adamw(multi_precision=True), mixed_groups), bf16,
+             4)):
+        stats, per_step = opt_case(name, make, dtype, shapes, gen, dev)
+        check(per_step == want, f"optimizer {name}: {per_step} launches a "
+                                f"step, not {want}")
+        cases[name] = stats
+        torch.cuda.empty_cache()
 
     # refusals, before any launch: a CPU tensor, a misaligned view
     p = torch.zeros(1024, dtype=bf16, device=dev)
@@ -706,9 +778,187 @@ def optimizer_phase(dev, peaks):
     except RuntimeError as exc:
         results["library_ms"] = None
         results["library"] = f"null: {type(exc).__name__}: {exc}"[:400]
-    del sets, ok, op
+    # the four-group step (L1; lr x 2; L2 with lr x 0.5; defaults) over
+    # the same weights with f32 masters: four launches
+    for ps in sets[:2]:
+        for i, q in enumerate(ps):
+            for key, val in mixed_groups(i).items():
+                setattr(q, key, val)
+    okm = AdamW(1e-4, parameters=sets[0], weight_decay=0.01,
+                multi_precision=True, kernel="cuda")
+    opm = AdamW(1e-4, parameters=sets[1], weight_decay=0.01,
+                multi_precision=True, kernel="plain")
+    mixed_bound, _, mixed_bytes = opt_bound(sets[0], True, peaks)
+    results["mixed_groups"] = {
+        "what": "AdamW, bf16 weights with f32 masters, 4 groups a step "
+                "(L1 / lr x 2 / L2 and lr x 0.5 / defaults): 4 launches",
+        "kernel_ms": graph_ms(okm.step, 1), "plain_ms": graph_ms(opm.step, 1),
+        "bound_ms": mixed_bound, "bound_bytes": mixed_bytes}
+    del sets, ok, op, okm, opm
     torch.cuda.empty_cache()
+    results["nine"] = nine_optimizers(dev, peaks, shapes, gen)
     return results
+
+
+# the other nine rules (`_foreach_*` over all parameters), each as a user
+# would build it, and the f32 state slots each reads and writes
+NINE = {
+    "Momentum": (lambda o, ps: o.Momentum(1e-2, momentum=0.9,
+                                          use_nesterov=True, parameters=ps),
+                 1),
+    "Adamax": (lambda o, ps: o.Adamax(1e-3, parameters=ps), 2),
+    "Adagrad": (lambda o, ps: o.Adagrad(
+        1e-2, parameters=ps, initial_accumulator_value=0.1), 1),
+    "Adadelta": (lambda o, ps: o.Adadelta(1.0, parameters=ps), 2),
+    "RMSProp": (lambda o, ps: o.RMSProp(1e-3, momentum=0.9, centered=True,
+                                        parameters=ps), 3),
+    "Lamb": (lambda o, ps: o.Lamb(1e-3, parameters=ps), 2),
+    "Lars": (lambda o, ps: o.Lars(1e-2, parameters=ps), 1),
+    "Ftrl": (lambda o, ps: o.Ftrl(0.05, l2=0.01, parameters=ps), 2),
+    "Dpsgd": (lambda o, ps: o.Dpsgd(1e-2, sigma=0.0, parameters=ps,
+                                    seed=SEED), 0),
+}
+
+
+def capture(fn, generators=()):
+    """fn captured in a CUDA graph (after the caller's eager warm-up),
+    the generators registered so that each replay draws fresh numbers;
+    returns the graph."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def opt_state_equal(a, b):
+    """Whether two optimizers hold bitwise equal state."""
+    import torch
+    return all(torch.equal(a._state[i][n], b._state[i][n])
+               for i in a._state for n in a._state[i])
+
+
+def nine_optimizers(dev, peaks, shapes, gen, steps=3, cpu_steps=1):
+    """Each of the nine over GPT-2 small's 148 f32 parameter shapes: one
+    eager step, then its step() captured in a CUDA graph and replayed,
+    against the same optimizer stepped eagerly (bitwise equal after every
+    one of `steps` steps), and after `cpu_steps` steps against a CPU run
+    (weights within rtol 1e-5, atol 1e-7). The CPU's steps are the
+    phase's cost (about 0.9 s each over 111M parameters), so there is
+    one: it runs every operation of the rule, on zero state; one step's
+    device ms by graph
+    replay beside its byte bound (each weight read and written, each
+    grad read, each f32 state slot read and written, once). Dpsgd runs
+    at sigma 0 here (its noise is held by `dpsgd_noise`)."""
+    import torch
+    from paddle_tpu_torch import optimizer as topt
+    out = {}
+    cur = torch.cuda.current_stream()
+    for name, (make, slots) in NINE.items():
+        init = [torch.randn(s, generator=gen, device=dev) * 0.05
+                for s in shapes]
+        grads = [torch.randn(s, generator=gen, device=dev) * 1e-2
+                 for s in shapes]
+        pe = [torch.nn.Parameter(t.clone()) for t in init]
+        pg = [torch.nn.Parameter(t.clone()) for t in init]
+        pc = [torch.nn.Parameter(t.cpu()) for t in init]
+        del init
+        for a, b, c, g in zip(pe, pg, pc, grads):
+            a.grad = b.grad = g
+            c.grad = g.cpu()
+        oe, og, oc = make(topt, pe), make(topt, pg), make(topt, pc)
+        t0 = time.perf_counter()
+        for _ in range(cpu_steps):
+            oc.step()
+        cpu_s = time.perf_counter() - t0
+        oe.step()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            og.step()                  # eager: makes the state and the pair
+        cur.wait_stream(side)
+        graph = capture(og.step, [og.generator] if name == "Dpsgd" else [])
+        errs, used = [], []
+        for step in range(1, steps + 1):
+            if step > 1:
+                oe.step()
+                og._advance()
+                graph.replay()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(pe, pg))
+                  and opt_state_equal(oe, og),
+                  f"optimizer {name}: the graphed step {step} differs "
+                  f"from the eager one")
+            if step != cpu_steps:
+                continue
+            for a, c in zip(pe, pc):
+                ref = c.detach().to(dev)
+                err = (a.detach() - ref).abs()
+                lim = 1e-5 * ref.abs() + 1e-7
+                check(bool((err <= lim).all()),
+                      f"optimizer {name}: CUDA weights differ from the CPU "
+                      f"run by {err.max().item()} (rtol 1e-5, atol 1e-7)")
+                errs.append(err.max().item())
+                used.append((err / lim).max().item())
+        n = sum(p.numel() for p in pe)
+        nbytes = n * (12 + 8 * slots)
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {"ms": start.elapsed_time(end) / 10,
+                     "bound_ms": nbytes / peaks["bw"] * 1e3,
+                     "bound_by": "bytes", "bound_bytes": nbytes,
+                     "max_abs_err_vs_cpu": max(errs),
+                     "tolerance_used_vs_cpu": max(used),
+                     "cpu_s_per_step": cpu_s / cpu_steps,
+                     "graphed_steps_equal_eager": steps,
+                     "cpu_steps": cpu_steps}
+        del pe, pg, pc, grads, oe, og, oc, graph
+        torch.cuda.empty_cache()
+    out["dpsgd_noise"] = dpsgd_noise(dev)
+    return out
+
+
+def dpsgd_noise(dev, lr=0.1, clip=2.0, sigma=1.5, batch=8.0):
+    """Dpsgd with sigma > 0 in a CUDA graph, its generator registered:
+    with zero grads an update is -lr * noise; two replays draw different
+    noise whose std is clip * sigma / batch_size within 2%, and a second
+    optimizer with the same seed draws the same first noise."""
+    import torch
+    from paddle_tpu_torch.optimizer import Dpsgd
+    std = clip * sigma / batch
+    ps = [torch.nn.Parameter(torch.zeros(2048, 1024, device=dev))
+          for _ in range(2)]
+    opts = [Dpsgd(lr, clip=clip, batch_size=batch, sigma=sigma,
+                  parameters=[p], seed=SEED) for p in ps]
+    for p in ps:
+        p.grad = torch.zeros_like(p)
+    for o in opts:
+        o.step()
+    check(torch.equal(ps[0], ps[1]), "dpsgd: one seed drew two noises")
+    opt, p = opts[0], ps[0]
+    graph = capture(opt.step, [opt.generator])
+    draws = []
+    for _ in range(2):
+        before = p.detach().clone()
+        opt._advance()
+        graph.replay()
+        torch.cuda.synchronize()
+        draws.append((before - p.detach()) / lr)
+    stds = [d.std().item() for d in draws]
+    check(not torch.equal(draws[0], draws[1]),
+          "dpsgd: two replays drew the same noise")
+    check(all(abs(x / std - 1) < 0.02 for x in stds),
+          f"dpsgd: noise std {stds}, not {std} within 2%")
+    return {"noise_std": stds, "want": std, "elements": p.numel()}
 
 
 # ---------------------------------------------------------------------------
@@ -1580,6 +1830,8 @@ def train_parity_phase(dev):
     from paddle_tpu_torch.optimizer import SGD, AdamW
 
     b, s = 2, 256
+    fused = fused_head_parity(dev, b, s)
+    scheduled = scheduled_graph_parity(dev, b, s)
     ids = torch.tensor(np.random.default_rng(SEED + 4).integers(
         0, 512, (b, s)), device=dev)
     report = {}
@@ -1673,7 +1925,99 @@ def train_parity_phase(dev):
          vocab=512, batch=b, seq=s, initializer_range=0.1,
          grad_tolerance="1e-4 * max(1, max|g|)", sgd_rtol=1e-5,
          adamw_rtol=1e-3, lr0_replay_losses_dropout0=replays[0.0],
-         lr0_replay_losses_dropout01=replays[0.1], **report)
+         lr0_replay_losses_dropout01=replays[0.1], **report,
+         fused_head=fused, scheduled_graph=scheduled)
+
+
+# the fused-head checks' model: vocab 5000 > the 4096 chunk, so two
+# chunks, the second ragged (904 rows)
+FUSED_PARITY = dict(vocab_size=5000, hidden_size=256, num_layers=2,
+                    num_heads=4, dropout=0.0, attn_dropout=0.0,
+                    initializer_range=0.1)
+
+
+def fused_head_parity(dev, b, s):
+    """fp32: the vocab-chunked fused head (chunked_lm_loss) against the
+    dense head on one model: the loss within rtol 1e-5, every gradient,
+    the tied embedding's included, within 1e-4 * max(1, max|g|)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.nlp.gpt import FusedHeadLogits, gpt_pretrain_loss
+    ids = torch.tensor(np.random.default_rng(SEED + 7).integers(
+        0, FUSED_PARITY["vocab_size"], (b, s)), device=dev)
+    losses, grads = {}, {}
+    for fused in (False, True):
+        m = GPTForPretraining(GPTConfig(**FUSED_PARITY, max_seq_len=s,
+                                        fused_head_loss=fused),
+                              device=dev, dtype=torch.float32,
+                              seed=SEED).train()
+        logits = m(ids)
+        check(isinstance(logits, FusedHeadLogits) == fused,
+              f"fused head parity: fused={fused} gave {type(logits)}")
+        loss = gpt_pretrain_loss(logits, ids)
+        loss.backward()
+        losses[fused] = float(loss.detach())
+        grads[fused] = {n: p.grad for n, p in m.named_parameters()}
+    check(abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[False]),
+          f"fused head parity: loss {losses[True]} against the dense "
+          f"{losses[False]}")
+    worst = {}
+    for n, g in grads[False].items():
+        err = (grads[True][n] - g).abs().max().item()
+        lim = 1e-4 * max(1.0, g.abs().max().item())
+        check(err <= lim, f"fused head parity: grad {n} differs by {err} "
+                          f"> {lim}")
+        worst[n] = err
+    tied = "gpt.embeddings.word_embeddings.weight"
+    return {"loss": losses[True], "dense_loss": losses[False],
+            "max_grad_err": max(worst.values()),
+            "tied_embedding_grad_err": worst[tied], "vocab": 5000,
+            "chunks": 2}
+
+
+def scheduled_graph_parity(dev, b, s, steps=5):
+    """The graphed TrainStep against the eager one, AdamW under
+    LinearWarmup over CosineAnnealingDecay, fused head on: losses within
+    rtol 1e-5, and after each call the device lr equal to the schedule's
+    value for that step (f32)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    ids = torch.tensor(np.random.default_rng(SEED + 8).integers(
+        0, FUSED_PARITY["vocab_size"], (b, s)), device=dev)
+    runs = {}
+    for graphed in (False, True):
+        m = GPTForPretraining(GPTConfig(**FUSED_PARITY, max_seq_len=s,
+                                        fused_head_loss=True),
+                              device=dev, dtype=torch.float32, seed=SEED)
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=4),
+                                warmup_steps=2, start_lr=1e-4, end_lr=1e-3)
+        opt = AdamW(sched, parameters=m.parameters())
+        step = TrainStep(m, gpt_pretrain_loss, opt, cuda_graph=graphed)
+        losses, device_lr = [], []
+        for _ in range(steps):
+            losses.append(float(step(ids, ids)))
+            device_lr.append(opt._scalars[0].item())
+            check(device_lr[-1] == float(np.float32(sched())),
+                  f"scheduled graph parity: device lr {device_lr[-1]} is "
+                  f"not the schedule's {sched()}")
+            sched.step()
+        graphs = list(step.graphs.values())
+        check(not graphed or (len(graphs) == 1 and graphs[0].replays
+                              == steps - 1),
+              f"scheduled graph parity: {graphs}")
+        runs[graphed] = {"losses": losses, "device_lr": device_lr}
+    check(np.allclose(runs[True]["losses"], runs[False]["losses"],
+                      rtol=1e-5, atol=0),
+          f"scheduled graph parity: graphed losses "
+          f"{runs[True]['losses']} against eager {runs[False]['losses']}")
+    check(len(set(runs[True]["device_lr"])) == steps,
+          "scheduled graph parity: the lr did not move every step")
+    return {"graphed": runs[True], "eager": runs[False], "rtol": 1e-5}
 
 
 # ---------------------------------------------------------------------------
@@ -1807,11 +2151,197 @@ def train_phase(dev, peaks):
     return launches
 
 
+# the fused-head run: GPT-2 small's padded vocab at seq 1024 and batch
+# 16, whose f32 logits (3.30 GB) pass the 2 GiB auto threshold
+FUSED_B, FUSED_VOCAB = 16, 50304
+
+
+def train_fused_head_phase(dev, peaks, steps=5):
+    """GPT-2 small with vocab 50304, batch 16 x seq 1024, bf16, AdamW,
+    the head on auto (so fused) in the graphed TrainStep: the counts set
+    to 0 before and read after, the graph's launches, the dense head
+    never called on the loss path; step ms, tokens/s, MFU, peak memory,
+    device time by group with the chunked head timed alone beside it.
+    Then the same model with fused_head_loss=False: its step ms and
+    peak memory."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.nlp.gpt import _use_fused_head
+    from paddle_tpu_torch.ops.chunked_ce import chunked_lm_loss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()                # the earlier phases' graphs and models
+    torch.cuda.empty_cache()
+    cfg = train_config(vocab_size=FUSED_VOCAB)
+    check(cfg.fused_head_loss is None and _use_fused_head(
+        cfg, (FUSED_B, TRAIN_S, FUSED_VOCAB)),
+        "train_fused_head: the auto threshold does not pick the fused head")
+    model = GPTForPretraining(cfg, device=dev, dtype=torch.bfloat16,
+                              seed=SEED)
+    head_calls = []
+    dense_head = model._head
+
+    def counted_head(h):
+        head_calls.append(tuple(h.shape))
+        return dense_head(h)
+    model._head = counted_head
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    ids = torch.tensor(np.random.RandomState(1).randint(
+        0, FUSED_VOCAB, (FUSED_B, TRAIN_S)).astype("int64"), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def run(fused):
+        """3 warm-up calls (eager, capture, replay) and `steps` timed
+        replays; returns the figures and the step."""
+        cfg.fused_head_loss = None if fused else False
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = TrainStep(model, gpt_pretrain_loss, opt)
+        for _ in range(3):
+            float(step(ids, ids))
+        peak_warm = torch.cuda.max_memory_allocated()
+        (graph,) = step.graphs.values()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(ids, ids)
+        final = float(loss)
+        dt = (time.perf_counter() - t0) / steps
+        check(np.isfinite(final), f"train_fused_head: loss {final}")
+        tps = FUSED_B * TRAIN_S / dt
+        return step, graph, {
+            "step_ms": dt * 1e3, "tokens_per_s": tps,
+            "mfu": 6 * n_params * tps / peaks["bf16"], "loss": final,
+            "peak_allocated_warmup_and_capture": peak_warm,
+            "peak_allocated": torch.cuda.max_memory_allocated(),
+            "memory_reserved": torch.cuda.memory_reserved()}
+
+    # the main path's run: every count 0 before it, read after
+    for counts in kernels.COUNTERS.values():
+        for key in counts:
+            counts[key] = 0
+    step, graph, fused = run(True)
+    counts = kernels.launch_counts()
+    want = {f"flash_attention.{k}": LAYERS for k in ("fwd", "dkv", "dq",
+                                                     "dd")}
+    want["optimizer.adam"] = 1
+    check(dict(graph.launches) == want,
+          f"train_fused_head: the graph holds {graph.launches}, not {want}")
+    check(head_calls == [], f"train_fused_head: the dense head ran on the "
+                            f"loss path {len(head_calls)} times")
+    # call 2 captures and replays, call 3 and the timed calls replay
+    check(graph.replays == steps + 2,
+          f"train_fused_head: {graph.replays} replays, not {steps + 2}")
+    # kernels run: the wrappers' counts (the eager call's launches and
+    # the capture's, which run only when replayed) less the capture's,
+    # plus the graph's launches times its replays
+    launches = {k.split(".")[1]: counts[k] - n + n * graph.replays
+                for k, n in want.items()}
+    check(all(n > 0 for n in launches.values()),
+          f"train_fused_head: launches {launches}")
+    profile = profile_steps(step, ids, fused["step_ms"])
+    check(isinstance(profile, dict), f"train_fused_head: profile {profile}")
+    del step, graph
+    # the chunked head alone (forward and backward) at the step's shapes,
+    # by CUDA-graph replay
+    h = (torch.randn(FUSED_B * TRAIN_S, cfg.hidden_size, device=dev)
+         .to(torch.bfloat16).requires_grad_())
+    w = model.gpt.embeddings.word_embeddings.weight
+    lab = ids.reshape(-1).roll(-1)
+
+    def head_step():
+        torch.autograd.grad(chunked_lm_loss(h, w, lab, -1, 4096), (h, w))
+    head_ms = graph_ms(head_step, 1, replays=5)
+    # the step's groups with the head's own kernels (the same kernels
+    # profiled alone at the same shapes) taken out into a group of its
+    # own: its matmuls and its chunk pass
+    head_groups = profile_replays(capture(head_step))
+    check(head_groups is not None, "train_fused_head: the profiler saw "
+                                   "no device time in the chunked head")
+    step_groups = profile["ms_per_step_by_group"]
+    profile["ms_per_step_by_group_head_apart"] = {
+        "chunked head (forward + backward)": sum(head_groups.values()),
+        **{k: step_groups[k] - head_groups[k] for k in step_groups}}
+    profile["chunked_head_ms_by_group"] = head_groups
+    # its four products per chunk alone (forward logits, the backward's
+    # recompute, dh and dw), the rest of its time being the chunk pass
+    dl = torch.empty(h.shape[0], 4096, dtype=torch.bfloat16, device=dev)
+
+    def head_products():
+        for lo in range(0, FUSED_VOCAB, 4096):
+            wc = w.detach()[lo:lo + 4096]
+            d = dl[:, :wc.shape[0]]
+            for _ in range(2):
+                torch.mm(h.detach(), wc.t(), out_dtype=torch.float32)
+            torch.mm(d, wc, out_dtype=torch.float32)
+            torch.mm(d.t(), h.detach(), out_dtype=torch.float32)
+    products_ms = graph_ms(head_products, 1, replays=5)
+    head_flops = 4 * 2 * h.shape[0] * cfg.hidden_size * FUSED_VOCAB
+    del h, dl
+    dense_step, dense_graph, dense = run(False)
+    check(len(head_calls) == 2 and "optimizer.adam" in dense_graph.launches,
+          f"train_fused_head: the dense run called the head "
+          f"{len(head_calls)} times, not 2 (the eager call and the "
+          f"capture; a replay runs no Python)")
+    del dense_step, dense_graph
+    model._head = dense_head
+    torch.cuda.empty_cache()
+    return {"model": "gpt2_small", "dtype": "bfloat16", "vocab": FUSED_VOCAB,
+            "batch": FUSED_B, "seq": TRAIN_S, "steps": steps,
+            "head": "fused (auto: f32 logits 3.30 GB > 2 GiB)",
+            "params": n_params, **fused, "launches": launches,
+            "dense_head_calls_on_the_loss_path": 0,
+            "chunked_head_fwd_bwd_ms_alone": head_ms,
+            "chunked_head_products_ms_alone": products_ms,
+            "chunked_head_products_tflop": head_flops / 1e12,
+            "profile": profile,
+            "dense_head": {"fused_head_loss": False, **dense},
+            "what": "step_ms: graph replays after 3 warm-up calls, host "
+                    "clock, one sync at the end; peak_allocated_warmup_"
+                    "and_capture: max_memory_allocated over the eager "
+                    "step and the capture (the activations), "
+                    "peak_allocated: also over the timed replays; the "
+                    "chunked head alone: its forward and backward "
+                    "captured and replayed"}
+
+
 # kernel-name fragments -> category of a training step's device time
 PROFILE_GROUPS = (("flash attention (K1-K3, dd)", ("flash_", "row_dot")),
                   ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                   ("optimizer (fused adam, foreach)",
                    ("adam_kernel", "multi_tensor", "foreach")))
+
+
+OTHER_GROUP = "other (elementwise, norms, loss, copies)"
+
+
+def device_rows(prof, calls):
+    """(ms, launches, name) per call of each device kernel in a profile
+    of `calls` calls, largest first. Device activities only: CPU ranges
+    (ops, autograd Functions) carry their kernels' time too and would
+    count it twice."""
+    from torch.autograd import DeviceType
+    rows = [(e.self_device_time_total / 1e3 / calls, e.count / calls, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
+def by_group(rows):
+    """Device ms by PROFILE_GROUPS category (the rest in OTHER_GROUP)."""
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups[OTHER_GROUP] = 0.0
+    for ms, _, key in rows:
+        low = key.lower()
+        name = next((n for n, frags in PROFILE_GROUPS
+                     if any(f in low for f in frags)), OTHER_GROUP)
+        groups[name] += ms
+    return groups
 
 
 def profile_steps(step, ids, step_ms, steps=2):
@@ -1822,7 +2352,6 @@ def profile_steps(step, ids, step_ms, steps=2):
     the busy time against the unprofiled step time `step_ms`. Returns
     "not measured: ..." when the profiler records no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     float(step(ids, ids))
     torch.cuda.synchronize()
@@ -1833,27 +2362,10 @@ def profile_steps(step, ids, step_ms, steps=2):
             loss = step(ids, ids)
         float(loss)
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []
-    for e in prof.key_averages():
-        # device activities only: CPU ranges (ops, autograd Functions)
-        # carry their kernels' time too and would count it twice
-        us = e.self_device_time_total
-        if e.device_type == DeviceType.CUDA and us > 0:
-            rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    rows = device_rows(prof, steps)
     if not rows:
         return "not measured: the profiler recorded no device time"
-    rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
-    groups["other (elementwise, norms, loss, copies)"] = 0.0
-    for ms, _, key in rows:
-        low = key.lower()
-        for name, frags in PROFILE_GROUPS:
-            if any(f in low for f in frags):
-                groups[name] += ms
-                break
-        else:
-            groups["other (elementwise, norms, loss, copies)"] += ms
     return {"steps": steps, "profiled_wall_ms_per_step": wall,
             "device_busy_ms_per_step": busy,
             "kernel_calls_per_step": {
@@ -1865,9 +2377,25 @@ def profile_steps(step, ids, step_ms, steps=2):
             # against the unprofiled step: below 0 when the profiler's
             # slowdown of the kernels exceeds the idle time
             "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
-            "ms_per_step_by_group": groups,
+            "ms_per_step_by_group": by_group(rows),
             "top_kernels": [{"ms": ms, "calls": n, "name": key[:90]}
                             for ms, n, key in rows[:16]]}
+
+
+def profile_replays(graph, calls=3):
+    """Device ms per replay of a CUDA graph by kernel group, from
+    torch.profiler; None when it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            graph.replay()
+        torch.cuda.synchronize()
+    rows = device_rows(prof, calls)
+    return by_group(rows) if rows else None
 
 
 def build_all():
@@ -1941,6 +2469,9 @@ def main():
     run("train_parity", train_parity_phase, dev)
     serve_launches = run("serve", serve_phase, dev, smi)
     train_launches = run("train", train_phase, dev, peaks)
+    fh = run("train_fused_head", train_fused_head_phase, dev, peaks)
+    if fh is not None:
+        emit("train_fused_head", **fh)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -1957,13 +2488,15 @@ def main():
                      "source": FLASH_SOURCE,
                      "replaces": FLASH_REPLACES[kind],
                      "launches": train_launches[kind],
+                     "launches_train_fused_head": fh["launches"][kind],
                      "ms": row.pop("kernel_ms"), **row})
     row = {k: op[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
     rows.append({"name": "fused_adam", "route": "cuda",
                  "source": OPT_SOURCE, "replaces": OPT_REPLACES,
-                 "launches": train_launches["adam"], "ms": op["kernel_ms"],
-                 **row})
+                 "launches": train_launches["adam"],
+                 "launches_train_fused_head": fh["launches"]["adam"],
+                 "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

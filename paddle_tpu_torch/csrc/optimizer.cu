@@ -1,5 +1,6 @@
 // Fused multi-tensor Adam / AdamW update for Hopper (sm_90a): one launch
-// updates every parameter of one dtype group in place.
+// updates in place every parameter of one group (one dtype, master or
+// none, learning-rate multiplier and regularizer term).
 //
 // No Pallas kernel stands behind it. The JAX package writes the update
 // as jnp in Adam._update / AdamW._update
@@ -12,14 +13,18 @@
 // port's plain twin (Optimizer._apply and Adam._update in
 // optimizer/optimizer.py), which is the JAX rule's:
 //   * base = the f32 master when multi_precision holds, else p;
-//   * Adam's L2 term g = g + wd * base, rounded to base's dtype at each
-//     operation (two roundings for bf16 weights, as the plain twin's
-//     two bf16 ops);
+//   * the regularizer's gradient term, independent of the update rule:
+//     none, L2 g = g + c * base or L1 g = g + c * sign(base) (sign(0) =
+//     0, as torch.sign), rounded to base's dtype at each operation (two
+//     roundings for bf16 weights, as the plain twin's two bf16 ops; c
+//     arrives rounded to base's dtype);
 //   * m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2 (f32 moments);
 //   * m_hat = m / (1 - b1^t), den = sqrt(v / (1 - b2^t)) + eps, with the
 //     bias corrections computed in f32 from the device step t;
-//   * Adam: upd = lr m_hat / den; AdamW: upd = lr (m_hat / den + coeff
-//     base);
+//   * lr = lr * lr_scale in f32 (the group's per-parameter multiplier;
+//     exact for 1);
+//   * Adam: upd = lr m_hat / den; AdamW (decoupled): upd = lr (m_hat /
+//     den + coeff base), whatever the gradient term;
 //   * base = base - upd rounded to base's dtype; with a master, p is the
 //     master rounded to p's dtype.
 // lr and t are read from a device f32 pair [lr, step] that the optimizer
@@ -60,9 +65,9 @@ constexpr int kVec = 8;            // elements a thread moves per access
 constexpr int kIters = 2;
 constexpr int kChunk = kThreads * kVec * kIters;   // elements a block
 
-enum DecayMode { kNoDecay = 0, kL2 = 1, kDecoupled = 2 };
+enum GradMode { kNoTerm = 0, kL2 = 1, kL1 = 2 };
 
-// 5 x 8 x 256 + 8 x 256 + 4 x 257 + 40 bytes = 13.3 KB of parameters
+// 5 x 8 x 256 + 8 x 256 + 4 x 257 + 56 bytes = 13.4 KB of parameters
 // (CUDA 12.1 and later take up to 32764)
 struct Params {
   void* p[kMaxTensors];
@@ -74,8 +79,12 @@ struct Params {
   int block_start[kMaxTensors + 1];   // prefix sum of blocks per tensor
   int count;
   const float* scalars;               // device [lr, step]
-  float b1, b2, one_minus_b1, one_minus_b2, eps, decay;
-  int decay_mode;
+  float b1, b2, one_minus_b1, one_minus_b2, eps;
+  float grad_coeff;                   // the gradient term's coefficient
+  float decay;                        // AdamW's decoupled coefficient
+  float lr_scale;                     // the group's lr multiplier
+  int grad_mode;                      // GradMode
+  int decoupled;                      // AdamW's rule
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -141,9 +150,14 @@ template <typename BaseT>
 __device__ __forceinline__ float update(float base, float g, float& m,
                                         float& v, const Params& P,
                                         const Step& s) {
-  if (P.decay_mode == kL2)
+  if (P.grad_mode == kL2) {
     g = round_to<BaseT>(
-        __fadd_rn(g, round_to<BaseT>(__fmul_rn(P.decay, base))));
+        __fadd_rn(g, round_to<BaseT>(__fmul_rn(P.grad_coeff, base))));
+  } else if (P.grad_mode == kL1) {
+    const float sign = base > 0.f ? 1.f : (base < 0.f ? -1.f : 0.f);
+    g = round_to<BaseT>(
+        __fadd_rn(g, round_to<BaseT>(__fmul_rn(P.grad_coeff, sign))));
+  }
   // the roundings of torch's foreach add (x + alpha y) and addcmul (x +
   // alpha (y z)), as fused multiply-adds
   m = fmaf(P.one_minus_b1, g, __fmul_rn(P.b1, m));
@@ -151,7 +165,7 @@ __device__ __forceinline__ float update(float base, float g, float& m,
   const float mhat = __fdiv_rn(m, s.bc1);
   const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.bc2)), P.eps);
   float upd;
-  if (P.decay_mode == kDecoupled)
+  if (P.decoupled)
     upd = __fmul_rn(fmaf(P.decay, base, __fdiv_rn(mhat, den)), s.lr);
   else
     upd = __fdiv_rn(__fmul_rn(mhat, s.lr), den);
@@ -166,7 +180,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ Step step;
   if (threadIdx.x == 0) {
     const float t = P.scalars[1];
-    step.lr = P.scalars[0];
+    step.lr = __fmul_rn(P.scalars[0], P.lr_scale);
     step.bc1 = 1.f - powf(P.b1, t);
     step.bc2 = 1.f - powf(P.b2, t);
   }
@@ -230,8 +244,10 @@ bool aligned(const void* p) {
 // `stream`. ptrs holds five pointers per tensor: p, g, moment1, moment2,
 // master (null without multi_precision); numels their sizes (> 0).
 // scalars: device f32 [lr, step]. dtype: 0 = float32, 1 = bfloat16 (p
-// and g alike); multi_precision only with bfloat16. decay_mode: 0 none,
-// 1 Adam's L2 (g + decay * base), 2 AdamW's decoupled (coeff = decay).
+// and g alike); multi_precision only with bfloat16. grad_mode: 0 none,
+// 1 L2 (g + grad_coeff * base), 2 L1 (g + grad_coeff * sign(base));
+// decoupled: AdamW's rule with coefficient `decay`, else Adam's;
+// lr_scale: the learning-rate multiplier.
 // Returns the launch's cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a count outside 1..256, a pointer that is
 // null or not 16-byte aligned, or an unsupported combination.
@@ -239,12 +255,14 @@ extern "C" int optimizer_adam_step(const void* const* ptrs,
                                    const long long* numels, int count,
                                    const float* scalars, float b1, float b2,
                                    float one_minus_b1, float one_minus_b2,
-                                   float eps, float decay, int decay_mode,
-                                   int dtype, int multi_precision,
-                                   void* stream) {
+                                   float eps, float grad_coeff,
+                                   float decay, float lr_scale,
+                                   int grad_mode, int decoupled, int dtype,
+                                   int multi_precision, void* stream) {
   if (count < 1 || count > kMaxTensors || !aligned(scalars) ||
       (dtype != 0 && dtype != 1) || (multi_precision && dtype != 1) ||
-      decay_mode < kNoDecay || decay_mode > kDecoupled)
+      grad_mode < kNoTerm || grad_mode > kL1 || (decoupled != 0 &&
+      decoupled != 1))
     return (int)cudaErrorInvalidValue;
   Params P = {};
   long long blocks = 0;
@@ -272,8 +290,11 @@ extern "C" int optimizer_adam_step(const void* const* ptrs,
   P.one_minus_b1 = one_minus_b1;
   P.one_minus_b2 = one_minus_b2;
   P.eps = eps;
+  P.grad_coeff = grad_coeff;
   P.decay = decay;
-  P.decay_mode = decay_mode;
+  P.lr_scale = lr_scale;
+  P.grad_mode = grad_mode;
+  P.decoupled = decoupled;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     adam_kernel<float, false><<<(unsigned)blocks, kThreads, 0, s>>>(P);

@@ -19,8 +19,15 @@ signature:
   * every later call copies the inputs and the optimizer's [lr, step]
     pair into place and replays.
 
-The model's dropout generator is registered with each graph, so every
-replay draws fresh masks. A replay returns a clone of the graph's loss
+The model's dropout generator, and the optimizer's noise generator
+where it has one (`Dpsgd`), are registered with each graph, so every
+replay draws fresh masks and noise. The optimizer's learning rate is
+read on the host before each replay (`_advance`), so a schedule
+(`optimizer.lr`) moves it without a new capture. The optimizer must be
+an `optimizer.Optimizer`: the wrappers (EMA, ModelAverage, Lookahead,
+GradientMerge) branch on the host every k steps and are refused, as the
+JAX TrainStep takes only an optimizer's functional update. A replay
+returns a clone of the graph's loss
 (and of its outputs, when `return_outputs`); the grads stay the graph's
 own tensors, which the step keeps, and `p.grad` is left unset between
 steps as in the eager sequence. A capture that fails raises with its
@@ -36,6 +43,7 @@ instrumentation of the JAX TrainStep is not ported (ROADMAP Queue 1).
 import torch
 
 from .. import kernels
+from ..optimizer import Optimizer
 
 
 def grad_norm_sentinel(loss, grads):
@@ -93,6 +101,12 @@ class TrainStep:
 
     def __init__(self, model, loss_fn, optimizer, donate=True,
                  return_outputs=False, cuda_graph=True):
+        if not isinstance(optimizer, Optimizer):
+            raise TypeError(
+                f"TrainStep takes an optimizer.Optimizer, got "
+                f"{type(optimizer).__name__}: the optimizer wrappers (EMA, "
+                f"ModelAverage, Lookahead, GradientMerge) run eagerly; call "
+                f"their step() after backward() yourself")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -117,7 +131,10 @@ class TrainStep:
         self._last_grad_norm, self._last_nonfinite = \
             grad_norm_sentinel(loss, grads)
         self.optimizer.step()
-        return loss.detach(), tuple(o.detach() for o in outs)
+        # the outputs are read only when asked for: detaching the fused
+        # head's logits would compute the dense head product
+        return loss.detach(), (tuple(o.detach() for o in outs)
+                               if self.return_outputs else ())
 
     def __call__(self, inputs, labels):
         inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
@@ -159,9 +176,11 @@ class TrainStep:
         params = self.optimizer._parameters
         self.optimizer.clear_grad()
         graph = torch.cuda.CUDAGraph()
-        gen = getattr(self.model, "generator", None)
-        if isinstance(gen, torch.Generator) and gen.device.type == "cuda":
-            graph.register_generator_state(gen)
+        for owner in (self.model, self.optimizer):
+            gen = getattr(owner, "generator", None)
+            if isinstance(gen, torch.Generator) and \
+                    gen.device.type == "cuda":
+                graph.register_generator_state(gen)
         before = kernels.launch_counts()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
@@ -174,8 +193,7 @@ class TrainStep:
             self._pool = graph.pool()
         grads = [p.grad for p in params]
         self.optimizer.clear_grad()
-        return _Graph(graph, static, loss,
-                      outs if self.return_outputs else (),
+        return _Graph(graph, static, loss, outs,
                       self._last_grad_norm, self._last_nonfinite, grads,
                       {k: n - before.get(k, 0) for k, n in after.items()
                        if n != before.get(k, 0)})

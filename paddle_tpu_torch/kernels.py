@@ -66,9 +66,10 @@ SIGNATURES = {
     "optimizer": {
         "optimizer_adam_step": (
             [_PTRS, _STRIDES, _I, _P,            # ptrs numels count scalars
-             _F, _F, _F, _F, _F, _F,             # b1 b2 1-b1 1-b2 eps decay
-             _I, _I, _I, _P],                    # mode dtype master stream
-            ctypes.c_int),
+             _F, _F, _F, _F, _F,                 # b1 b2 1-b1 1-b2 eps
+             _F, _F, _F,                         # grad_coeff decay lr_scale
+             _I, _I, _I, _I, _P],                # grad_mode decoupled dtype
+            ctypes.c_int),                       # master stream
         "optimizer_adam_max_tensors": ([], ctypes.c_int),
     },
 }

@@ -10,7 +10,12 @@ JAX model's weights across by name.
 Training: `GPTForPretraining.forward` -> logits, `gpt_pretrain_loss`.
 Attention goes through `ops.flash_attention` — on the BSHD path q/k/v
 are strided views of the qkv projection, read by the kernels in place.
-Dropout draws from the model's own `torch.Generator` (`seed`).
+Dropout draws from the model's own `torch.Generator` (`seed`). When the
+fused head is on (`GPTConfig.fused_head_loss`, or by size), `forward`
+returns `FusedHeadLogits`, which holds the hidden states and the tied
+weight; `gpt_pretrain_loss` takes the vocab-chunked loss
+(`ops.chunked_ce.chunked_lm_loss`) from them, and the dense [B, S, V]
+head product is computed only if something else reads the logits.
 
 Serving goes through the paged KV cache only: `init_paged_cache`,
 `decode_step` and `prefill_chunk` (with `frontier=`). The paged pools
@@ -24,12 +29,14 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..nn.paged_attention import (paged_chunk_attention,
                                   paged_decode_attention)
 from ..nn.transformer import scatter_block_kv_at, scatter_block_kv_chunk
+from ..ops.chunked_ce import chunked_lm_loss
 from ..ops.flash_attention import flash_attention
 
 
@@ -62,7 +69,7 @@ class GPTConfig:
         self.sequence_parallel = False
         self.moe_experts = 0
         # vocab-chunked fused head + CE: None = auto by logits size (see
-        # _use_fused_head); not ported, gpt_pretrain_loss raises when on
+        # _use_fused_head)
         self.fused_head_loss = (None if fused_head_loss is None
                                 else bool(fused_head_loss))
         # attention layout: "bshd" (q/k/v are views of the qkv projection,
@@ -392,13 +399,16 @@ class GPTForPretraining(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         """[B, S] ids -> logits [B, S, vocab] in the model's dtype. When
-        the config asks for the fused head (`_use_fused_head`), the logits
-        carry a `_fused_head` flag and `gpt_pretrain_loss` raises: the
-        vocab-chunked loss is not ported."""
-        logits = self._head(self.gpt(input_ids, position_ids))
-        if _use_fused_head(self.cfg, logits.shape):
-            logits._fused_head = True
-        return logits
+        the config asks for the fused head (`_use_fused_head`), the
+        logits are a `FusedHeadLogits` over the hidden states and the
+        tied weight: `gpt_pretrain_loss` computes the vocab-chunked loss
+        from those, and the dense head product runs only if something
+        else reads the logits."""
+        h = self.gpt(input_ids, position_ids)
+        w = self.gpt.embeddings.word_embeddings.weight
+        if _use_fused_head(self.cfg, (*h.shape[:-1], w.shape[0])):
+            return FusedHeadLogits(h, w, self._head)
+        return self._head(h)
 
     def loss(self, logits, labels):
         return gpt_pretrain_loss(logits, labels)
@@ -427,22 +437,71 @@ def _use_fused_head(cfg, logits_shape):
     return b * s * v * 4 > CHUNKED_CE_AUTO_BYTES
 
 
+class FusedHeadLogits(torch.Tensor):
+    """The logits [B, S, V] of the tied head, `hidden @ weight.T`, not
+    yet computed: what `GPTForPretraining.forward` returns when the fused
+    head is on. `gpt_pretrain_loss` reads `hidden` and `weight` and never
+    the product. Shape, dtype and device are answered from the pieces;
+    any other use (an op, a method, indexing, printing) computes the
+    dense product once through `head` (with autograd, so its gradient
+    reaches the hidden states and the tied weight) and works on that."""
+
+    _METADATA = {torch.Tensor.shape.__get__, torch.Tensor.dtype.__get__,
+                 torch.Tensor.device.__get__, torch.Tensor.ndim.__get__,
+                 torch.Tensor.is_cuda.__get__, torch.Tensor.size,
+                 torch.Tensor.dim}
+
+    @staticmethod
+    def __new__(cls, hidden, weight, head):
+        t = torch.Tensor._make_wrapper_subclass(
+            cls, (*hidden.shape[:-1], weight.shape[0]), dtype=hidden.dtype,
+            device=hidden.device, requires_grad=False)
+        t.hidden, t.weight, t._head_fn, t._dense = hidden, weight, head, None
+        return t
+
+    def dense(self):
+        """The dense logits, computed at the first call."""
+        if self._dense is None:
+            self._dense = self._head_fn(self.hidden)
+        return self._dense
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in cls._METADATA:
+            args, kwargs = tree_map(
+                lambda a: a.dense() if isinstance(a, FusedHeadLogits)
+                else a, (args, kwargs))
+        with torch._C.DisableTorchFunctionSubclass():
+            return func(*args, **kwargs)
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        # every op is redirected to the dense logits above dispatch
+        raise RuntimeError(f"FusedHeadLogits reached {func} unresolved")
+
+
 def gpt_pretrain_loss(logits, labels):
     """Next-token cross entropy, averaged over the valid rows. The labels
     are shifted (not the logits): position t is scored against
     labels[t + 1] and the last position is padded with -1 and ignored,
     as `_cross_entropy_raw` with ignore_index=-1 does (a mean over the
-    valid rows, at least one)."""
-    if getattr(logits, "_fused_head", False):
-        raise NotImplementedError(
-            "the vocab-chunked fused head + loss (chunked_lm_loss) is not "
-            "ported yet (ROADMAP Queue 1: chunked_lm_loss); set "
-            "GPTConfig(fused_head_loss=False) to train with the dense head")
+    valid rows, at least one).
+
+    `FusedHeadLogits` take the vocab-chunked fused head + loss
+    (`chunked_lm_loss`) over the flattened hidden states and the tied
+    weight, in chunks of min(4096, V rounded up to 128) vocab rows, as
+    the JAX package does; the dense logits are never computed."""
     b, s, v = logits.shape
     shifted = torch.cat([labels[:, 1:].long(),
                          torch.full((b, 1), -1, dtype=torch.long,
                                     device=labels.device)], dim=1)
     shifted = shifted.reshape(b * s)
+    if isinstance(logits, FusedHeadLogits):
+        h = logits.hidden
+        chunk = min(4096, (v + 127) // 128 * 128)
+        return chunked_lm_loss(h.reshape(b * s, h.shape[-1]), logits.weight,
+                               shifted, -1, chunk)
     total = F.cross_entropy(logits.reshape(b * s, v), shifted,
                             ignore_index=-1, reduction="sum")
     valid = (shifted != -1).sum().clamp(min=1)

@@ -1,5 +1,12 @@
-"""Optimizers of the port (this slice: SGD, Adam, AdamW; the other
-rules and `lr.py` are ROADMAP Queue 1 items)."""
-from .optimizer import SGD, Adam, AdamW, Optimizer
+"""Optimizers of the port (`paddle_tpu.optimizer`'s counterpart): the
+update rules, the learning-rate schedulers (`lr`) and the wrappers."""
+from . import lr
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Dpsgd,
+                        Ftrl, Lamb, Lars, Momentum, Optimizer, RMSProp)
+from .wrappers import (ExponentialMovingAverage, GradientMergeOptimizer,
+                       LookaheadOptimizer, ModelAverage)
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "Adadelta", "RMSProp", "Lamb", "Lars", "Ftrl", "Dpsgd",
+           "ExponentialMovingAverage", "ModelAverage", "LookaheadOptimizer",
+           "GradientMergeOptimizer"]

@@ -8,7 +8,9 @@ the pattern of `ops/flash_attention.py`:
                   `optimizer.AdamW` (torch list ops); used for CPU
                   tensors and to check the kernel on the card;
   kernel="cuda"   `cuda_adam`: one launch of the hand-written sm_90a
-                  kernel per dtype group (up to 256 tensors a launch),
+                  kernel per group of parameters that share a dtype, a
+                  master or none, a learning-rate multiplier and a
+                  regularizer term (up to 256 tensors a launch),
                   reading lr and the step from the optimizer's device
                   pair. It launches for CUDA tensors and raises for
                   anything else — CPU tensors, a dtype it does not take,
@@ -19,6 +21,7 @@ the pattern of `ops/flash_attention.py`:
 """
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -30,7 +33,8 @@ KERNELS = ("auto", "plain", "cuda")
 launches = {"adam": 0}
 kernels.COUNTERS["optimizer"] = launches
 
-DECAY_MODES = {None: 0, "l2": 1, "decoupled": 2}
+# the gradient term: none, L2 (g + c * base) or L1 (g + c * sign(base))
+GRAD_MODES = {None: 0, "l2": 1, "l1": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,13 +90,24 @@ def _check(params, grads, moment1, moment2, masters, scalars):
 
 
 def cuda_adam(params, grads, moment1, moment2, masters, scalars, beta1,
-              beta2, epsilon, decay=0.0, decay_mode=None):
+              beta2, epsilon, grad_mode=None, grad_coeff=0.0,
+              decoupled=False, decay=0.0, lr_scale=1.0):
     """One fused Adam/AdamW step, in place, over parameters of one dtype
     (f32 or bf16) on one card: grads in the params' dtype, f32 moments,
     f32 `masters` (a list, or None) for bf16 weights under
-    multi_precision, and `scalars` the device f32 [lr, step]. decay_mode
-    None, "l2" (Adam: g + decay * base) or "decoupled" (AdamW: coeff =
-    decay). Launches once per 256 tensors on the current stream."""
+    multi_precision, and `scalars` the device f32 [lr, step].
+
+    grad_mode: the regularizer's term, appended to the gradient in the
+    base dtype (the master's, else the weights'): None, "l2" (g +
+    grad_coeff * base) or "l1" (g + grad_coeff * sign(base)); grad_coeff
+    is taken as given (the caller rounds it to the base dtype).
+    decoupled: AdamW's rule, with `decay` its coefficient (0 included);
+    else Adam's. lr_scale: the group's learning-rate multiplier, applied
+    on the device as lr * f32(lr_scale). Launches once per 256 tensors on
+    the current stream."""
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"optimizer kernel: grad_mode {grad_mode!r} is not "
+                         f"one of {tuple(GRAD_MODES)}")
     _check(params, grads, moment1, moment2, masters, scalars)
     keep = [i for i, p in enumerate(params) if p.numel()]
     if not keep:
@@ -100,8 +115,9 @@ def cuda_adam(params, grads, moment1, moment2, masters, scalars, beta1,
     lib = kernels.load("optimizer")
     per_launch = lib.optimizer_adam_max_tensors()
     stream = torch.cuda.current_stream(params[0].device).cuda_stream
-    hyper = tuple(float(torch.tensor(x, dtype=torch.float32)) for x in
-                  (beta1, beta2, 1 - beta1, 1 - beta2, epsilon, decay))
+    hyper = tuple(float(np.float32(x)) for x in
+                  (beta1, beta2, 1 - beta1, 1 - beta2, epsilon, grad_coeff,
+                   decay, lr_scale))
     for lo in range(0, len(keep), per_launch):
         idx = keep[lo:lo + per_launch]
         ptrs = []
@@ -113,8 +129,9 @@ def cuda_adam(params, grads, moment1, moment2, masters, scalars, beta1,
         rc = lib.optimizer_adam_step(
             (ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_longlong * len(numels))(*numels), len(idx),
-            scalars.data_ptr(), *hyper, DECAY_MODES[decay_mode],
-            _DTYPES[params[0].dtype], int(masters is not None), stream)
+            scalars.data_ptr(), *hyper, GRAD_MODES[grad_mode],
+            int(bool(decoupled)), _DTYPES[params[0].dtype],
+            int(masters is not None), stream)
         if rc != 0:
             raise RuntimeError(f"optimizer kernel launch failed: CUDA "
                                f"error {rc}")

@@ -35,6 +35,10 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.nn
         import paddle_tpu_torch.ops
         import paddle_tpu_torch.optimizer
+        import paddle_tpu_torch.optimizer.lr
+        import paddle_tpu_torch.optimizer.wrappers
+        import paddle_tpu_torch.ops.chunked_ce
+        import paddle_tpu_torch.regularizer
         import paddle_tpu_torch.serving
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))

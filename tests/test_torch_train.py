@@ -169,10 +169,15 @@ def test_trained_weights_and_adam_state_carry_across():
 
 
 def test_fused_head_loss_raises_and_names_the_roadmap():
+    """The fused head is ported (tests/test_torch_chunked_ce.py): its
+    loss equals the dense head's; what is still unported raises and
+    names the ROADMAP."""
     _, tm = _pair(fused_head_loss=True)
     logits = tm(_ids())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.gpt_pretrain_loss(logits, _ids())
+    assert isinstance(logits, tgpt.FusedHeadLogits)
+    fused = float(tgpt.gpt_pretrain_loss(logits, _ids()).detach())
+    dense = float(tgpt.gpt_pretrain_loss(logits.dense(), _ids()).detach())
+    assert fused == pytest.approx(dense, rel=1e-5)
     assert not tgpt._use_fused_head(tm.cfg.__class__(**SMALL), (8, 1024,
                                                                32768))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -290,7 +295,7 @@ def test_optimizer_state_dict_round_trip_and_lr():
     assert fresh.get_lr() == 0.5
     fresh.clear_grad()
     assert all(p.grad is None for p in fps)
-    with pytest.raises(NotImplementedError, match="lr.py"):
+    with pytest.raises(TypeError, match="LRScheduler"):
         topt.SGD(learning_rate=object(), parameters=fps)
 
 
