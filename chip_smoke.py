@@ -22,7 +22,9 @@ its phases:
                 and the alignment rules; timed by CUDA-graph replay (in
                 TFLOP/s too, K1-K3's registers, spills and shared memory
                 beside), with the port's whole backward against SDPA's,
-                both captured in CUDA graphs;
+                both captured in CUDA graphs; K1 again at the dense
+                prefill's shape [1, 768, 12, 64], against its plain
+                version and SDPA's forward;
   optimizer     the fused Adam/AdamW kernel against its plain
                 `_foreach_*` twin over GPT-2 small's 148 parameter
                 shapes (AdamW with bf16 and f32 weights and with bf16
@@ -46,6 +48,11 @@ its phases:
                 (equal streams, logits within 1e-6 relative, one decode
                 and one prefill graph); two graphed sampling engines with
                 one seed against each other, and against the eager one;
+                the dense engine (K1 prefill, dense decode) eager and
+                graphed: streams equal to the paged engine's, logits
+                within 1e-3 of the reference engine's per step, graphed
+                equal to eager (logits within 1e-6 relative, one graph
+                per program);
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
                 kernels against the dense reference: step-1 gradients,
                 5-step SGD and AdamW loss trajectories, window off/on;
@@ -66,6 +73,18 @@ its phases:
                 their replays, and none from Python); a torch.profiler
                 window of 20 steady rounds (device time per wave and per
                 chunk, idle share, host time per round);
+  serve_dense   the serve phase's 16 requests through the front door's
+                default, the dense engine (`inference.Config()
+                .enable_llm_engine(num_slots=8, max_len=1024,
+                prefill_len=768)`), graphed and eager in turns: every
+                prefill on K1's route at a 768-token bucket, 12 K1
+                launches per admission (the prefill graph's captured
+                launches times its replays); the wave and the prefill
+                graph replayed alone and profiled by kernel group; then
+                `generate(use_cache=True)` at batch 8, 64 new tokens:
+                a call's wall time (position 0 eager, 1 captured, one
+                graph replay per later position) against its eager
+                run, and the replays' device time per position;
   train         GPT-2 small in bf16 at bench.py's GPU shapes through
                 `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
                 in `jit.TrainStep`, one CUDA graph per step after the
@@ -126,11 +145,14 @@ OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
-          "serve", "train", "train_fused_head")
+          "serve", "serve_dense", "train", "train_fused_head")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
 NUM_BLOCKS = LANES * NBLK + 1
+# the dense engine's prompt bucket: the serve prompts' longest, a
+# multiple of 128, so every prefill is K1 at [1, 768, 12, 64]
+DENSE_BUCKET = 768
 LAYERS = 12
 # peak rates of the card by nvidia-smi name: HBM bytes/s, and dense
 # operations/s by input type (bf16 on the tensor cores; f32 outside
@@ -966,21 +988,26 @@ def dpsgd_noise(dev, lr=0.1, clip=2.0, sigma=1.5, batch=8.0):
 # ---------------------------------------------------------------------------
 
 def record_streams(model, kernel, prompts, max_tokens, dev, graphed,
-                   **sampling):
+                   paged=True, **sampling):
     """Serve `prompts` through create_llm_predictor, as CUDA graphs or
-    eagerly (`switch_ir_optim`), and record the f32 logits row behind
-    every emitted token of every request. The rows are read from the
-    engine's program outputs after each wave and each final prefill
-    chunk: under graph replay the model's methods run only at capture.
+    eagerly (`switch_ir_optim`), on the paged engine (its `kernel`) or
+    the dense one (a 256-token bucket), and record the f32 logits row
+    behind every emitted token of every request. The rows are read from
+    the engine's program outputs after each wave and each final prefill
+    (chunk): under graph replay the model's methods run only at capture.
     Returns the streams, the rows and the engine."""
     import torch
     from paddle_tpu_torch import inference
 
     cfg = inference.Config()
     cfg.switch_ir_optim(graphed)
-    cfg.enable_llm_engine(paged=True, num_slots=4, max_len=256,
-                          block_size=BLOCK, prefill_len=CHUNK,
-                          paged_kernel=kernel, device=dev)
+    if paged:
+        cfg.enable_llm_engine(paged=True, num_slots=4, max_len=256,
+                              block_size=BLOCK, prefill_len=CHUNK,
+                              paged_kernel=kernel, device=dev)
+    else:
+        cfg.enable_llm_engine(num_slots=4, max_len=256, prefill_len=256,
+                              device=dev)
     pred = inference.create_llm_predictor(cfg, model=model)
     eng, sched = pred.engine, pred.scheduler
     reqs = []
@@ -994,7 +1021,7 @@ def record_streams(model, kernel, prompts, max_tokens, dev, graphed,
 
     def prefill_step(slot):
         st = eng._pending_prefill[slot]
-        last = st["next"] + eng.prefill_chunk_len >= st["n"]
+        last = not paged or st["next"] + eng.prefill_chunk_len >= st["n"]
         first = orig_prefill(slot)
         if last:
             steps[owner(slot)].append(
@@ -1096,6 +1123,8 @@ def parity_phase(dev, smi):
                                    graphed=False, **knobs)
     check(s1 == s2, f"two graphed sampled engines with one seed differ: "
                     f"{s1} vs {s2}")
+    dense = dense_parity(model, prompts, dev, ref_toks, ref_steps, out_toks,
+                         tol, graph_tol)
     emit("parity", dtype="float32", layers=LAYERS, requests=len(prompts),
          steps_compared=compared, max_logit_err=max_err, tolerance=tol,
          max_abs_logit=scale, near_tie_steps=near_ties,
@@ -1113,7 +1142,68 @@ def parity_phase(dev, smi):
                   "compiles": {"decode": s_eng.decode_compiles,
                                "prefill": s_eng.prefill_compiles},
                   "distinct_tokens": [len(set(t)) for t in s1]},
-         nvidia_smi=smi)
+         dense=dense, nvidia_smi=smi)
+
+
+def dense_parity(model, prompts, dev, ref_toks, ref_steps, paged_toks, tol,
+                 graph_tol):
+    """The dense engine (K1 prefill at a 256-token bucket, the dense
+    decode wave) on the parity prompts, eager and graphed: its streams
+    equal the paged CUDA engine's, its logits within `tol` of the
+    reference engine's at every step up to where the reference's own
+    stream leaves it (a near tie, as the paged check allows), and the
+    graphed engine equal to the eager one (logits within `graph_tol` x
+    max(1, |eager|), one decode and one prefill graph)."""
+    import torch
+    d_toks, d_steps, d_eng = record_streams(model, None, prompts, 16, dev,
+                                            graphed=False, paged=False)
+    check(d_eng.prefill_route == "k1",
+          f"dense parity engine took the {d_eng.prefill_route} route")
+    check(d_toks == paged_toks, f"dense streams {d_toks} != paged "
+                                f"{paged_toks}")
+    max_err, compared = 0.0, 0
+    for i in range(len(prompts)):
+        for t, (a, b) in enumerate(zip(ref_toks[i], d_toks[i])):
+            err = (ref_steps[i][t] - d_steps[i][t]).abs().max().item()
+            max_err = max(max_err, err)
+            compared += 1
+            check(err <= tol, f"dense request {i} step {t}: logits differ "
+                              f"from the reference engine's by {err}")
+            if a != b:
+                top2 = torch.topk(ref_steps[i][t], 2).values
+                gap = (top2[0] - top2[1]).item()
+                check(gap < tol, f"dense request {i} step {t}: tokens {a} "
+                                 f"vs {b} with top-2 gap {gap} >= {tol}")
+                break
+    g_toks, g_steps, g_eng = record_streams(model, None, prompts, 16, dev,
+                                            graphed=True, paged=False)
+    check(g_toks == d_toks, f"graphed dense streams {g_toks} != eager "
+                            f"{d_toks}")
+    graph_err = 0.0
+    for i in range(len(prompts)):
+        check(len(g_steps[i]) == len(d_steps[i]) == 16,
+              f"dense request {i}: {len(g_steps[i])} graphed logits rows")
+        for t, (le, lg) in enumerate(zip(d_steps[i], g_steps[i])):
+            err = (le - lg).abs().max().item()
+            graph_err = max(graph_err, err)
+            check(err <= graph_tol * max(1.0, le.abs().max().item()),
+                  f"dense request {i} step {t}: graphed logits differ "
+                  f"from eager by {err}")
+    compiles = {"decode": g_eng.decode_compiles,
+                "prefill": g_eng.prefill_compiles}
+    check(compiles == {"decode": 1, "prefill": 1},
+          f"graphed greedy dense engine compiled {compiles}")
+    torch.cuda.synchronize()
+    return {"route": d_eng.prefill_route, "streams_equal_paged": True,
+            "streams_equal_reference": d_toks == ref_toks,
+            "steps_compared": compared, "max_logit_err": max_err,
+            "graphed_vs_eager": {"streams_equal": True,
+                                 "max_logit_err": graph_err,
+                                 "compiles": compiles,
+                                 "replays": {
+                                     "decode": g_eng.wave_program.replays,
+                                     "prefill":
+                                         g_eng.prefill_program.replays}}}
 
 
 # ---------------------------------------------------------------------------
@@ -1287,20 +1377,9 @@ def profile_serve(pred, prompts, warm_rounds=8, rounds=20):
                          "combine": LAYERS},
           f"the profiler saw K4 kernels per replay {per_replay}")
     # each graph alone, back to back: its device time with no host gaps
-    alone = {}
-    for key, prog in (("wave", eng.wave_program),
-                      ("chunk", eng.prefill_program)):
-        graph = prog.graphs[False].graph
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        alone[key] = start.elapsed_time(end) / 20
+    alone = {key: replay_alone_ms(prog.graphs[False].graph)
+             for key, prog in (("wave", eng.wave_program),
+                               ("chunk", eng.prefill_program))}
     groups = {name: 0.0 for name, _ in SERVE_GROUPS}
     groups["other (elementwise, norms, scatters, selection)"] = 0.0
     for key, (ms, _) in by_name.items():
@@ -1382,6 +1461,257 @@ def serve_phase(dev, smi):
          median_graphed={k: median(True, k) for k in keys},
          median_eager={k: median(False, k) for k in keys},
          profile=profile, nvidia_smi=smi)
+    return main_launches
+
+
+# ---------------------------------------------------------------------------
+# serve_dense: the front door's default engine, graphed and eager
+# ---------------------------------------------------------------------------
+
+def serve_dense_predictor(model, graphed):
+    """The front door's default engine (the dense ServingEngine) at the
+    serve configuration with a 768-token bucket, CUDA graphs on or off,
+    warmed up: two short requests run each program's eager first call
+    and (graphed) its capture."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import ServingEngine
+    cfg = inference.Config()
+    cfg.switch_ir_optim(graphed)
+    cfg.enable_llm_engine(num_slots=LANES, max_len=NBLK * BLOCK,
+                          prefill_len=DENSE_BUCKET)
+    pred = inference.create_llm_predictor(cfg, model=model)
+    check(type(pred.engine) is ServingEngine,
+          f"the default front door built {type(pred.engine).__name__}")
+    check(pred.engine.prefill_route == "k1",
+          f"dense prefill route {pred.engine.prefill_route!r}")
+    for _ in range(2):
+        pred.generate(list(range(1, 70)), max_tokens=3)
+    return pred
+
+
+def serve_dense_run(pred, prompts):
+    """One timed run of the 16 requests on a warmed-up dense predictor,
+    with K1's launches: from Python (eager), or the prefill graph's
+    captured launches times its replays (a graphed run launches nothing
+    from Python). No other counted kernel runs on this path."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import ServingMetrics
+
+    eng = pred.engine
+    graphed = eng.wave_program.graphed
+    waves0, admitted0 = eng.decode_waves_run, eng.prefill_chunks_run
+    replays0 = (eng.wave_program.replays, eng.prefill_program.replays)
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred.scheduler.metrics = ServingMetrics(eng.num_slots)
+    t0 = time.perf_counter()
+    reqs = [pred.submit(prompt=p, max_tokens=64) for p in prompts]
+    rounds = pred.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    python = {k: n - before.get(k, 0)
+              for k, n in kernels.launch_counts().items()
+              if n != before.get(k, 0)}
+    waves = eng.decode_waves_run - waves0
+    admissions = eng.prefill_chunks_run - admitted0
+    snap = pred.metrics.snapshot()
+    check(admissions == 16 and all(r.finish_reason == "max_tokens"
+                                   and len(r.output_tokens) == 64
+                                   for r in reqs),
+          f"dense serve: {admissions} admissions, finish reasons "
+          f"{[r.finish_reason for r in reqs]}")
+    vocab = eng.model.cfg.vocab_size
+    check(all(0 <= t < vocab for r in reqs for t in r.output_tokens),
+          "dense serve: a token outside the vocabulary")
+    compiles = {"decode": eng.decode_compiles,
+                "prefill": eng.prefill_compiles}
+    replays = {"decode": eng.wave_program.replays - replays0[0],
+               "prefill": eng.prefill_program.replays - replays0[1]}
+    if graphed:
+        check(compiles == {"decode": 1, "prefill": 1},
+              f"graphed dense serve compiled {compiles}")
+        captured = {"decode": eng.wave_program.graphs[False].launches,
+                    "prefill": eng.prefill_program.graphs[False].launches}
+        check(captured == {"decode": {},
+                           "prefill": {"flash_attention.fwd": LAYERS}},
+              f"the dense graphs hold the launches {captured}")
+        check(python == {}, f"a graphed dense run launched from Python: "
+                            f"{python}")
+        check(replays == {"decode": waves, "prefill": admissions},
+              f"replays {replays} for {waves} waves, {admissions} "
+              f"admissions")
+        k1 = LAYERS * replays["prefill"]
+    else:
+        check(compiles == {"decode": 0, "prefill": 0},
+              f"eager dense serve compiled {compiles}")
+        check(set(python) <= {"flash_attention.fwd"},
+              f"the eager dense run launched {python}")
+        k1 = python.get("flash_attention.fwd", 0)
+    check(k1 == LAYERS * admissions,
+          f"K1 launches {k1} != {LAYERS} x {admissions} admissions")
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    return {"graphed": graphed, "tokens_generated": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "ttft_p50_s": snap["ttft_p50_s"],
+            "tpot_p50_s": snap["tpot_p50_s"], "rounds": rounds,
+            "host_ms_per_round": wall * 1e3 / rounds, "decode_waves": waves,
+            "admissions": admissions, "compiles": compiles,
+            "replays": replays, "k1_launches": k1,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def replay_alone_ms(graph, replays=20):
+    """Device ms of one replay of a captured graph, back to back."""
+    import torch
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def generate_run(model, dev, batch=8, prompt_len=64, new_tokens=64):
+    """`generate(use_cache=True)` on seeded prompts: graphed twice and
+    eagerly once; the graphed ids equal the eager ones. Every call
+    builds its own program, so a graphed call's wall time is its whole
+    cost: position 0 eager, position 1 captured, then one replay per
+    position (the first call also holds the process's one-time CUDA
+    set-up). The replays are timed on the device as well: CUDA events
+    around each replay of the second call, the first event to the last
+    over the replays (the host enqueues far ahead of the card, so they
+    run back to back)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nlp import generate
+    from paddle_tpu_torch.nlp import gpt as gpt_module
+    events, plain = [], gpt_module.Program
+
+    class Timed(plain):
+        def __call__(self, key):
+            if self.graphed and self.graphs.get(key) is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                outs = super().__call__(key)
+                end.record()
+                events.append((start, end))
+                return outs
+            return super().__call__(key)
+
+    ids = torch.tensor(np.random.default_rng(SEED + 5).integers(
+        0, model.cfg.vocab_size, (batch, prompt_len)), device=dev)
+    walls, outs = [], []
+    for graphed in (True, True, False):
+        events.clear()
+        gpt_module.Program = Timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(generate(model, ids, max_new_tokens=new_tokens,
+                                 use_cache=True, cuda_graph=graphed))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        finally:
+            gpt_module.Program = plain
+        if len(walls) == 2:
+            replays = len(events)
+            replay_ms = events[0][0].elapsed_time(events[-1][1]) / replays
+    check(torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2]),
+          "generate: graphed ids differ from eager ids")
+    check(torch.equal(outs[0][:, :prompt_len], ids),
+          "generate: the prompt was not kept")
+    steps = prompt_len + new_tokens - 1
+    # the capture's own replay (position 1) is not timed
+    check(replays == steps - 2,
+          f"generate: {replays} timed replays for {steps} positions")
+    return {"batch": batch, "prompt_len": prompt_len,
+            "new_tokens": new_tokens, "use_cache": True, "positions": steps,
+            "per_call": "position 0 eager, position 1 captured, then "
+                        "one graph replay per position",
+            "graphed_wall_s": walls[1], "first_call_wall_s": walls[0],
+            "eager_wall_s": walls[2],
+            "tokens_per_s": batch * new_tokens / walls[1],
+            "eager_tokens_per_s": batch * new_tokens / walls[2],
+            "ms_per_position": walls[1] * 1e3 / steps,
+            "eager_ms_per_position": walls[2] * 1e3 / steps,
+            "timed_replays": replays, "replay_ms_per_position": replay_ms,
+            "distinct_tokens": len(set(outs[1][:, prompt_len:]
+                                       .flatten().tolist()))}
+
+
+def serve_dense_phase(dev, smi):
+    import statistics
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
+                              device=dev, dtype=torch.bfloat16, seed=SEED)
+    # the serve phase's prompts
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, model.cfg.vocab_size,
+                            int(rng.integers(128, 769))).tolist()
+               for _ in range(16)]
+    runs, main_launches = [], None
+    for graphed in (True, False, True, False, True):
+        if main_launches is None:
+            # the main path's run, from building the predictor to its
+            # last timed request: every count is 0 before it
+            for counts in kernels.COUNTERS.values():
+                for key in counts:
+                    counts[key] = 0
+            fa.routes["kernel"] = fa.routes["dense"] = 0
+        pred = serve_dense_predictor(model, graphed)
+        run = serve_dense_run(pred, prompts)
+        if main_launches is None:
+            main_launches = run["k1_launches"]
+            check(fa.routes["dense"] == 0,
+                  f"flash attention went dense {fa.routes['dense']} times")
+        runs.append(run)
+        if graphed:
+            last = pred
+        else:
+            del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    eng = last.engine
+    wave, prefill = (eng.wave_program.graphs[False].graph,
+                     eng.prefill_program.graphs[False].graph)
+    alone = {"wave": replay_alone_ms(wave),
+             "prefill": replay_alone_ms(prefill)}
+    by_group = {"wave": graph_profile(wave),
+                "prefill": graph_profile(prefill)}
+    for run in runs:
+        if run["graphed"]:
+            run["device_share_by_replay_alone"] = (
+                run["decode_waves"] * alone["wave"]
+                + run["admissions"] * alone["prefill"]) / (
+                    run["wall_s"] * 1e3)
+    del last, eng, wave, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = generate_run(model, dev)
+
+    def median(graphed, key):
+        return statistics.median(r[key] for r in runs
+                                 if r["graphed"] == graphed)
+    keys = ("tokens_per_s", "tpot_p50_s", "ttft_p50_s", "host_ms_per_round")
+    emit("serve_dense", model="gpt2_small", dtype="bfloat16", requests=16,
+         prefill_len=DENSE_BUCKET, route="k1",
+         order="graphed, eager, graphed, eager, graphed", runs=runs,
+         median_graphed={k: median(True, k) for k in keys},
+         median_eager={k: median(False, k) for k in keys},
+         replay_alone_ms=alone, device_ms_per_replay=by_group,
+         generate=gen, nvidia_smi=smi)
     return main_launches
 
 
@@ -1754,7 +2084,63 @@ def flash_phase(dev, peaks):
               "from bf16 inputs; cudnn_dot_do_o_ms is cuDNN's kernel for "
               "it inside SDPA's backward (profiler)"}
     del sets, saved
+    results["fwd_prefill"] = flash_prefill_shape(fa, gen, dev, peaks)
     return results
+
+
+def flash_prefill_shape(fa, gen, dev, peaks):
+    """K1 at the dense prefill's shape, [1, 768, 12, 64] bf16 causal
+    BSHD views of one qkv projection (12 input sets, one per layer):
+    held against plain_fwd, timed by graph replay against its bound, its
+    plain version and SDPA's forward on [B, H, S, D] views of the same
+    tensors."""
+    import torch
+    F = torch.nn.functional
+    scale = 1.0 / HEAD_DIM ** 0.5
+    sets = [flash_inputs(1, DENSE_BUCKET, DENSE_BUCKET, torch.bfloat16, gen,
+                         dev)[:3] for _ in range(LAYERS)]
+    q, k, v = sets[0]
+    out, lse = fa.cuda_fwd(q, k, v, True, scale, True)
+    ref, ref_lse = fa.plain_fwd(q, k, v, True, scale, True)
+    # per element, as the flash phase holds K1: 2e-2 x max(1, |ref|)
+    errs = {}
+    for key, g, r in (("out", out, ref), ("lse", lse, ref_lse)):
+        r = r.float()
+        e = (g.float() - r).abs()
+        errs[key] = e.max().item()
+        check(torch.isfinite(g).all().item()
+              and bool((e <= 2e-2 * torch.clamp(r.abs(), min=1.0)).all()),
+              f"flash fwd at the prefill shape: {key} max abs err "
+              f"{errs[key]} over tolerance 2e-2 x max(1, |ref|)")
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % LAYERS
+        return sets[it["i"]]
+
+    def kernel():
+        fa.cuda_fwd(*nxt(), True, scale, True)
+
+    def plain():
+        fa.plain_fwd(*nxt(), True, scale, True)
+
+    def sdpa():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in nxt()), is_causal=True)
+    kernel_ms = graph_ms(kernel, LAYERS)
+    bound_ms, bound_by = flash_bound("fwd", q, k, True, None, True, peaks)
+    return {"shape": [1, DENSE_BUCKET, HEADS, HEAD_DIM], "dtype": "bfloat16",
+            "causal": True, "max_abs_err": max(errs.values()),
+            "max_abs_err_out": errs["out"], "max_abs_err_lse": errs["lse"],
+            "tolerance": "2e-2 x max(1, |ref|) per element",
+            "kernel_ms": kernel_ms,
+            "plain_ms": time_ms(plain, 3), "library_ms": graph_ms(sdpa,
+                                                                  LAYERS),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": flash_flops("fwd", q, k, True, None, True)
+            / kernel_ms * 1e-9,
+            "blocks_per_launch": HEADS * DENSE_BUCKET // 128}
 
 
 def sdpa_yardstick(sets):
@@ -2382,9 +2768,9 @@ def profile_steps(step, ids, step_ms, steps=2):
                             for ms, n, key in rows[:16]]}
 
 
-def profile_replays(graph, calls=3):
-    """Device ms per replay of a CUDA graph by kernel group, from
-    torch.profiler; None when it records no device time."""
+def replay_rows(graph, calls=3):
+    """`device_rows` of `calls` replays of a CUDA graph, from
+    torch.profiler (empty when it records no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     graph.replay()
@@ -2394,8 +2780,27 @@ def profile_replays(graph, calls=3):
         for _ in range(calls):
             graph.replay()
         torch.cuda.synchronize()
-    rows = device_rows(prof, calls)
+    return device_rows(prof, calls)
+
+
+def profile_replays(graph, calls=3):
+    """Device ms per replay of a CUDA graph by kernel group; None when
+    the profiler records no device time."""
+    rows = replay_rows(graph, calls)
     return by_group(rows) if rows else None
+
+
+def graph_profile(graph, calls=3, top=8):
+    """A replay's device ms in all and by kernel group, its kernel
+    launches and its `top` kernels; "not measured" when the profiler
+    records no device time."""
+    rows = replay_rows(graph, calls)
+    if not rows:
+        return "not measured: the profiler recorded no device time"
+    return {"device_ms": sum(r[0] for r in rows), "by_group": by_group(rows),
+            "kernels": sum(r[1] for r in rows),
+            "top_kernels": [{"ms": ms, "calls": n, "name": key[:90]}
+                            for ms, n, key in rows[:top]]}
 
 
 def build_all():
@@ -2468,6 +2873,7 @@ def main():
     run("parity", parity_phase, dev, smi)
     run("train_parity", train_parity_phase, dev)
     serve_launches = run("serve", serve_phase, dev, smi)
+    dense_launches = run("serve_dense", serve_dense_phase, dev, smi)
     train_launches = run("train", train_phase, dev, peaks)
     fh = run("train_fused_head", train_fused_head_phase, dev, peaks)
     if fh is not None:
@@ -2490,6 +2896,11 @@ def main():
                      "launches": train_launches[kind],
                      "launches_train_fused_head": fh["launches"][kind],
                      "ms": row.pop("kernel_ms"), **row})
+        if kind == "fwd":
+            prefill = dict(fl["fwd_prefill"])
+            rows[-1]["launches_serve_dense"] = dense_launches
+            rows[-1]["prefill_shape"] = {
+                "ms": prefill.pop("kernel_ms"), **prefill}
     row = {k: op[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
     rows.append({"name": "fused_adam", "route": "cuda",

@@ -2,19 +2,17 @@
 `Config.enable_llm_engine`, `LLMPredictor` and `create_llm_predictor`
 from `paddle_tpu/inference/__init__.py`).
 
-This slice serves through the paged engine only: `paged=True`. The
-Config's `ir_optim` (on by default, `switch_ir_optim`) selects how the
-engine runs its decode wave and prefill chunk on the card: as CUDA-graph
-replays, or eagerly (`switch_ir_optim(False)`), the counterpart of the
-JAX package's `jit_compile=config.ir_optim()`.
+`enable_llm_engine()` serves through the dense `ServingEngine` by
+default (`paged=False`), or the paged one (`paged=True`). The Config's
+`ir_optim` (on by default, `switch_ir_optim`) selects how the engine
+runs its decode wave and prefill on the card: as CUDA-graph replays, or
+eagerly (`switch_ir_optim(False)`), the counterpart of the JAX
+package's `jit_compile=config.ir_optim()`.
 """
 
 _NOT_PORTED = {
-    "paged=False": "the dense ServingEngine, its KV cache and GPT "
-                   "prefill are not ported yet (ROADMAP Queue 1 item 3: "
-                   "dense ServingEngine and prefill)",
     "speculative=True": "speculative decoding is not ported yet (ROADMAP "
-                        "Queue 1 item 3: speculative decoding)",
+                        "Queue 1 item 1b: speculative decoding)",
 }
 
 
@@ -40,14 +38,12 @@ class Config:
                           block_size=16, num_blocks=None, speculative=False,
                           draft_config=None, paged_kernel=None, device=None):
         """Arm this Config for create_llm_predictor: slot count, cache
-        horizon, prefill chunk length (`prefill_len`), eos, queue bound,
-        block size and pool size of the paged KV cache, the paged
-        attention kernel ("reference" | "plain" | "cuda" | "auto"; None
-        defers to PT_PAGED_KERNEL, then "auto") and the device (None =
-        the CUDA card). Only `paged=True` is ported."""
-        if not paged:
-            raise NotImplementedError(
-                f"paged=False: {_NOT_PORTED['paged=False']}")
+        horizon, prefill bucket (dense) or chunk length (paged) as
+        `prefill_len`, eos, queue bound, the engine (`paged`), block size
+        and pool size of the paged KV cache, the paged attention kernel
+        ("reference" | "plain" | "cuda" | "auto"; None defers to
+        PT_PAGED_KERNEL, then "auto") and the device (None = the CUDA
+        card). `speculative=True` is not ported."""
         if speculative or draft_config is not None:
             raise NotImplementedError(
                 f"speculative=True: {_NOT_PORTED['speculative=True']}")
@@ -57,6 +53,7 @@ class Config:
             "prefill_len": None if prefill_len is None else int(prefill_len),
             "eos_token_id": eos_token_id,
             "max_queue": max_queue,
+            "paged": bool(paged),
             "block_size": int(block_size),
             "num_blocks": None if num_blocks is None else int(num_blocks),
             "paged_kernel": paged_kernel,
@@ -79,19 +76,25 @@ class Config:
 
 
 class LLMPredictor:
-    """One Config-built Scheduler + PagedServingEngine pair with a
-    blocking generate() and the submit()/run() surface."""
+    """One Config-built Scheduler + engine pair (the dense
+    ServingEngine, or PagedServingEngine) with a blocking generate() and
+    the submit()/run() surface."""
 
     def __init__(self, config, model):
-        from ..serving import PagedServingEngine, Scheduler
+        from ..serving import PagedServingEngine, Scheduler, ServingEngine
         opts = config._llm_opts
         self._eos_token_id = opts["eos_token_id"]
-        self.engine = PagedServingEngine(
-            model, num_slots=opts["num_slots"], max_len=opts["max_len"],
-            block_size=opts["block_size"], num_blocks=opts["num_blocks"],
-            prefill_chunk_len=opts["prefill_len"],
-            paged_kernel=opts["paged_kernel"], device=opts["device"],
-            cuda_graph=config.ir_optim())
+        common = dict(num_slots=opts["num_slots"], max_len=opts["max_len"],
+                      device=opts["device"], cuda_graph=config.ir_optim())
+        if opts["paged"]:
+            self.engine = PagedServingEngine(
+                model, block_size=opts["block_size"],
+                num_blocks=opts["num_blocks"],
+                prefill_chunk_len=opts["prefill_len"],
+                paged_kernel=opts["paged_kernel"], **common)
+        else:
+            self.engine = ServingEngine(
+                model, prefill_len=opts["prefill_len"], **common)
         self.scheduler = Scheduler(self.engine, max_queue=opts["max_queue"])
 
     def generate(self, prompt, **kw):
@@ -113,16 +116,16 @@ class LLMPredictor:
 def create_llm_predictor(config, model=None, draft_model=None):
     """Front door from the inference Config to the serving stack: the
     Config carries the engine knobs (enable_llm_engine) and `model` is a
-    causal LM exposing init_paged_cache / decode_step / prefill_chunk
-    (nlp.GPTForPretraining), already on the engine's device."""
+    causal LM exposing the engine's methods (nlp.GPTForPretraining),
+    already on the engine's device. A Config that was not armed gets the
+    defaults, the dense engine, on the model's device (where its caller
+    put it)."""
     if model is None:
         raise ValueError("create_llm_predictor needs `model` (a causal LM "
-                         "with init_paged_cache/decode_step/prefill_chunk)")
+                         "such as nlp.GPTForPretraining)")
     if draft_model is not None:
         raise NotImplementedError(
             f"draft_model: {_NOT_PORTED['speculative=True']}")
     if not config.llm_engine_enabled():
-        raise ValueError("call config.enable_llm_engine(paged=True, ...) "
-                         "first: the dense engine is not ported "
-                         f"({_NOT_PORTED['paged=False']})")
+        config.enable_llm_engine(device=model.device)
     return LLMPredictor(config, model)

@@ -208,6 +208,25 @@ class TrainStep:
         self._last_grad_norm, self._last_nonfinite = g.grad_norm, g.nonfinite
         return g.loss.clone(), tuple(o.clone() for o in g.outs)
 
+    def eval_fn(self, fn=None):
+        """An eval forward over the live state: `run(*inputs)` puts the
+        model in eval mode, calls it under `torch.no_grad()` and puts
+        the training mode back. It runs eagerly, on the card too (no
+        CUDA graph). `fn` is accepted for the JAX signature and not
+        used: the forward is the model's."""
+        model = self.model
+
+        def run(*inputs):
+            was_training = model.training
+            model.eval()
+            try:
+                with torch.no_grad():
+                    return model(*inputs)
+            finally:
+                if was_training:
+                    model.train()
+        return run
+
     def sync(self):
         """No-op: the model and the optimizer already hold the state."""
 

@@ -1,5 +1,5 @@
 """GPT decoder-only LM (the port of `paddle_tpu/nlp/gpt.py`): training
-forward and loss, and the paged serving methods.
+forward and loss, the dense and paged serving methods, and `generate`.
 
 Pre-norm blocks, fused QKV projection, tanh-GELU MLP, LayerNorm eps
 1e-5, LM head tied to the word embeddings (`h @ word_embeddings.T`).
@@ -17,10 +17,24 @@ weight; `gpt_pretrain_loss` takes the vocab-chunked loss
 (`ops.chunked_ce.chunked_lm_loss`) from them, and the dense [B, S, V]
 head product is computed only if something else reads the logits.
 
-Serving goes through the paged KV cache only: `init_paged_cache`,
-`decode_step` and `prefill_chunk` (with `frontier=`). The paged pools
-are updated IN PLACE by the scatters; the methods return the same pool
-objects so their signatures match the JAX package's.
+Serving, dense: `init_cache` ([B, heads, L, head_dim] x2), `prefill`
+(with `frontier=`) and `decode_step` with a scalar or [B] position.
+The prefill's attention is `flash_attention` (K1 on the card) on the
+BSHD views of the qkv projection: a prompt bucket that is no multiple
+of 128 is computed at the next multiple when that fits the position
+table (the padded tail is causally masked, so it changes no position
+below the bucket), and only the bucket's K/V are written; otherwise it
+takes flash_attention's dense route, as the JAX package's `_flash_array`
+does (`prefill_route`).
+
+Serving, paged: `init_paged_cache`, `decode_step(..., block_tables=)`
+and `prefill_chunk` (with `frontier=`). The caches and pools are
+updated IN PLACE by the scatters; the methods return the same objects
+so their signatures match the JAX package's.
+
+`generate` is the model-level decode loop: a full forward per token
+(`use_cache=False`) or the KV-cache step (`use_cache=True`), which on
+the card replays one CUDA graph per position.
 """
 import math
 import os
@@ -33,11 +47,15 @@ from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..graphs import Program
 from ..nn.paged_attention import (paged_chunk_attention,
                                   paged_decode_attention)
-from ..nn.transformer import scatter_block_kv_at, scatter_block_kv_chunk
+from ..nn.decode import gumbel_, top_k_top_p_filtering
+from ..nn.transformer import (cached_decode_attention, infer_cache_dtype,
+                              scatter_block_kv_at, scatter_block_kv_chunk,
+                              scatter_kv_at)
 from ..ops.chunked_ce import chunked_lm_loss
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, kernel_len
 
 
 class GPTConfig:
@@ -146,6 +164,12 @@ class GPTAttention(nn.Module):
         a = a.permute(2, 0, 3, 1, 4)
         return a[0], a[1], a[2]
 
+    def init_cache(self, batch, max_len, dtype, device):
+        """Dense KV cache [B, heads, L, head_dim] x2."""
+        shape = (batch, self.num_heads, max_len, self.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
     def init_paged_cache(self, num_blocks, block_size, dtype, device):
         """Block-pool KV cache [num_blocks, heads, block_size, head_dim]
         x2 — requests claim blocks named by a host-managed table."""
@@ -153,17 +177,25 @@ class GPTAttention(nn.Module):
         return (torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device))
 
-    def decode(self, x_t, cache, pos, block_tables):
-        """One-token step for every lane: write K/V at `pos` through the
-        tables (in place), attend straight out of the pool."""
+    def decode(self, x_t, cache, pos, block_tables=None):
+        """One-token step for every lane: write K/V at `pos` (a scalar or
+        [B]) in place and attend over the cache up to it. With
+        block_tables the cache is the block pool: the write goes through
+        the tables and attention reads straight out of the pool."""
         b = x_t.shape[0]
         q, k_t, v_t = self._split_heads(x_t)
         ck, cv = cache
-        scatter_block_kv_at(ck, k_t, block_tables, pos)
-        scatter_block_kv_at(cv, v_t, block_tables, pos)
-        out = paged_decode_attention(q, ck, cv, block_tables, pos,
-                                     1.0 / math.sqrt(self.head_dim),
-                                     window=self.attn_window)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        if block_tables is None:
+            scatter_kv_at(ck, k_t, pos)
+            scatter_kv_at(cv, v_t, pos)
+            out = cached_decode_attention(q, ck, cv, pos, scale,
+                                          window=self.attn_window)
+        else:
+            scatter_block_kv_at(ck, k_t, block_tables, pos)
+            scatter_block_kv_at(cv, v_t, block_tables, pos)
+            out = paged_decode_attention(q, ck, cv, block_tables, pos,
+                                         scale, window=self.attn_window)
         out = out.permute(0, 2, 1, 3).reshape(b, 1, -1)
         return self.out_proj(out.to(x_t.dtype))
 
@@ -182,6 +214,23 @@ class GPTAttention(nn.Module):
                                     window=self.attn_window)
         out = out.permute(0, 2, 1, 3).reshape(b, s, h)
         return self.out_proj(out.to(x.dtype))
+
+
+    def prefill(self, x, cache, n):
+        """Prompt-phase step over x [B, C, H] (C a multiple of 128 on the
+        kernel route): causal flash attention on the BSHD views of the
+        projection, and the K/V of positions [0, n) written into the
+        fresh cache, so decode continues at pos = n."""
+        b, s, h = x.shape
+        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
+                                       self.head_dim)
+        ck, cv = cache
+        ck[:, :, :n] = qkv[:, :n, 1].transpose(1, 2).to(ck.dtype)
+        cv[:, :, :n] = qkv[:, :n, 2].transpose(1, 2).to(cv.dtype)
+        out = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                              causal=True, layout="bshd",
+                              window=self.attn_window)
+        return self.out_proj(out.reshape(b, s, h))
 
 
 class GPTMLP(nn.Module):
@@ -208,8 +257,12 @@ class GPTBlock(nn.Module):
         x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 
-    def decode(self, x, cache, pos, block_tables):
+    def decode(self, x, cache, pos, block_tables=None):
         x = x + self.attn.decode(self.ln_1(x), cache, pos, block_tables)
+        return x + self.mlp(self.ln_2(x))
+
+    def prefill(self, x, cache, n):
+        x = x + self.attn.prefill(self.ln_1(x), cache, n)
         return x + self.mlp(self.ln_2(x))
 
     def prefill_chunk(self, x, cache, block_tables, chunk_start, valid_len):
@@ -286,21 +339,55 @@ class GPTModel(nn.Module):
                 x = blk(x)
         return self.ln_f(x)
 
-    def init_paged_cache(self, num_blocks, block_size, max_len, dtype,
-                         device):
-        """Per-layer block pools [num_blocks, heads, block_size, hd] x2.
-        max_len (the per-request horizon) must fit the position table."""
+    def _check_horizon(self, max_len):
         if max_len > self.cfg.max_seq_len:
             raise ValueError(
                 f"decode length {max_len} exceeds max_seq_len "
                 f"{self.cfg.max_seq_len}")
+
+    def init_cache(self, batch, max_len, dtype, device):
+        """Per-layer dense caches [B, heads, max_len, hd] x2. max_len
+        must fit the position table."""
+        self._check_horizon(max_len)
+        return [blk.attn.init_cache(batch, max_len, dtype, device)
+                for blk in self.blocks]
+
+    def init_paged_cache(self, num_blocks, block_size, max_len, dtype,
+                         device):
+        """Per-layer block pools [num_blocks, heads, block_size, hd] x2.
+        max_len (the per-request horizon) must fit the position table."""
+        self._check_horizon(max_len)
         return [blk.attn.init_paged_cache(num_blocks, block_size, dtype,
                                           device)
                 for blk in self.blocks]
 
-    def decode_step(self, tok, caches, pos, block_tables):
-        """tok: [B, 1] ids; pos: [B] positions (or a scalar); the caches
-        are block pools, written in place. Returns (h, caches)."""
+    def prefill_route(self, n):
+        """How a prompt bucket of n tokens is computed: "k1" (flash
+        attention's kernel route, at n rounded up to a multiple of 128)
+        when that length fits the position table, else "dense"."""
+        return "k1" if kernel_len(n) <= self.cfg.max_seq_len else "dense"
+
+    def prefill(self, input_ids, max_len, dtype):
+        """Prompt-phase forward over [B, P] ids that also fills fresh
+        [B, heads, max_len, hd] caches at positions [0, P). On the "k1"
+        route the forward runs at P rounded up to a multiple of 128 (the
+        ids padded with 0); the hidden states of [0, P) are returned.
+        Returns (h, caches); decode continues at pos = P."""
+        b, n = input_ids.shape
+        if n > max_len:
+            raise ValueError(f"prompt bucket {n} > cache length {max_len}")
+        caches = self.init_cache(b, max_len, dtype, input_ids.device)
+        c = kernel_len(n) if self.prefill_route(n) == "k1" else n
+        x = self.embeddings(F.pad(input_ids, (0, c - n)))
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.prefill(x, cache, n)
+        return self.ln_f(x[:, :n]), caches
+
+    def decode_step(self, tok, caches, pos, block_tables=None):
+        """tok: [B, 1] ids; pos: [B] positions (or a scalar, a Python int
+        or a device tensor). The caches are dense [B, heads, L, hd], or
+        block pools named by block_tables; written in place. Returns
+        (h, caches)."""
         pos = torch.as_tensor(pos, device=tok.device).reshape(-1)
         pos_ids = self._position_ids(pos.long()).expand(tok.shape[0])
         x = self.embeddings(tok, pos_ids[:, None])
@@ -370,17 +457,19 @@ class GPTForPretraining(nn.Module):
     def _head(self, h):
         return h @ self.gpt.embeddings.word_embeddings.weight.T
 
+    def init_cache(self, batch, max_len, dtype=torch.float32):
+        return self.gpt.init_cache(batch, max_len, dtype, self.device)
+
     def init_paged_cache(self, num_blocks, block_size, max_len,
                          dtype=torch.float32):
         return self.gpt.init_paged_cache(num_blocks, block_size, max_len,
                                          dtype, self.device)
 
+    def prefill_route(self, n):
+        return self.gpt.prefill_route(n)
+
     @torch.no_grad()
     def decode_step(self, tok, caches, pos, block_tables=None):
-        if block_tables is None:
-            raise NotImplementedError(
-                "dense KV-cache decode is not ported yet (ROADMAP Queue 1: "
-                "dense ServingEngine)")
         h, caches = self.gpt.decode_step(tok, caches, pos, block_tables)
         return self._head(h), caches
 
@@ -413,16 +502,23 @@ class GPTForPretraining(nn.Module):
     def loss(self, logits, labels):
         return gpt_pretrain_loss(logits, labels)
 
-    def prefill(self, input_ids, max_len, dtype=None, frontier=None):
-        raise NotImplementedError(
-            "GPT dense prefill is not ported yet (ROADMAP Queue 1: the "
-            "dense ServingEngine and its dense KV cache)")
+    @torch.no_grad()
+    def prefill(self, input_ids, max_len, dtype=torch.float32,
+                frontier=None):
+        """frontier (an int or a 0-d device tensor, read on the device):
+        logits for that one prompt position only — [B, 1, V] instead of
+        [B, P, V] over the whole padded bucket."""
+        h, caches = self.gpt.prefill(input_ids, max_len, dtype)
+        if frontier is not None:
+            h = h.index_select(1, torch.as_tensor(
+                frontier, device=h.device).reshape(1))
+        return self._head(h), caches
 
     def decode_chunk(self, tok_chunk, caches, block_tables, start,
                      valid_len):
         raise NotImplementedError(
             "decode_chunk (speculative verify) is not ported yet (ROADMAP "
-            "Queue 1: LLaMA and speculative decoding)")
+            "Queue 1 item 1b: speculative decoding)")
 
 
 # auto threshold for fused_head_loss=None: the fused head would be used
@@ -576,3 +672,97 @@ def load_jax_optimizer_state(optimizer, state, model, global_step):
             st[slot] = torch.tensor(arr).to(device=p.device, dtype=dtype)
     optimizer._global_step = int(global_step)
     return optimizer
+
+
+@torch.no_grad()
+def generate(model, input_ids, max_new_tokens=32, do_sample=False,
+             top_k=0, top_p=1.0, temperature=1.0, eos_token_id=None,
+             seed=None, use_cache=False, cuda_graph=True):
+    """Autoregressive decode for a causal LM exposing `gpt` and `_head`
+    (the full forward) and, for use_cache=True, init_cache/decode_step
+    (the port of the JAX package's `generate`: greedy, or top-k/top-p
+    sampling at a temperature).
+
+    Works on a fixed [B, prompt_len + max_new_tokens] id buffer on the
+    model's device. use_cache=False runs the causal forward over the
+    whole buffer per new token and reads the frontier logits.
+    use_cache=True runs the KV-cache step over every position, the
+    prompt's teacher-forced from the buffer, with caches in the
+    parameters' majority dtype; on the card each position is one replay
+    of one CUDA graph of that step (`cuda_graph=False` runs it eagerly),
+    whose position counter lives on the device. Sampling draws Gumbel
+    noise from a `torch.Generator` seeded with `seed` (None: a seed drawn
+    from torch's global generator), so a seed replays its ids; it does
+    not reproduce JAX's bits.
+
+    Returns int64 ids [B, prompt_len + max_new_tokens] (prompt included),
+    padded with eos after finish when eos_token_id is given. The model's
+    training mode is restored afterwards."""
+    dev = model.device
+    ids = (input_ids if isinstance(input_ids, torch.Tensor)
+           else torch.as_tensor(np.asarray(input_ids))).long()
+    b, prompt_len = ids.shape
+    L = prompt_len + int(max_new_tokens)
+    if L > model.cfg.max_seq_len:
+        raise ValueError(f"generate length {L} exceeds max_seq_len "
+                         f"{model.cfg.max_seq_len}")
+    eos = -1 if eos_token_id is None else int(eos_token_id)
+    if seed is None:
+        seed = int(torch.randint(0, 2 ** 62, ()).item())
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    buf = torch.zeros((b, L), dtype=torch.long, device=dev)
+    buf[:, :prompt_len] = ids.to(dev)
+    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+    fill = torch.full((), max(eos, 0), dtype=torch.long, device=dev)
+    noise = torch.empty((b, model.cfg.vocab_size), device=dev)
+
+    def pick(lo):
+        if temperature and temperature != 1.0:
+            lo = lo / temperature
+        if not do_sample:
+            return torch.argmax(lo, dim=-1)
+        lo = top_k_top_p_filtering(lo, top_k=top_k, top_p=top_p)
+        return torch.argmax(lo + gumbel_(noise, gen), dim=-1)
+
+    was_training = model.training
+    model.eval()
+    try:
+        if not use_cache:
+            for t in range(prompt_len, L):
+                h = model.gpt(buf)[:, t - 1]
+                tok = torch.where(finished, fill,
+                                  pick(model._head(h).float()))
+                buf[:, t] = tok
+                if eos_token_id is not None:
+                    finished |= tok == eos
+            return buf
+        caches = model.init_cache(b, L, dtype=infer_cache_dtype(model))
+        t = torch.zeros((), dtype=torch.long, device=dev)
+
+        def step(_):
+            # position t -> the token at t + 1: the prompt's teacher-
+            # forced, the rest picked from the frontier logits
+            tok_t = buf.index_select(1, t.reshape(1))
+            logits, _ = model.decode_step(tok_t, caches, t)
+            tok = pick(logits[:, 0].float())
+            t1 = t + 1
+            known = buf.index_select(1, (t1 % L).reshape(1))[:, 0]
+            nxt = torch.where(t1 < prompt_len, known, tok)
+            nxt = torch.where(finished, fill, nxt)
+            buf.index_copy_(1, torch.clamp(t1, max=L - 1).reshape(1),
+                            nxt[:, None])
+            if eos_token_id is not None:
+                finished.logical_or_((t1 >= prompt_len) & (nxt == eos))
+            t.add_(1)
+            return ()
+
+        program = Program("generate.decode_step", step, dev, cuda_graph, gen)
+        for _ in range(L - 1):
+            program(None)
+        return buf
+    finally:
+        if was_training:
+            model.train()
+
+
+gpt_generate = generate      # the JAX package's other name for it

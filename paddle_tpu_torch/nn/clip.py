@@ -35,8 +35,9 @@ class ClipGradByGlobalNorm:
     """All grads scaled by clip / max(global_norm, clip), the global norm
     accumulated in f32."""
 
-    def __init__(self, clip_norm):
+    def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
+        self.group_name = group_name
 
     def _scale(self, grads):
         sq = sum(torch.sum(torch.square(g.float())) for g in grads)
@@ -50,3 +51,9 @@ class ClipGradByGlobalNorm:
         scale = self._scale(live)
         return [(p, g if g is None else g * scale.to(g.dtype))
                 for p, g in params_grads]
+
+
+# fluid aliases
+GradientClipByValue = ClipGradByValue
+GradientClipByNorm = ClipGradByNorm
+GradientClipByGlobalNorm = ClipGradByGlobalNorm

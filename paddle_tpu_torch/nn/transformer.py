@@ -1,5 +1,6 @@
-"""Paged KV-cache primitives and the dense attention cores they feed —
-the paged subset of `paddle_tpu/nn/transformer.py`.
+"""KV-cache primitives and the dense attention cores they feed — the
+serving subset of `paddle_tpu/nn/transformer.py`: the dense cache's
+per-row scatter (`scatter_kv_at`) and the paged cache's.
 
 The pool is `[num_blocks, Hkv, block_size, D]`; a request's cache is the
 ordered sequence of pool blocks named by its block TABLE (int32 ids,
@@ -99,6 +100,24 @@ def chunk_attention(q, ck, cv, start, scale, window=None, sanitize=False):
     return out.reshape(b, h, c, d)
 
 
+def scatter_kv_at(cache, kv_t, pos):
+    """Write one step's K or V [B, Hkv, 1, D] into the dense cache
+    [B, Hkv, L, D] at per-row positions `pos` ([B], or a scalar for the
+    lockstep batch), in place, with one scatter whose indices stay on the
+    device (so a CUDA graph replays whatever positions its buffers hold).
+
+    A position past the cache is clamped to L - 1, as JAX's
+    dynamic_update_slice clamps its start. A live lane always has
+    pos < max_len = L; only lanes outside the wave (a retired lane parked
+    at pos == L) reach the clamp, and their rows are rewritten by the
+    next prefill."""
+    b, hkv, L, d = cache.shape
+    pos = torch.clamp(_positions(pos, b, cache.device), 0, L - 1)
+    cache.scatter_(2, pos.reshape(b, 1, 1, 1).expand(b, hkv, 1, d),
+                   kv_t.to(cache.dtype))
+    return cache
+
+
 def gather_block_kv(pool, tables):
     """Materialise per-lane views from the block pool. pool:
     [NB, Hkv, BS, D]; tables: [B, nblk] -> [B, Hkv, nblk*BS, D], position
@@ -148,3 +167,16 @@ def scatter_block_kv_chunk(pool, kv_c, table, positions, valid_len):
     kv = kv_c[0].permute(1, 0, 2)              # [C, Hkv, D]
     pool[blk, :, positions % bs, :] = kv.to(pool.dtype)
     return pool
+
+
+def infer_cache_dtype(model):
+    """Majority floating dtype of the parameters: a bf16 model gets bf16
+    KV caches (halving the bytes that bound decode), an f32 model f32."""
+    counts = {}
+    for p in model.parameters():
+        if p.dtype in (torch.bfloat16, torch.float16, torch.float32):
+            counts[p.dtype] = counts.get(p.dtype, 0) + p.numel()
+    low = {d: c for d, c in counts.items() if d != torch.float32}
+    if low and sum(low.values()) > counts.get(torch.float32, 0):
+        return max(low, key=low.get)
+    return torch.float32

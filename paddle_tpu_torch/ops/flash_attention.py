@@ -225,12 +225,19 @@ def _dense(q, k, v, mask, causal, dropout_p, scale, window, generator):
     return _pv(p, v)
 
 
+def kernel_len(n):
+    """The length the kernel route takes for a sequence of n tokens: n
+    rounded up to a multiple of 128, at least 128. A length equal to its
+    own `kernel_len` is one the kernels take."""
+    return max(128, -(-int(n) // 128) * 128)
+
+
 def _kernel_eligible(q, k, mask, dropout_p, bshd):
     if mask is not None or dropout_p:
         return False
     seq_ax = 1 if bshd else 2
     sq, sk = q.shape[seq_ax], k.shape[seq_ax]
-    return sq % 128 == 0 and sk % 128 == 0 and sq >= 128 and sk >= 128
+    return sq == kernel_len(sq) and sk == kernel_len(sk)
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +435,7 @@ def _check_cuda(what, tensors, bshd):
         sk = k.shape[2]
         kb, kh = k.shape[0], k.shape[1]
     if (kb, kh, k.shape[3]) != (b, h, d) or d != _HEAD_DIM \
-            or sq % 128 or sk % 128 or sq == 0 or sk == 0:
+            or sq != kernel_len(sq) or sk != kernel_len(sk):
         raise ValueError(
             f"flash attention kernel: unsupported shapes q "
             f"{tuple(q.shape)}, k {tuple(k.shape)} (head_dim {_HEAD_DIM}, "

@@ -1,5 +1,6 @@
-"""LLM serving for the port: Request lifecycle, the paged engine over the
-host BlockPool, and the continuous-batching Scheduler."""
+"""LLM serving for the port: Request lifecycle, the dense engine, the
+paged engine over the host BlockPool, and the continuous-batching
+Scheduler."""
 from .engine import ServingEngine
 from .metrics import ServingMetrics
 from .paged import BlockPool, BlockPoolExhausted, PagedServingEngine

@@ -1,59 +1,53 @@
-"""ServingEngine base: slot-based continuous batching state and the
-decode wave (the port of `paddle_tpu/serving/engine.py`).
+"""ServingEngine: slot-based continuous batching over a dense KV cache
+(the port of `paddle_tpu/serving/engine.py`), and the base of the paged
+engine.
+
+The dense cache is one [num_slots, heads, max_len, head_dim] pair per
+layer. An admission pads the prompt to the `prefill_len` bucket and runs
+the model's `prefill` (flash attention, K1 on the card) once: its
+frontier logits give the first token and the slot's cache row is
+copied into the batched caches at a device index, so every slot shares
+one prefill program. A retired slot's row is left as is: the next
+prefill overwrites it, and the decode frontier rewrites each position
+before the ks <= pos mask exposes it.
 
 The engine owns `num_slots` decode slots. Slot bookkeeping (positions,
 tokens, sampling knobs, block tables) is host-authoritative. Every input
 of a program lives in a device buffer allocated once per engine
-(`StaticInputs`): before each run the host writes the values into one
-pinned staging buffer and one host-to-device copy moves them; the
-[S, V] logit-bias matrix moves only the rows that changed. A wave ends
+(`graphs.StaticInputs`): before each run the host writes the values
+into one pinned staging buffer and one host-to-device copy moves them;
+the [S, V] logit-bias matrix moves only the rows that changed. A wave ends
 with one device-to-host read of its tokens and finite flags, the one
 unavoidable sync per wave (the tokens are the product being streamed).
 
-Each program — the decode wave here, the prefill chunk in the paged
-engine — reads only those buffers and writes its own output tensors
-(`Program`). With `cuda_graph=True` (the default; the JAX package's
-`jit_compile`) an engine on the card runs each program as one CUDA graph
-per key, the key being whether a lane samples: the first call with a key
-runs eagerly on a side stream, the second captures and replays, every
-later call replays. A greedy stream thus holds one decode and one
-prefill graph (`decode_compiles`, `prefill_compiles`), the JAX package's
-compile-once contract. A capture that fails raises; nothing falls back
-to the eager program. On the CPU, or with `cuda_graph=False`, the same
-program functions run eagerly and both counters stay 0.
+Each program — the decode wave, and the prefill (the whole bucket here,
+one chunk in the paged engine) — reads only those buffers and writes
+its own output tensors (`graphs.Program`). With `cuda_graph=True` (the
+default; the JAX package's `jit_compile`) an engine on the card runs
+each program as one CUDA graph per key, the key being whether a lane
+samples: the first call with a key runs eagerly on a side stream, the
+second captures and replays, every later call replays. A greedy stream
+thus holds one decode and one prefill graph (`decode_compiles`,
+`prefill_compiles`), the JAX package's compile-once contract. A
+capture that fails raises; nothing falls back to the eager program. On
+the CPU, or with `cuda_graph=False`, the same program functions run
+eagerly and both counters stay 0.
 
-The KV pools are updated in place by the model's scatters: there is no
-donation. Sampling draws its Gumbel noise inside the program from a
+The KV caches and pools are updated in place by the model's scatters:
+there is no donation. Sampling draws its Gumbel noise inside the program from a
 `torch.Generator` seeded with `seed` and registered with every graph, so
 each replay draws fresh noise and a fresh engine with the same seed
 replays sampled streams; it does not reproduce JAX's bits.
-
-The dense engine's own prefill needs flash-attention kernel K1 and is not
-ported yet; `PagedServingEngine` (serving/paged) is the engine this slice
-serves with.
 """
 import numpy as np
 import torch
 
-from .. import kernels
 from ..device import resolve_device
+from ..graphs import Program, StaticInputs
+from ..nn.decode import gumbel_
+from ..nn.transformer import infer_cache_dtype
 
 _NEG = -1e9     # the logit-bias "forbidden" value and the filter fill
-_NUMPY = {torch.int64: np.int64, torch.int32: np.int32,
-          torch.float32: np.float32, torch.bool: np.bool_}
-
-
-def _infer_cache_dtype(model):
-    """Majority floating dtype of the parameters: a bf16 model gets bf16
-    KV pools (halving the bytes that bound decode), an f32 model f32."""
-    counts = {}
-    for p in model.parameters():
-        if p.dtype in (torch.bfloat16, torch.float16, torch.float32):
-            counts[p.dtype] = counts.get(p.dtype, 0) + p.numel()
-    low = {d: c for d, c in counts.items() if d != torch.float32}
-    if low and sum(low.values()) > counts.get(torch.float32, 0):
-        return max(low, key=low.get)
-    return torch.float32
 
 
 def _filter_top_k_top_p(lo, top_k, top_p):
@@ -128,149 +122,16 @@ def _select_first_token(lo, sample, temp, top_k, top_p, bias, gumbel):
     return torch.where(sample, sampled, greedy)
 
 
-def _gumbel_(buf, gen):
-    """Fill `buf` in place with Gumbel(0, 1) noise from `gen`: torch.rand's
-    uniform draw, then -log(-log(u))."""
-    buf.uniform_(0, 1, generator=gen)
-    tiny = torch.finfo(torch.float32).tiny
-    return buf.clamp_(min=tiny).log_().neg_().log_().neg_()
-
-
-class StaticInputs:
-    """The input buffers of one engine program, allocated once and never
-    replaced: a CUDA graph replays on the addresses it captured.
-
-    `fields` [(name, dtype, shape)] are typed views (`tensors[name]`) of
-    one device byte buffer, written through numpy views (`host[name]`)
-    of one pinned host byte buffer and moved by one copy per run:
-    `stage()` returns the host views once the previous run's copy has
-    read them (a run that ends without a sync may still be queued behind
-    it), `upload()` enqueues the copy. `add` registers a device buffer
-    the program reads that moves by other means (the logit bias, the
-    Gumbel noise the program draws)."""
-
-    def __init__(self, fields, device):
-        spans, size = {}, 0
-        for name, dtype, shape in fields:
-            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-            spans[name] = (size, size + nbytes)
-            size += -(-nbytes // 16) * 16
-        self.device = device
-        self._dev = torch.empty(size, dtype=torch.uint8, device=device)
-        self._host = torch.empty(size, dtype=torch.uint8,
-                                 pin_memory=device.type == "cuda")
-        raw = self._host.numpy()
-        self.host, self.tensors = {}, {}
-        for name, dtype, shape in fields:
-            a, b = spans[name]
-            self.host[name] = raw[a:b].view(_NUMPY[dtype]).reshape(shape)
-            self.tensors[name] = self._dev[a:b].view(dtype).reshape(shape)
-        self._copied = None
-
-    def add(self, name, tensor):
-        self.tensors[name] = tensor
-
-    def stage(self):
-        if self._copied is not None:
-            self._copied.synchronize()
-            self._copied = None
-        return self.host
-
-    def upload(self):
-        self._dev.copy_(self._host, non_blocking=True)
-        if self.device.type == "cuda":
-            self._copied = torch.cuda.Event()
-            self._copied.record()
-
-
-class _Graph:
-    """One captured program: the graph, its output tensors, the kernel
-    launches it holds (by `kernels.launch_counts` key) and its replays."""
-
-    def __init__(self, graph, outs, launches):
-        self.graph = graph
-        self.outs = outs
-        self.launches = launches
-        self.replays = 0
-
-
-class Program:
-    """One engine program, `fn(key)` over the engine's static buffers,
-    returning its output tensors. Eager on the CPU or with
-    `cuda_graph=False`. Otherwise one CUDA graph per key, captured as
-    `jit.TrainStep` captures a step: the first call with a key runs `fn`
-    eagerly on a side stream, the second captures it (the generator
-    registered, so every replay draws fresh noise) and replays, every
-    later call replays and returns the graph's own output tensors, which
-    the next replay overwrites. `graphs` maps each key to its `_Graph`
-    (None after its eager first call). The graphs of one program share a
-    memory pool; each engine program has its own."""
-
-    def __init__(self, name, fn, device, cuda_graph, generator):
-        self.name = name
-        self._fn = fn
-        self._device = device
-        self._generator = generator
-        self.graphed = bool(cuda_graph) and device.type == "cuda"
-        self.graphs = {}
-        self._pool = None
-
-    @property
-    def compiles(self):
-        return sum(g is not None for g in self.graphs.values())
-
-    @property
-    def replays(self):
-        return sum(g.replays for g in self.graphs.values() if g is not None)
-
-    def __call__(self, key):
-        with torch.profiler.record_function(self.name):
-            if not self.graphed:
-                return self._fn(key)
-            if key not in self.graphs:
-                self.graphs[key] = None
-                return self._warm_up(key)
-            g = self.graphs[key]
-            if g is None:
-                g = self.graphs[key] = self._capture(key)
-            g.graph.replay()
-            g.replays += 1
-            return g.outs
-
-    def _warm_up(self, key):
-        current = torch.cuda.current_stream(self._device)
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            outs = self._fn(key)
-        current.wait_stream(side)
-        return outs
-
-    def _capture(self, key):
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._generator)
-        before = kernels.launch_counts()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                outs = self._fn(key)
-        except Exception as exc:
-            raise RuntimeError(f"{self.name}: CUDA-graph capture failed: "
-                               f"{exc}") from exc
-        after = kernels.launch_counts()
-        if self._pool is None:
-            self._pool = graph.pool()
-        return _Graph(graph, outs,
-                      {k: n - before.get(k, 0) for k, n in after.items()
-                       if n != before.get(k, 0)})
-
-
 class ServingEngine:
     """Fixed-shape batched decode executor. The Scheduler decides WHICH
     request occupies which slot and when; the engine only knows slots.
 
-    model: a causal LM exposing decode_step (GPTForPretraining).
+    model: a causal LM exposing init_cache / prefill / decode_step /
+        prefill_route (GPTForPretraining).
     num_slots: concurrent sequences per wave.
     max_len: per-slot horizon (prompt + generated tokens).
+    prefill_len: prompt padding bucket (<= max_len; default max_len).
+        One bucket => one prefill program for every prompt length.
     device: where the engine runs; None = the CUDA card (RuntimeError
         when there is none — pass device="cpu" for the host).
     cuda_graph: on the card, run each program as CUDA-graph replays
@@ -278,12 +139,18 @@ class ServingEngine:
         them eagerly. The CPU always runs them eagerly.
     """
 
-    def __init__(self, model, num_slots=4, max_len=256, cache_dtype=None,
-                 seed=0, device=None, cuda_graph=True):
+    _PREFILL_NAME = "serving.prefill"
+
+    def __init__(self, model, num_slots=4, max_len=256, prefill_len=None,
+                 cache_dtype=None, seed=0, device=None, cuda_graph=True):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 2:
             raise ValueError(f"max_len must be >= 2, got {max_len}")
+        self.prefill_len = int(prefill_len or max_len)
+        if self.prefill_len > max_len:
+            raise ValueError(f"prefill_len {self.prefill_len} > max_len "
+                             f"{max_len}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -292,7 +159,7 @@ class ServingEngine:
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.cache_dtype = (cache_dtype if cache_dtype is not None
-                            else _infer_cache_dtype(model))
+                            else infer_cache_dtype(model))
         self._caches = self._make_caches()
         self.seed = int(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(
@@ -331,12 +198,43 @@ class ServingEngine:
         # f32 logits [S, V] of the latest wave: the program's output,
         # overwritten by the next wave
         self.last_wave_logits = None
+        self._prefill_bias_nonzero = False
+        self.prefill_inputs = StaticInputs(self._prefill_fields(),
+                                           self.device)
+        for name in ("bias", "gumbel"):
+            self.prefill_inputs.add(name, torch.zeros(
+                (self.vocab_size,), device=self.device))
+        self.prefill_program = Program(self._PREFILL_NAME,
+                                       self._prefill_program, self.device,
+                                       cuda_graph, self._gen)
+        # f32 frontier logits [V] of the latest prefill (the program's
+        # output, overwritten by the next one)
+        self.last_prefill_logits = None
 
     @property
     def decode_compiles(self):
         """CUDA graphs captured for the decode wave: 1 over a greedy
         stream, 2 once a lane has sampled; 0 on the eager path."""
         return self.wave_program.compiles
+
+    @property
+    def prefill_compiles(self):
+        """CUDA graphs captured for the prefill: 1 over a greedy stream;
+        0 on the eager path."""
+        return self.prefill_program.compiles
+
+    @property
+    def prefill_route(self):
+        """How the prefill bucket is computed: "k1" (flash attention's
+        kernel route) or "dense" (see GPTModel.prefill_route)."""
+        return self.model.prefill_route(self.prefill_len)
+
+    def describe(self):
+        """The engine's construction config."""
+        return {"engine": "dense", "num_slots": self.num_slots,
+                "max_len": self.max_len, "prefill_len": self.prefill_len,
+                "seed": self.seed,
+                "cache_dtype": str(self.cache_dtype).split(".")[-1]}
 
     def _wave_fields(self):
         """(name, dtype, shape) of the wave's staged inputs."""
@@ -346,11 +244,16 @@ class ServingEngine:
                 ("top_p", torch.float32, (S,)), ("active", torch.bool, (S,)),
                 ("sample", torch.bool, (S,))]
 
+    def _prefill_fields(self):
+        """(name, dtype, shape) of the prefill's staged inputs."""
+        return [("prompt", torch.int64, (1, self.prefill_len)),
+                ("slot", torch.int64, (1,)), ("frontier", torch.int64, ()),
+                ("sample", torch.bool, ()), ("temp", torch.float32, ()),
+                ("top_k", torch.int64, ()), ("top_p", torch.float32, ())]
+
     def _make_caches(self):
-        raise NotImplementedError(
-            "the dense ServingEngine, its KV cache and GPT prefill are not "
-            "ported yet (ROADMAP Queue 1 item 3: dense ServingEngine and "
-            "prefill); use serving.PagedServingEngine")
+        return self.model.init_cache(self.num_slots, self.max_len,
+                                     dtype=self.cache_dtype)
 
     # ------------------------------------------------------------- slots
     def free_slots(self):
@@ -405,6 +308,101 @@ class ServingEngine:
         return {"sample": bool(do_sample), "temp": float(temperature),
                 "top_k": int(top_k), "top_p": float(top_p),
                 "bias": self._normalize_bias(logit_bias)}
+
+    # --------------------------------------------------------- admission
+    def validate_prompt(self, prompt):
+        """Admission check: the prompt must fit the prefill bucket and
+        leave room to decode at least one token under the horizon."""
+        n = len(prompt)
+        if n > self.prefill_len:
+            return (f"prompt length {n} exceeds the prefill bucket "
+                    f"{self.prefill_len} (engine prefill_len)")
+        if n + 1 > self.max_len:
+            return (f"prompt length {n} leaves no room to decode under "
+                    f"max_len {self.max_len}")
+        return None
+
+    def begin_prefill(self, slot, prompt, do_sample=False, temperature=1.0,
+                      top_k=0, top_p=1.0, logit_bias=None):
+        """Stage an admission on the slot; the work runs in prefill_step,
+        which completes the dense prefill in one step."""
+        why = self.validate_prompt(prompt)
+        if why:
+            raise ValueError(why)
+        if self.slot_active[slot] or slot in self._pending_prefill:
+            raise RuntimeError(f"slot {slot} is busy")
+        self._pending_prefill[slot] = (
+            list(prompt), self._sampling_state(do_sample, temperature,
+                                               top_k, top_p, logit_bias))
+
+    def prefill_step(self, slot):
+        """Run the slot's staged admission. Returns its first token."""
+        prompt, st = self._pending_prefill.pop(slot)
+        return self.prefill_slot(slot, prompt, do_sample=st["sample"],
+                                 temperature=st["temp"], top_k=st["top_k"],
+                                 top_p=st["top_p"], logit_bias=st["bias"])
+
+    def prefill_slot(self, slot, prompt, do_sample=False, temperature=1.0,
+                     top_k=0, top_p=1.0, logit_bias=None):
+        """Admit a prompt into a free slot: run the prefill program (the
+        slot index, the prompt and the knobs staged into its buffers),
+        arm the slot for the next wave. Returns the first token."""
+        why = self.validate_prompt(prompt)
+        if why:
+            raise ValueError(why)
+        if self.slot_active[slot]:
+            raise RuntimeError(f"slot {slot} is busy")
+        sampling = self._sampling_state(do_sample, temperature, top_k,
+                                        top_p, logit_bias)
+        n = len(prompt)
+        host = self.prefill_inputs.stage()
+        host["prompt"][...] = 0
+        host["prompt"][0, :n] = prompt
+        host["slot"][...] = slot
+        host["frontier"][...] = n - 1
+        self._stage_sampling(host, sampling, sampling["sample"])
+        first, self.last_prefill_logits = self.prefill_program(
+            sampling["sample"])
+        self.prefill_chunks_run += 1
+        first = int(first.item())
+        self._arm_slot(slot, first, n, sampling)
+        return first
+
+    def _stage_sampling(self, host, sampling, sampled, move_bias=True):
+        """Write the first-token knobs and upload the staged prefill
+        inputs. With move_bias (a run whose selection is read), the bias
+        row moves too, when it or the one before is not zero."""
+        host["sample"][...] = sampled
+        host["temp"][...] = sampling["temp"]
+        host["top_k"][...] = sampling["top_k"]
+        host["top_p"][...] = sampling["top_p"]
+        self.prefill_inputs.upload()
+        if not move_bias:
+            return
+        nonzero = bool(np.any(sampling["bias"]))
+        if nonzero or self._prefill_bias_nonzero:
+            self.prefill_inputs.tensors["bias"].copy_(
+                torch.from_numpy(sampling["bias"]))
+        self._prefill_bias_nonzero = nonzero
+
+    def _prefill_program(self, sampled):
+        """The bucket's prefill over the static buffers: the model's
+        prefill with the frontier at prompt_len - 1, the slot's cache
+        rows copied into the batched caches at the staged slot index,
+        and the first-token selection (Gumbel noise drawn in place when
+        `sampled`). Returns the token (0-d) and the f32 frontier logits
+        [V]."""
+        p = self.prefill_inputs.tensors
+        gumbel = gumbel_(p["gumbel"], self._gen) if sampled else None
+        logits, rows = self.model.prefill(p["prompt"], self.max_len,
+                                          dtype=self.cache_dtype,
+                                          frontier=p["frontier"])
+        for (ck, cv), (rk, rv) in zip(self._caches, rows):
+            ck.index_copy_(0, p["slot"], rk)
+            cv.index_copy_(0, p["slot"], rv)
+        lo = logits[0, 0].float()
+        return _select_first_token(lo, p["sample"], p["temp"], p["top_k"],
+                                   p["top_p"], p["bias"], gumbel), lo
 
     # ------------------------------------------------------------- waves
     def decode_wave(self):
@@ -470,7 +468,7 @@ class ServingEngine:
         lane samples). Returns the [2S] int64 next tokens and finite
         flags, and the f32 logits [S, V]."""
         w = self.wave_inputs.tensors
-        gumbel = _gumbel_(w["gumbel"], self._gen) if sampled else None
+        gumbel = gumbel_(w["gumbel"], self._gen) if sampled else None
         lo = self._wave_logits(w)
         nxt, _, finite = _select_wave_tokens(
             lo, w["tok"], w["pos"], w["active"], w["sample"], w["temps"],
@@ -478,8 +476,12 @@ class ServingEngine:
         return torch.cat([nxt, finite.long()]), lo
 
     def _wave_logits(self, w):
-        """f32 logits [S, V] of one decode step over the wave buffers."""
-        raise NotImplementedError
+        """f32 logits [S, V] of one decode step over the wave buffers:
+        every lane writes its K/V at its position (a lane outside the
+        wave into its own row, which the next prefill rewrites)."""
+        logits, _ = self.model.decode_step(w["tok"][:, None], self._caches,
+                                           w["pos"])
+        return logits[:, 0, :].float()
 
     def slot_full(self, slot):
         """True when the slot's next write would fall past the horizon."""
@@ -487,7 +489,7 @@ class ServingEngine:
 
     def retire_slot(self, slot):
         """Free a slot between waves (also aborts a mid-prefill
-        admission parked on it)."""
+        admission parked on it). The cache row is left as is."""
         self.slot_active[slot] = False
         self.slot_sample[slot] = False
         self.slot_temp[slot] = 1.0

@@ -95,6 +95,12 @@ class BlockPool:
             out.append(blk)
         return out
 
+    def acquire(self, block):
+        """Add one reference to an already-referenced block (sharing)."""
+        if self._ref[block] < 1:
+            raise ValueError(f"block {block} is not live")
+        self._ref[block] += 1
+
     def release(self, blocks):
         """Drop one reference per block; refcount 0 returns the block to
         the free list, keeping its prefix hash."""
@@ -167,3 +173,12 @@ class BlockPool:
             return
         self._hash_to_block[chain_hash] = block
         self._block_hash[block] = chain_hash
+
+    def stats(self):
+        return {
+            "used": self.used, "usable": self.usable,
+            "block_size": self.block_size,
+            "cached_hashes": len(self._hash_to_block),
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+        }

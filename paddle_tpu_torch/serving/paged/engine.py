@@ -8,7 +8,7 @@ head_dim]` KV blocks per layer; slots reference block TABLES
 blocks configured, utilisation with the tokens actually held, and
 identical prompt prefixes dedupe onto shared blocks.
 
-Two programs (`serving.engine.Program`: CUDA-graph replays on the card,
+Two programs (`graphs.Program`: CUDA-graph replays on the card,
 eager on the CPU or with cuda_graph=False), both through the
 paged-attention dispatch pinned to this engine's kernel and both reading
 only their static input buffers:
@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from ...nn import paged_attention
-from ..engine import (Program, ServingEngine, StaticInputs, _gumbel_,
-                      _select_first_token)
+from ...nn.decode import gumbel_
+from ..engine import ServingEngine, _select_first_token
 from .block_pool import BlockPool, BlockPoolExhausted
 
 
@@ -74,6 +74,7 @@ class PagedServingEngine(ServingEngine):
         self.prefix_sharing = bool(prefix_sharing)
         self.block_pool = BlockPool(num_blocks, self.block_size)
         super().__init__(model, num_slots=num_slots, max_len=max_len,
+                         prefill_len=self.prefill_chunk_len,
                          cache_dtype=cache_dtype, seed=seed, device=device,
                          cuda_graph=cuda_graph)
         self.paged_kernel = paged_attention.resolve_kernel(paged_kernel,
@@ -81,29 +82,28 @@ class PagedServingEngine(ServingEngine):
         self._slot_blocks = [[] for _ in range(self.num_slots)]
         self._tables = np.zeros((self.num_slots, self.blocks_per_slot),
                                 np.int32)
-        self.prefill_inputs = StaticInputs([
-            ("chunk", torch.int64, (1, self.prefill_chunk_len)),
-            ("table", torch.int32, (1, self.blocks_per_slot)),
-            ("chunk_start", torch.int64, ()), ("valid_len", torch.int64, ()),
-            ("frontier", torch.int64, ()), ("sample", torch.bool, ()),
-            ("temp", torch.float32, ()), ("top_k", torch.int64, ()),
-            ("top_p", torch.float32, ())], self.device)
-        for name in ("bias", "gumbel"):
-            self.prefill_inputs.add(name, torch.zeros(
-                (self.vocab_size,), device=self.device))
-        self._prefill_bias_nonzero = False
-        self.prefill_program = Program("serving.prefill_chunk",
-                                       self._prefill_program, self.device,
-                                       cuda_graph, self._gen)
-        # f32 frontier logits [V] of the latest chunk (the program's
-        # output, overwritten by the next chunk)
-        self.last_prefill_logits = None
 
-    @property
-    def prefill_compiles(self):
-        """CUDA graphs captured for the prefill chunk: 1 over a greedy
-        stream; 0 on the eager path."""
-        return self.prefill_program.compiles
+    _PREFILL_NAME = "serving.prefill_chunk"
+
+    def describe(self):
+        """The engine's construction config: the paged extras on top of
+        the dense fields."""
+        d = super().describe()
+        d.update({"engine": "paged", "block_size": self.block_size,
+                  "num_blocks": self.block_pool.num_blocks,
+                  "prefill_chunk_len": self.prefill_chunk_len,
+                  "prefix_sharing": self.prefix_sharing,
+                  "paged_kernel": self.paged_kernel})
+        return d
+
+    def _prefill_fields(self):
+        return [("chunk", torch.int64, (1, self.prefill_chunk_len)),
+                ("table", torch.int32, (1, self.blocks_per_slot)),
+                ("chunk_start", torch.int64, ()),
+                ("valid_len", torch.int64, ()),
+                ("frontier", torch.int64, ()), ("sample", torch.bool, ()),
+                ("temp", torch.float32, ()), ("top_k", torch.int64, ()),
+                ("top_p", torch.float32, ())]
 
     def _wave_fields(self):
         return super()._wave_fields() + [
@@ -189,19 +189,9 @@ class PagedServingEngine(ServingEngine):
         host["chunk_start"][...] = c0
         host["valid_len"][...] = valid
         host["frontier"][...] = (n - 1) - c0 if last else 0
-        host["sample"][...] = sampled
-        host["temp"][...] = sampling["temp"]
-        host["top_k"][...] = sampling["top_k"]
-        host["top_p"][...] = sampling["top_p"]
-        self.prefill_inputs.upload()
-        if last:
-            # only the final chunk's selection is read: the bias row
-            # moves then, and only when it or the one before is not zero
-            nonzero = bool(np.any(sampling["bias"]))
-            if nonzero or self._prefill_bias_nonzero:
-                self.prefill_inputs.tensors["bias"].copy_(
-                    torch.from_numpy(sampling["bias"]))
-            self._prefill_bias_nonzero = nonzero
+        # only the final chunk's selection is read: the bias row moves
+        # then
+        self._stage_sampling(host, sampling, sampled, move_bias=last)
         first, self.last_prefill_logits = self.prefill_program(sampled)
         self.prefill_chunks_run += 1
         # full prompt blocks written by this chunk enter the prefix cache
@@ -228,7 +218,7 @@ class PagedServingEngine(ServingEngine):
         when `sampled`). Returns the token (0-d) and the f32 frontier
         logits [V]."""
         p = self.prefill_inputs.tensors
-        gumbel = _gumbel_(p["gumbel"], self._gen) if sampled else None
+        gumbel = gumbel_(p["gumbel"], self._gen) if sampled else None
         with paged_attention.kernel_scope(self.paged_kernel):
             logits, _ = self.model.prefill_chunk(
                 p["chunk"], self._caches, p["table"], p["chunk_start"],

@@ -163,6 +163,17 @@ class Request:
             return None
         return self.done_time - self.submit_time
 
+    @property
+    def tpot(self):
+        """Mean time-per-output-token in seconds: the inter-token span
+        divided by the gap count. None until a second token exists (the
+        first token's latency is TTFT, not TPOT)."""
+        n = len(self.output_tokens)
+        if n < 2 or self.first_token_time is None \
+                or self.last_token_time is None:
+            return None
+        return (self.last_token_time - self.first_token_time) / (n - 1)
+
     def __repr__(self):
         return (f"Request(id={self.request_id}, state={self.state}, "
                 f"prompt_len={len(self.prompt)}, "

@@ -4,14 +4,16 @@ engine (the core of `paddle_tpu/serving/scheduler.py`).
 FCFS admission: whenever a slot is free and the queue is non-empty, the
 head request is assigned to it mid-stream (engine.begin_prefill) and its
 prefill advances one engine step per scheduling round
-(engine.prefill_step — one CHUNK on the paged engine), so a long
-prompt's admission folds between decode waves. Retirement (EOS / stop
+(engine.prefill_step — the whole bucket on the dense engine, one CHUNK
+on the paged engine), so a long prompt's admission folds between decode
+waves. Retirement (EOS / stop
 sequence / max_tokens / cache horizon / timeout) frees slots between
 waves and the freed slot is refilled in the next round.
 
-Paged capacity: an exhausted block pool at admission queues the head
-request behind the blocks it waits for (or rejects it when nothing in
-flight could free them); a lane starved mid-decode is PREEMPTED BY
+A dense engine never starves: its slots own their cache rows. Paged
+capacity: an exhausted block pool at admission queues the head request
+behind the blocks it waits for (or rejects it when nothing in flight
+could free them); a lane starved mid-decode is PREEMPTED BY
 RECOMPUTE — blocks freed, request requeued with prompt + generated
 tokens (prefix-cache hits make the re-prefill cheap), bounded by
 `max_preemptions`. A lane whose logits go non-finite resolves only its

@@ -170,13 +170,15 @@ def test_decode_kernels_agree(pair, kernel):
 def test_unported_entry_points_name_the_roadmap(pair):
     _, tm = pair
     ids = torch.zeros((1, 4), dtype=torch.long)
-    # the training forward is ported (tests/test_torch_train.py)
+    # the training forward and the dense serving methods are ported
+    # (tests/test_torch_train.py, tests/test_torch_dense_serving.py)
     assert tm(ids).shape == (1, 4, SMALL["vocab_size"])
-    for call in (lambda: tm.prefill(ids, 8),
-                 lambda: tm.decode_chunk(ids, [], None, 0, 1),
-                 lambda: tm.decode_step(ids[:, :1], [], 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    logits, caches = tm.prefill(ids, 8)
+    assert logits.shape == (1, 4, SMALL["vocab_size"])
+    assert tm.decode_step(ids[:, :1], caches, 4)[0].shape == \
+        (1, 1, SMALL["vocab_size"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.decode_chunk(ids, [], None, 0, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.GPTConfig(moe_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

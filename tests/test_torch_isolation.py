@@ -79,7 +79,7 @@ def test_no_card_means_no_quiet_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from paddle_tpu_torch import inference, resolve_device
     from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
-    from paddle_tpu_torch.serving import PagedServingEngine
+    from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
     cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
                     num_heads=2, max_seq_len=32)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -89,6 +89,11 @@ def test_no_card_means_no_quiet_cpu_fallback(monkeypatch):
     model = GPTForPretraining(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedServingEngine(model, num_slots=2, max_len=32, block_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model, num_slots=2, max_len=32)
+    dense = inference.Config().enable_llm_engine(num_slots=2, max_len=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference.create_llm_predictor(dense, model=model)
     conf = inference.Config().enable_llm_engine(paged=True, num_slots=2,
                                                 max_len=32, block_size=8)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -115,8 +120,9 @@ def test_seed_replays_the_global_generators():
 
 def test_unported_front_door_options_name_the_roadmap():
     from paddle_tpu_torch import inference
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inference.Config().enable_llm_engine(paged=False)
+    # the dense engine is ported: paged=False (the default) arms
+    assert inference.Config().enable_llm_engine(
+        paged=False).llm_engine_enabled()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inference.Config().enable_llm_engine(paged=True, speculative=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -243,3 +243,35 @@ def test_train_step_runs_eagerly_on_the_cpu():
         step = TrainStep(tm, tgpt.gpt_pretrain_loss, opt,
                          cuda_graph=graphed)
         assert not step._graphed and step.graphs == {}
+
+
+def test_train_step_eval_fn_matches_jax_after_two_steps():
+    """eval_fn: after two AdamW steps the port's eval forward (in eval
+    mode, without grad, over the live weights) gives the JAX
+    TrainStep.eval_fn's logits within the AdamW tolerance, and both put
+    the model back in training mode."""
+    ids = np.random.RandomState(1).randint(0, 512, (2, 128)).astype("int32")
+    tids = torch.tensor(ids, dtype=torch.long)
+    pt.seed(4)
+    jm = JGPT(JConfig(**SMALL))
+    tm = tgpt.GPTForPretraining(tgpt.GPTConfig(**SMALL), device="cpu")
+    tgpt.load_jax_state(tm, {k: v.numpy()
+                             for k, v in jm.state_dict().items()})
+    step = TrainStep(tm, tgpt.gpt_pretrain_loss,
+                     topt.AdamW(1e-3, parameters=tm.parameters()))
+    jstep = JTrainStep(jm, jloss, pt.optimizer.AdamW(
+        learning_rate=1e-3, parameters=jm.parameters()))
+    for _ in range(2):
+        step(tids, tids)
+        jstep(ids, ids)
+    seen = []
+    hook = tm.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod.training,
+                                       torch.is_grad_enabled())))
+    got = step.eval_fn()(tids)
+    hook.remove()
+    want = jstep.eval_fn()(ids)
+    assert seen == [(False, False)]
+    assert tm.training and jm.training
+    np.testing.assert_allclose(got.numpy(), np.asarray(want._data),
+                               rtol=1e-3, atol=1e-3)

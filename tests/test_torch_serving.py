@@ -144,6 +144,57 @@ def test_block_pool_matches_jax_pool_on_a_script():
     assert script(BlockPool(9, 4)) == script(JBlockPool(9, 4))
 
 
+def test_block_pool_acquire_and_stats_match_jax_pool():
+    """acquire() adds a reference to a live block and refuses a free
+    one, as the JAX pool's does; stats() has the JAX pool's keys and
+    values after the same allocations, acquires and releases."""
+    def script(pool):
+        log = []
+        a = pool.alloc(3)
+        for blk, h in zip(a, pool.prompt_hashes(list(range(12)))):
+            pool.register_hash(blk, h)
+        pool.acquire(a[0])
+        pool.acquire(a[0])
+        log.append([pool.refcount(b) for b in a])
+        s, _ = pool.match_prefix(list(range(8)))
+        pool.count_prefix(len(s), 0)
+        pool.release(a)
+        log.append(pool.stats())
+        with pytest.raises(ValueError, match="not live"):
+            pool.acquire(a[2])
+        pool.release([a[0], a[0]] + s)
+        log.append(pool.stats())
+        return log
+    got, want = script(BlockPool(9, 4)), script(JBlockPool(9, 4))
+    assert got == want
+    assert set(got[-1]) == {"used", "usable", "block_size",
+                            "cached_hashes", "prefix_hits",
+                            "prefix_misses"}
+
+
+def test_request_tpot_matches_jax():
+    """tpot: the mean gap between output tokens, None under two tokens,
+    from the same token times as the JAX Request."""
+    from paddle_tpu.serving import Request as JRequest
+    from paddle_tpu_torch.serving import Request
+    times = [10.0, 10.5, 11.25, 12.0]
+    for cls in (Request, JRequest):
+        req = cls(prompt=[1, 2], max_tokens=8)
+        tpots = []
+        for i, t in enumerate(times):
+            if i:
+                req.output_tokens.append(i)
+                req.first_token_time = req.first_token_time or t
+                req.last_token_time = t
+            tpots.append(req.tpot)
+        assert tpots == [None, None, 0.75, 0.75], cls
+    req = Request(prompt=[1], max_tokens=2)
+    req._emit(5)
+    assert req.tpot is None
+    req._emit(6)
+    assert req.tpot == req.last_token_time - req.first_token_time
+
+
 # ---------------------------------------------------------------------------
 # streams against the JAX engine
 # ---------------------------------------------------------------------------

@@ -314,3 +314,27 @@ def test_grad_clips_match_jax(clip_name):
     for (_, g), w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
                                    atol=1e-7)
+
+
+def test_global_norm_clip_keeps_group_name_and_fluid_aliases():
+    """ClipGradByGlobalNorm takes and keeps `group_name` (default
+    "default_group"), as the JAX clip does, and the three fluid aliases
+    name the same classes and clip alike."""
+    from paddle_tpu.nn import clip as jclip
+    for mod in (jclip, tnn.clip):
+        assert mod.ClipGradByGlobalNorm(1.0).group_name == "default_group"
+        assert mod.ClipGradByGlobalNorm(
+            1.0, group_name="moe").group_name == "moe"
+        assert mod.GradientClipByValue is mod.ClipGradByValue
+        assert mod.GradientClipByNorm is mod.ClipGradByNorm
+        assert mod.GradientClipByGlobalNorm is mod.ClipGradByGlobalNorm
+    assert tnn.GradientClipByGlobalNorm is tnn.ClipGradByGlobalNorm
+    rng = np.random.RandomState(14)
+    grads = [rng.randn(*s).astype("f4") * 3 for s in SHAPES]
+    want = jclip.GradientClipByGlobalNorm(
+        0.5, group_name="g").apply_arrays([jnp.asarray(g) for g in grads])
+    got = tnn.GradientClipByGlobalNorm(0.5, group_name="g")(
+        [(None, torch.tensor(g)) for g in grads])
+    for (_, g), w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-7)
