@@ -13,6 +13,12 @@ its phases:
                 misaligned q, GQA, ragged chunks, int32/int64/int
                 starts, the NaN contracts), timed, with a split-size
                 sweep and a profiler count of device kernels per call;
+                and at the speculative verify's shape (8 lanes of
+                C = k + 1 = 5 queries, an [8] int64 start, f32 and bf16
+                pools, every tile height the kernels take there),
+                timed with the launch rule's choices beside each other
+                (the split kernel's 8-row and 4-row tiles, the
+                tensor-core kernel the rule takes);
   flash         K1-K3 (flash attention forward, dK/dV, dQ) and the dd
                 kernel (rowsum(dO * O)) against their plain versions at
                 the training path's shapes (BSHD views of the qkv
@@ -52,7 +58,12 @@ its phases:
                 graphed: streams equal to the paged engine's, logits
                 within 1e-3 of the reference engine's per step, graphed
                 equal to eager (logits within 1e-6 relative, one graph
-                per program);
+                per program); the speculative engine (k = 4; a
+                DistilGPT2-shaped draft, and the target as its own
+                draft) eager and graphed: graphed streams equal to
+                eager, one graph per program (three), streams equal to
+                the paged engine's except where its top-2 logit margin
+                is under 1e-3 (position and margin reported);
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
                 kernels against the dense reference: step-1 gradients,
                 5-step SGD and AdamW loss trajectories, window off/on;
@@ -85,6 +96,19 @@ its phases:
                 a call's wall time (position 0 eager, 1 captured, one
                 graph replay per later position) against its eager
                 run, and the replays' device time per position;
+  serve_spec    the serve phase's 16 requests through
+                `enable_llm_engine(speculative=True, k=4)` and
+                `create_llm_predictor(..., draft_model=)`, the draft
+                DistilGPT2-shaped (6 layers, 768 wide, 12 heads, vocab
+                50304; random weights), graphed and eager in turns:
+                tokens/s, TTFT and TPOT, acceptance and tokens per lane
+                per wave, K4's launches per program (captured launches
+                times replays: the draft wave's decode form, the
+                verify's chunk form at C = 5, the spec prefill chunk's);
+                each of the three graphs replayed alone and profiled by
+                kernel group; then the target as its own draft
+                (acceptance near 1: the bonus token) and the paged
+                engine on the same traffic;
   train         GPT-2 small in bf16 at bench.py's GPU shapes through
                 `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
                 in `jit.TrainStep`, one CUDA graph per step after the
@@ -145,11 +169,18 @@ OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
-          "serve", "serve_dense", "train", "train_fused_head")
+          "serve", "serve_dense", "serve_spec", "train", "train_fused_head")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
 NUM_BLOCKS = LANES * NBLK + 1
+# speculative decoding: k draft tokens a wave (the JAX package's default),
+# so the verify chunk is C = k + 1 queries a lane; the draft has the
+# DistilGPT2 shape (Hugging Face `distilgpt2` config.json: n_layer 6,
+# n_embd 768, n_head 12), its vocabulary padded as GPT-2 small's
+SPEC_K = 4
+VERIFY_C = SPEC_K + 1
+DRAFT_LAYERS = 6
 # the dense engine's prompt bucket: the serve prompts' longest, a
 # multiple of 128, so every prefill is K1 at [1, 768, 12, 64]
 DENSE_BUCKET = 768
@@ -233,12 +264,13 @@ def make_case(form, dtype, gen, dev, sets=1, hkv=HEADS, c=None,
     to each lane's frontier and scratch past it. `sets` pool copies (one
     per layer) so timed launches find their pool cold, as each layer of
     a wave does. Decode: 8 lanes at seeded positions 128-831; chunk: one
-    lane of C = 64 queries from 512. `hkv` < HEADS gives GQA pools;
-    `strided_q` gives q as `_split_heads` does, a view of a [B, C, 3, H,
-    D] projection."""
+    lane of C = 64 queries from 512; verify: the speculative verify's
+    chunk form, 8 lanes of C = k + 1 queries at seeded [8] starts
+    128-831. `hkv` < HEADS gives GQA pools; `strided_q` gives q as
+    `_split_heads` does, a view of a [B, C, 3, H, D] projection."""
     import torch
-    if form == "decode":
-        b, c = LANES, 1
+    if form in ("decode", "verify"):
+        b, c = LANES, (1 if form == "decode" else VERIFY_C)
         if start is None:
             start = torch.randint(128, 832, (b,), generator=gen,
                                   device="cpu")
@@ -440,6 +472,61 @@ def kernels_checks(pa, dev, gen, scale):
     return worst
 
 
+def verify_checks(pa, dev, gen, scale):
+    """K4's chunk form at the speculative verify's shape (8 lanes of
+    C = k + 1 queries, an [8] int64 start, rows = C = 5 a (lane,
+    kv-head)) against `plain_core`, both pool types, and every kernel the
+    launch rule picks at that start: the tensor-core kernel (bf16 q and
+    pools at 5 rows), the split kernel's 4-row tiles (f32 pools), its
+    8-row tile (f32 q over bf16 pools) and its 1, 2 and 4 rows a CUDA
+    block (the first 1, 2 and 4 queries). Returns the max abs error by
+    pool dtype over the main-shape cases."""
+    import torch
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"verify {str(dtype).split('.')[-1]}"
+
+        def run(name, q, pk, pv, tables, start, window=None, finite=True,
+                main=False):
+            out = pa.cuda_core(q, pk, pv, tables, start, scale, window,
+                               form="chunk")
+            ref = pa.plain_core(q, pk, pv, tables, start, scale, window)
+            err = held(f"{tag} {name}", out, ref, dtype, finite)
+            if main:
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+            return out
+
+        q, pools, tables, start = make_case("verify", dtype, gen, dev,
+                                            strided_q=True)
+        check(start.dtype == torch.int64 and start.shape == (LANES,),
+              f"verify start {start.dtype}{tuple(start.shape)}")
+        pk, pv = pools[0]
+        for window in (None, 256, 64):
+            run(f"window={window}", q, pk, pv, tables, start, window,
+                main=True)
+        if dtype == torch.bfloat16:
+            for window in (None, 64):
+                run(f"f32 q window={window}", q.float(), pk, pv, tables,
+                    start, window, main=True)
+        for c in (1, 2, 4):
+            for window in (None, 64):
+                run(f"C={c} window={window}", q[:, :, :c], pk, pv, tables,
+                    start, window)
+        run("int32 start", q, pk, pv, tables, start.int())
+        run("contiguous q", q.contiguous(), pk, pv, tables, start)
+        bad = tables.clone()
+        bad[0, 0] = 0
+        out = run("attended NaN", q, pk, pv, bad, start, finite=False)
+        check(not torch.isfinite(out[0]).all().item()
+              and torch.isfinite(out[1:]).all().item(),
+              f"{tag}: an attended NaN did not stay in its lane")
+        neg = torch.full_like(start, -VERIFY_C)
+        out = run("no attended key", q, pk, pv, tables, neg)
+        check(bool((out == 0).all()),
+              f"{tag}: fully masked rows are not exactly 0")
+    return worst
+
+
 def kernels_phase(dev, peaks):
     import torch
     from paddle_tpu_torch.nn import paged_attention as pa
@@ -447,12 +534,16 @@ def kernels_phase(dev, peaks):
     gen = torch.Generator().manual_seed(SEED)
     scale = 1.0 / HEAD_DIM ** 0.5
     worst = kernels_checks(pa, dev, gen, scale)
+    for dtype, err in verify_checks(pa, dev, gen, scale).items():
+        worst[("verify", dtype)] = err
     results = {}
-    for form in ("decode", "chunk"):
+    for form in ("decode", "chunk", "verify"):
         # times at the main path's type (bf16 pools), pools cold per call
         q, pools, tables, start = make_case(form, torch.bfloat16, gen, dev,
-                                            sets=LAYERS)
+                                            sets=LAYERS,
+                                            strided_q=form == "verify")
         it = {"i": 0}
+        launch_form = "decode" if form == "decode" else "chunk"
 
         def nxt():
             it["i"] = (it["i"] + 1) % LAYERS
@@ -461,8 +552,8 @@ def kernels_phase(dev, peaks):
         def kernel(split=None):
             def run():
                 pk, pv = nxt()
-                pa.cuda_core(q, pk, pv, tables, start, scale, form=form,
-                             split_blocks=split)
+                pa.cuda_core(q, pk, pv, tables, start, scale,
+                             form=launch_form, split_blocks=split)
             return run
 
         def run_plain():
@@ -497,11 +588,22 @@ def kernels_phase(dev, peaks):
             "plain_ms": time_ms(run_plain, 6),
             "library_ms": graph_ms(run_library, LAYERS),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "split_blocks": pa.SPLIT_BLOCKS[form],
+            "split_blocks": pa.default_split_blocks(q.shape[2]),
             "kernel_ms_by_split_blocks": {
                 p: graph_ms(kernel(p), LAYERS) for p in (4, 8, 16, NBLK)},
             "profile": profile_calls(kernel(), LAYERS),
         }
+        if form == "verify":
+            results[form]["shape"] = {"q": list(q.shape),
+                                      "start": "[8] int64, 128-831"}
+            # f32 q over the same bf16 pools: the rule's split kernel at
+            # its 8-row tile (bf16 q takes the tensor cores)
+            qf = q.float()
+
+            def split_tile():
+                pk, pv = nxt()
+                pa.cuda_core(qf, pk, pv, tables, start, scale, form="chunk")
+            results[form]["kernel_ms_f32_q"] = graph_ms(split_tile, LAYERS)
         del pools, views
     return results
 
@@ -1125,6 +1227,7 @@ def parity_phase(dev, smi):
                     f"{s1} vs {s2}")
     dense = dense_parity(model, prompts, dev, ref_toks, ref_steps, out_toks,
                          tol, graph_tol)
+    spec = spec_parity(model, prompts, dev, out_toks, out_steps, tol)
     emit("parity", dtype="float32", layers=LAYERS, requests=len(prompts),
          steps_compared=compared, max_logit_err=max_err, tolerance=tol,
          max_abs_logit=scale, near_tie_steps=near_ties,
@@ -1142,7 +1245,93 @@ def parity_phase(dev, smi):
                   "compiles": {"decode": s_eng.decode_compiles,
                                "prefill": s_eng.prefill_compiles},
                   "distinct_tokens": [len(set(t)) for t in s1]},
-         dense=dense, nvidia_smi=smi)
+         dense=dense, spec=spec, nvidia_smi=smi)
+
+
+def distilgpt2_shape(**kw):
+    """The draft's config: GPT-2 small's widths and padded vocabulary at
+    DRAFT_LAYERS layers, dropout off."""
+    from paddle_tpu_torch.nlp import GPTConfig
+    return GPTConfig(hidden_size=768, num_layers=DRAFT_LAYERS, num_heads=12,
+                     dropout=0.0, attn_dropout=0.0, **kw)
+
+
+def spec_streams(model, draft, prompts, max_tokens, dev, graphed):
+    """Greedy streams of the speculative engine (k = SPEC_K) through the
+    front door, the parity phase's paged configuration, as CUDA graphs or
+    eagerly. Returns the streams and the predictor."""
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import SpeculativePagedEngine
+    cfg = inference.Config()
+    cfg.switch_ir_optim(graphed)
+    cfg.enable_llm_engine(speculative=True, k=SPEC_K, num_slots=4,
+                          max_len=256, block_size=BLOCK, prefill_len=CHUNK,
+                          device=dev)
+    pred = inference.create_llm_predictor(cfg, model=model,
+                                          draft_model=draft)
+    check(isinstance(pred.engine, SpeculativePagedEngine)
+          and pred.engine.paged_kernel == "cuda",
+          f"speculative front door built {pred.engine.describe()}")
+    reqs = [pred.submit(prompt=p, max_tokens=max_tokens) for p in prompts]
+    pred.run()
+    torch.cuda.synchronize()
+    return [r.output_tokens for r in reqs], pred
+
+
+def spec_parity(model, prompts, dev, paged_toks, paged_steps, tol):
+    """fp32 greedy streams of the speculative engine at GPT-2 width (a
+    DistilGPT2-shaped random draft, and the target as its own draft),
+    eager and graphed: graphed equal to eager, one graph per program, and
+    equal to the paged CUDA engine's streams. Where a stream leaves the
+    paged one, the paged target's top-2 logit margin at that position
+    must be under `tol` (a near tie that the verify chunk's summation
+    order may break the other way); the position and margin are
+    reported."""
+    import torch
+    from paddle_tpu_torch.nlp import GPTForPretraining
+    draft = GPTForPretraining(distilgpt2_shape(initializer_range=0.1),
+                              device=dev, dtype=torch.float32,
+                              seed=SEED + 7)
+    out = {}
+    for name, dm in (("distilgpt2_shape", draft), ("self", model)):
+        eager, e_pred = spec_streams(model, dm, prompts, 16, dev, False)
+        graphed, g_pred = spec_streams(model, dm, prompts, 16, dev, True)
+        check(graphed == eager, f"spec {name}: graphed streams {graphed} "
+                                f"!= eager {eager}")
+        eng = g_pred.engine
+        compiles = {"draft": eng.draft_compiles,
+                    "verify": eng.decode_compiles,
+                    "prefill": eng.prefill_compiles}
+        check(compiles == {"draft": 1, "verify": 1, "prefill": 1},
+              f"spec {name}: graphed greedy engine compiled {compiles}")
+        diverged = []
+        for i, (want, got) in enumerate(zip(paged_toks, eager)):
+            check(len(got) == len(want) == 16,
+                  f"spec {name} request {i}: {len(got)} tokens")
+            for t, (a, b) in enumerate(zip(want, got)):
+                if a != b:
+                    top2 = torch.topk(paged_steps[i][t], 2).values
+                    gap = (top2[0] - top2[1]).item()
+                    check(gap < tol, f"spec {name} request {i} position "
+                                     f"{t}: tokens {a} vs {b} with top-2 "
+                                     f"margin {gap} >= {tol}")
+                    diverged.append({"request": i, "position": t,
+                                     "top2_margin": gap})
+                    break
+        snap = e_pred.metrics.snapshot()
+        out[name] = {"streams_equal_paged": eager == paged_toks,
+                     "diverged_at": diverged,
+                     "graphed_equals_eager": True, "compiles": compiles,
+                     "replays": {"draft": eng.draft_program.replays,
+                                 "verify": eng.wave_program.replays,
+                                 "prefill": eng.prefill_program.replays},
+                     "acceptance_rate": snap["spec_acceptance_rate"],
+                     "decode_waves": snap["decode_waves"]}
+        del e_pred, g_pred, eng
+    del draft
+    torch.cuda.synchronize()
+    return out
 
 
 def dense_parity(model, prompts, dev, ref_toks, ref_steps, paged_toks, tol,
@@ -1421,7 +1610,7 @@ def serve_phase(dev, smi):
     runs, main_launches = [], None
     # graphed and eager in turns, each run on a fresh predictor (the
     # prefix cache would otherwise skip the repeated prompts' prefill)
-    for graphed in (True, False, True, False, True):
+    for graphed in (True, False, True):
         if main_launches is None:
             # the main path's run, from building the predictor to its
             # last timed request: every count is 0 before it
@@ -1457,7 +1646,7 @@ def serve_phase(dev, smi):
                                  if r["graphed"] == graphed)
     keys = ("tokens_per_s", "tpot_p50_s", "ttft_p50_s", "host_ms_per_round")
     emit("serve", model="gpt2_small", dtype="bfloat16", requests=16,
-         order="graphed, eager, graphed, eager, graphed", runs=runs,
+         order="graphed, eager, graphed", runs=runs,
          median_graphed={k: median(True, k) for k in keys},
          median_eager={k: median(False, k) for k in keys},
          profile=profile, nvidia_smi=smi)
@@ -1662,7 +1851,7 @@ def serve_dense_phase(dev, smi):
                             int(rng.integers(128, 769))).tolist()
                for _ in range(16)]
     runs, main_launches = [], None
-    for graphed in (True, False, True, False, True):
+    for graphed in (True, False, True):
         if main_launches is None:
             # the main path's run, from building the predictor to its
             # last timed request: every count is 0 before it
@@ -1707,11 +1896,217 @@ def serve_dense_phase(dev, smi):
     keys = ("tokens_per_s", "tpot_p50_s", "ttft_p50_s", "host_ms_per_round")
     emit("serve_dense", model="gpt2_small", dtype="bfloat16", requests=16,
          prefill_len=DENSE_BUCKET, route="k1",
-         order="graphed, eager, graphed, eager, graphed", runs=runs,
+         order="graphed, eager, graphed", runs=runs,
          median_graphed={k: median(True, k) for k in keys},
          median_eager={k: median(False, k) for k in keys},
          replay_alone_ms=alone, device_ms_per_replay=by_group,
          generate=gen, nvidia_smi=smi)
+    return main_launches
+
+
+# ---------------------------------------------------------------------------
+# serve_spec: speculative decoding through the front door
+# ---------------------------------------------------------------------------
+
+SERVE_OTHER = "other (elementwise, norms, scatters, selection)"
+
+
+def spec_programs(eng):
+    return {"draft": eng.draft_program, "verify": eng.wave_program,
+            "prefill": eng.prefill_program}
+
+
+def spec_predictor(model, draft, graphed):
+    """The serve configuration with speculative=True, k = SPEC_K, through
+    the front door, CUDA graphs on or off, warmed up: a two-chunk prompt
+    and 16 tokens (three waves or more) run each program's eager first
+    call and (graphed) its capture."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import SpeculativePagedEngine
+    cfg = inference.Config()
+    cfg.switch_ir_optim(graphed)
+    cfg.enable_llm_engine(speculative=True, k=SPEC_K, num_slots=LANES,
+                          max_len=NBLK * BLOCK, block_size=BLOCK,
+                          prefill_len=CHUNK)
+    pred = inference.create_llm_predictor(cfg, model=model,
+                                          draft_model=draft)
+    check(isinstance(pred.engine, SpeculativePagedEngine)
+          and pred.engine.paged_kernel == "cuda"
+          and pred.engine.spec_k == SPEC_K,
+          f"speculative front door built {pred.engine.describe()}")
+    pred.generate(list(range(1, 70)), max_tokens=16)
+    return pred
+
+
+def spec_run(pred, prompts):
+    """One timed run of the 16 requests on a warmed-up speculative
+    predictor: the serve run's metrics, the acceptance, tokens per lane
+    per wave, and K4's launches per program — the graphs' captured
+    launches times their replays (a graphed run launches nothing from
+    Python), or the eager run's Python counts, which must come to the
+    same per-call numbers: (k + 1) x draft layers decode-form launches a
+    draft wave, 12 chunk-form a verify, 12 + draft layers a prefill
+    chunk."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import ServingMetrics
+
+    eng = pred.engine
+    dl = eng.draft_model.cfg.num_layers
+    progs = spec_programs(eng)
+    graphed = eng.wave_program.graphed
+    waves0, chunks0 = eng.decode_waves_run, eng.prefill_chunks_run
+    replays0 = {k: p.replays for k, p in progs.items()}
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred.scheduler.metrics = ServingMetrics(eng.num_slots)
+    t0 = time.perf_counter()
+    reqs = [pred.submit(prompt=p, max_tokens=64) for p in prompts]
+    rounds = pred.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    python = {k.split(".")[1]: n - before.get(k, 0)
+              for k, n in kernels.launch_counts().items()
+              if k.startswith("paged_attention.")}
+    waves = eng.decode_waves_run - waves0
+    chunks = eng.prefill_chunks_run - chunks0
+    snap = pred.metrics.snapshot()
+    check(all(r.finish_reason == "max_tokens" for r in reqs),
+          f"spec serve: finish reasons {[r.finish_reason for r in reqs]}")
+    vocab = eng.model.cfg.vocab_size
+    check(all(len(r.output_tokens) == 64
+              and all(0 <= t < vocab for t in r.output_tokens)
+              for r in reqs), "every request yields 64 in-vocab tokens")
+    per_call = {"draft": {"paged_attention.decode": dl * (SPEC_K + 1)},
+                "verify": {"paged_attention.chunk": LAYERS},
+                "prefill": {"paged_attention.chunk": LAYERS + dl}}
+    calls = {"draft": waves, "verify": waves, "prefill": chunks}
+    compiles = {k: p.compiles for k, p in progs.items()}
+    if graphed:
+        check(compiles == {"draft": 1, "verify": 1, "prefill": 1},
+              f"graphed spec serve compiled {compiles}")
+        captured = {k: p.graphs[False].launches for k, p in progs.items()}
+        check(captured == per_call,
+              f"the spec graphs hold the K4 launches {captured}")
+        check(python == {"decode": 0, "chunk": 0},
+              f"a graphed spec run launched K4 from Python: {python}")
+        replays = {k: p.replays - replays0[k] for k, p in progs.items()}
+        check(replays == calls, f"replays {replays} for {waves} waves, "
+                                f"{chunks} chunks")
+    else:
+        check(compiles == {"draft": 0, "verify": 0, "prefill": 0},
+              f"eager spec serve compiled {compiles}")
+    launches = {k: sum(per_call[k].values()) * n for k, n in calls.items()}
+    by_form = {"decode": launches["draft"],
+               "chunk": launches["verify"] + launches["prefill"]}
+    if not graphed:
+        check(python == by_form, f"eager spec launches {python} != "
+                                 f"{by_form}")
+    check(launches["verify"] > 0, "the verify never launched K4")
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    lane_waves = snap["slot_occupancy"] * waves * eng.num_slots
+    return {"graphed": graphed, "draft_layers": dl, "spec_k": SPEC_K,
+            "tokens_generated": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "ttft_p50_s": snap["ttft_p50_s"],
+            # a wave's tokens stream at one time stamp: the gaps inside a
+            # batch are 0, so the p50 of the gaps can be 0; each request's
+            # mean gap (`Request.tpot`) beside it
+            "tpot_p50_s": snap["tpot_p50_s"],
+            "request_mean_tpot_p50_s": statistics.median(
+                r.tpot for r in reqs),
+            "acceptance_rate": snap["spec_acceptance_rate"],
+            "accepted_per_wave": snap["spec_accepted_per_wave"],
+            "tokens_per_lane_wave": (tokens - len(reqs)) / lane_waves,
+            "rounds": rounds, "host_ms_per_round": wall * 1e3 / rounds,
+            "decode_waves": waves, "prefill_chunks": chunks,
+            "compiles": compiles, "k4_launches_by_program": launches,
+            "k4_launches": by_form,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def serve_spec_phase(dev, smi):
+    import statistics
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
+
+    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
+                              device=dev, dtype=torch.bfloat16, seed=SEED)
+    draft = GPTForPretraining(distilgpt2_shape(), device=dev,
+                              dtype=torch.bfloat16, seed=SEED + 7)
+    # the serve phase's prompts
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, model.cfg.vocab_size,
+                            int(rng.integers(128, 769))).tolist()
+               for _ in range(16)]
+    runs, main_launches, last = [], None, None
+    for graphed in (True, False, True):
+        if main_launches is None:
+            # the main path's run, from building the predictor to its
+            # last timed request: every count is 0 before it
+            for counts in kernels.COUNTERS.values():
+                for key in counts:
+                    counts[key] = 0
+        pred = spec_predictor(model, draft, graphed)
+        run = spec_run(pred, prompts)
+        if main_launches is None:
+            main_launches = run["k4_launches_by_program"]
+        runs.append(run)
+        if graphed:
+            last = pred
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    # each program's graph replayed alone, back to back, and profiled
+    graphs = {k: p.graphs[False].graph
+              for k, p in spec_programs(last.engine).items()}
+    alone = {k: replay_alone_ms(g) for k, g in graphs.items()}
+    by_group = {k: graph_profile(g, categories=SERVE_GROUPS,
+                                 other=SERVE_OTHER)
+                for k, g in graphs.items()}
+    for run in runs:
+        if run["graphed"]:
+            run["device_share_by_replay_alone"] = (
+                run["decode_waves"] * (alone["draft"] + alone["verify"])
+                + run["prefill_chunks"] * alone["prefill"]) / (
+                    run["wall_s"] * 1e3)
+    del last, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the target as its own draft (acceptance near 1: the bonus token),
+    # and the paged engine on the same traffic, beside it
+    pred = spec_predictor(model, model, True)
+    self_draft = spec_run(pred, prompts)
+    del pred
+    pred = serve_predictor(model, True)
+    paged = serve_run(pred, prompts)
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def median(graphed, key):
+        return statistics.median(r[key] for r in runs
+                                 if r["graphed"] == graphed)
+    keys = ("tokens_per_s", "tpot_p50_s", "request_mean_tpot_p50_s",
+            "ttft_p50_s", "host_ms_per_round", "acceptance_rate",
+            "tokens_per_lane_wave")
+    emit("serve_spec", model="gpt2_small", dtype="bfloat16", requests=16,
+         draft=f"DistilGPT2 shape ({DRAFT_LAYERS} layers, 768 wide, 12 "
+               "heads, vocab 50304), random weights",
+         spec_k=SPEC_K, order="graphed, eager, graphed", runs=runs,
+         median_graphed={k: median(True, k) for k in keys},
+         median_eager={k: median(False, k) for k in keys},
+         replay_alone_ms=alone, device_ms_per_replay=by_group,
+         self_draft=self_draft,
+         paged_beside={k: paged[k] for k in (
+             "tokens_per_s", "tpot_p50_s", "ttft_p50_s",
+             "host_ms_per_round", "decode_waves", "prefill_chunks")},
+         nvidia_smi=smi)
     return main_launches
 
 
@@ -2718,14 +3113,15 @@ def device_rows(prof, calls):
     return sorted(rows, reverse=True)
 
 
-def by_group(rows):
-    """Device ms by PROFILE_GROUPS category (the rest in OTHER_GROUP)."""
-    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
-    groups[OTHER_GROUP] = 0.0
+def by_group(rows, categories=PROFILE_GROUPS, other=OTHER_GROUP):
+    """Device ms by `categories` ((name, name fragments) pairs; the rest
+    in `other`)."""
+    groups = {name: 0.0 for name, _ in categories}
+    groups[other] = 0.0
     for ms, _, key in rows:
         low = key.lower()
-        name = next((n for n, frags in PROFILE_GROUPS
-                     if any(f in low for f in frags)), OTHER_GROUP)
+        name = next((n for n, frags in categories
+                     if any(f in low for f in frags)), other)
         groups[name] += ms
     return groups
 
@@ -2790,17 +3186,64 @@ def profile_replays(graph, calls=3):
     return by_group(rows) if rows else None
 
 
-def graph_profile(graph, calls=3, top=8):
-    """A replay's device ms in all and by kernel group, its kernel
-    launches and its `top` kernels; "not measured" when the profiler
-    records no device time."""
+def graph_profile(graph, calls=3, top=8, categories=PROFILE_GROUPS,
+                  other=OTHER_GROUP):
+    """A replay's device ms in all and by kernel group (`by_group`), its
+    kernel launches and its `top` kernels; "not measured" when the
+    profiler records no device time."""
     rows = replay_rows(graph, calls)
     if not rows:
         return "not measured: the profiler recorded no device time"
-    return {"device_ms": sum(r[0] for r in rows), "by_group": by_group(rows),
+    return {"device_ms": sum(r[0] for r in rows),
+            "by_group": by_group(rows, categories, other),
             "kernels": sum(r[1] for r in rows),
             "top_kernels": [{"ms": ms, "calls": n, "name": key[:90]}
                             for ms, n, key in rows[:top]]}
+
+
+def ptxas_entries(ptxas):
+    """{entry function: {"registers", "spill_bytes"}} from a library's
+    ptxas report (`kernels.build`'s "ptxas"); the split kernel's
+    instantiations named by pool type and rows a CUDA block."""
+    import re
+    out, name = {}, None
+    for ln in ptxas.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", ln)
+        if hit:
+            name = hit.group(1)
+            split = re.search(r"paged_attn_split_kernelI(\w+?)Li(\d+)E",
+                              name)
+            if split:
+                dtype = "bf16" if "bfloat16" in split.group(1) else "f32"
+                name = f"paged_attn_split_kernel<{dtype}, {split.group(2)}>"
+            elif "paged_attn_combine" in name:
+                name = ("paged_attn_combine<"
+                        f"{'bf16' if 'bfloat16' in name else 'f32'}>")
+            elif "paged_attn_chunk_mma" in name:
+                name = "paged_attn_chunk_mma"
+            out[name] = {"registers": None, "spill_bytes": 0}
+        elif name is not None:
+            spill = re.findall(r"(\d+) bytes spill", ln)
+            if spill:
+                out[name]["spill_bytes"] += sum(int(n) for n in spill)
+            regs = re.search(r"Used (\d+) registers", ln)
+            if regs:
+                out[name]["registers"] = int(regs.group(1))
+    return out
+
+
+def k4_build_check(entries):
+    """Every paged_attention.cu instantiation (`ptxas_entries`) built
+    with 0 spill bytes and at most 255 registers (the split kernel's
+    8-row bf16 tile spilled 1080 bytes before it took one register tile
+    a warp)."""
+    check(len(entries) >= 9, f"K4's ptxas report lists {sorted(entries)}")
+    for name, e in entries.items():
+        check(e["spill_bytes"] == 0 and e["registers"] is not None
+              and e["registers"] <= 255,
+              f"{name}: {e['registers']} registers, {e['spill_bytes']} "
+              f"spill bytes")
+    return entries
 
 
 def build_all():
@@ -2842,6 +3285,7 @@ def main():
     peaks = PEAKS["pcie" if "pcie" in smi.lower() else "sxm"]
     t0 = time.perf_counter()
     infos = build_all()
+    k4_entries = ptxas_entries(infos["paged_attention"]["ptxas"])
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          peaks=peaks, build_wall_s=time.perf_counter() - t0,
@@ -2850,7 +3294,9 @@ def main():
          ptxas={n: [ln for ln in i["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln
                     or "warning" in ln]
-                for n, i in infos.items()})
+                for n, i in infos.items()},
+         paged_attention_entries=k4_entries)
+    k4_build_check(k4_entries)
     timings = {}
 
     def run(name, fn, *args):
@@ -2874,6 +3320,7 @@ def main():
     run("train_parity", train_parity_phase, dev)
     serve_launches = run("serve", serve_phase, dev, smi)
     dense_launches = run("serve_dense", serve_dense_phase, dev, smi)
+    spec_launches = run("serve_spec", serve_spec_phase, dev, smi)
     train_launches = run("train", train_phase, dev, peaks)
     fh = run("train_fused_head", train_fused_head_phase, dev, peaks)
     if fh is not None:
@@ -2888,6 +3335,15 @@ def main():
                      "source": SOURCE, "replaces": REPLACES,
                      "launches": serve_launches[form],
                      "ms": row.pop("kernel_ms"), **row})
+    # serve_spec: the draft wave's decode form, the spec prefill chunk's
+    # chunk form, and the verify (its own row, at its own shape)
+    rows[0]["launches_serve_spec"] = spec_launches["draft"]
+    rows[1]["launches_serve_spec"] = spec_launches["prefill"]
+    row = dict(k["verify"])
+    rows.append({"name": "paged_attention_verify", "route": "cuda",
+                 "source": SOURCE, "replaces": REPLACES,
+                 "launches": spec_launches["verify"],
+                 "ms": row.pop("kernel_ms"), **row})
     for kind in ("fwd", "dkv", "dq", "dd"):
         row = dict(fl[kind])
         rows.append({"name": FLASH_NAMES[kind], "route": "cuda",

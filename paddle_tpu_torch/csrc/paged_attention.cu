@@ -18,8 +18,9 @@
 // What the design does about it:
 //   * split-K: one CUDA block per (lane b, kv-head h, split s, row tile);
 //     split s covers pool blocks [s P, (s + 1) P) of the lane's table
-//     (P = `split`, set by the caller: 8 pool blocks for decode and 4
-//     for the chunk, whose 64-row tiles make fewer CUDA blocks). The
+//     (P = `split`, set by the caller: 8 pool blocks up to 8 rows a
+//     (lane, kv-head) and 4 past that, whose 64-row tiles make fewer
+//     CUDA blocks). The
 //     split count comes from the table width, never from the positions,
 //     so the host never waits on the device: a split that lies wholly
 //     outside the lane's attended range writes the empty state
@@ -27,15 +28,21 @@
 //     unnormalised (acc, m, l) in f32 to a workspace [B, Hkv, S, rows,
 //     D + 2], and `paged_attn_combine` merges the S states of each row
 //     with the online-softmax rescale and writes the output;
-//   * decode and short row counts (rows = rep * C <= 8; f32 pools and
-//     f32 q at any row count, in tiles of at most 8 rows),
-//     `paged_attn_split_kernel`: four warps walk disjoint pool blocks of
+//   * decode and short row counts (rows = rep * C <= 4 with bf16 q and
+//     pools, <= 8 with f32 q over bf16 pools; f32 pools at any row
+//     count, in tiles of at most 4 rows), `paged_attn_split_kernel`:
+//     four warps walk disjoint pool blocks of
 //     the split; each warp loads its block's table entries at once, then
 //     keeps the next pool block's K/V loads in flight (a register double
 //     buffer of 16-byte loads) while it scores the current one; bf16
 //     stays bf16 until it is used, and the warps' states merge in shared
-//     memory;
-//   * the chunk form with bf16 pools and q (rows > 8),
+//     memory. An 8-row tile of bf16 pools and a 4-row tile of f32 ones
+//     hold accumulators that leave room for one pool block's K/V per
+//     warp: there a warp loads and scores one block at a time. The
+//     per-row positions are int32 (the double buffer with 64-bit
+//     positions spilled 1080 bytes at bf16 8 rows, 12 at f32 4 rows);
+//   * bf16 pools and q past 4 rows (the prefill chunk; the speculative
+//     verify at C = k + 1 = 5..8; GQA decode at rep 5..8),
 //     `paged_attn_chunk_mma`: 64 query rows per CUDA block, 16 per warp;
 //     each pool block's K and V (16 x 64 bf16, 2 KB each) is staged once
 //     per CUDA block into shared memory by cp.async in a 3-stage ring and
@@ -48,7 +55,7 @@
 //     the first design here;
 //   * f32 pools stay on the CUDA cores (mma.sync has no exact f32): the
 //     split kernel takes them at any row count, re-reading K/V once per
-//     8-row tile (4 for f32, to stay in registers);
+//     4-row tile;
 //   * blocks outside a lane's attended range (past its last key, before
 //     its window) are never read (skipping them is exact, see below),
 //     and the gathered [B, Hkv, nblk * BS, D] view never exists.
@@ -101,6 +108,16 @@ constexpr int kStateLd = kHeadDim + 2;  // one row's state: acc[D], m, l
 constexpr int kSplitWarps = 4;
 constexpr int kMaxSplit = 32 * kSplitWarps;  // pool blocks per split
 constexpr int kSplitRows = 8;  // rows the split kernel takes per block
+// bf16 q and pools with more rows than this take the tensor cores: at the
+// speculative verify's 5 rows the mma kernel (16-row fragments, 5 live)
+// ran in half the split kernel's time on the card (PERF.md)
+constexpr int kMaxSplitRowsBf16 = 4;
+// the split kernel's per-row positions are int32: a lane start is clamped
+// to +-kPosLimit. Tables hold fewer than kPosLimit keys and windows are
+// at most kPosLimit / 2 (checked at the entry point), so a start past the
+// limit walks no block (split_blocks, in 64 bits) and the clamp changes
+// no result.
+constexpr int kPosLimit = 1 << 30;
 constexpr int kChunkRows = 64;  // rows of a tensor-core CUDA block
 constexpr int kChunkThreads = 128;
 constexpr int kLdh = kHeadDim + 8;  // bf16 row stride in shared memory
@@ -145,6 +162,12 @@ __device__ __forceinline__ long long lane_start(const Args& a, int b) {
 __device__ __forceinline__ bool kept(const Args& a, long long ks,
                                      long long p) {
   return ks <= p && (!a.use_window || ks > p - a.window);
+}
+
+// kept() in 32-bit arithmetic, for the split kernel's registers: ks >= 0
+// and |p| <= kPosLimit + C (see split_start), so nothing overflows
+__device__ __forceinline__ bool kept32(const Args& a, int ks, int p) {
+  return ks <= p && (!a.use_window || p - ks < a.window);
 }
 
 // key ks attended by some query of a lane whose queries sit at
@@ -265,19 +288,19 @@ __device__ __forceinline__ void load_block(const Args& a, Tile<T>& t,
 
 template <typename T, int NR>
 __device__ __forceinline__ void score_block(
-    const Args& a, const Tile<T>& t, int j, long long st,
-    const long long (&qp)[NR], const float (*q_s)[kHeadDim], int lane,
-    float (&m)[NR], float (&l)[NR], float (&acc)[NR][Geometry<T>::kVec]) {
+    const Args& a, const Tile<T>& t, int j, long long st, const int (&qp)[NR],
+    const float (*q_s)[kHeadDim], int lane, float (&m)[NR], float (&l)[NR],
+    float (&acc)[NR][Geometry<T>::kVec]) {
   using G = Geometry<T>;
   constexpr int kVec = G::kVec;
   const int d0 = (lane % G::kVr) * kVec;
-  long long ks[G::kNp];
+  int ks[G::kNp];
   bool in_block[G::kNp];
 #pragma unroll
   for (int i = 0; i < G::kNp; ++i) {
     const int row = lane / G::kVr + G::kRp * i;
     in_block[i] = row < a.bs;
-    ks[i] = (long long)j * a.bs + row;
+    ks[i] = j * a.bs + row;
   }
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
@@ -296,8 +319,8 @@ __device__ __forceinline__ void score_block(
 #pragma unroll
       for (int o = 1; o < G::kVr; o <<= 1)
         dot += __shfl_xor_sync(kFull, dot, o);
-      s[i] = in_block[i] && kept(a, ks[i], qp[r]) ? dot * a.scale
-                                                  : -INFINITY;
+      s[i] = in_block[i] && kept32(a, ks[i], qp[r]) ? dot * a.scale
+                                                    : -INFINITY;
       bmax = nan_max(bmax, s[i]);
     }
 #pragma unroll
@@ -328,6 +351,14 @@ __device__ __forceinline__ void score_block(
     m[r] = m_new;
   }
 }
+
+// a warp keeps two pool blocks' K/V in registers (the next one loading
+// while the current one is scored) where ptxas fits them beside the
+// rows' accumulators: bf16 up to 4 rows, f32 (whose tiles take twice the
+// registers) up to 2. With two tiles, bf16 at 8 rows spilled 1080 bytes
+// and f32 at 4 rows 12 bytes.
+template <typename T, int NR>
+constexpr bool kDoubleBuffer = NR <= (sizeof(T) == 2 ? 4 : 2);
 
 template <typename T, int NR>
 __global__ void __launch_bounds__(kSplitWarps * 32)
@@ -366,10 +397,12 @@ paged_attn_split_kernel(const Args a) {
     write_empty(work, rows_here, kThreads);
     return;
   }
-  long long qp[NR];
+  const int st32 =
+      (int)max(min(st, (long long)kPosLimit), -(long long)kPosLimit);
+  int qp[NR];
 #pragma unroll
   for (int r = 0; r < NR; ++r)  // rows past the call's end attend nothing
-    qp[r] = r < rows_here ? st + (row0 + r) % a.c : LLONG_MIN / 2;
+    qp[r] = r < rows_here ? st32 + (row0 + r) % a.c : INT_MIN / 2;
   // the warp's blocks the lane attends: k in [k0, k1)
   const int k0 = j0 > jw ? (j0 - jw + kSplitWarps - 1) / kSplitWarps : 0;
   const int k1 = j1 > jw ? (j1 - jw + kSplitWarps - 1) / kSplitWarps : 0;
@@ -383,19 +416,31 @@ paged_attn_split_kernel(const Args a) {
 #pragma unroll
     for (int e = 0; e < kVec; ++e) acc[r][e] = 0.f;
   }
-  // the next block's loads are issued before the current block's math
-  Tile<T> ta, tb;
-  if (k0 < k1) load_block<T>(a, ta, __shfl_sync(kFull, my_blk, k0), h, lane);
-  for (int k = k0; k < k1; k += 2) {
-    if (k + 1 < k1)
-      load_block<T>(a, tb, __shfl_sync(kFull, my_blk, k + 1), h, lane);
-    score_block<T, NR>(a, ta, jw + kSplitWarps * k, st, qp, q_s, lane, m, l,
-                       acc);
-    if (k + 1 >= k1) break;
-    if (k + 2 < k1)
-      load_block<T>(a, ta, __shfl_sync(kFull, my_blk, k + 2), h, lane);
-    score_block<T, NR>(a, tb, jw + kSplitWarps * (k + 1), st, qp, q_s, lane,
-                       m, l, acc);
+  if constexpr (kDoubleBuffer<T, NR>) {
+    // the next block's loads are issued before the current block's math
+    Tile<T> ta, tb;
+    if (k0 < k1)
+      load_block<T>(a, ta, __shfl_sync(kFull, my_blk, k0), h, lane);
+    for (int k = k0; k < k1; k += 2) {
+      if (k + 1 < k1)
+        load_block<T>(a, tb, __shfl_sync(kFull, my_blk, k + 1), h, lane);
+      score_block<T, NR>(a, ta, jw + kSplitWarps * k, st, qp, q_s, lane, m,
+                         l, acc);
+      if (k + 1 >= k1) break;
+      if (k + 2 < k1)
+        load_block<T>(a, ta, __shfl_sync(kFull, my_blk, k + 2), h, lane);
+      score_block<T, NR>(a, tb, jw + kSplitWarps * (k + 1), st, qp, q_s,
+                         lane, m, l, acc);
+    }
+  } else {
+    // one register tile; the other warps of the CUDA block hide the
+    // load latency
+    Tile<T> t;
+    for (int k = k0; k < k1; ++k) {
+      load_block<T>(a, t, __shfl_sync(kFull, my_blk, k), h, lane);
+      score_block<T, NR>(a, t, jw + kSplitWarps * k, st, qp, q_s, lane, m,
+                         l, acc);
+    }
   }
 
   // the lanes of a value column sum their rows' p.V
@@ -438,7 +483,7 @@ paged_attn_split_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// chunk kernel on the tensor cores: bf16 q and pools, rows > 8
+// chunk kernel on the tensor cores: bf16 q and pools, rows > 4
 // ---------------------------------------------------------------------------
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate); 4 warps, warp w owns rows
@@ -776,10 +821,10 @@ int launch_split(const Args& a, int bhkv, cudaStream_t stream) {
 template <typename T>
 int launch(const Args& a, int bhkv, cudaStream_t stream) {
   int rc;
-  // f32 pools take 4 rows a block, so a warp's double buffer of two
-  // 16-row blocks fits in registers
+  // f32 pools take at most 4 rows a CUDA block (their K/V tile takes
+  // twice the registers of bf16's); more rows take more row tiles
   constexpr int kMaxRows = sizeof(T) == 4 ? kSplitRows / 2 : kSplitRows;
-  if (sizeof(T) == 2 && a.q_bf16 && a.rows > kSplitRows) {
+  if (sizeof(T) == 2 && a.q_bf16 && a.rows > kMaxSplitRowsBf16) {
     const dim3 grid(bhkv, a.nsplit, (a.rows + kChunkRows - 1) / kChunkRows);
     paged_attn_chunk_mma<<<grid, kChunkThreads, 0, stream>>>(a);
     rc = (int)cudaGetLastError();
@@ -810,7 +855,8 @@ int launch(const Args& a, int bhkv, cudaStream_t stream) {
 // pool_dtype: 0 = float32, 1 = bfloat16. Returns the launches'
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
 // the kernels were not built for (head_dim 64, block size 1..16, split
-// 1..128). Pools must be 16-byte aligned.
+// 1..128, fewer than 2^30 keys a table, a window of at most 2^29). Pools
+// must be 16-byte aligned.
 extern "C" int paged_attention_fwd(
     const void* q, const long long* q_strides, int q_dtype, const void* pk,
     const void* pv, const void* tables, const void* start,
@@ -820,6 +866,8 @@ extern "C" int paged_attention_fwd(
     void* stream) {
   if (d != kHeadDim || bs < 1 || bs > kMaxBlockSize || c < 1 || nb < 1 ||
       nblk < 1 || split < 1 || split > kMaxSplit || hkv < 1 || h % hkv ||
+      (long long)nblk * bs >= kPosLimit ||
+      (use_window && window > kPosLimit / 2) ||
       (q_dtype != 0 && q_dtype != 1) ||
       (start != nullptr && start_elt != 4 && start_elt != 8))
     return (int)cudaErrorInvalidValue;

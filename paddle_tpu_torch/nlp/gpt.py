@@ -27,10 +27,11 @@ below the bucket), and only the bucket's K/V are written; otherwise it
 takes flash_attention's dense route, as the JAX package's `_flash_array`
 does (`prefill_route`).
 
-Serving, paged: `init_paged_cache`, `decode_step(..., block_tables=)`
-and `prefill_chunk` (with `frontier=`). The caches and pools are
-updated IN PLACE by the scatters; the methods return the same objects
-so their signatures match the JAX package's.
+Serving, paged: `init_paged_cache`, `decode_step(..., block_tables=)`,
+`prefill_chunk` (with `frontier=`) and `decode_chunk`, the speculative
+verify (C tokens for every lane at its own start). The caches and pools
+are updated IN PLACE by the scatters; the methods return the same
+objects so their signatures match the JAX package's.
 
 `generate` is the model-level decode loop: a full forward per token
 (`use_cache=False`) or the KV-cache step (`use_cache=True`), which on
@@ -52,8 +53,8 @@ from ..nn.paged_attention import (paged_chunk_attention,
                                   paged_decode_attention)
 from ..nn.decode import gumbel_, top_k_top_p_filtering
 from ..nn.transformer import (cached_decode_attention, infer_cache_dtype,
-                              scatter_block_kv_at, scatter_block_kv_chunk,
-                              scatter_kv_at)
+                              scatter_block_kv_at,
+                              scatter_block_kv_chunk_batched, scatter_kv_at)
 from ..ops.chunked_ce import chunked_lm_loss
 from ..ops.flash_attention import flash_attention, kernel_len
 
@@ -200,21 +201,23 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.to(x_t.dtype))
 
     def prefill_chunk(self, x, cache, block_tables, chunk_start, valid_len):
-        """One prompt chunk [1, C, H]: scatter its K/V through the table
-        at chunk_start + arange(C) (the padded tail past valid_len goes to
-        scratch), then attend the C queries over the pool."""
+        """C tokens a lane, x [S, C, H], at chunk_start + arange(C): one
+        prompt chunk (S = 1, a scalar start) or the speculative verify
+        (every lane at its own [S] start). Scatter the K/V through the
+        tables (positions at or past valid_len go to scratch), then
+        attend each query row up to its own position over the pool."""
         b, s, h = x.shape
         q, k, v = self._split_heads(x)
         ck, cv = cache
-        positions = chunk_start + torch.arange(s, device=x.device)
-        scatter_block_kv_chunk(ck, k, block_tables, positions, valid_len)
-        scatter_block_kv_chunk(cv, v, block_tables, positions, valid_len)
+        scatter_block_kv_chunk_batched(ck, k, block_tables, chunk_start,
+                                       valid_len)
+        scatter_block_kv_chunk_batched(cv, v, block_tables, chunk_start,
+                                       valid_len)
         out = paged_chunk_attention(q, ck, cv, block_tables, chunk_start,
                                     1.0 / math.sqrt(self.head_dim),
                                     window=self.attn_window)
         out = out.permute(0, 2, 1, 3).reshape(b, s, h)
         return self.out_proj(out.to(x.dtype))
-
 
     def prefill(self, x, cache, n):
         """Prompt-phase step over x [B, C, H] (C a multiple of 128 on the
@@ -410,6 +413,24 @@ class GPTModel(nn.Module):
                                   valid_len)
         return self.ln_f(x), caches
 
+    def decode_chunk(self, tok_chunk, caches, block_tables, start,
+                     valid_len):
+        """Speculative verify: C tokens per lane ([S, C] ids) at
+        per-lane positions start[s] + i against the block pools. `start`
+        and `valid_len` are [S] device tensors (read on the device, so a
+        CUDA graph of the verify replays whatever its buffers hold).
+        Position rows past the table are clamped (their K/V go to
+        scratch and their logits are never accepted). Returns
+        (h, caches)."""
+        c = tok_chunk.shape[1]
+        start = torch.as_tensor(start, device=tok_chunk.device)
+        pos_ids = start.reshape(-1, 1).long() + torch.arange(
+            c, device=tok_chunk.device)
+        x = self.embeddings(tok_chunk, self._position_ids(pos_ids))
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.prefill_chunk(x, cache, block_tables, start, valid_len)
+        return self.ln_f(x), caches
+
 
 class GPTForPretraining(nn.Module):
     """GPT with the LM head tied to the word embeddings. Weights are
@@ -514,11 +535,15 @@ class GPTForPretraining(nn.Module):
                 frontier, device=h.device).reshape(1))
         return self._head(h), caches
 
+    @torch.no_grad()
     def decode_chunk(self, tok_chunk, caches, block_tables, start,
                      valid_len):
-        raise NotImplementedError(
-            "decode_chunk (speculative verify) is not ported yet (ROADMAP "
-            "Queue 1 item 1b: speculative decoding)")
+        """Speculative verify: logits for ALL C positions of every lane
+        ([S, C, V] in the model's dtype — one batched forward scores the
+        whole drafted span)."""
+        h, caches = self.gpt.decode_chunk(tok_chunk, caches, block_tables,
+                                          start, valid_len)
+        return self._head(h), caches
 
 
 # auto threshold for fused_head_loss=None: the fused head would be used

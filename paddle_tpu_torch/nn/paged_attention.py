@@ -232,10 +232,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head_dim and pool blocks of at most 16 keys
 _HEAD_DIM = 64
 _MAX_BLOCK_SIZE = 16
-#: pool blocks per split of the CUDA kernel, by form (of 16-key blocks:
-#: 128 keys for decode, 64 for the chunk, whose 64-row tiles fill fewer
-#: CUDA blocks; the fastest on the card over 4, 8, 16 and 64, PERF.md)
-SPLIT_BLOCKS = {"decode": 8, "chunk": 4}
+# the split kernel's positions are int32 (see csrc/paged_attention.cu)
+_MAX_WINDOW = 1 << 29
+#: pool blocks per split of the CUDA kernel, by the rows a (lane,
+#: kv-head) holds, rep * C: 8 (128 keys of 16-key blocks) up to 8 rows —
+#: decode, and the speculative verify at C = k + 1 — and 4 (64 keys)
+#: past that, whose 64-row tiles fill fewer CUDA blocks (the fastest on
+#: the card over 4, 8, 16 and 64, PERF.md)
+SPLIT_BLOCKS = {"few_rows": 8, "row_tiles": 4}
+
+
+def default_split_blocks(rows):
+    """Pool blocks per split for `rows` rows a (lane, kv-head)."""
+    return SPLIT_BLOCKS["few_rows" if rows <= 8 else "row_tiles"]
 
 
 def _start_arg(start, b, dev):
@@ -277,8 +286,9 @@ def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk",
     are read in place; the kernel writes the output in the pool dtype
     into a [B, C, H, D] buffer, returned as its [B, H, C, D] view, and
     the splits' states into an f32 workspace allocated here.
-    `split_blocks` pool blocks per split (default SPLIT_BLOCKS[form]).
-    `form` ("decode" or "chunk") names the launch counter to advance."""
+    `split_blocks` pool blocks per split (default
+    `default_split_blocks(rep * C)`). `form`
+    ("decode" or "chunk") names the launch counter to advance."""
     for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tables", tables)):
         if t.device.type != "cuda":
             raise RuntimeError(f"paged attention kernel 'cuda' needs CUDA "
@@ -317,7 +327,11 @@ def cuda_core(q, pk, pv, tables, start, scale, window=None, form="chunk",
     if pk.data_ptr() % 16 or pv.data_ptr() % 16:
         raise ValueError("paged attention kernel reads the pools in "
                          "16-byte vectors: they must be 16-byte aligned")
-    split = SPLIT_BLOCKS[form] if split_blocks is None else int(split_blocks)
+    if window is not None and window > _MAX_WINDOW:
+        raise ValueError(f"paged attention kernel takes a window of at "
+                         f"most {_MAX_WINDOW}, got {window}")
+    split = (default_split_blocks(h // hkv * c) if split_blocks is None
+             else int(split_blocks))
     start_ptr, start_val, start_elt, start_stride = _start_arg(start, b, dev)
     nblk = tables.shape[1]
     nsplit = -(-nblk // split)

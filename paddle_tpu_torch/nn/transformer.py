@@ -1,6 +1,8 @@
 """KV-cache primitives and the dense attention cores they feed — the
 serving subset of `paddle_tpu/nn/transformer.py`: the dense cache's
-per-row scatter (`scatter_kv_at`) and the paged cache's.
+per-row scatter (`scatter_kv_at`) and the paged cache's (one token per
+lane; a chunk of tokens per lane, for the prefill and the speculative
+verify).
 
 The pool is `[num_blocks, Hkv, block_size, D]`; a request's cache is the
 ordered sequence of pool blocks named by its block TABLE (int32 ids,
@@ -147,24 +149,32 @@ def scatter_block_kv_at(pool, kv_t, tables, pos):
     return pool
 
 
-def scatter_block_kv_chunk(pool, kv_c, table, positions, valid_len):
-    """Write a prefill chunk's K or V [1, Hkv, C, D] through one lane's
-    block table [1, nblk] at absolute positions [C], in place. Positions
-    at or past valid_len (the padded tail of the last chunk) go to the
-    scratch block.
+def scatter_block_kv_chunk_batched(pool, kv_c, tables, start, valid_len):
+    """Write a C-token chunk's K or V [S, Hkv, C, D] for EVERY lane
+    through its block table [S, nblk] at absolute positions start[s] + i,
+    in place, with one `index_put_` whose indices stay on the device (a
+    CUDA graph replays whatever starts and lengths its buffers hold).
+    Position i of lane s at or past valid_len[s] goes to the scratch
+    block: the speculative verify clamps each lane's k + 1 span this way
+    (horizon, per-lane spec_len), and a prefill chunk (S = 1) its padded
+    tail. `start` and `valid_len` are [S], or scalars (Python ints or
+    0-d tensors) for every lane.
 
-    The table column is clamped to nblk - 1 BEFORE the lookup (a padded
-    tail can index past the table); those positions are redirected to
-    scratch regardless, and valid positions lie inside the table, so
-    the clamp moves no live write."""
-    nblk, bs = table.shape[1], pool.shape[2]
-    c = positions.shape[0]
-    positions = positions.to(torch.int64)
+    The table column is clamped to nblk - 1 BEFORE the lookup (a clamped
+    span can index past the table); those positions go to scratch
+    regardless, and valid positions lie inside the table, so the clamp
+    moves no live write. Distinct lanes write distinct blocks (frontier
+    blocks are private by the copy-on-write guard), so the only
+    colliding writes are the scratch redirects, garbage by design."""
+    nblk, bs = tables.shape[1], pool.shape[2]
+    s, c = kv_c.shape[0], kv_c.shape[2]
+    arange = torch.arange(c, device=pool.device)
+    positions = _positions(start, s, pool.device)[:, None] + arange
     col = torch.clamp(positions // bs, 0, nblk - 1)
-    blk = table[0].long()[col]
-    valid = torch.arange(c, device=pool.device) < valid_len
+    blk = torch.gather(tables.long(), 1, col)                   # [S, C]
+    valid = arange < _positions(valid_len, s, pool.device)[:, None]
     blk = torch.where(valid, blk, torch.zeros_like(blk))
-    kv = kv_c[0].permute(1, 0, 2)              # [C, Hkv, D]
+    kv = kv_c.permute(0, 2, 1, 3)                       # [S, C, Hkv, D]
     pool[blk, :, positions % bs, :] = kv.to(pool.dtype)
     return pool
 

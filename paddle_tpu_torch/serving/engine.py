@@ -139,6 +139,7 @@ class ServingEngine:
         them eagerly. The CPU always runs them eagerly.
     """
 
+    _WAVE_NAME = "serving.decode_wave"
     _PREFILL_NAME = "serving.prefill"
 
     def __init__(self, model, num_slots=4, max_len=256, prefill_len=None,
@@ -183,6 +184,9 @@ class ServingEngine:
         self._pending_prefill = {}
         self.last_nonfinite_slots = []
         self.last_starved_slots = []
+        # draft tokens proposed and accepted by the latest wave: None for
+        # an engine that drafts nothing (SpeculativePagedEngine counts)
+        self.last_spec_proposed = self.last_spec_accepted = None
         # programs run (each decode wave and each prefill chunk is one
         # pass through every layer: eager, or one graph replay)
         self.decode_waves_run = 0
@@ -192,9 +196,8 @@ class ServingEngine:
         for name in ("bias", "gumbel"):
             self.wave_inputs.add(name, torch.zeros(
                 (S, self.vocab_size), device=self.device))
-        self.wave_program = Program("serving.decode_wave",
-                                    self._wave_program, self.device,
-                                    cuda_graph, self._gen)
+        self.wave_program = Program(self._WAVE_NAME, self._wave_program,
+                                    self.device, cuda_graph, self._gen)
         # f32 logits [S, V] of the latest wave: the program's output,
         # overwritten by the next wave
         self.last_wave_logits = None
@@ -422,21 +425,7 @@ class ServingEngine:
         if not any(active_now):
             self.last_nonfinite_slots = []
             return {}
-        host = self.wave_inputs.stage()
-        host["tok"][:] = self.slot_tok
-        host["pos"][:] = self.slot_pos
-        host["active"][:] = active_now
-        host["sample"][:] = self.slot_sample
-        host["temps"][:] = self.slot_temp
-        host["top_k"][:] = self.slot_top_k
-        host["top_p"][:] = self.slot_top_p
-        self._stage_wave(host, active_now)
-        self.wave_inputs.upload()
-        bias = self.wave_inputs.tensors["bias"]
-        for s in sorted(self._bias_dirty):
-            bias[s].copy_(torch.from_numpy(self._slot_bias[s]))
-        self._bias_dirty.clear()
-        sampled = any(s and a for s, a in zip(self.slot_sample, active_now))
+        sampled = self._upload_wave(active_now)
         picked, self.last_wave_logits = self.wave_program(sampled)
         self.decode_waves_run += 1
         # the one device->host sync of the wave
@@ -454,6 +443,26 @@ class ServingEngine:
             out[s] = int(tok[s])
         self.last_nonfinite_slots = bad
         return out
+
+    def _upload_wave(self, active_now):
+        """Stage the wave's inputs and enqueue their copy (and the bias
+        rows that changed). Returns whether a lane of the wave samples,
+        the key of the wave's programs."""
+        host = self.wave_inputs.stage()
+        host["tok"][:] = self.slot_tok
+        host["pos"][:] = self.slot_pos
+        host["active"][:] = active_now
+        host["sample"][:] = self.slot_sample
+        host["temps"][:] = self.slot_temp
+        host["top_k"][:] = self.slot_top_k
+        host["top_p"][:] = self.slot_top_p
+        self._stage_wave(host, active_now)
+        self.wave_inputs.upload()
+        bias = self.wave_inputs.tensors["bias"]
+        for s in sorted(self._bias_dirty):
+            bias[s].copy_(torch.from_numpy(self._slot_bias[s]))
+        self._bias_dirty.clear()
+        return any(s and a for s, a in zip(self.slot_sample, active_now))
 
     def _prepare_wave(self, active_now):
         self.last_starved_slots = []

@@ -1,6 +1,7 @@
 """Per-scheduler serving metrics (a subset of
 `paddle_tpu/serving/metrics.py` `ServingMetrics`): TTFT, TPOT, request
-latency, tokens, decode waves and prefill chunks.
+latency, tokens, decode waves and prefill chunks, and the speculative
+engine's draft tokens proposed and accepted.
 
 Percentiles are exact over the most recent `window` samples of each
 kind (a long-running server keeps a bounded tail, not every sample it
@@ -35,6 +36,10 @@ class ServingMetrics:
         self._first_token_time = None
         self._last_token_time = None
         self._faults = {}
+        # speculative decoding tallies (0 on other engines)
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_waves = 0
 
     # ---------------------------------------------------------- recording
     def on_reject(self):
@@ -72,6 +77,15 @@ class ServingMetrics:
                 self._first_token_time = t_now
             self._last_token_time = t_now
 
+    def on_spec(self, proposed, accepted):
+        """One speculative wave's draft economics: proposed = the sum of
+        the lanes' spec_len, accepted = the draft tokens the acceptance
+        kept (the correction or bonus token is never a draft's)."""
+        with self._lock:
+            self._spec_proposed += int(proposed)
+            self._spec_accepted += int(accepted)
+            self._spec_waves += 1
+
     def on_complete(self, request):
         with self._lock:
             self._completed += 1
@@ -104,4 +118,13 @@ class ServingMetrics:
                 "latency_p50_s": _percentile(self._latency, 50),
                 "latency_p99_s": _percentile(self._latency, 99),
                 "faults": dict(self._faults),
+                # 0 / None on engines without a draft model
+                "spec_tokens_proposed": self._spec_proposed,
+                "spec_tokens_accepted": self._spec_accepted,
+                "spec_acceptance_rate": (
+                    self._spec_accepted / self._spec_proposed
+                    if self._spec_proposed else None),
+                "spec_accepted_per_wave": (
+                    self._spec_accepted / self._spec_waves
+                    if self._spec_waves else None),
             }

@@ -1,6 +1,6 @@
 """PagedServingEngine: block-table KV cache over the ServingEngine wave
 machinery (the port of `paddle_tpu/serving/paged/engine.py`, without the
-KV handoff and without speculative decoding).
+KV handoff), and its speculative sibling `SpeculativePagedEngine`.
 
 The cache is a fixed POOL of `[num_blocks, kv_heads, block_size,
 head_dim]` KV blocks per layer; slots reference block TABLES
@@ -31,9 +31,10 @@ scheduler to preempt by recompute.
 import numpy as np
 import torch
 
+from ...graphs import Program
 from ...nn import paged_attention
 from ...nn.decode import gumbel_
-from ..engine import ServingEngine, _select_first_token
+from ..engine import ServingEngine, _filter_top_k_top_p, _select_first_token
 from .block_pool import BlockPool, BlockPoolExhausted
 
 
@@ -269,6 +270,10 @@ class PagedServingEngine(ServingEngine):
         return logits[:, 0, :].float()
 
     # ----------------------------------------------------- copy-on-write
+    def _pools(self):
+        """Every (K, V) pool pair that a block id names."""
+        return self._caches
+
     def _ensure_private(self, slot, bi):
         """Give the slot a private copy of table entry `bi`: the pool
         moves the reference, the device content is copied in place."""
@@ -277,7 +282,7 @@ class PagedServingEngine(ServingEngine):
         new = self.block_pool.cow(blk)
         if new == blk:
             return
-        for ck, cv in self._caches:
+        for ck, cv in self._pools():
             ck[new].copy_(ck[blk])
             cv[new].copy_(cv[blk])
         blocks[bi] = new
@@ -293,3 +298,365 @@ class PagedServingEngine(ServingEngine):
             self.block_pool.release(blocks)
         self._slot_blocks[slot] = []
         self._tables[slot, :] = 0
+
+
+def _spec_verify_tail(lo, tok, pos, active, sample, temps, top_k, top_p,
+                      bias, spec_len, draft_toks, draft_probs, noise=None):
+    """The speculative wave's acceptance–rejection tail over the verify
+    chunk's f32 target logits [S, C, V] (C = k + 1): the wave's token
+    selection applied position by position, with EXACT acceptance-
+    rejection, so the output follows the target model's distribution —
+    and the greedy path is the target's own trajectory, token for token.
+
+    Greedy lanes accept the longest draft prefix that agrees with the
+    target argmax (over the biased logits) and emit the target's argmax
+    at the first mismatch. Sampling lanes accept draft token d_i with
+    probability min(1, p_t(d_i) / p_d(d_i)) and draw the first rejection
+    from the normalised residual max(p_t - p_d, 0); with all k accepted,
+    the bonus token is the a == k case of the same formula, because p_d
+    is zero-extended at position k. Both are the PROCESSED distributions
+    (temperature, top-k/top-p and the bias applied).
+
+    `noise` is None when no lane samples, else the explicit draws
+    (u [S, k] uniform in [0, 1), g_res [S, V] and g_fb [S, V] Gumbel
+    noise of the residual's and the fallback's categorical draws), which
+    the engine fills from its generator. Per-lane `spec_len` [S] clamps
+    the acceptance (the horizon); a lane at spec_len 0 is the plain
+    decode. Lanes that are inactive or non-finite emit nothing and keep
+    their token and position. Returns out [S, C] (the first n_emit of a
+    lane are its tokens), n_emit [S], nxt [S], new_pos [S], finite [S]."""
+    s, c, v = lo.shape
+    k = c - 1
+    dev = lo.device
+    lo = lo + bias[:, None, :]
+    finite = torch.isfinite(lo).flatten(1).all(dim=1)
+    greedy = torch.argmax(lo, dim=-1)                          # [S, C]
+    arange_c = torch.arange(c, device=dev)
+    valid = arange_c[None, :k] < spec_len[:, None]             # [S, k]
+    ok = draft_toks == greedy[:, :k]
+    if noise is not None:
+        u, g_res, g_fb = noise
+        scaled = lo / torch.clamp(temps, min=1e-6)[:, None, None]
+        filt = _filter_top_k_top_p(
+            scaled.reshape(s * c, v), top_k.repeat_interleave(c),
+            top_p.repeat_interleave(c)).reshape(s, c, v)
+        p_t = torch.softmax(filt, dim=-1)                      # [S, C, V]
+        pt_d = torch.gather(p_t[:, :k], -1, draft_toks[..., None])[..., 0]
+        pd_d = torch.gather(draft_probs, -1, draft_toks[..., None])[..., 0]
+        ok = torch.where(sample[:, None], u * pd_d < pt_d, ok)
+    ok = ok & valid
+    a = torch.cumprod(ok.long(), dim=1).sum(dim=1)             # [S] in 0..k
+    extra = torch.gather(greedy, 1, a[:, None])[:, 0]
+    if noise is not None:
+        # p_d is zeroed at every position the lane did NOT draft (i >=
+        # its spec_len, position k included): there the formula must
+        # come down to sampling p_t itself — a horizon-clamped lane
+        # offered nothing at its frontier, and subtracting a draft
+        # distribution it never proposed would skew the output away
+        # from the target's
+        p_d_ext = torch.cat(
+            [draft_probs, torch.zeros_like(draft_probs[:, :1])], dim=1)
+        drafted = arange_c[None, :] < spec_len[:, None]         # [S, C]
+        p_d_ext = torch.where(drafted[:, :, None], p_d_ext,
+                              torch.zeros((), device=dev))
+        idx = a[:, None, None].expand(s, 1, v)
+        p_t_a = torch.gather(p_t, 1, idx)[:, 0]
+        p_d_a = torch.gather(p_d_ext, 1, idx)[:, 0]
+        residual = torch.clamp(p_t_a - p_d_a, min=0.0)
+        res_tok = torch.argmax(torch.log(torch.clamp(residual, min=1e-30))
+                               + g_res, dim=-1)
+        # float round-off can zero a residual row that is positive in
+        # exact arithmetic: then draw from the target distribution
+        # itself (a measure-zero correction)
+        fallback = torch.argmax(torch.log(torch.clamp(p_t_a, min=1e-30))
+                                + g_fb, dim=-1)
+        res_tok = torch.where(residual.sum(dim=-1) > 0, res_tok, fallback)
+        extra = torch.where(sample, res_tok, extra)
+    draft_pad = torch.cat([draft_toks, torch.zeros_like(draft_toks[:, :1])],
+                          dim=1)
+    out = torch.where(arange_c[None, :] < a[:, None], draft_pad,
+                      extra[:, None])
+    ok_lane = active & finite
+    n_emit = torch.where(ok_lane, a + 1, torch.zeros_like(a))
+    nxt = torch.where(ok_lane, extra, tok.long())
+    return out, n_emit, nxt, pos + n_emit, finite
+
+
+class SpeculativePagedEngine(PagedServingEngine):
+    """Draft-k / verify-once speculative decoding over the paged engine
+    (the port of the JAX package's `SpeculativePagedEngine`).
+
+    A small DRAFT model proposes up to k tokens per slot per wave; the
+    target scores all k + 1 positions in ONE batched forward
+    (`decode_chunk`: K4's chunk form with the lanes' [S] start, over the
+    same block tables). Exact acceptance-rejection (`_spec_verify_tail`)
+    keeps the output distribution the target's — token for token under
+    greedy — while a wave advances each lane by 1 .. k + 1 tokens.
+
+    Memory: the target pools and the draft pools are one bundle
+    (`_caches`, `_draft_caches`) that shares the block TABLES, so the
+    allocator, refcounts, prefix sharing and copy-on-write serve both:
+    one block id names the same token span in both, the copy-on-write
+    copies both, and `retire_slot` frees both. The prefill chunk writes
+    both models' pools, so a prefix-cache hit serves the draft too.
+    Blocks allocated ahead for draft tokens that the acceptance did not
+    commit go back to the pool after every wave
+    (`_rollback_spec_blocks`).
+
+    Three programs (`graphs.Program`: one CUDA graph each on the card per
+    sampling key; eager on the CPU or with cuda_graph=False), all over
+    static buffers:
+      * `draft_program` — k + 1 draft `decode_step`s (K4's decode form):
+        step j writes the fed token's K/V at pos + j and proposes the
+        next; the last step only writes (d_k's K/V, so a fully accepted
+        span leaves the draft cache in step). A lane's steps past its
+        spec_len write through the scratch table row, chosen on the
+        device from the staged spec_len. The proposals and draft
+        probabilities land in static buffers the verify reads;
+      * `wave_program` — the verify: the target's decode_chunk at
+        C = k + 1 and the acceptance tail, read back once;
+      * `prefill_program` — the prompt chunk through both models.
+    Per-lane spec_len (the horizon clamp) is a staged VALUE, not a
+    shape. Random draws (the draft's Gumbel noise, the tail's uniforms
+    and its two Gumbel rows) are drawn in place from the engine's
+    generator, registered with every graph.
+    """
+
+    _WAVE_NAME = "serving.spec_verify"
+    _PREFILL_NAME = "serving.spec_prefill_chunk"
+    _DRAFT_NAME = "serving.spec_draft_wave"
+
+    def __init__(self, model, draft_model, spec_k=4, **kw):
+        if draft_model is None:
+            raise ValueError("SpeculativePagedEngine needs a draft_model")
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if int(draft_model.cfg.vocab_size) != int(model.cfg.vocab_size):
+            raise ValueError(
+                f"draft vocab {draft_model.cfg.vocab_size} != target "
+                f"vocab {model.cfg.vocab_size}: acceptance-rejection "
+                "compares distributions over ONE vocabulary")
+        if draft_model.device != model.device:
+            raise ValueError(f"draft model is on {draft_model.device}, "
+                             f"target on {model.device}")
+        self.spec_k = int(spec_k)
+        self.draft_model = draft_model.eval()
+        self._wave_spec_len = None
+        super().__init__(model, **kw)
+        self.last_spec_proposed = 0
+        self.last_spec_accepted = 0
+        S, k, V = self.num_slots, self.spec_k, self.vocab_size
+        add = self.wave_inputs.add
+        add("draft_toks", torch.zeros((S, k), dtype=torch.int64,
+                                      device=self.device))
+        for name, shape in (("draft_probs", (S, k, V)),
+                            ("draft_gumbel", (k, S, V)), ("u", (S, k)),
+                            ("g_res", (S, V)), ("g_fb", (S, V))):
+            add(name, torch.zeros(shape, device=self.device))
+        self.draft_program = Program(self._DRAFT_NAME, self._draft_program,
+                                     self.device, self.cuda_graph, self._gen)
+
+    @property
+    def draft_compiles(self):
+        """CUDA graphs captured for the draft wave: 1 over a greedy
+        stream; 0 on the eager path."""
+        return self.draft_program.compiles
+
+    def describe(self):
+        d = super().describe()
+        d.update({"engine": "spec_paged", "spec_k": self.spec_k,
+                  "draft_layers": int(self.draft_model.cfg.num_layers)})
+        return d
+
+    def _wave_fields(self):
+        return super()._wave_fields() + [
+            ("spec_len", torch.int64, (self.num_slots,))]
+
+    # ------------------------------------------------------------ caches
+    def _make_caches(self):
+        self._draft_caches = self.draft_model.init_paged_cache(
+            self.block_pool.num_blocks, self.block_size, self.max_len,
+            dtype=self.cache_dtype)
+        return super()._make_caches()
+
+    def _pools(self):
+        # a shared block's content is copied in the target AND the draft
+        # pools: a half-copied block would leave the draft cache out of
+        # step with the tokens it claims to hold
+        return list(self._caches) + list(self._draft_caches)
+
+    # ---------------------------------------------------------- programs
+    def _prefill_program(self, sampled):
+        """The chunk through the target (its frontier logits select the
+        first token) and through the draft, whose pools it fills for the
+        first wave to draft from."""
+        first, lo = super()._prefill_program(sampled)
+        p = self.prefill_inputs.tensors
+        with paged_attention.kernel_scope(self.paged_kernel):
+            self.draft_model.prefill_chunk(
+                p["chunk"], self._draft_caches, p["table"], p["chunk_start"],
+                p["valid_len"], frontier=p["frontier"])
+        return first, lo
+
+    def _draft_program(self, sampled):
+        """k + 1 draft decode steps over the wave buffers; writes the
+        proposals [S, k] (and, when a lane samples, the draft's processed
+        distributions [S, k, V]) into the static buffers the verify
+        reads. Returns them."""
+        w = self.wave_inputs.tensors
+        k = self.spec_k
+        noise = gumbel_(w["draft_gumbel"], self._gen) if sampled else None
+        scratch = torch.full((), BlockPool.SCRATCH, dtype=torch.int32,
+                             device=self.device)
+        cur = w["tok"]
+        with paged_attention.kernel_scope(self.paged_kernel):
+            for j in range(k + 1):
+                tab = torch.where((w["spec_len"] >= j)[:, None],
+                                  w["tables"], scratch)
+                logits, _ = self.draft_model.decode_step(
+                    cur[:, None], self._draft_caches, w["pos"] + j,
+                    block_tables=tab)
+                if j == k:
+                    break               # the write-only step: no proposal
+                lo = logits[:, 0, :].float() + w["bias"]
+                cur = torch.argmax(lo, dim=-1)
+                if noise is not None:
+                    scaled = lo / torch.clamp(w["temps"], min=1e-6)[:, None]
+                    filt = _filter_top_k_top_p(scaled, w["top_k"],
+                                               w["top_p"])
+                    cur = torch.where(w["sample"],
+                                      torch.argmax(filt + noise[j], dim=-1),
+                                      cur)
+                    w["draft_probs"][:, j].copy_(torch.softmax(filt,
+                                                               dim=-1))
+                w["draft_toks"][:, j].copy_(cur)
+        return w["draft_toks"], w["draft_probs"]
+
+    def _wave_program(self, sampled):
+        """The verify over the wave buffers: the target's decode_chunk on
+        [tok, d_1 .. d_k] at each lane's position, then the tail (its
+        draws filled in place when a lane samples). Returns the packed
+        int64 read-back [S * C + 4 S] (out, n_emit, nxt, new_pos, finite)
+        and the f32 logits [S, C, V]."""
+        w = self.wave_inputs.tensors
+        noise = None
+        if sampled:
+            noise = (w["u"].uniform_(0, 1, generator=self._gen),
+                     gumbel_(w["g_res"], self._gen),
+                     gumbel_(w["g_fb"], self._gen))
+        chunk = torch.cat([w["tok"][:, None], w["draft_toks"]], dim=1)
+        with paged_attention.kernel_scope(self.paged_kernel):
+            logits, _ = self.model.decode_chunk(
+                chunk, self._caches, w["tables"], w["pos"],
+                w["spec_len"] + 1)
+        lo = logits.float()
+        out, n_emit, nxt, new_pos, finite = _spec_verify_tail(
+            lo, w["tok"], w["pos"], w["active"], w["sample"], w["temps"],
+            w["top_k"], w["top_p"], w["bias"], w["spec_len"],
+            w["draft_toks"], w["draft_probs"], noise)
+        return torch.cat([out.reshape(-1), n_emit, nxt, new_pos,
+                          finite.long()]), lo
+
+    # ------------------------------------------------------------- waves
+    def _stage_wave(self, host, active_now):
+        super()._stage_wave(host, active_now)
+        host["spec_len"][:] = self._wave_spec_len
+
+    def _prepare_wave(self, active_now):
+        """Back every position the wave may write — pos .. pos + spec_len
+        per lane (the draft's writes and the verify chunk's span) — with
+        allocated, exclusively owned blocks. Allocation is atomic per
+        lane; a lane that cannot get its span is starved out of the wave
+        and preempted by recompute, as on the single-token engine."""
+        starved, bs = [], self.block_size
+        for s, live in enumerate(active_now):
+            if not live:
+                continue
+            last_bi = (self.slot_pos[s] + self._wave_spec_len[s]) // bs
+            blocks = self._slot_blocks[s]
+            try:
+                missing = last_bi + 1 - len(blocks)
+                if missing > 0:
+                    for blk in self.block_pool.alloc(missing):
+                        blocks.append(blk)
+                        self._tables[s, len(blocks) - 1] = blk
+                for bi in range(self.slot_pos[s] // bs, last_bi + 1):
+                    if self.block_pool.refcount(blocks[bi]) > 1:
+                        self._ensure_private(s, bi)
+            except BlockPoolExhausted:
+                starved.append(s)
+                active_now[s] = False
+        self.last_starved_slots = starved
+        return active_now
+
+    def _rollback_spec_blocks(self, wave_slots):
+        """Return the blocks allocated ahead that the acceptance did not
+        commit: after the wave a lane holds exactly the blocks covering
+        its committed positions [0, pos). Fresh speculative blocks are
+        never hashed and never shared, so they go straight back."""
+        bs = self.block_size
+        for s in wave_slots:
+            blocks = self._slot_blocks[s]
+            needed = max(1, (self.slot_pos[s] + bs - 1) // bs)
+            if len(blocks) > needed:
+                extra = blocks[needed:]
+                del blocks[needed:]
+                self._tables[s, needed:] = 0
+                self.block_pool.release(extra)
+
+    def decode_wave(self):
+        """One speculative wave: draft k, verify once, accept exactly.
+        Returns {slot: [tokens]}, 1 .. k + 1 tokens per healthy lane (the
+        scheduler streams them in order and retires mid-batch). Lanes
+        whose logits went non-finite emit nothing and are listed in
+        `last_nonfinite_slots`; every waved lane's speculation is rolled
+        back. `last_spec_proposed` / `last_spec_accepted` count the
+        wave's draft tokens (0 when no wave ran)."""
+        self.last_spec_proposed = self.last_spec_accepted = 0
+        active_now = list(self.slot_active)
+        if not any(active_now):
+            self.last_nonfinite_slots = []
+            self.last_starved_slots = []
+            return {}
+        # per-lane draft span: the horizon clamps it (writes stop at
+        # max_len - 1). A dynamic token mask would run its lane at 0 (a
+        # plain decode inside the same program); the port has no token
+        # mask yet (ROADMAP Queue 1 item 1d)
+        spec_len = [0] * self.num_slots
+        for s, live in enumerate(active_now):
+            if live:
+                limit = self.max_len - 1 - self.slot_pos[s]
+                spec_len[s] = max(0, min(self.spec_k, limit))
+        self._wave_spec_len = spec_len
+        active_now = self._prepare_wave(active_now)
+        if not any(active_now):
+            self.last_nonfinite_slots = []
+            return {}
+        sampled = self._upload_wave(active_now)
+        self.draft_program(sampled)
+        picked, self.last_wave_logits = self.wave_program(sampled)
+        self.decode_waves_run += 1
+        # the one device->host sync of the wave
+        read = picked.tolist()
+        S, C = self.num_slots, self.spec_k + 1
+        out_toks = read[:S * C]
+        n_emit, nxt, new_pos, finite = (read[S * C + i * S:S * C + (i + 1) * S]
+                                        for i in range(4))
+        out, bad, waved = {}, [], []
+        for s, was_active in enumerate(active_now):
+            if not was_active:
+                continue
+            waved.append(s)
+            if not finite[s]:
+                bad.append(s)
+                continue
+            n = n_emit[s]
+            self.last_spec_proposed += spec_len[s]
+            self.last_spec_accepted += n - 1   # the extra token is never
+            self.slot_pos[s] = new_pos[s]      # a draft's
+            self.slot_tok[s] = nxt[s]
+            out[s] = out_toks[s * C:s * C + n]
+        self.last_nonfinite_slots = bad
+        # blocks of rejected tokens go back now, non-finite lanes' too
+        self._rollback_spec_blocks(waved)
+        return out

@@ -8,7 +8,9 @@ prefill advances one engine step per scheduling round
 on the paged engine), so a long prompt's admission folds between decode
 waves. Retirement (EOS / stop
 sequence / max_tokens / cache horizon / timeout) frees slots between
-waves and the freed slot is refilled in the next round.
+waves and the freed slot is refilled in the next round. A speculative
+engine's wave gives each lane a list of tokens, streamed in order up to
+the first retirement.
 
 A dense engine never starves: its slots own their cache rows. Paged
 capacity: an exhausted block pool at admission queues the head request
@@ -144,8 +146,12 @@ class Scheduler:
             self._maybe_retire(slot, first)
 
     # ---------------------------------------------------------- wave loop
-    def _maybe_retire(self, slot, last_token):
-        """Retire the slot if its request just finished."""
+    def _maybe_retire(self, slot, last_token, check_length=True):
+        """Retire the slot if its request just finished. check_length=False
+        skips the horizon check for the NON-final tokens of a speculative
+        batch: slot_pos already counts the whole batch, and only its last
+        token is the one written at the horizon — retiring on an earlier
+        one would drop tokens the plain engine delivers."""
         req = self._slot_req[slot]
         reason = None
         if req.eos_token_id is not None and last_token == req.eos_token_id:
@@ -154,7 +160,7 @@ class Scheduler:
             reason = "stop"
         elif len(req.output_tokens) >= req.max_tokens:
             reason = "max_tokens"
-        elif self.engine.slot_full(slot):
+        elif check_length and self.engine.slot_full(slot):
             reason = "length"
         elif req._timed_out():
             reason = "timeout"
@@ -203,6 +209,7 @@ class Scheduler:
                 waved = len(active) - len(self.engine.last_starved_slots)
                 if waved > 0:
                     self.metrics.on_wave(waved)
+                    self._record_spec_wave()
                 for slot in self.engine.last_nonfinite_slots:
                     req = self._slot_req[slot]
                     self.engine.retire_slot(slot)
@@ -211,14 +218,34 @@ class Scheduler:
                     req._fail("non-finite logits in decode wave")
                     self._complete(req)
                 now = time.monotonic()
-                for slot, tok in toks.items():
+                for slot, emitted in toks.items():
                     req = self._slot_req[slot]
-                    prev_t = req.last_token_time
-                    req._emit(tok)
-                    self.metrics.on_token(now, prev_t=prev_t)
-                    self._maybe_retire(slot, tok)
+                    # a speculative wave emits a BATCH per lane: stream it
+                    # in order and stop at the first retirement (eos,
+                    # stop, budget, horizon); the rest of the batch is
+                    # what the plain wave would never have generated
+                    if not isinstance(emitted, list):
+                        emitted = [emitted]
+                    for j, tok in enumerate(emitted):
+                        # the batch's tokens arrive together: their gaps
+                        # are 0 (the previous token's own stamp, taken
+                        # after `now`, would give a negative sample)
+                        prev_t = req.last_token_time if j == 0 else now
+                        req._emit(tok)
+                        self.metrics.on_token(now, prev_t=prev_t)
+                        self._maybe_retire(
+                            slot, tok, check_length=j == len(emitted) - 1)
+                        if self._slot_req[slot] is None:
+                            break
                 self._preempt_starved()
             return self.in_flight() + self.queue_depth()
+
+    def _record_spec_wave(self):
+        """A speculative engine's draft economics for the wave: tokens
+        proposed (the lanes' spec_len) and accepted."""
+        proposed = self.engine.last_spec_proposed
+        if proposed is not None:
+            self.metrics.on_spec(proposed, self.engine.last_spec_accepted)
 
     def in_flight(self):
         return sum(1 for r in self._slot_req if r is not None)

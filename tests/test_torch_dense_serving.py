@@ -276,5 +276,10 @@ def test_front_door_with_default_config_serves_dense(models):
     assert type(pred.engine) is ServingEngine
     assert pred.engine.describe()["prefill_len"] == 32
     assert _stream(pred.scheduler, _jobs(1)) == _jax_stream(jm, 1)
-    with pytest.raises(NotImplementedError, match="1b"):
-        inference.Config().enable_llm_engine(speculative=True)
+    # speculative=True arms the paged speculative engine, which needs a
+    # draft (tests/test_torch_spec.py serves it)
+    spec = inference.Config().enable_llm_engine(speculative=True,
+                                                device="cpu")
+    assert spec._llm_opts["paged"] and spec._llm_opts["spec_k"] == 4
+    with pytest.raises(ValueError, match="draft"):
+        inference.create_llm_predictor(spec, model=tm)

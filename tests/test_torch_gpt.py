@@ -170,15 +170,20 @@ def test_decode_kernels_agree(pair, kernel):
 def test_unported_entry_points_name_the_roadmap(pair):
     _, tm = pair
     ids = torch.zeros((1, 4), dtype=torch.long)
-    # the training forward and the dense serving methods are ported
-    # (tests/test_torch_train.py, tests/test_torch_dense_serving.py)
+    # the training forward, the dense serving methods and the
+    # speculative verify are ported (tests/test_torch_train.py,
+    # tests/test_torch_dense_serving.py, tests/test_torch_spec.py)
     assert tm(ids).shape == (1, 4, SMALL["vocab_size"])
     logits, caches = tm.prefill(ids, 8)
     assert logits.shape == (1, 4, SMALL["vocab_size"])
     assert tm.decode_step(ids[:, :1], caches, 4)[0].shape == \
         (1, 1, SMALL["vocab_size"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.decode_chunk(ids, [], None, 0, 1)
+    pools = tm.init_paged_cache(NB, BS, MAX_LEN)
+    tables = torch.tensor([[1, 2, 0, 0, 0, 0]], dtype=torch.int32)
+    logits, _ = tm.decode_chunk(ids, pools, tables, torch.tensor([3]),
+                                torch.tensor([4]))
+    assert logits.shape == (1, 4, SMALL["vocab_size"])
+    assert bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.GPTConfig(moe_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

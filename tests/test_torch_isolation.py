@@ -123,8 +123,9 @@ def test_unported_front_door_options_name_the_roadmap():
     # the dense engine is ported: paged=False (the default) arms
     assert inference.Config().enable_llm_engine(
         paged=False).llm_engine_enabled()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inference.Config().enable_llm_engine(paged=True, speculative=True)
+    # speculative decoding is ported (tests/test_torch_spec.py)
+    assert inference.Config().enable_llm_engine(
+        paged=True, speculative=True, k=3)._llm_opts["spec_k"] == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inference.Config().enable_llm_fleet(replicas=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
