@@ -63,7 +63,20 @@ its phases:
                 draft) eager and graphed: graphed streams equal to
                 eager, one graph per program (three), streams equal to
                 the paged engine's except where its top-2 logit margin
-                is under 1e-3 (position and margin reported);
+                is under 1e-3 (position and margin reported); a
+                prefill-role and a decode-role engine, graphed, joined
+                by the handoff loop: streams equal the paged engine's
+                (the same near-tie rule), one graph of each role's own
+                program and none of the other's, every payload equal to
+                its blocks gathered after synchronize(), a payload with
+                one flipped byte refused with the pool unchanged; a
+                dynamic token mask through the graphed dense, paged and
+                speculative engines (every masked token allowed, the
+                unmasked streams equal the paged ones, masked spec lanes
+                propose nothing); one injected wave fault on the graphed
+                paged engine (greedy and sampled streams equal the
+                unfaulted ones, one retry); drain() then close() (work
+                completes, a new submit is shed, health "draining");
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
                 kernels against the dense reference: step-1 gradients,
                 5-step SGD and AdamW loss trajectories, window off/on;
@@ -109,6 +122,16 @@ its phases:
                 kernel group; then the target as its own draft
                 (acceptance near 1: the bonus token) and the paged
                 engine on the same traffic;
+  serve_disagg  the serve phase's 16 requests through a prefill-role and
+                a decode-role scheduler of 8 slots each (one card),
+                joined by the handoff loop of the JAX fleet's
+                DisaggFleetRouter, twice: tokens/s, TTFT, TPOT (the
+                decode hop's gaps, the seam, each request's mean), the
+                handoff's bytes and host ms a request (export, import,
+                the sha256 digests apart), K4's launches per role (the
+                prefill role's chunk form, the decode role's decode
+                form); then the unified paged engine on the same
+                traffic;
   train         GPT-2 small in bf16 at bench.py's GPU shapes through
                 `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
                 in `jit.TrainStep`, one CUDA graph per step after the
@@ -169,7 +192,8 @@ OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
-          "serve", "serve_dense", "serve_spec", "train", "train_fused_head")
+          "serve", "serve_dense", "serve_spec", "serve_disagg", "train",
+          "train_fused_head")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -1228,6 +1252,10 @@ def parity_phase(dev, smi):
     dense = dense_parity(model, prompts, dev, ref_toks, ref_steps, out_toks,
                          tol, graph_tol)
     spec = spec_parity(model, prompts, dev, out_toks, out_steps, tol)
+    disagg = disagg_parity(model, prompts, dev, out_toks, out_steps, tol)
+    mask = mask_parity(model, prompts, dev, out_toks, out_steps, tol)
+    fault = fault_parity(model, prompts, dev, g_toks, s1, knobs)
+    drain = drain_check(model, prompts, dev)
     emit("parity", dtype="float32", layers=LAYERS, requests=len(prompts),
          steps_compared=compared, max_logit_err=max_err, tolerance=tol,
          max_abs_logit=scale, near_tie_steps=near_ties,
@@ -1245,7 +1273,8 @@ def parity_phase(dev, smi):
                   "compiles": {"decode": s_eng.decode_compiles,
                                "prefill": s_eng.prefill_compiles},
                   "distinct_tokens": [len(set(t)) for t in s1]},
-         dense=dense, spec=spec, nvidia_smi=smi)
+         dense=dense, spec=spec, disagg=disagg, token_mask=mask,
+         wave_fault=fault, drain=drain, nvidia_smi=smi)
 
 
 def distilgpt2_shape(**kw):
@@ -1279,6 +1308,27 @@ def spec_streams(model, draft, prompts, max_tokens, dev, graphed):
     return [r.output_tokens for r in reqs], pred
 
 
+def near_tie_check(name, want_toks, want_steps, got_toks, tol):
+    """Streams equal the reference's, or part from it at a position where
+    the reference's top-2 logit margin is under `tol`. Returns where."""
+    import torch
+    diverged = []
+    for i, (want, got) in enumerate(zip(want_toks, got_toks)):
+        check(len(got) == len(want), f"{name} request {i}: {len(got)} "
+                                     f"tokens, want {len(want)}")
+        for t, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                top2 = torch.topk(want_steps[i][t], 2).values
+                gap = (top2[0] - top2[1]).item()
+                check(gap < tol, f"{name} request {i} position {t}: "
+                                 f"tokens {a} vs {b} with top-2 margin "
+                                 f"{gap} >= {tol}")
+                diverged.append({"request": i, "position": t,
+                                 "top2_margin": gap})
+                break
+    return diverged
+
+
 def spec_parity(model, prompts, dev, paged_toks, paged_steps, tol):
     """fp32 greedy streams of the speculative engine at GPT-2 width (a
     DistilGPT2-shaped random draft, and the target as its own draft),
@@ -1305,20 +1355,8 @@ def spec_parity(model, prompts, dev, paged_toks, paged_steps, tol):
                     "prefill": eng.prefill_compiles}
         check(compiles == {"draft": 1, "verify": 1, "prefill": 1},
               f"spec {name}: graphed greedy engine compiled {compiles}")
-        diverged = []
-        for i, (want, got) in enumerate(zip(paged_toks, eager)):
-            check(len(got) == len(want) == 16,
-                  f"spec {name} request {i}: {len(got)} tokens")
-            for t, (a, b) in enumerate(zip(want, got)):
-                if a != b:
-                    top2 = torch.topk(paged_steps[i][t], 2).values
-                    gap = (top2[0] - top2[1]).item()
-                    check(gap < tol, f"spec {name} request {i} position "
-                                     f"{t}: tokens {a} vs {b} with top-2 "
-                                     f"margin {gap} >= {tol}")
-                    diverged.append({"request": i, "position": t,
-                                     "top2_margin": gap})
-                    break
+        diverged = near_tie_check(f"spec {name}", paged_toks, paged_steps,
+                                  eager, tol)
         snap = e_pred.metrics.snapshot()
         out[name] = {"streams_equal_paged": eager == paged_toks,
                      "diverged_at": diverged,
@@ -1396,6 +1434,264 @@ def dense_parity(model, prompts, dev, ref_toks, ref_steps, paged_toks, tol,
 
 
 # ---------------------------------------------------------------------------
+# the serving policy: disaggregated roles, token masks, wave faults, drain
+# ---------------------------------------------------------------------------
+
+def handoff_loop(prefill, decode, jobs):
+    """Disaggregated serving's round (the JAX fleet's DisaggFleetRouter
+    .step / ._handoff): step the prefill-role scheduler, hand each staged
+    (request, payload) to the decode-role scheduler as prompt + first
+    token with the remaining budget, step the decode role; until both
+    are idle. Returns [(prefill hop, decode hop or None)] per job."""
+    from paddle_tpu_torch.serving import Request
+    firsts = [prefill.submit(prompt=p, max_tokens=m) for p, m in jobs]
+    hops = {}
+    while True:
+        pending = prefill.step()
+        for req, payload in prefill.take_handoffs():
+            check(payload is not None,
+                  f"handoff export failed: {prefill.last_error!r}")
+            hops[id(req)] = decode.submit(request=Request(
+                prompt=req.prompt + req.output_tokens,
+                max_tokens=req.max_tokens - len(req.output_tokens),
+                handoff=payload))
+        pending += decode.step()
+        if not pending:
+            return [(r, hops.get(id(r))) for r in firsts]
+
+
+def hop_stream(first, hop):
+    return first.output_tokens + (hop.output_tokens if hop else [])
+
+
+def role_schedulers(model, num_slots, max_len, chunk, graphed=True):
+    """A prefill-role and a decode-role scheduler, each over its own
+    PagedServingEngine of one geometry, sharing `model`."""
+    from paddle_tpu_torch.serving import PagedServingEngine, Scheduler
+    return [Scheduler(PagedServingEngine(
+        model, num_slots=num_slots, max_len=max_len, block_size=BLOCK,
+        prefill_chunk_len=chunk, device=model.device, cuda_graph=graphed),
+        role=role) for role in ("prefill", "decode")]
+
+
+def disagg_parity(model, prompts, dev, paged_toks, paged_steps, tol):
+    """fp32 disaggregated serving: a prefill-role and a decode-role
+    engine, graphed, joined by the handoff loop. Streams equal the
+    unified paged engine's (near ties aside); the roles stay pure by
+    graph count; every payload equals a gather of its blocks taken after
+    synchronize(); a payload with one flipped byte is refused with the
+    importing pool unchanged."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import HandoffRefused
+    prefill, decode = role_schedulers(model, 4, 256, CHUNK)
+    pe, de = prefill.engine, decode.engine
+    export, exported = pe.export_slot_kv, []
+
+    def checked_export(slot):
+        blocks = list(pe._slot_blocks[slot])
+        req = prefill._slot_req[slot]
+        payload = export(slot)
+        torch.cuda.synchronize()
+        idx = torch.tensor(blocks, device=dev)
+        for pool, a in zip(pe._pool_leaves(), payload["layers"]):
+            check(np.array_equal(pool.index_select(0, idx).cpu().numpy(),
+                                 a), "a payload differs from its blocks "
+                                     "gathered after synchronize()")
+        exported.append((req.prompt + req.output_tokens, payload))
+        return payload
+    pe.export_slot_kv = checked_export
+    pairs = handoff_loop(prefill, decode, [(p, 16) for p in prompts])
+    toks = [hop_stream(a, b) for a, b in pairs]
+    diverged = near_tie_check("disagg", paged_toks, paged_steps, toks, tol)
+    compiles = {"prefill_role": {"decode": pe.decode_compiles,
+                                 "prefill": pe.prefill_compiles},
+                "decode_role": {"decode": de.decode_compiles,
+                                "prefill": de.prefill_compiles}}
+    check(compiles == {"prefill_role": {"decode": 0, "prefill": 1},
+                       "decode_role": {"decode": 1, "prefill": 0}},
+          f"disagg roles compiled {compiles}")
+    check(pe.decode_waves_run == 0 and de.prefill_chunks_run == 0,
+          "a role ran the other role's program")
+    cont, payload = exported[0]
+    bad = dict(payload, layers=[np.array(a) for a in payload["layers"]])
+    bad["layers"][0].view(np.uint8).flat[0] ^= 1
+    used = de.block_pool.used
+    try:
+        de.import_handoff(0, cont, bad)
+        refused = False
+    except HandoffRefused:
+        refused = True
+    check(refused and de.block_pool.used == used and not de.slot_active[0],
+          "a corrupt payload was not refused with the pool rolled back")
+    de.import_handoff(0, cont, payload)
+    check(de.slot_active[0] and de.block_pool.used == used + len(
+        payload["manifest"]), "the pristine payload did not import")
+    de.retire_slot(0)
+    torch.cuda.synchronize()
+    return {"streams_equal_paged": toks == paged_toks,
+            "diverged_at": diverged, "compiles": compiles,
+            "payloads_checked": len(exported),
+            "payload_bytes": [p["nbytes"] for _, p in exported],
+            "corrupt_payload_refused": refused}
+
+
+MASK_ALLOWED = (3, 5, 9)
+
+
+def alternating_mask(vocab):
+    """The JAX token-mask test's mask (tests/test_serving_spec.py) over a
+    vocabulary: the legal token alternates with the emitted stream's
+    length."""
+    import numpy as np
+
+    def mask(req):
+        m = np.zeros((vocab,), bool)
+        m[MASK_ALLOWED[len(req.output_tokens) % len(MASK_ALLOWED)]] = True
+        return m
+    return mask
+
+
+def policy_predictor(model, kind, dev, draft=None, graphed=True):
+    """The parity phase's configuration of an engine kind (dense, paged,
+    spec) through the front door."""
+    from paddle_tpu_torch import inference
+    cfg = inference.Config()
+    cfg.switch_ir_optim(graphed)
+    if kind == "dense":
+        cfg.enable_llm_engine(num_slots=4, max_len=256, prefill_len=256,
+                              device=dev)
+    else:
+        cfg.enable_llm_engine(paged=True, speculative=kind == "spec",
+                              k=SPEC_K, num_slots=4, max_len=256,
+                              block_size=BLOCK, prefill_len=CHUNK,
+                              device=dev)
+    return inference.create_llm_predictor(cfg, model=model,
+                                          draft_model=draft)
+
+
+def masked_run(pred, jobs):
+    """jobs [(prompt, masked)]: 16 tokens each, the masked ones under
+    the alternating token mask."""
+    mask = alternating_mask(pred.engine.vocab_size)
+    reqs = [pred.submit(prompt=prompt, max_tokens=16,
+                        token_mask=mask if masked else None)
+            for prompt, masked in jobs]
+    pred.run()
+    return reqs
+
+
+def mask_parity(model, prompts, dev, paged_toks, paged_steps, tol):
+    """A dynamic token mask through the graphed dense, paged and
+    speculative engines (a DistilGPT2-shaped draft): every masked token
+    is allowed, the unmasked streams equal the paged engine's (near ties
+    aside), and with only masked lanes the speculative engine proposes
+    no draft token."""
+    import torch
+    from paddle_tpu_torch.nlp import GPTForPretraining
+    draft = GPTForPretraining(distilgpt2_shape(initializer_range=0.1),
+                              device=dev, dtype=torch.float32,
+                              seed=SEED + 7)
+    want = [MASK_ALLOWED[i % 3] for i in range(16)]
+    jobs = [(p, i < 2) for i, p in enumerate(prompts)]
+    out = {}
+    for kind in ("dense", "paged", "spec"):
+        pred = policy_predictor(model, kind, dev, draft)
+        reqs = masked_run(pred, jobs)
+        check(all(r.output_tokens == want for r in reqs[:2]),
+              f"{kind}: masked streams {[r.output_tokens for r in reqs]}")
+        out[kind] = near_tie_check(f"masked {kind}", paged_toks[2:],
+                                   paged_steps[2:],
+                                   [r.output_tokens for r in reqs[2:]], tol)
+        check(pred.engine.decode_compiles >= 1,
+              f"{kind}: the masked run was not graphed")
+        del pred
+    pred = policy_predictor(model, "spec", dev, draft)
+    reqs = masked_run(pred, [(p, True) for p in prompts[:2]])
+    snap = pred.metrics.snapshot()
+    check(all(r.output_tokens == want for r in reqs)
+          and snap["spec_tokens_proposed"] == 0 and snap["decode_waves"] > 0,
+          f"masked spec lanes proposed {snap['spec_tokens_proposed']}")
+    del pred, draft
+    torch.cuda.synchronize()
+    return {"allowed": list(MASK_ALLOWED), "unmasked_diverged_at": out,
+            "masked_spec_proposed": snap["spec_tokens_proposed"],
+            "masked_spec_waves": snap["decode_waves"]}
+
+
+class FaultyWave:
+    """An engine's wave program that raises at its `fail_at`-th call,
+    before the program runs (nothing on the card moves and the generator
+    is untouched), as the JAX package's chaos hook does."""
+
+    def __init__(self, program, fail_at):
+        self._program, self._fail_at, self.calls = program, fail_at, 0
+
+    def __call__(self, key):
+        self.calls += 1
+        if self.calls == self._fail_at:
+            raise RuntimeError("injected wave fault")
+        return self._program(key)
+
+    def __getattr__(self, name):
+        return getattr(self._program, name)
+
+
+def fault_parity(model, prompts, dev, greedy_toks, sampled_toks, knobs):
+    """One wave fault injected into the graphed paged engine (its first
+    replay): the wave is retried once, and the greedy stream and the
+    sampled one (same seed) equal the unfaulted graphed engine's."""
+    out = {}
+    for name, want, kw in (("greedy", greedy_toks, {}),
+                           ("sampled", sampled_toks, knobs)):
+        pred = policy_predictor(model, "paged", dev)
+        pred.engine.wave_program = FaultyWave(pred.engine.wave_program, 3)
+        reqs = [pred.submit(prompt=p, max_tokens=16, **kw) for p in prompts]
+        pred.run()
+        snap = pred.metrics.snapshot()
+        got = [r.output_tokens for r in reqs]
+        check(got == want, f"faulted {name} streams {got} != {want}")
+        check(snap["wave_retries"] == 1
+              and snap["faults"] == {"wave_error": 1},
+              f"faulted {name}: retries {snap['wave_retries']}, faults "
+              f"{snap['faults']}")
+        check(pred.engine.decode_compiles == 1 and not pred.scheduler.degraded,
+              f"faulted {name}: compiles {pred.engine.decode_compiles}")
+        out[name] = {"streams_equal": True,
+                     "wave_retries": snap["wave_retries"],
+                     "replays": pred.engine.wave_program.replays}
+        del pred
+    return out
+
+
+def drain_check(model, prompts, dev):
+    """drain() mid-stream on the graphed paged engine, then the
+    predictor's close() (shutdown): accepted work completes, a new submit
+    is shed as rejected, health() reads "draining"."""
+    pred = policy_predictor(model, "paged", dev)
+    reqs = [pred.submit(prompt=p, max_tokens=16)
+            for p in prompts + prompts[:2]]             # 4 slots + 2 queued
+    pred.scheduler.step()
+    pred.scheduler.drain()
+    status = pred.health()["status"]
+    try:
+        pred.submit(prompt=prompts[0], max_tokens=4)
+        shed = None
+    except ValueError as e:
+        shed = str(e)
+    pred.close()
+    check(status == "draining" and shed is not None
+          and "draining" in shed, f"drain: health {status}, submit {shed}")
+    check(all(r.finish_reason == "max_tokens" and len(r.output_tokens) == 16
+              for r in reqs),
+          f"drain: finish reasons {[r.finish_reason for r in reqs]}")
+    snap = pred.metrics.snapshot()
+    check(snap["rejected"] == 1, f"drain: {snap['rejected']} rejected")
+    return {"health_status": status, "late_submit": "rejected",
+            "completed": len(reqs), "rejected": snap["rejected"]}
+
+
+# ---------------------------------------------------------------------------
 # serve: GPT-2 small, bf16, through the front door, graphed and eager
 # ---------------------------------------------------------------------------
 
@@ -1420,6 +1716,8 @@ def serve_run(pred, prompts):
     its K4 launches: from Python (eager), or the graphs' captured
     launches times their replays in the run, which must launch nothing
     from Python."""
+    import statistics
+
     import torch
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.serving import ServingMetrics
@@ -1480,7 +1778,9 @@ def serve_run(pred, prompts):
     tokens = sum(len(r.output_tokens) for r in reqs)
     return {"graphed": graphed, "tokens_generated": tokens, "wall_s": wall,
             "tokens_per_s": tokens / wall, "ttft_p50_s": snap["ttft_p50_s"],
-            "tpot_p50_s": snap["tpot_p50_s"], "rounds": rounds,
+            "tpot_p50_s": snap["tpot_p50_s"],
+            "request_mean_tpot_p50_s": statistics.median(
+                r.tpot for r in reqs), "rounds": rounds,
             "host_ms_per_round": wall * 1e3 / rounds, "decode_waves": waves,
             "prefill_chunks": chunks, "compiles": compiles,
             "k4_launches": launches,
@@ -2106,6 +2406,178 @@ def serve_spec_phase(dev, smi):
          paged_beside={k: paged[k] for k in (
              "tokens_per_s", "tpot_p50_s", "ttft_p50_s",
              "host_ms_per_round", "decode_waves", "prefill_chunks")},
+         nvidia_smi=smi)
+    return main_launches
+
+
+# ---------------------------------------------------------------------------
+# serve_disagg: a prefill role and a decode role joined by the KV handoff
+# ---------------------------------------------------------------------------
+
+def disagg_run(scheds, prompts):
+    """One timed run of the 16 requests through warmed-up role
+    schedulers and the handoff loop: tokens/s, TTFT (the prefill hop's
+    first token), TPOT (the decode hop's gaps, the seam gap from the
+    first token to the decode hop's first, and each request's mean gap),
+    the handoff's bytes and host ms per request (export: gather, copy to
+    the host and digest; import: digest and copy into the pools; the
+    digests' share apart), and K4's launches per role: each graph's
+    captured launches times its replays (a graphed run launches nothing
+    from Python)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import ServingMetrics
+    from paddle_tpu_torch.serving.paged import engine as paged_engine
+
+    prefill, decode = scheds
+    pe, de = prefill.engine, decode.engine
+    ms = {"export": [], "import": [], "export_digest": [],
+          "import_digest": []}
+    nbytes, inside = [], []
+    export, import_handoff = pe.export_slot_kv, de.import_handoff
+    digest = paged_engine._handoff_digest
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            inside.append(name)
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ms[name].append((time.perf_counter() - t) * 1e3)
+                inside.pop()
+        return call
+
+    def timed_digest(*a):
+        t = time.perf_counter()
+        out = digest(*a)
+        ms[inside[-1] + "_digest"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def export_bytes(slot):
+        payload = export(slot)
+        nbytes.append(payload["nbytes"])
+        return payload
+    pe.export_slot_kv = timed("export", export_bytes)
+    de.import_handoff = timed("import", import_handoff)
+    paged_engine._handoff_digest = timed_digest
+    progs = {"prefill_role": pe.prefill_program,
+             "decode_role": de.wave_program}
+    replays0 = {k: p.replays for k, p in progs.items()}
+    before = kernels.launch_counts()
+    for sched in scheds:
+        sched.metrics = ServingMetrics(sched.engine.num_slots)
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        pairs = handoff_loop(prefill, decode, [(p, 64) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        paged_engine._handoff_digest = digest
+        pe.export_slot_kv, de.import_handoff = export, import_handoff
+    python = {k: n - before.get(k, 0)
+              for k, n in kernels.launch_counts().items()
+              if k.startswith("paged_attention.")}
+    check(all(hop is not None and hop.finish_reason == "max_tokens"
+              and len(hop_stream(a, hop)) == 64 for a, hop in pairs),
+          "disagg: finish reasons "
+          f"{[hop and hop.finish_reason for _, hop in pairs]}")
+    check(all(n == 0 for n in python.values()),
+          f"a graphed disagg run launched K4 from Python: {python}")
+    captured = {k: p.graphs[False].launches for k, p in progs.items()}
+    check(captured == {"prefill_role": {"paged_attention.chunk": LAYERS},
+                       "decode_role": {"paged_attention.decode": LAYERS}},
+          f"the role graphs hold the K4 launches {captured}")
+    replays = {k: p.replays - replays0[k] for k, p in progs.items()}
+    check(pe.decode_waves_run == 0 and de.prefill_chunks_run == 0
+          and replays["prefill_role"] > 0 and replays["decode_role"] > 0,
+          f"roles ran {replays}, prefill-role waves {pe.decode_waves_run},"
+          f" decode-role chunks {de.prefill_chunks_run}")
+    tokens = sum(len(hop_stream(a, b)) for a, b in pairs)
+    seam = [b.first_token_time - a.first_token_time for a, b in pairs]
+    mean_gap = [(b.last_token_time - a.first_token_time)
+                / (len(hop_stream(a, b)) - 1) for a, b in pairs]
+    snap = decode.metrics.snapshot()
+    return {"tokens_generated": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_s": float(np.median([a.ttft for a, _ in pairs])),
+            "tpot_p50_s_decode_hop": snap["tpot_p50_s"],
+            "seam_gap_p50_s": float(np.median(seam)),
+            "request_mean_tpot_p50_s": float(np.median(mean_gap)),
+            "handoff_bytes_per_request": float(np.mean(nbytes)),
+            "handoff_bytes_total": int(sum(nbytes)),
+            "handoff_ms_per_request_median": {
+                k: float(np.median(v)) for k, v in ms.items()},
+            "handoff_ms_per_request_mean": {
+                k: float(np.mean(v)) for k, v in ms.items()},
+            "digest_gb_per_s": 2 * sum(nbytes) / 1e6 / (
+                sum(ms["export_digest"]) + sum(ms["import_digest"])),
+            "prefill_chunks": replays["prefill_role"],
+            "decode_waves": replays["decode_role"],
+            "k4_launches": {"prefill_role_chunk":
+                            LAYERS * replays["prefill_role"],
+                            "decode_role_decode":
+                            LAYERS * replays["decode_role"]},
+            "phase_seconds": {"prefill_role":
+                              prefill.metrics.snapshot()["phase_seconds"],
+                              "decode_role": snap["phase_seconds"]}}
+
+
+def serve_disagg_phase(dev, smi):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
+
+    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
+                              device=dev, dtype=torch.bfloat16, seed=SEED)
+    # the serve phase's prompts
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, model.cfg.vocab_size,
+                            int(rng.integers(128, 769))).tolist()
+               for _ in range(16)]
+    runs, main_launches, counted = [], None, None
+    for _ in range(2):
+        if main_launches is None:
+            # the main path's run, from building the role engines to its
+            # last request: every count is 0 before it
+            for counts in kernels.COUNTERS.values():
+                for key in counts:
+                    counts[key] = 0
+        scheds = role_schedulers(model, LANES, NBLK * BLOCK, CHUNK)
+        # warm-up: a two-chunk prompt and three tokens run each role's
+        # program eagerly once, then capture it
+        handoff_loop(*scheds, [(list(range(1, 70)), 3)])
+        for sched, want in zip(scheds, ({"decode": 0, "prefill": 1},
+                                        {"decode": 1, "prefill": 0})):
+            got = {"decode": sched.engine.decode_compiles,
+                   "prefill": sched.engine.prefill_compiles}
+            check(got == want, f"the {sched.role} role compiled {got}")
+        runs.append(disagg_run(scheds, prompts))
+        if main_launches is None:
+            counted = {k: n for k, n in kernels.launch_counts().items()
+                       if k.startswith("paged_attention.")}
+            check(counted.get("paged_attention.chunk", 0) > 0
+                  and counted.get("paged_attention.decode", 0) > 0,
+                  f"the disagg path counted K4 launches {counted}")
+            main_launches = runs[0]["k4_launches"]
+        del scheds
+        gc.collect()
+        torch.cuda.empty_cache()
+    pred = serve_predictor(model, True)
+    unified = serve_run(pred, prompts)
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_disagg", model="gpt2_small", dtype="bfloat16", requests=16,
+         slots_per_role=LANES, order="disagg, disagg, unified", runs=runs,
+         counted_launches=counted,
+         unified_beside={k: unified[k] for k in (
+             "tokens_per_s", "ttft_p50_s", "tpot_p50_s",
+             "request_mean_tpot_p50_s", "host_ms_per_round", "wall_s",
+             "decode_waves", "prefill_chunks")},
          nvidia_smi=smi)
     return main_launches
 
@@ -3321,6 +3793,7 @@ def main():
     serve_launches = run("serve", serve_phase, dev, smi)
     dense_launches = run("serve_dense", serve_dense_phase, dev, smi)
     spec_launches = run("serve_spec", serve_spec_phase, dev, smi)
+    disagg_launches = run("serve_disagg", serve_disagg_phase, dev, smi)
     train_launches = run("train", train_phase, dev, peaks)
     fh = run("train_fused_head", train_fused_head_phase, dev, peaks)
     if fh is not None:
@@ -3339,6 +3812,9 @@ def main():
     # chunk form, and the verify (its own row, at its own shape)
     rows[0]["launches_serve_spec"] = spec_launches["draft"]
     rows[1]["launches_serve_spec"] = spec_launches["prefill"]
+    # serve_disagg: the decode role's waves, the prefill role's chunks
+    rows[0]["launches_serve_disagg"] = disagg_launches["decode_role_decode"]
+    rows[1]["launches_serve_disagg"] = disagg_launches["prefill_role_chunk"]
     row = dict(k["verify"])
     rows.append({"name": "paged_attention_verify", "route": "cuda",
                  "source": SOURCE, "replaces": REPLACES,

@@ -7,6 +7,8 @@ per run. `Program` runs a function over such buffers eagerly on the CPU
 (or with `cuda_graph=False`) and, on the card, as one CUDA graph per
 key: call 1 eager on a side stream, call 2 captured, then replays.
 """
+import gc
+
 import numpy as np
 import torch
 
@@ -127,6 +129,11 @@ class Program:
         return outs
 
     def _capture(self, key):
+        # a dead reference cycle may hold another program's graph (an
+        # engine and its scheduler's health probe form one): collected
+        # during this capture, that graph could not be reset, so collect
+        # it now (torch.cuda.graph no longer does)
+        gc.collect()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
         before = kernels.launch_counts()

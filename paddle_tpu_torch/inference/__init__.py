@@ -83,7 +83,8 @@ class Config:
 class LLMPredictor:
     """One Config-built Scheduler + engine pair (the dense
     ServingEngine, PagedServingEngine or SpeculativePagedEngine) with a
-    blocking generate() and the submit()/run() surface."""
+    blocking generate(), the submit()/run() surface, health() and a
+    graceful close()."""
 
     def __init__(self, config, model, draft_model=None):
         from ..serving import (PagedServingEngine, Scheduler, ServingEngine,
@@ -106,6 +107,19 @@ class LLMPredictor:
             self.engine = ServingEngine(
                 model, prefill_len=opts["prefill_len"], **common)
         self.scheduler = Scheduler(self.engine, max_queue=opts["max_queue"])
+
+    def close(self, drain=True):
+        """Graceful shutdown: drain the scheduler (accepted requests
+        complete, new submits are shed with finish_reason "rejected")
+        and run it dry. drain=False stops without running the loop (the
+        engine's graphs need no teardown)."""
+        if drain:
+            self.scheduler.shutdown()
+
+    def health(self):
+        """The engine's health payload (status ok | draining | degraded,
+        load, compile counts, pool occupancy on a paged engine)."""
+        return self.engine.health()
 
     def generate(self, prompt, **kw):
         kw.setdefault("eos_token_id", self._eos_token_id)

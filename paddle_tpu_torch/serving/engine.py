@@ -49,6 +49,8 @@ from ..nn.transformer import infer_cache_dtype
 
 _NEG = -1e9     # the logit-bias "forbidden" value and the filter fill
 
+HEALTH_STATES = ("ok", "degraded", "draining")
+
 
 def _filter_top_k_top_p(lo, top_k, top_p):
     """Per-row top-k then nucleus filtering of temperature-scaled logits
@@ -175,6 +177,9 @@ class ServingEngine:
         self.slot_temp = [1.0] * S
         self.slot_top_k = [0] * S
         self.slot_top_p = [1.0] * S
+        # a lane whose bias row is a token_mask the scheduler refreshes
+        # every wave: a speculative engine drafts nothing for it
+        self.slot_dynamic_mask = [False] * S
         self._slot_bias = np.zeros((S, self.vocab_size), np.float32)
         self._slot_bias_nonzero = [False] * S
         # rows of the device bias matrix to copy before the next wave
@@ -184,6 +189,13 @@ class ServingEngine:
         self._pending_prefill = {}
         self.last_nonfinite_slots = []
         self.last_starved_slots = []
+        self.health_state = "ok"
+        # the scheduler's queue-depth probe and an optional dict-returning
+        # probe merged into health() (newest wins for each)
+        self._queue_depth_fn = None
+        self._health_probe_fn = None
+        # slot -> (trace_id, trace_pid) of the admitted request
+        self._slot_trace = {}
         # draft tokens proposed and accepted by the latest wave: None for
         # an engine that drafts nothing (SpeculativePagedEngine counts)
         self.last_spec_proposed = self.last_spec_accepted = None
@@ -258,6 +270,49 @@ class ServingEngine:
         return self.model.init_cache(self.num_slots, self.max_len,
                                      dtype=self.cache_dtype)
 
+    # ------------------------------------------------------------ health
+    def attach_queue_probe(self, fn):
+        """Register the scheduler's zero-arg queue-depth callable, read by
+        health(). The newest scheduler wins."""
+        self._queue_depth_fn = fn
+
+    def attach_health_probe(self, fn):
+        """Register a zero-arg dict-returning callable merged into
+        health() (an SLO verdict, alert state). Newest wins."""
+        self._health_probe_fn = fn
+
+    def set_slot_trace(self, slot, trace_id, trace_pid=0):
+        """Record the admitted request's trace context on its slot
+        (cleared at retirement)."""
+        self._slot_trace[slot] = (int(trace_id), int(trace_pid))
+
+    def set_health_state(self, state):
+        """ok | degraded | draining: the scheduler sets it, so health()
+        reports the engine's real state."""
+        if state not in HEALTH_STATES:
+            raise ValueError(f"health state must be one of "
+                             f"{HEALTH_STATES}, got {state!r}")
+        self.health_state = state
+
+    def _health(self):
+        qfn = self._queue_depth_fn
+        h = {
+            "status": self.health_state,
+            "num_slots": self.num_slots,
+            "slots_active": len(self.active_slots()),
+            "queue_depth": int(qfn()) if qfn is not None else 0,
+            "max_len": self.max_len,
+            "decode_compiles": self.decode_compiles,
+            "prefill_compiles": self.prefill_compiles,
+        }
+        if self._health_probe_fn is not None:
+            h.update(self._health_probe_fn() or {})
+        return h
+
+    def health(self):
+        """The engine's health payload: status, load, compile counts."""
+        return self._health()
+
     # ------------------------------------------------------------- slots
     def free_slots(self):
         return [i for i, a in enumerate(self.slot_active)
@@ -287,6 +342,15 @@ class ServingEngine:
             return np.where(arr, 0.0, _NEG).astype(np.float32)
         return arr.astype(np.float32)
 
+    def set_slot_bias(self, slot, bias, dynamic=True):
+        """Replace the slot's logit-bias / token-mask row between waves
+        (the scheduler's per-wave token_mask refresh). The row reaches
+        the wave's static bias buffer by an in-place copy before the next
+        run. `dynamic` keeps a speculative engine from drafting ahead of
+        the lane."""
+        self._set_bias_row(slot, self._normalize_bias(bias))
+        self.slot_dynamic_mask[slot] = bool(dynamic)
+
     def _set_bias_row(self, slot, row):
         nonzero = bool(np.any(row))
         if nonzero or self._slot_bias_nonzero[slot]:
@@ -305,12 +369,14 @@ class ServingEngine:
         self.slot_top_k[slot] = int(sampling["top_k"])
         self.slot_top_p[slot] = float(sampling["top_p"])
         self._set_bias_row(slot, sampling["bias"])
+        self.slot_dynamic_mask[slot] = sampling["dynamic_mask"]
 
     def _sampling_state(self, do_sample, temperature, top_k, top_p,
-                        logit_bias):
+                        logit_bias, dynamic_mask=False):
         return {"sample": bool(do_sample), "temp": float(temperature),
                 "top_k": int(top_k), "top_p": float(top_p),
-                "bias": self._normalize_bias(logit_bias)}
+                "bias": self._normalize_bias(logit_bias),
+                "dynamic_mask": bool(dynamic_mask)}
 
     # --------------------------------------------------------- admission
     def validate_prompt(self, prompt):
@@ -326,9 +392,11 @@ class ServingEngine:
         return None
 
     def begin_prefill(self, slot, prompt, do_sample=False, temperature=1.0,
-                      top_k=0, top_p=1.0, logit_bias=None):
+                      top_k=0, top_p=1.0, logit_bias=None,
+                      dynamic_mask=False):
         """Stage an admission on the slot; the work runs in prefill_step,
-        which completes the dense prefill in one step."""
+        which completes the dense prefill in one step. `dynamic_mask`
+        flags a bias row the scheduler refreshes every wave."""
         why = self.validate_prompt(prompt)
         if why:
             raise ValueError(why)
@@ -336,17 +404,19 @@ class ServingEngine:
             raise RuntimeError(f"slot {slot} is busy")
         self._pending_prefill[slot] = (
             list(prompt), self._sampling_state(do_sample, temperature,
-                                               top_k, top_p, logit_bias))
+                                               top_k, top_p, logit_bias,
+                                               dynamic_mask))
 
     def prefill_step(self, slot):
         """Run the slot's staged admission. Returns its first token."""
         prompt, st = self._pending_prefill.pop(slot)
         return self.prefill_slot(slot, prompt, do_sample=st["sample"],
                                  temperature=st["temp"], top_k=st["top_k"],
-                                 top_p=st["top_p"], logit_bias=st["bias"])
+                                 top_p=st["top_p"], logit_bias=st["bias"],
+                                 dynamic_mask=st["dynamic_mask"])
 
     def prefill_slot(self, slot, prompt, do_sample=False, temperature=1.0,
-                     top_k=0, top_p=1.0, logit_bias=None):
+                     top_k=0, top_p=1.0, logit_bias=None, dynamic_mask=False):
         """Admit a prompt into a free slot: run the prefill program (the
         slot index, the prompt and the knobs staged into its buffers),
         arm the slot for the next wave. Returns the first token."""
@@ -356,7 +426,7 @@ class ServingEngine:
         if self.slot_active[slot]:
             raise RuntimeError(f"slot {slot} is busy")
         sampling = self._sampling_state(do_sample, temperature, top_k,
-                                        top_p, logit_bias)
+                                        top_p, logit_bias, dynamic_mask)
         n = len(prompt)
         host = self.prefill_inputs.stage()
         host["prompt"][...] = 0
@@ -504,5 +574,7 @@ class ServingEngine:
         self.slot_temp[slot] = 1.0
         self.slot_top_k[slot] = 0
         self.slot_top_p[slot] = 1.0
+        self.slot_dynamic_mask[slot] = False
         self._set_bias_row(slot, np.zeros((self.vocab_size,), np.float32))
         self._pending_prefill.pop(slot, None)
+        self._slot_trace.pop(slot, None)

@@ -1,7 +1,10 @@
 """Per-scheduler serving metrics (a subset of
 `paddle_tpu/serving/metrics.py` `ServingMetrics`): TTFT, TPOT, request
-latency, tokens, decode waves and prefill chunks, and the speculative
-engine's draft tokens proposed and accepted.
+latency, tokens, decode waves and prefill chunks, the speculative
+engine's draft tokens proposed and accepted, wave retries, the queue's
+peak, the per-round phase split, the paged pool's block occupancy and
+the prefix cache's hits and misses. The counters live in `snapshot()`
+only: the port has no telemetry registry or Prometheus gauges yet.
 
 Percentiles are exact over the most recent `window` samples of each
 kind (a long-running server keeps a bounded tail, not every sample it
@@ -13,6 +16,12 @@ import collections
 import threading
 
 import numpy as np
+
+#: scheduler-round phases whose wall time `on_phase` accumulates (the
+#: keys of snapshot()'s `phase_seconds`): admission, one prefill chunk
+#: per mid-admission slot, the decode wave (its sampling tail is inside
+#: the program) and the host's token dispatch
+PHASES = ("admission", "prefill_chunk", "decode_wave", "host_dispatch")
 
 
 def _percentile(samples, q):
@@ -40,8 +49,22 @@ class ServingMetrics:
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._spec_waves = 0
+        self._submitted = 0
+        self._wave_retries = 0
+        self._queue_peak = 0
+        self._phase_seconds = {}
+        # paged pool: the block-round integral, and the pool's monotonic
+        # prefix counters at this instance's first and latest sample
+        self._block_used_rounds = 0
+        self._block_total_rounds = 0
+        self._prefix_base = None
+        self._prefix_last = None
 
     # ---------------------------------------------------------- recording
+    def on_submit(self):
+        with self._lock:
+            self._submitted += 1
+
     def on_reject(self):
         with self._lock:
             self._rejected += 1
@@ -49,6 +72,36 @@ class ServingMetrics:
     def on_fault(self, kind):
         with self._lock:
             self._faults[kind] = self._faults.get(kind, 0) + 1
+
+    def on_wave_retry(self):
+        with self._lock:
+            self._wave_retries += 1
+
+    def on_phase(self, phase, seconds):
+        """Attribute one scheduler-round phase's wall time (`PHASES`)."""
+        if seconds is None:
+            return
+        with self._lock:
+            self._phase_seconds[phase] = (
+                self._phase_seconds.get(phase, 0.0) + float(seconds))
+
+    def on_queue_depth(self, depth):
+        with self._lock:
+            self._queue_peak = max(self._queue_peak, int(depth))
+
+    def on_blocks(self, used, total):
+        """One working round's paged-pool occupancy sample."""
+        with self._lock:
+            self._block_used_rounds += int(used)
+            self._block_total_rounds += int(total)
+
+    def on_prefix_totals(self, hits, misses):
+        """The pool's monotonic prefix counters; snapshot() reports their
+        change over this instance's lifetime."""
+        with self._lock:
+            if self._prefix_base is None:
+                self._prefix_base = (int(hits), int(misses))
+            self._prefix_last = (int(hits), int(misses))
 
     def on_prefill_chunk(self):
         """One prefill-chunk program ran (one per chunk, not per prompt)."""
@@ -60,8 +113,12 @@ class ServingMetrics:
         with self._lock:
             self._prefills += 1
 
-    def on_wave(self, n_active):
-        """One dispatched decode wave with `n_active` lanes in it."""
+    def on_wave(self, n_active, wave_s=None, flops=None,
+                bytes_accessed=None):
+        """One dispatched decode wave with `n_active` lanes in it.
+        `wave_s` (its wall time, also in the phase split) and `flops` /
+        `bytes_accessed` (the program's cost) feed the JAX package's
+        roofline gauges, which are not ported: taken and unused."""
         with self._lock:
             self._waves += 1
             self._active_slot_waves += int(n_active)
@@ -100,7 +157,15 @@ class ServingMetrics:
         with self._lock:
             span = (None if self._first_token_time is None
                     else self._last_token_time - self._first_token_time)
+            if self._prefix_base is None:
+                p_hits = p_misses = 0
+            else:
+                p_hits = self._prefix_last[0] - self._prefix_base[0]
+                p_misses = self._prefix_last[1] - self._prefix_base[1]
+            blk_used, blk_total = (self._block_used_rounds,
+                                   self._block_total_rounds)
             return {
+                "requests_submitted": self._submitted,
                 "requests_completed": self._completed,
                 "rejected": self._rejected,
                 "tokens_generated": self._tokens,
@@ -118,6 +183,18 @@ class ServingMetrics:
                 "latency_p50_s": _percentile(self._latency, 50),
                 "latency_p99_s": _percentile(self._latency, 99),
                 "faults": dict(self._faults),
+                "wave_retries": self._wave_retries,
+                "queue_depth_peak": self._queue_peak,
+                "phase_seconds": dict(self._phase_seconds),
+                "first_token_time": self._first_token_time,
+                "last_token_time": self._last_token_time,
+                # paged pool (None / 0 on the dense engine)
+                "block_utilization": (blk_used / blk_total if blk_total
+                                      else None),
+                "prefix_hits": p_hits,
+                "prefix_misses": p_misses,
+                "prefix_hit_rate": (p_hits / (p_hits + p_misses)
+                                    if p_hits + p_misses else None),
                 # 0 / None on engines without a draft model
                 "spec_tokens_proposed": self._spec_proposed,
                 "spec_tokens_accepted": self._spec_accepted,

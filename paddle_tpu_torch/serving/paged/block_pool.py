@@ -1,6 +1,6 @@
 """BlockPool: host-side memory manager for the paged KV cache (the
 port's own copy of `paddle_tpu/serving/paged/block_pool.py`, without the
-chaos and metrics hooks and without the fleet handoff).
+chaos and metrics hooks).
 
 The device side is a fixed pool of KV blocks per layer,
 `[num_blocks, kv_heads, block_size, head_dim]` x2, allocated once at
@@ -150,6 +150,18 @@ class BlockPool:
             hashes.append(h)
         return blocks, hashes
 
+    def peek_prefix_hashes(self, hashes):
+        """Read-only affinity probe over a chain-hash walk
+        (`prompt_hashes`): how many leading hashes this pool holds now.
+        Takes no reference and counts nothing (`match_prefix` is the
+        acquiring form)."""
+        n = 0
+        for h in hashes:
+            if h not in self._hash_to_block:
+                break
+            n += 1
+        return n
+
     def count_prefix(self, hits, misses):
         """Count one admitted prompt's prefix-cache outcome."""
         self.prefix_hits += int(hits)
@@ -163,6 +175,26 @@ class BlockPool:
             h = self.chain_hash(h, tokens[i * bs:(i + 1) * bs])
             out.append(h)
         return out
+
+    # --------------------------------------------------- block-level handoff
+    def export_blocks(self, blocks):
+        """The allocator's half of a block-level handoff: one manifest
+        entry per live block, carrying its prefix-cache chain hash (None
+        for an unhashed block: the partial tail, or a hash another block
+        won). The device content travels separately
+        (`PagedServingEngine.export_slot_kv`)."""
+        for blk in blocks:
+            if blk == self.SCRATCH:
+                raise ValueError("scratch block cannot be exported")
+            if self._ref[blk] < 1:
+                raise ValueError(f"block {blk} is not live")
+        return [{"hash": self._block_hash.get(blk)} for blk in blocks]
+
+    def import_blocks(self, manifest):
+        """Fresh local blocks to receive an exported manifest, all or
+        none (BlockPoolExhausted is capacity), in manifest order. The
+        caller registers the hashes only once the content is written."""
+        return self.alloc(len(manifest))
 
     def register_hash(self, block, chain_hash):
         """Enter a WRITTEN full prompt block into the prefix cache (first

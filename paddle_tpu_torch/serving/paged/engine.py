@@ -1,6 +1,6 @@
 """PagedServingEngine: block-table KV cache over the ServingEngine wave
-machinery (the port of `paddle_tpu/serving/paged/engine.py`, without the
-KV handoff), and its speculative sibling `SpeculativePagedEngine`.
+machinery (the port of `paddle_tpu/serving/paged/engine.py`), and its
+speculative sibling `SpeculativePagedEngine`.
 
 The cache is a fixed POOL of `[num_blocks, kv_heads, block_size,
 head_dim]` KV blocks per layer; slots reference block TABLES
@@ -27,7 +27,15 @@ Allocation happens between waves, and so does the copy-on-write copy of
 a shared block, eagerly; a lane that cannot get a block (pool exhausted)
 is excluded from the wave and reported in `last_starved_slots` for the
 scheduler to preempt by recompute.
+
+A prefilled slot's blocks can move to another engine (`export_slot_kv`,
+`import_handoff`): the block manifest and every pool's content at the
+slot's blocks, copied to the host and sealed by a sha256 digest that
+hashes what the JAX package's digest hashes, so a payload of either
+package imports into the other's engine of the same geometry.
 """
+import hashlib
+
 import numpy as np
 import torch
 
@@ -36,6 +44,50 @@ from ...nn import paged_attention
 from ...nn.decode import gumbel_
 from ..engine import ServingEngine, _filter_top_k_top_p, _select_first_token
 from .block_pool import BlockPool, BlockPoolExhausted
+
+#: block-level KV handoff payload version: a payload of another version
+#: is refused rather than scattered into the wrong layout
+HANDOFF_VERSION = 1
+
+
+class HandoffRefused(RuntimeError):
+    """A handoff payload failed verification (digest mismatch, another
+    pool geometry or cache layout, a version skew). A request fault,
+    never capacity: decoding over corrupt K/V would emit wrong tokens."""
+
+
+def _dtype_name(a):
+    """numpy's name of an array's or a tensor's dtype ("float32",
+    "bfloat16")."""
+    return str(a.dtype).removeprefix("torch.")
+
+
+def _handoff_digest(layers, n_tokens, block_size):
+    """sha256 over the geometry and every layer's dtype name, shape and
+    raw bytes: the same bytes the JAX package hashes (a contiguous
+    tensor read through a uint8 view stands for numpy's tobytes)."""
+    h = hashlib.sha256()
+    h.update(f"v{HANDOFF_VERSION}:{n_tokens}:{block_size}".encode())
+    for a in layers:
+        h.update(_dtype_name(a).encode())
+        h.update(str(tuple(a.shape)).encode())
+        if isinstance(a, torch.Tensor):
+            raw = a.contiguous().view(torch.uint8).numpy()
+        else:
+            raw = np.ascontiguousarray(a).view(np.uint8)
+        h.update(raw.reshape(-1))
+    return h.hexdigest()
+
+
+def _to_tensor(a):
+    """A payload layer as a CPU tensor: numpy arrays (the JAX package's
+    payloads; a bfloat16 one through its uint16 bits) or tensors."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class PagedServingEngine(ServingEngine):
@@ -130,7 +182,8 @@ class PagedServingEngine(ServingEngine):
         return None
 
     def begin_prefill(self, slot, prompt, do_sample=False, temperature=1.0,
-                      top_k=0, top_p=1.0, logit_bias=None):
+                      top_k=0, top_p=1.0, logit_bias=None,
+                      dynamic_mask=False):
         """Admit a prompt: match shared prefix blocks, allocate the rest
         (BlockPoolExhausted = capacity, handled by the scheduler), and
         stage the chunk schedule. Chunks fully covered by prefix hits are
@@ -166,7 +219,8 @@ class PagedServingEngine(ServingEngine):
         self._pending_prefill[slot] = {
             "prompt": prompt, "n": n, "next": start,
             "sampling": self._sampling_state(do_sample, temperature, top_k,
-                                             top_p, logit_bias),
+                                             top_p, logit_bias,
+                                             dynamic_mask),
             "hashes": (self.block_pool.prompt_hashes(prompt)
                        if self.prefix_sharing else []),
             "next_hash": len(shared),
@@ -227,6 +281,117 @@ class PagedServingEngine(ServingEngine):
         lo = logits[0, 0].float()
         return _select_first_token(lo, p["sample"], p["temp"], p["top_k"],
                                    p["top_p"], p["bias"], gumbel), lo
+
+    # -------------------------------------------------- block-level handoff
+    def _pool_leaves(self):
+        """Every pool tensor in the JAX package's leaf order: layer 0 K,
+        layer 0 V, layer 1 K, ...; the target's pools before the
+        draft's on the speculative engine."""
+        return [t for pair in self._pools() for t in pair]
+
+    def export_slot_kv(self, slot):
+        """Package a prefilled slot's blocks for a handoff to another
+        engine: the pool's manifest (`BlockPool.export_blocks`) and every
+        pool's content at the slot's blocks, gathered after the programs
+        queued on the current stream and copied to the host (numpy for
+        float32, CPU tensors otherwise), digest-sealed. The slot is left
+        as it is: the caller retires it once the payload is in hand."""
+        if not self.slot_active[slot]:
+            raise RuntimeError(f"slot {slot} is not active (handoff export "
+                               "needs a completed prefill)")
+        if slot in self._pending_prefill:
+            raise RuntimeError(f"slot {slot} is mid-prefill")
+        blocks = list(self._slot_blocks[slot])
+        manifest = self.block_pool.export_blocks(blocks)
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        host = torch.stack([pool.index_select(0, idx)
+                            for pool in self._pool_leaves()]).cpu()
+        if host.dtype == torch.float32:
+            host = host.numpy()
+        layers = list(host)
+        n = int(self.slot_pos[slot])
+        return {
+            "version": HANDOFF_VERSION,
+            "n_tokens": n,
+            "next_token": int(self.slot_tok[slot]),
+            "block_size": self.block_size,
+            "blocks": len(blocks),
+            "manifest": manifest,
+            "layers": layers,
+            "nbytes": sum(int(a.nbytes) for a in layers),
+            "digest": _handoff_digest(layers, n, self.block_size),
+        }
+
+    def import_handoff(self, slot, prompt, payload, do_sample=False,
+                       temperature=1.0, top_k=0, top_p=1.0, logit_bias=None,
+                       dynamic_mask=False):
+        """Admit a request from an exported payload: verify version,
+        geometry, layout and digest (HandoffRefused), take local blocks
+        (BlockPoolExhausted is capacity), write the content into every
+        pool IN PLACE (the programs' graphs hold the pools' addresses),
+        and arm the slot as if its final prefill chunk had run here.
+        `prompt` is the continuation, the original prompt + the first
+        token the exporter produced: the slot arms at len(prompt) - 1
+        holding prompt[-1]. No prefill chunk runs. Returns prompt[-1]."""
+        why = self.validate_prompt(prompt)
+        if why:
+            raise ValueError(why)
+        if self.slot_active[slot] or slot in self._pending_prefill:
+            raise RuntimeError(f"slot {slot} is busy")
+        prompt = [int(t) for t in prompt]
+        layers = list(payload.get("layers", ()))
+        if payload.get("version") != HANDOFF_VERSION:
+            raise HandoffRefused(
+                f"handoff version {payload.get('version')!r} != "
+                f"{HANDOFF_VERSION}")
+        if int(payload["block_size"]) != self.block_size:
+            raise HandoffRefused(
+                f"payload block_size {payload['block_size']} != pool "
+                f"block_size {self.block_size}")
+        n = int(payload["n_tokens"])
+        if n != len(prompt) - 1 or int(payload["next_token"]) != prompt[-1]:
+            raise HandoffRefused(
+                "payload token state does not match the continuation "
+                f"(payload n={n}, next={payload['next_token']}; "
+                f"continuation len={len(prompt)})")
+        nblk = len(payload["manifest"])
+        if nblk * self.block_size < n + 1 or nblk != payload.get("blocks"):
+            raise HandoffRefused(f"{nblk} exported block(s) cannot back {n}"
+                                 " tokens plus the decode frontier")
+        leaves = self._pool_leaves()
+        if len(layers) != len(leaves) or any(
+                tuple(a.shape) != (nblk,) + tuple(p.shape[1:])
+                or _dtype_name(a) != _dtype_name(p)
+                for a, p in zip(layers, leaves)):
+            raise HandoffRefused(
+                "payload layer layout does not match this engine's pools "
+                "(engine flavour or geometry mismatch)")
+        if _handoff_digest(layers, n, self.block_size) != payload["digest"]:
+            raise HandoffRefused(
+                "handoff digest mismatch: payload content is corrupt")
+        fresh = self.block_pool.import_blocks(payload["manifest"])
+        try:
+            idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
+            for pool, a in zip(leaves, layers):
+                pool.index_copy_(0, idx, _to_tensor(a).to(self.device))
+            self._slot_blocks[slot] = fresh
+            self._tables[slot, :] = 0
+            self._tables[slot, :len(fresh)] = fresh
+            if self.prefix_sharing:
+                # the content is on the device now: full prompt blocks
+                # enter the prefix cache (first writer wins)
+                for blk, h in zip(fresh,
+                                  self.block_pool.prompt_hashes(prompt[:n])):
+                    self.block_pool.register_hash(blk, h)
+        except BaseException:
+            self.block_pool.release(fresh)
+            self._slot_blocks[slot] = []
+            self._tables[slot, :] = 0
+            raise
+        self._arm_slot(slot, prompt[-1], n,
+                       self._sampling_state(do_sample, temperature, top_k,
+                                            top_p, logit_bias, dynamic_mask))
+        return prompt[-1]
 
     # ------------------------------------------------------------- waves
     def _prepare_wave(self, active_now):
@@ -298,6 +463,15 @@ class PagedServingEngine(ServingEngine):
             self.block_pool.release(blocks)
         self._slot_blocks[slot] = []
         self._tables[slot, :] = 0
+
+    def _health(self):
+        h = super()._health()
+        h.update(block_size=self.block_size, paged_kernel=self.paged_kernel,
+                 cache_blocks_used=self.block_pool.used,
+                 cache_blocks_total=self.block_pool.usable,
+                 prefix_cache_hits=self.block_pool.prefix_hits,
+                 prefix_cache_misses=self.block_pool.prefix_misses)
+        return h
 
 
 def _spec_verify_tail(lo, tok, pos, active, sample, temps, top_k, top_p,
@@ -619,14 +793,16 @@ class SpeculativePagedEngine(PagedServingEngine):
             self.last_starved_slots = []
             return {}
         # per-lane draft span: the horizon clamps it (writes stop at
-        # max_len - 1). A dynamic token mask would run its lane at 0 (a
-        # plain decode inside the same program); the port has no token
-        # mask yet (ROADMAP Queue 1 item 1d)
+        # max_len - 1), and a lane with a dynamic token mask runs at 0, a
+        # plain decode inside the same programs: its mask depends on
+        # tokens not yet emitted, so a draft ahead of it could not be
+        # held to it
         spec_len = [0] * self.num_slots
         for s, live in enumerate(active_now):
             if live:
                 limit = self.max_len - 1 - self.slot_pos[s]
-                spec_len[s] = max(0, min(self.spec_k, limit))
+                want = 0 if self.slot_dynamic_mask[s] else self.spec_k
+                spec_len[s] = max(0, min(want, limit))
         self._wave_spec_len = spec_len
         active_now = self._prepare_wave(active_now)
         if not any(active_now):
@@ -660,3 +836,9 @@ class SpeculativePagedEngine(PagedServingEngine):
         # blocks of rejected tokens go back now, non-finite lanes' too
         self._rollback_spec_blocks(waved)
         return out
+
+    def _health(self):
+        h = super()._health()
+        h.update(speculative=True, spec_k=self.spec_k,
+                 draft_compiles=self.draft_compiles)
+        return h

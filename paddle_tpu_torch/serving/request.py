@@ -1,5 +1,6 @@
 """Request lifecycle for the serving engine (the port of
-`paddle_tpu/serving/request.py`, without the chaos and tracing hooks).
+`paddle_tpu/serving/request.py`, without the chaos and tracing hooks:
+`trace_id` and `trace_pid` are recorded, nothing is traced).
 
 A request moves QUEUED -> PREFILL -> DECODE -> DONE (or REJECTED at
 admission). Tokens stream to the caller through an optional per-request
@@ -35,6 +36,21 @@ class Request:
         as soon as its output ends with one of them.
     logit_bias: {token_id: bias} dict, a [V] float array, or a [V] bool
         allowed-mask folded into the logits before selection.
+    token_mask: callable(request) -> [V] bool allowed-mask or [V] float
+        bias, re-evaluated before every wave (constrained decoding: the
+        legal set follows the tokens already emitted). A lane with a
+        dynamic mask decodes one token a wave even on a speculative
+        engine.
+    stop_context: tokens that precede this request's output for stop
+        matching (a continuation carries the earlier stream's tail, so
+        a stop sequence straddling the seam still fires).
+    trace_id: correlation id (default: the request id).
+    tenant / priority: QoS cohort and preemption rank; under block
+        starvation the scheduler evicts the lowest-priority lane
+        strictly below the starved one.
+    handoff: a block-level KV payload (PagedServingEngine.export_slot_kv)
+        that admission imports instead of running prefill chunks;
+        consumed at the first admission.
     """
     _ids = iter(range(1, 1 << 62))
     _ids_lock = threading.Lock()
@@ -42,7 +58,9 @@ class Request:
     def __init__(self, prompt, max_tokens=16, eos_token_id=None,
                  timeout=None, on_token=None, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, stop_sequences=None,
-                 logit_bias=None):
+                 logit_bias=None, token_mask=None, stop_context=None,
+                 trace_id=None, tenant="default", priority=0,
+                 handoff=None):
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -50,6 +68,9 @@ class Request:
             raise ValueError(f"max_tokens must be >= 1, got {max_tokens}")
         with Request._ids_lock:
             self.request_id = next(Request._ids)
+        self.trace_id = (self.request_id if trace_id is None
+                         else int(trace_id))
+        self.trace_pid = 0
         self.prompt = prompt
         self.max_tokens = int(max_tokens)
         self.eos_token_id = (None if eos_token_id is None
@@ -62,7 +83,14 @@ class Request:
         self.top_p = float(top_p)
         self.stop_sequences = [[int(t) for t in seq]
                                for seq in (stop_sequences or []) if len(seq)]
+        self._stop_context = [int(t) for t in (stop_context or [])]
         self.logit_bias = logit_bias
+        self.token_mask = token_mask
+        self.tenant = str(tenant)
+        self.priority = int(priority)
+        self.handoff = handoff
+        # the engine's seed, stamped by the scheduler at submission
+        self.seed = None
 
         self.state = RequestState.QUEUED
         self.slot = None                 # engine slot while PREFILL/DECODE
@@ -137,7 +165,10 @@ class Request:
                 and time.monotonic() - self.submit_time > self.timeout)
 
     def _hit_stop(self):
-        out = self.output_tokens
+        """True when stop_context + output ends with a stop sequence
+        (checked after each new token, so a match lying wholly inside
+        the context never fires)."""
+        out = self._stop_context + self.output_tokens
         return any(len(out) >= len(seq) and out[-len(seq):] == seq
                    for seq in self.stop_sequences)
 
