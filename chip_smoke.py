@@ -13,6 +13,8 @@ its phases:
                 misaligned q, GQA, ragged chunks, int32/int64/int
                 starts, the NaN contracts), timed, with a split-size
                 sweep and a profiler count of device kernels per call;
+                GQA at rep 2, 3 (LLaMA's 12 heads over 4) and 4, and
+                each form at rep 3 timed with its own bound and sweep;
                 and at the speculative verify's shape (8 lanes of
                 C = k + 1 = 5 queries, an [8] int64 start, f32 and bf16
                 pools, every tile height the kernels take there),
@@ -77,6 +79,11 @@ its phases:
                 paged engine (greedy and sampled streams equal the
                 unfaulted ones, one retry); drain() then close() (work
                 completes, a new submit is shed, health "draining");
+                then an fp32 LLaMA at full width and 2 layers (12 heads
+                over 4 KV heads): K4 against the reference kernel,
+                graphed equal to eager, the dense, speculative (a
+                1-layer LLaMA draft) and disaggregated streams equal to
+                the paged engine's;
   train_parity  fp32 GPT training (head_dim 64) through the CUDA
                 kernels against the dense reference: step-1 gradients,
                 5-step SGD and AdamW loss trajectories, window off/on;
@@ -87,7 +94,10 @@ its phases:
                 every gradient, the tied embedding's); the graphed
                 TrainStep against the eager one under LinearWarmup over
                 CosineAnnealingDecay, the device lr the schedule's at
-                every replay;
+                every replay; an fp32 LLaMA (6 heads of 64 over 2 KV
+                heads, 2 layers): step-1 gradients against the dense
+                reference, window off and 64, and the graphed TrainStep
+                against the eager one over 5 AdamW steps;
   serve         GPT-2 small in bf16 through the front door
                 (`inference.Config().enable_llm_engine(paged=True, ...)`
                 -> `create_llm_predictor` -> submit/run), 16 requests
@@ -132,6 +142,16 @@ its phases:
                 prefill role's chunk form, the decode role's decode
                 form); then the unified paged engine on the same
                 traffic;
+  serve_llama   the serve workload on the JAX package's serving LLaMA
+                (vocab 32000, 768 wide, 12 layers, 12 heads over 4 KV
+                heads, SwiGLU 2048) in bf16 through the front door: the
+                paged engine graphed, eager, graphed, the dense engine
+                (a 768 bucket, K1) and the speculative one (k = 4, a
+                2-layer LLaMA draft) graphed, each with its counts set
+                to 0 before it; GPT-2 small's paged engine beside them;
+                each graph replayed alone, the paged wave profiled by
+                kernel group with RMSNorm, RoPE and SiLU·mul timed
+                alone, and the KV bytes a token;
   train         GPT-2 small in bf16 at bench.py's GPU shapes through
                 `GPTForPretraining` -> `gpt_pretrain_loss` -> `AdamW`
                 in `jit.TrainStep`, one CUDA graph per step after the
@@ -140,6 +160,10 @@ its phases:
                 optimizer kernel in each replay (the captured launches
                 times the replays, against the profiler's count of
                 each kernel per step), with the eager step beside it;
+  train_llama   the same recipe on serve_llama's LLaMA (vocab 32000):
+                12 launches each of K1-K3 and dd and 1 optimizer launch
+                a replay; step ms, tokens/s, MFU, peak memory, idle
+                share and device time by kernel group;
   train_fused_head
                 GPT-2 small with its padded vocab 50304, batch 16 x seq
                 1024, bf16, AdamW, the head on auto: the f32 logits
@@ -192,8 +216,8 @@ OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
-          "serve", "serve_dense", "serve_spec", "serve_disagg", "train",
-          "train_fused_head")
+          "serve", "serve_dense", "serve_spec", "serve_disagg",
+          "serve_llama", "train", "train_llama", "train_fused_head")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -223,6 +247,14 @@ def check(cond, msg):
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from paddle_tpu_torch import kernels
+    for counts in kernels.COUNTERS.values():
+        for key in counts:
+            counts[key] = 0
 
 
 def nvidia_smi():
@@ -282,7 +314,7 @@ def graph_ms(fn, calls, replays=20):
 # ---------------------------------------------------------------------------
 
 def make_case(form, dtype, gen, dev, sets=1, hkv=HEADS, c=None,
-              start=None, strided_q=False):
+              start=None, strided_q=False, llama_q=False):
     """Inputs of one K4 call as the serving path gives them: pools with
     NaN in scratch block 0, lane tables mapping distinct real blocks up
     to each lane's frontier and scratch past it. `sets` pool copies (one
@@ -291,7 +323,9 @@ def make_case(form, dtype, gen, dev, sets=1, hkv=HEADS, c=None,
     lane of C = 64 queries from 512; verify: the speculative verify's
     chunk form, 8 lanes of C = k + 1 queries at seeded [8] starts
     128-831. `hkv` < HEADS gives GQA pools; `strided_q` gives q as
-    `_split_heads` does, a view of a [B, C, 3, H, D] projection."""
+    GPT's `_split_heads` does, a view of a [B, C, 3, H, D] projection,
+    `llama_q` as LLaMA's attention does, the [B, H, C, D] view of a
+    rotated [B, C, H, D] tensor."""
     import torch
     if form in ("decode", "verify"):
         b, c = LANES, (1 if form == "decode" else VERIFY_C)
@@ -322,6 +356,9 @@ def make_case(form, dtype, gen, dev, sets=1, hkv=HEADS, c=None,
     if strided_q:
         qkv = torch.randn((b, c, 3, HEADS, HEAD_DIM), generator=gen)
         q = qkv.to(dev, dtype).permute(2, 0, 3, 1, 4)[0]
+    elif llama_q:
+        q = torch.randn((b, c, HEADS, HEAD_DIM), generator=gen).to(
+            dev, dtype).transpose(1, 2)
     else:
         q = torch.randn((b, HEADS, c, HEAD_DIM), generator=gen).to(dev,
                                                                    dtype)
@@ -472,8 +509,8 @@ def kernels_checks(pa, dev, gen, scale):
             flat = torch.randn(q.numel() + 1, generator=gen).to(dev, dtype)
             run("misaligned q", flat[1:].view(q.shape), *pools[0], tables,
                 start)
-            # GQA: rep 2 and rep 4
-            for hkv in (HEADS // 2, HEADS // 4):
+            # GQA: rep 2, rep 3 (LLaMA's 12 heads over 4) and rep 4
+            for hkv in (HEADS // 2, HEADS // 3, HEADS // 4):
                 q, pools, tables, start = make_case(form, dtype, gen, dev,
                                                     hkv=hkv)
                 run(f"hkv={hkv}", q, *pools[0], tables, start)
@@ -548,6 +585,13 @@ def verify_checks(pa, dev, gen, scale):
         out = run("no attended key", q, pk, pv, tables, neg)
         check(bool((out == 0).all()),
               f"{tag}: fully masked rows are not exactly 0")
+        # LLaMA's verify: rep 3 (15 rows a KV head), q the [S, H, C, D]
+        # view of the rotated [S, C, H, D] projection
+        q, pools, tables, start = make_case("verify", dtype, gen, dev,
+                                            hkv=HEADS // 3, llama_q=True)
+        for window in (None, 64):
+            run(f"rep 3 window={window}", q, *pools[0], tables, start,
+                window)
     return worst
 
 
@@ -629,7 +673,68 @@ def kernels_phase(dev, peaks):
                 pa.cuda_core(qf, pk, pv, tables, start, scale, form="chunk")
             results[form]["kernel_ms_f32_q"] = graph_ms(split_tile, LAYERS)
         del pools, views
+    for form in ("decode", "chunk", "verify"):
+        results[form]["rep3"] = rep3_timing(pa, form, dev, gen, scale, peaks)
     return results
+
+
+def rep3_timing(pa, form, dev, gen, scale, peaks):
+    """K4 at LLaMA's GQA rep 3 (12 query heads over 4 KV heads), bf16
+    pools and q as the LLaMA serving path gives them: its error against
+    `plain_core`, its device ms per call (one pool set per layer, by
+    graph replay; also at 2, 4, 8 and 16 pool blocks a split) beside its
+    bound, the plain version and SDPA over the pre-gathered view with
+    the KV heads repeated outside the timed call."""
+    import torch
+    from paddle_tpu_torch.nn.transformer import gather_block_kv
+    q, pools, tables, start = make_case(form, torch.bfloat16, gen, dev,
+                                        sets=LAYERS, hkv=HEADS // 3,
+                                        llama_q=True)
+    launch_form = "decode" if form == "decode" else "chunk"
+    pk, pv = pools[0]
+    err = held(f"rep 3 {form}", pa.cuda_core(q, pk, pv, tables, start, scale,
+                                             form=launch_form),
+               pa.plain_core(q, pk, pv, tables, start, scale),
+               torch.bfloat16)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % LAYERS
+        return it["i"]
+
+    def kernel(split=None):
+        def run():
+            pk, pv = pools[nxt()]
+            pa.cuda_core(q, pk, pv, tables, start, scale, form=launch_form,
+                         split_blocks=split)
+        return run
+
+    def plain():
+        pk, pv = pools[nxt()]
+        pa.plain_core(q, pk, pv, tables, start, scale)
+
+    views = [tuple(gather_block_kv(p, tables).repeat_interleave(3, dim=1)
+                   for p in pair) for pair in pools]
+    b, c = q.shape[0], q.shape[2]
+    qpos = pa.query_positions(start, b, c, dev).long()
+    ks = torch.arange(NBLK * BLOCK, device=dev)
+    mask = (ks[None, None, :] <= qpos[:, :, None])[:, None]
+
+    def library():
+        k, v = views[nxt()]
+        torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)
+
+    bound_ms, bound_by = bound(q, pk, start, None, peaks)
+    return {"shape": {"q": list(q.shape), "pools": list(pk.shape)},
+            "max_abs_err": err, "kernel_ms": graph_ms(kernel(), LAYERS),
+            "split_blocks": pa.default_split_blocks(q.shape[1] // pk.shape[1]
+                                                    * q.shape[2]),
+            "kernel_ms_by_split_blocks": {
+                p: graph_ms(kernel(p), LAYERS) for p in (2, 4, 8, 16)},
+            "plain_ms": time_ms(plain, 6),
+            "library_ms": graph_ms(library, LAYERS),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # ---------------------------------------------------------------------------
@@ -1172,28 +1277,14 @@ def record_streams(model, kernel, prompts, max_tokens, dev, graphed,
     return [r.output_tokens for r in reqs], steps, eng
 
 
-def parity_phase(dev, smi):
-    import numpy as np
+def against_reference(ref_toks, ref_steps, out_toks, out_steps, tol):
+    """The CUDA kernel's streams against the reference kernel's: finite
+    logits within `tol` at every step up to where the streams part,
+    which they may only at a top-2 margin under `tol`. Returns (max
+    logit error, steps compared, max |logit|, near ties)."""
     import torch
-    from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
-
-    tol = 1e-3
-    # initializer 0.1: at the default 0.02 a random GPT's greedy stream
-    # repeats one token and proves little; at 0.2 (the 2-layer CPU tests'
-    # setting) 12 random layers amplify f32 summation-order differences
-    # in attention past the 1e-3 logit tolerance
-    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0,
-                                         initializer_range=0.1),
-                              device=dev, dtype=torch.float32, seed=SEED)
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(0, model.cfg.vocab_size, int(n)).tolist()
-               for n in (37, 64, 100, 150)]
-    ref_toks, ref_steps, _ = record_streams(model, "reference", prompts,
-                                            16, dev, graphed=False)
-    out_toks, out_steps, _ = record_streams(model, "cuda", prompts, 16, dev,
-                                            graphed=False)
     near_ties, max_err, compared, scale = 0, 0.0, 0, 0.0
-    for i in range(len(prompts)):
+    for i in range(len(ref_toks)):
         check(len(out_toks[i]) == len(ref_toks[i]) == 16,
               f"request {i}: stream lengths {len(out_toks[i])} / "
               f"{len(ref_toks[i])}")
@@ -1214,15 +1305,16 @@ def parity_phase(dev, smi):
                                  f" with top-2 gap {gap} >= {tol}")
                 near_ties += 1
                 break               # the streams diverge from here on
+    return max_err, compared, scale, near_ties
 
-    # the graphed engine against the eager one: the same kernels on the
-    # same inputs, so equal streams and logits equal to 1e-6 relative
-    g_toks, g_steps, g_eng = record_streams(model, "cuda", prompts, 16, dev,
-                                            graphed=True)
-    graph_tol = 1e-6
+
+def graphed_against_eager(out_toks, out_steps, g_toks, g_steps, graph_tol):
+    """Graphed streams equal the eager ones and every logits row lies
+    within graph_tol x max(1, |eager|). Returns (max error, max error
+    over its bound)."""
     check(g_toks == out_toks, f"graphed streams {g_toks} != eager {out_toks}")
     graph_err, graph_share = 0.0, 0.0
-    for i in range(len(prompts)):
+    for i in range(len(out_toks)):
         check(len(g_steps[i]) == len(out_steps[i]) == 16,
               f"request {i}: {len(g_steps[i])} graphed logits rows")
         for t, (le, lg) in enumerate(zip(out_steps[i], g_steps[i])):
@@ -1232,6 +1324,40 @@ def parity_phase(dev, smi):
             graph_share = max(graph_share, err / bound)
             check(err <= bound, f"request {i} step {t}: graphed logits "
                                 f"differ from eager by {err} > {bound}")
+    return graph_err, graph_share
+
+
+def parity_phase(dev, smi):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
+
+    tol = 1e-3
+    # initializer 0.1: at the default 0.02 a random GPT's greedy stream
+    # repeats one token and proves little; at 0.2 (the 2-layer CPU tests'
+    # setting) 12 random layers amplify f32 summation-order differences
+    # in attention past the 1e-3 logit tolerance
+    model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0,
+                                         initializer_range=0.1),
+                              device=dev, dtype=torch.float32, seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, model.cfg.vocab_size, int(n)).tolist()
+               for n in (37, 64, 100, 150)]
+    ref_toks, ref_steps, _ = record_streams(model, "reference", prompts,
+                                            16, dev, graphed=False)
+    out_toks, out_steps, _ = record_streams(model, "cuda", prompts, 16, dev,
+                                            graphed=False)
+    max_err, compared, scale, near_ties = against_reference(
+        ref_toks, ref_steps, out_toks, out_steps, tol)
+
+    # the graphed engine against the eager one: the same kernels on the
+    # same inputs, so equal streams and logits equal to 1e-6 relative
+    g_toks, g_steps, g_eng = record_streams(model, "cuda", prompts, 16, dev,
+                                            graphed=True)
+    graph_tol = 1e-6
+    graph_err, graph_share = graphed_against_eager(out_toks, out_steps,
+                                                   g_toks, g_steps,
+                                                   graph_tol)
     compiles = {"decode": g_eng.decode_compiles,
                 "prefill": g_eng.prefill_compiles}
     check(compiles == {"decode": 1, "prefill": 1},
@@ -1256,6 +1382,8 @@ def parity_phase(dev, smi):
     mask = mask_parity(model, prompts, dev, out_toks, out_steps, tol)
     fault = fault_parity(model, prompts, dev, g_toks, s1, knobs)
     drain = drain_check(model, prompts, dev)
+    del model
+    llama = llama_parity(dev, [len(p) for p in prompts], tol, graph_tol)
     emit("parity", dtype="float32", layers=LAYERS, requests=len(prompts),
          steps_compared=compared, max_logit_err=max_err, tolerance=tol,
          max_abs_logit=scale, near_tie_steps=near_ties,
@@ -1274,7 +1402,76 @@ def parity_phase(dev, smi):
                                "prefill": s_eng.prefill_compiles},
                   "distinct_tokens": [len(set(t)) for t in s1]},
          dense=dense, spec=spec, disagg=disagg, token_mask=mask,
-         wave_fault=fault, drain=drain, nvidia_smi=smi)
+         wave_fault=fault, drain=drain, llama=llama, nvidia_smi=smi)
+
+
+def llama_config(**kw):
+    """The JAX package's serving LLaMA (scripts/bench_decode.py:47-49):
+    vocab 32000, 768 wide, 12 layers, 12 heads of 64 over 4 KV heads
+    (GQA rep 3); LlamaConfig's defaults otherwise (SwiGLU 2048, rope
+    theta 10000, a 2048-row rope table, RMSNorm eps 1e-6, tied
+    embeddings)."""
+    from paddle_tpu_torch.nlp import LlamaConfig
+    return LlamaConfig(**dict(dict(vocab_size=32000, hidden_size=768,
+                                   num_layers=12, num_heads=12,
+                                   num_kv_heads=4), **kw))
+
+
+def llama_parity(dev, lengths, tol, graph_tol):
+    """fp32 LLaMA serving at full width and 2 layers (GQA rep 3): the
+    paged engine's streams through K4 against the reference kernel's,
+    graphed equal to eager; the dense engine (K1 prefill), the
+    speculative engine (a 1-layer LLaMA draft) and a prefill-role /
+    decode-role pair joined by the handoff, each against the paged
+    engine's streams (the shared near-tie rule). `lengths`: the prompts'
+    token counts (seeded ids in LLaMA's vocabulary)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    model = LlamaForCausalLM(llama_config(num_layers=2,
+                                          initializer_range=0.1),
+                             device=dev, dtype=torch.float32, seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).tolist()
+               for n in lengths]
+    ref_toks, ref_steps, _ = record_streams(model, "reference", prompts,
+                                            16, dev, graphed=False)
+    out_toks, out_steps, _ = record_streams(model, "cuda", prompts, 16, dev,
+                                            graphed=False)
+    max_err, compared, scale, near_ties = against_reference(
+        ref_toks, ref_steps, out_toks, out_steps, tol)
+    g_toks, g_steps, g_eng = record_streams(model, "cuda", prompts, 16, dev,
+                                            graphed=True)
+    graph_err, graph_share = graphed_against_eager(out_toks, out_steps,
+                                                   g_toks, g_steps,
+                                                   graph_tol)
+    compiles = {"decode": g_eng.decode_compiles,
+                "prefill": g_eng.prefill_compiles}
+    check(compiles == {"decode": 1, "prefill": 1},
+          f"graphed greedy LLaMA engine compiled {compiles}")
+    del g_eng
+    dense = dense_parity(model, prompts, dev, ref_toks, ref_steps, out_toks,
+                         tol, graph_tol)
+    draft = LlamaForCausalLM(llama_config(num_layers=1,
+                                          initializer_range=0.1),
+                             device=dev, dtype=torch.float32,
+                             seed=SEED + 7)
+    spec = spec_parity(model, prompts, dev, out_toks, out_steps, tol,
+                       drafts={"llama_1_layer": draft})
+    disagg = disagg_parity(model, prompts, dev, out_toks, out_steps, tol)
+    del model, draft
+    torch.cuda.synchronize()
+    return {"config": "vocab 32000, 768 wide, 2 layers, 12 heads over 4 "
+                      "KV heads (rep 3), SwiGLU 2048, initializer 0.1",
+            "steps_compared": compared, "max_logit_err": max_err,
+            "max_abs_logit": scale, "near_tie_steps": near_ties,
+            "streams_equal": ref_toks == out_toks,
+            "distinct_tokens": [len(set(t)) for t in ref_toks],
+            "graphed_vs_eager": {"streams_equal": True,
+                                 "max_logit_err": graph_err,
+                                 "max_err_over_bound": graph_share,
+                                 "compiles": compiles},
+            "dense": dense, "spec": spec, "disagg": disagg}
 
 
 def distilgpt2_shape(**kw):
@@ -1329,9 +1526,11 @@ def near_tie_check(name, want_toks, want_steps, got_toks, tol):
     return diverged
 
 
-def spec_parity(model, prompts, dev, paged_toks, paged_steps, tol):
-    """fp32 greedy streams of the speculative engine at GPT-2 width (a
-    DistilGPT2-shaped random draft, and the target as its own draft),
+def spec_parity(model, prompts, dev, paged_toks, paged_steps, tol,
+                drafts=None):
+    """fp32 greedy streams of the speculative engine over each of
+    `drafts` (name -> draft; by default, at GPT-2 width, a
+    DistilGPT2-shaped random draft and the target as its own draft),
     eager and graphed: graphed equal to eager, one graph per program, and
     equal to the paged CUDA engine's streams. Where a stream leaves the
     paged one, the paged target's top-2 logit margin at that position
@@ -1340,11 +1539,12 @@ def spec_parity(model, prompts, dev, paged_toks, paged_steps, tol):
     reported."""
     import torch
     from paddle_tpu_torch.nlp import GPTForPretraining
-    draft = GPTForPretraining(distilgpt2_shape(initializer_range=0.1),
-                              device=dev, dtype=torch.float32,
-                              seed=SEED + 7)
+    if drafts is None:
+        drafts = {"distilgpt2_shape": GPTForPretraining(
+            distilgpt2_shape(initializer_range=0.1), device=dev,
+            dtype=torch.float32, seed=SEED + 7), "self": model}
     out = {}
-    for name, dm in (("distilgpt2_shape", draft), ("self", model)):
+    for name, dm in drafts.items():
         eager, e_pred = spec_streams(model, dm, prompts, 16, dev, False)
         graphed, g_pred = spec_streams(model, dm, prompts, 16, dev, True)
         check(graphed == eager, f"spec {name}: graphed streams {graphed} "
@@ -1367,7 +1567,7 @@ def spec_parity(model, prompts, dev, paged_toks, paged_steps, tol):
                      "acceptance_rate": snap["spec_acceptance_rate"],
                      "decode_waves": snap["decode_waves"]}
         del e_pred, g_pred, eng
-    del draft
+    del drafts
     torch.cuda.synchronize()
     return out
 
@@ -1898,7 +2098,6 @@ def serve_phase(dev, smi):
 
     import numpy as np
     import torch
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
 
     model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
@@ -1914,9 +2113,7 @@ def serve_phase(dev, smi):
         if main_launches is None:
             # the main path's run, from building the predictor to its
             # last timed request: every count is 0 before it
-            for counts in kernels.COUNTERS.values():
-                for key in counts:
-                    counts[key] = 0
+            zero_counts()
         pred = serve_predictor(model, graphed)
         run = serve_run(pred, prompts)
         if main_launches is None:
@@ -2139,7 +2336,6 @@ def serve_dense_phase(dev, smi):
 
     import numpy as np
     import torch
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -2155,9 +2351,7 @@ def serve_dense_phase(dev, smi):
         if main_launches is None:
             # the main path's run, from building the predictor to its
             # last timed request: every count is 0 before it
-            for counts in kernels.COUNTERS.values():
-                for key in counts:
-                    counts[key] = 0
+            zero_counts()
             fa.routes["kernel"] = fa.routes["dense"] = 0
         pred = serve_dense_predictor(model, graphed)
         run = serve_dense_run(pred, prompts)
@@ -2332,7 +2526,6 @@ def serve_spec_phase(dev, smi):
 
     import numpy as np
     import torch
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt2_small
 
     model = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
@@ -2349,9 +2542,7 @@ def serve_spec_phase(dev, smi):
         if main_launches is None:
             # the main path's run, from building the predictor to its
             # last timed request: every count is 0 before it
-            for counts in kernels.COUNTERS.values():
-                for key in counts:
-                    counts[key] = 0
+            zero_counts()
         pred = spec_predictor(model, draft, graphed)
         run = spec_run(pred, prompts)
         if main_launches is None:
@@ -2543,9 +2734,7 @@ def serve_disagg_phase(dev, smi):
         if main_launches is None:
             # the main path's run, from building the role engines to its
             # last request: every count is 0 before it
-            for counts in kernels.COUNTERS.values():
-                for key in counts:
-                    counts[key] = 0
+            zero_counts()
         scheds = role_schedulers(model, LANES, NBLK * BLOCK, CHUNK)
         # warm-up: a two-chunk prompt and three tokens run each role's
         # program eagerly once, then capture it
@@ -2580,6 +2769,184 @@ def serve_disagg_phase(dev, smi):
              "decode_waves", "prefill_chunks")},
          nvidia_smi=smi)
     return main_launches
+
+
+# ---------------------------------------------------------------------------
+# serve_llama: the serve workload on the serving LLaMA, three engines
+# ---------------------------------------------------------------------------
+
+# the spec engine's LLaMA draft: the target's widths at 2 layers
+LLAMA_DRAFT_LAYERS = 2
+# kernel-name fragments of a LLaMA wave's own elementwise work, beside
+# the serve groups: RMSNorm's rsqrt and mean, SiLU, RoPE's stack (their
+# multiplies, adds and casts share generic kernels, counted in "other";
+# `llama_op_ms` times each op whole)
+LLAMA_SERVE_GROUPS = SERVE_GROUPS + (
+    ("RMSNorm (rsqrt, mean)", ("rsqrt", "meanops")),
+    ("SiLU", ("silu",)),
+    ("RoPE (stack)", ("catarraybatchedcopy",)))
+
+
+def kv_bytes_per_token(eng):
+    """Bytes of K/V a token holds in a paged engine's pools (all layers;
+    the draft's too on a speculative engine)."""
+    pools = eng._pools()
+    total = sum(t.numel() * t.element_size() for pair in pools
+                for t in pair)
+    return total / (eng.block_pool.num_blocks * eng.block_size)
+
+
+def llama_op_ms(model, lanes, rows):
+    """Device ms of RMSNorm, RoPE (q and k) and SiLU·mul as one program
+    runs them over `lanes` x `rows` tokens (a decode wave: 8 x 1; a
+    prefill chunk: 1 x 64): each op captured alone in a CUDA graph at the
+    program's shapes and dtype, times its calls a program (2 norms a
+    layer and the final one; RoPE and SiLU·mul once a layer)."""
+    import torch
+    from torch.nn import functional as F
+    from paddle_tpu_torch.nlp.llama import apply_rope_positions
+    cfg, dev = model.cfg, model.device
+    dtype = next(model.parameters()).dtype
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hd = cfg.hidden_size // cfg.num_heads
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    x = rnd(lanes, rows, cfg.hidden_size)
+    # q and k as the attention rotates them: [B, H, C, D] views
+    q = rnd(lanes, rows, cfg.num_heads, hd).transpose(1, 2)
+    k = rnd(lanes, rows, cfg.num_kv_heads, hd).transpose(1, 2)
+    g, u = rnd(lanes, rows, cfg.intermediate_size), rnd(
+        lanes, rows, cfg.intermediate_size)
+    pos = torch.randint(0, 1024, (lanes, rows), generator=gen, device=dev)
+    norm, rope, L = model.model.norm, model.model.rope, cfg.num_layers
+    return {"rms_norm": graph_ms(lambda: norm(x), 2 * L + 1) * (2 * L + 1),
+            "rope": graph_ms(lambda: (
+                apply_rope_positions(q, rope.cos, rope.sin, pos),
+                apply_rope_positions(k, rope.cos, rope.sin, pos)), L) * L,
+            "silu_mul": graph_ms(lambda: F.silu(g) * u, L) * L}
+
+
+def serve_llama_phase(dev, smi):
+    """The serve workload (16 requests of 128-768 seeded prompt tokens,
+    64 greedy tokens each, 8 slots, horizon 1024, 16-token blocks,
+    64-token chunks) on the serving LLaMA in bf16 through the front door:
+    paged graphed / eager / graphed, dense graphed (a 768 bucket: every
+    prefill is K1 at [1, 768, 12, 64]) and speculative k = 4 graphed with
+    a 2-layer LLaMA draft, each path driven with the counts set to 0
+    just before it; the GPT-2 small paged engine beside them. Each graph
+    replayed alone; the paged wave profiled by kernel group with
+    RMSNorm, RoPE and SiLU·mul timed alone; the KV bytes a token."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nlp import (GPTForPretraining, LlamaForCausalLM,
+                                      gpt2_small)
+
+    model = LlamaForCausalLM(llama_config(), device=dev,
+                             dtype=torch.bfloat16, seed=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, model.cfg.vocab_size,
+                            int(rng.integers(128, 769))).tolist()
+               for _ in range(16)]
+    runs, launches, last = [], {}, None
+    for graphed in (True, False, True):
+        if not runs:
+            zero_counts()
+        pred = serve_predictor(model, graphed)
+        run = serve_run(pred, prompts)
+        if not runs:
+            launches["paged"] = run["k4_launches"]
+        runs.append(run)
+        if graphed:
+            last = pred
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    eng = last.engine
+    paged_graphs = {"wave": eng.wave_program.graphs[False].graph,
+                    "chunk": eng.prefill_program.graphs[False].graph}
+    paged_alone = {k: replay_alone_ms(g) for k, g in paged_graphs.items()}
+    wave_profile = graph_profile(paged_graphs["wave"],
+                                 categories=LLAMA_SERVE_GROUPS,
+                                 other=SERVE_OTHER)
+    check(isinstance(wave_profile, dict),
+          f"serve_llama: wave profile {wave_profile}")
+    named = {"wave": llama_op_ms(model, LANES, 1),
+             "chunk": llama_op_ms(model, 1, CHUNK)}
+    kv = {"llama": kv_bytes_per_token(eng)}
+    del last, eng, paged_graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    pred = serve_dense_predictor(model, True)
+    dense = serve_dense_run(pred, prompts)
+    launches["dense_k1"] = dense["k1_launches"]
+    deng = pred.engine
+    dense["replay_alone_ms"] = {
+        "wave": replay_alone_ms(deng.wave_program.graphs[False].graph),
+        "prefill": replay_alone_ms(deng.prefill_program.graphs[False].graph)}
+    del pred, deng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    draft = LlamaForCausalLM(llama_config(num_layers=LLAMA_DRAFT_LAYERS),
+                             device=dev, dtype=torch.bfloat16,
+                             seed=SEED + 7)
+    zero_counts()
+    pred = spec_predictor(model, draft, True)
+    spec = spec_run(pred, prompts)
+    launches["spec"] = spec["k4_launches_by_program"]
+    spec["replay_alone_ms"] = {
+        k: replay_alone_ms(p.graphs[False].graph)
+        for k, p in spec_programs(pred.engine).items()}
+    del pred, draft, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gpt = GPTForPretraining(gpt2_small(dropout=0.0, attn_dropout=0.0),
+                            device=dev, dtype=torch.bfloat16, seed=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    gpt_prompts = [rng.integers(0, gpt.cfg.vocab_size,
+                                int(rng.integers(128, 769))).tolist()
+                   for _ in range(16)]
+    pred = serve_predictor(gpt, True)
+    gpt_paged = serve_run(pred, gpt_prompts)
+    kv["gpt2_small"] = kv_bytes_per_token(pred.engine)
+    del pred, gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    keys = ("tokens_per_s", "tpot_p50_s", "ttft_p50_s", "host_ms_per_round")
+    median = {k: statistics.median(r[k] for r in runs if r["graphed"])
+              for k in keys}
+    emit("serve_llama", model="llama (vocab 32000, 768 wide, 12 layers, "
+                              "12 heads over 4 KV heads, SwiGLU 2048)",
+         dtype="bfloat16", requests=16, order="paged graphed, eager, "
+         "graphed; dense graphed; spec graphed; GPT-2 small paged graphed",
+         paged_runs=runs, paged_median_graphed=median,
+         paged_replay_alone_ms=paged_alone, paged_wave_profile=wave_profile,
+         llama_op_device_ms=named,
+         dense={k: dense[k] for k in (
+             "tokens_per_s", "ttft_p50_s", "tpot_p50_s", "host_ms_per_round",
+             "decode_waves", "admissions", "replays", "k1_launches",
+             "replay_alone_ms", "max_memory_allocated")},
+         spec={k: spec[k] for k in (
+             "draft_layers", "tokens_per_s", "ttft_p50_s", "tpot_p50_s",
+             "request_mean_tpot_p50_s", "acceptance_rate",
+             "tokens_per_lane_wave", "host_ms_per_round", "decode_waves",
+             "prefill_chunks", "k4_launches_by_program", "k4_launches",
+             "replay_alone_ms", "max_memory_allocated")},
+         gpt2_small_paged_beside={k: gpt_paged[k] for k in (
+             "tokens_per_s", "tpot_p50_s", "ttft_p50_s", "host_ms_per_round",
+             "decode_waves", "prefill_chunks", "k4_launches")},
+         kv_bytes_per_token=kv,
+         kv_bytes_ratio_llama_over_gpt=kv["llama"] / kv["gpt2_small"],
+         launches=launches, nvidia_smi=smi)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3174,12 +3541,73 @@ def train_parity_phase(dev):
         check(same == (p == 0.0) and all(np.isfinite(replays[p])),
               f"train parity: lr 0, dropout {p}: replay losses "
               f"{replays[p]} {'differ' if p == 0.0 else 'are equal'}")
+    llama = llama_train_parity(dev, ids)
     emit("train_parity", dtype="float32", layers=2, hidden=256, heads=4,
          vocab=512, batch=b, seq=s, initializer_range=0.1,
          grad_tolerance="1e-4 * max(1, max|g|)", sgd_rtol=1e-5,
          adamw_rtol=1e-3, lr0_replay_losses_dropout0=replays[0.0],
          lr0_replay_losses_dropout01=replays[0.1], **report,
-         fused_head=fused, scheduled_graph=scheduled)
+         fused_head=fused, scheduled_graph=scheduled, llama=llama)
+
+
+def llama_train_parity(dev, ids, steps=5):
+    """fp32 LLaMA at 2 layers, 384 wide, 6 heads of 64 over 2 KV heads
+    (GQA rep 3), vocab 512, on `ids`: the step-1 gradients through K1-K3
+    and dd against the dense reference within 1e-4 x max(1, max|g|),
+    window off and 64; the graphed TrainStep against the eager one over
+    `steps` AdamW steps (losses within rtol 1e-5)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaForCausalLM, llama_pretrain_loss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def model(window=None):
+        return LlamaForCausalLM(llama_config(
+            vocab_size=512, hidden_size=384, num_layers=2, num_heads=6,
+            num_kv_heads=2, max_seq_len=ids.shape[1], initializer_range=0.1,
+            attn_window=window), device=dev, dtype=torch.float32, seed=SEED)
+
+    out = {}
+    for window in (None, 64):
+        grads = {}
+        for kernel in ("reference", "cuda"):
+            m = model(window).train()
+            fwd = fa.launches["fwd"]
+            with fa.kernel_scope(kernel):
+                llama_pretrain_loss(m(ids), ids).backward()
+            check((fa.launches["fwd"] - fwd == 2) == (kernel == "cuda"),
+                  f"llama train parity: {kernel} launched K1 "
+                  f"{fa.launches['fwd'] - fwd} times")
+            grads[kernel] = {n: p.grad for n, p in m.named_parameters()}
+        gerr = 0.0
+        for n, g in grads["reference"].items():
+            err = (grads["cuda"][n] - g).abs().max().item()
+            lim = 1e-4 * max(1.0, g.abs().max().item())
+            check(err <= lim, f"llama train parity window={window}: grad "
+                              f"{n} differs by {err} > {lim}")
+            gerr = max(gerr, err)
+        out[f"window={window}_max_grad_err"] = gerr
+    losses = {}
+    for graphed in (False, True):
+        m = model()
+        step = TrainStep(m, llama_pretrain_loss,
+                         AdamW(1e-3, parameters=m.parameters()),
+                         cuda_graph=graphed)
+        losses[graphed] = [float(step(ids, ids)) for _ in range(steps)]
+        graphs = list(step.graphs.values())
+        check(not graphed or (len(graphs) == 1
+                              and graphs[0].replays == steps - 1),
+              f"llama train parity: {graphs}")
+    check(np.allclose(losses[True], losses[False], rtol=1e-5, atol=0),
+          f"llama train parity: graphed AdamW losses {losses[True]} "
+          f"against eager {losses[False]}")
+    out.update(adamw_graphed_losses=losses[True],
+               adamw_eager_losses=losses[False], rtol=1e-5,
+               config="vocab 512, 384 wide, 2 layers, 6 heads of 64 over "
+                      "2 KV heads (rep 3), initializer 0.1")
+    return out
 
 
 # the fused-head checks' model: vocab 5000 > the 4096 chunk, so two
@@ -3277,45 +3705,42 @@ def scheduled_graph_parity(dev, b, s, steps=5):
 # train: GPT-2 small at bench.py's GPU shapes, bf16, through TrainStep
 # ---------------------------------------------------------------------------
 
-def train_phase(dev, peaks):
+def graphed_train(model, loss_fn, opt, ids, name, steps=10):
+    """bench.py's GPU recipe on `model`: the counts set to 0, a
+    TrainStep, 3 warm-up calls (eager, capture, replay), then `steps`
+    timed graph replays. The graph must hold 12 launches of each flash
+    kernel (fwd, dkv, dq, dd) and 1 of the optimizer kernel, every layer
+    must take the kernel route, the timed calls must launch nothing from
+    Python, and the profiler must see the graph's kernels once each a
+    replay. Returns the step and its measurements."""
     import numpy as np
     import torch
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.jit import TrainStep, grad_norm_sentinel
-    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.optimizer import AdamW
 
-    model = GPTForPretraining(train_config(), device=dev,
-                              dtype=torch.bfloat16, seed=SEED)
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    ids = torch.tensor(np.random.RandomState(0).randint(
-        0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int64"), device=dev)
-    steps = 10
     # the main path's run, from building the step to its last timed
     # call: every count is 0 before it and read after
-    for counts in kernels.COUNTERS.values():
-        for key in counts:
-            counts[key] = 0
+    zero_counts()
     fa.routes["kernel"] = fa.routes["dense"] = 0
-    step = TrainStep(model, gpt_pretrain_loss, opt, donate=True)
+    step = TrainStep(model, loss_fn, opt, donate=True)
     # call 1 runs eagerly on a side stream, call 2 captures the step and
     # replays it, call 3 replays
     for _ in range(3):
         float(step(ids, ids))
     graphs = list(step.graphs.values())
     check(len(graphs) == 1 and graphs[0] is not None,
-          f"train: {len(graphs)} graphs after three calls")
+          f"{name}: {len(graphs)} graphs after three calls")
     graph = graphs[0]
     per_step = dict(graph.launches)
     want = {f"flash_attention.{k}": LAYERS for k in ("fwd", "dkv", "dq",
                                                      "dd")}
     want["optimizer.adam"] = 1
-    check(per_step == want, f"train: the graph holds the launches "
+    check(per_step == want, f"{name}: the graph holds the launches "
                             f"{per_step}, not {want}")
     routes = dict(fa.routes)
     check(routes == {"kernel": 2 * LAYERS, "dense": 0},
-          f"train: attention routes {routes} in the eager call and the "
+          f"{name}: attention routes {routes} in the eager call and the "
           f"capture: a layer took the dense path")
     warm = kernels.launch_counts()
     replays0 = graph.replays
@@ -3329,24 +3754,50 @@ def train_phase(dev, peaks):
     peak_mem = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
     counts = kernels.launch_counts()
-    check(counts == warm, "train: a timed call launched kernels from "
+    check(counts == warm, f"{name}: a timed call launched kernels from "
                           "Python instead of replaying the graph")
     check(graph.replays - replays0 == steps,
-          f"train: {graph.replays - replays0} replays in {steps} calls")
-    check(np.isfinite(final), f"train: non-finite loss {final}")
-    check(not step.last_nonfinite(), "train: non-finite grad norm")
+          f"{name}: {graph.replays - replays0} replays in {steps} calls")
+    check(np.isfinite(final), f"{name}: non-finite loss {final}")
+    check(not step.last_nonfinite(), f"{name}: non-finite grad norm")
     # kernels that ran in the timed calls: the graph's launches times
     # its replays (the profiler's count of each kernel per replay checks
     # it below)
     launches = {k.split(".")[1]: n * steps for k, n in per_step.items()}
     grad_norm = step.last_grad_norm()
     profile = profile_steps(step, ids, dt * 1e3)
-    check(isinstance(profile, dict), f"train: profile {profile}")
-    for key, name in DEVICE_NAMES.items():
-        seen = profile["kernel_calls_per_step"][name]
+    check(isinstance(profile, dict), f"{name}: profile {profile}")
+    for key, dev_name in DEVICE_NAMES.items():
+        seen = profile["kernel_calls_per_step"][dev_name]
         check(seen == per_step[key],
-              f"train: the profiler saw {name} {seen} times a step, the "
-              f"graph holds {per_step[key]} launches of it")
+              f"{name}: the profiler saw {dev_name} {seen} times a step, "
+              f"the graph holds {per_step[key]} launches of it")
+    return {"step": step, "dt": dt, "final": final, "peak_mem": peak_mem,
+            "reserved": reserved, "counts": counts, "per_step": per_step,
+            "launches": launches, "grad_norm": grad_norm,
+            "profile": profile, "routes": routes}
+
+
+def train_phase(dev, peaks):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep, grad_norm_sentinel
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForPretraining(train_config(), device=dev,
+                              dtype=torch.bfloat16, seed=SEED)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int64"), device=dev)
+    steps = 10
+    run = graphed_train(model, gpt_pretrain_loss, opt, ids, "train", steps)
+    dt, final, per_step = run["dt"], run["final"], run["per_step"]
+    peak_mem, reserved, counts = (run["peak_mem"], run["reserved"],
+                                  run["counts"])
+    launches, grad_norm, profile, routes = (run["launches"],
+                                            run["grad_norm"],
+                                            run["profile"], run["routes"])
 
     # the eager sequence on the same model and optimizer, for comparison
     eager = TrainStep(model, gpt_pretrain_loss, opt, cuda_graph=False)
@@ -3402,6 +3853,43 @@ def train_phase(dev, peaks):
          routes=routes, step_parts_ms_eager=parts, profile=profile,
          eager_profile=eager_profile)
     return launches
+
+
+def train_llama_phase(dev, peaks):
+    """bench.py's GPU recipe (`graphed_train`) on the serving LLaMA
+    (`llama_config`): batch 8 x seq 1024, bf16, AdamW, 3 warm-up calls
+    then 10 timed graph replays holding 12 launches each of K1, K2, K3
+    and dd and 1 of the optimizer kernel. Step ms, tokens/s, MFU as the
+    train phase computes it, peak memory, the idle share and the device
+    time by kernel group."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nlp import LlamaForCausalLM, llama_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(llama_config(), device=dev,
+                             dtype=torch.bfloat16, seed=SEED)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype("int64"),
+        device=dev)
+    steps = 10
+    run = graphed_train(model, llama_pretrain_loss, opt, ids, "train_llama",
+                        steps)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = TRAIN_B * TRAIN_S / run["dt"]
+    emit("train_llama", model="llama (vocab 32000, 768 wide, 12 layers, "
+                              "12 heads over 4 KV heads, SwiGLU 2048)",
+         dtype="bfloat16", batch=TRAIN_B, seq=TRAIN_S, steps=steps,
+         step="one CUDA graph replay per call", step_ms=run["dt"] * 1e3,
+         tokens_per_s=tokens_per_s, loss=run["final"],
+         grad_norm=run["grad_norm"], params=n_params,
+         mfu=6 * n_params * tokens_per_s / peaks["bf16"],
+         max_memory_allocated=run["peak_mem"],
+         memory_reserved=run["reserved"],
+         launches_per_step=run["per_step"], launches=run["launches"],
+         routes=run["routes"], profile=run["profile"])
+    return run["launches"]
 
 
 # the fused-head run: GPT-2 small's padded vocab at seq 1024 and batch
@@ -3474,9 +3962,7 @@ def train_fused_head_phase(dev, peaks, steps=5):
             "memory_reserved": torch.cuda.memory_reserved()}
 
     # the main path's run: every count 0 before it, read after
-    for counts in kernels.COUNTERS.values():
-        for key in counts:
-            counts[key] = 0
+    zero_counts()
     step, graph, fused = run(True)
     counts = kernels.launch_counts()
     want = {f"flash_attention.{k}": LAYERS for k in ("fwd", "dkv", "dq",
@@ -3581,7 +4067,9 @@ def device_rows(prof, calls):
     rows = [(e.self_device_time_total / 1e3 / calls, e.count / calls, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            # a profiler schedule's step range, mirrored on the device
+            and not e.key.startswith("ProfilerStep")]
     return sorted(rows, reverse=True)
 
 
@@ -3603,19 +4091,26 @@ def profile_steps(step, ids, step_ms, steps=2):
     torch.profiler (CUPTI): per-step ms by category, the device's idle
     share, the calls per step of each kernel in DEVICE_NAMES, and the top
     kernels. The idle share is that of the profiled window; beside it,
-    the busy time against the unprofiled step time `step_ms`. Returns
-    "not measured: ..." when the profiler records no device time."""
+    the busy time against the unprofiled step time `step_ms`. The
+    profiler warms up on one step of its own (tracing on, events
+    dropped) before the recorded window: on an H100 a window opened cold
+    once recorded 23 of the 24 flash_fwd_wgmma launches of two replays.
+    Returns "not measured: ..." when the profiler records no device
+    time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    float(step(ids, ids))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        float(step(ids, ids))
+        torch.cuda.synchronize()
+        prof.step()                     # the warm-up ends: record
         t0 = time.perf_counter()
         for _ in range(steps):
             loss = step(ids, ids)
         float(loss)
         wall = (time.perf_counter() - t0) * 1e3 / steps
+        prof.step()                     # the recorded window ends
     rows = device_rows(prof, steps)
     if not rows:
         return "not measured: the profiler recorded no device time"
@@ -3794,7 +4289,9 @@ def main():
     dense_launches = run("serve_dense", serve_dense_phase, dev, smi)
     spec_launches = run("serve_spec", serve_spec_phase, dev, smi)
     disagg_launches = run("serve_disagg", serve_disagg_phase, dev, smi)
+    llama_launches = run("serve_llama", serve_llama_phase, dev, smi)
     train_launches = run("train", train_phase, dev, peaks)
+    train_llama_launches = run("train_llama", train_llama_phase, dev, peaks)
     fh = run("train_fused_head", train_fused_head_phase, dev, peaks)
     if fh is not None:
         emit("train_fused_head", **fh)
@@ -3815,10 +4312,18 @@ def main():
     # serve_disagg: the decode role's waves, the prefill role's chunks
     rows[0]["launches_serve_disagg"] = disagg_launches["decode_role_decode"]
     rows[1]["launches_serve_disagg"] = disagg_launches["prefill_role_chunk"]
+    # serve_llama (GQA rep 3): the paged engine's waves and chunks, the
+    # spec engine's draft waves and chunks
+    for i, form, prog in ((0, "decode", "draft"), (1, "chunk", "prefill")):
+        rows[i]["launches_serve_llama"] = {
+            "paged": llama_launches["paged"][form],
+            "spec": llama_launches["spec"][prog]}
     row = dict(k["verify"])
     rows.append({"name": "paged_attention_verify", "route": "cuda",
                  "source": SOURCE, "replaces": REPLACES,
                  "launches": spec_launches["verify"],
+                 "launches_serve_llama": {
+                     "spec": llama_launches["spec"]["verify"]},
                  "ms": row.pop("kernel_ms"), **row})
     for kind in ("fwd", "dkv", "dq", "dd"):
         row = dict(fl[kind])
@@ -3827,10 +4332,13 @@ def main():
                      "replaces": FLASH_REPLACES[kind],
                      "launches": train_launches[kind],
                      "launches_train_fused_head": fh["launches"][kind],
+                     "launches_train_llama": train_llama_launches[kind],
                      "ms": row.pop("kernel_ms"), **row})
         if kind == "fwd":
             prefill = dict(fl["fwd_prefill"])
             rows[-1]["launches_serve_dense"] = dense_launches
+            rows[-1]["launches_serve_llama"] = {
+                "dense": llama_launches["dense_k1"]}
             rows[-1]["prefill_shape"] = {
                 "ms": prefill.pop("kernel_ms"), **prefill}
     row = {k: op[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
@@ -3839,6 +4347,7 @@ def main():
                  "source": OPT_SOURCE, "replaces": OPT_REPLACES,
                  "launches": train_launches["adam"],
                  "launches_train_fused_head": fh["launches"]["adam"],
+                 "launches_train_llama": train_llama_launches["adam"],
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -45,10 +45,10 @@ class Config:
         verify-once speculative decoding, `k` draft tokens per slot per
         wave, with the output distribution the target's (its own tokens
         under greedy). The draft is create_llm_predictor's `draft_model=`,
-        or a model built from `draft_config` (a GPTConfig with the
-        target's vocabulary, freshly initialised: correct all the same,
-        but acceptance, the whole speed-up, needs a draft that predicts
-        the target)."""
+        or a model built from `draft_config` (a config of the target's
+        family, GPTConfig or LlamaConfig, with the target's vocabulary,
+        freshly initialised: correct all the same, but acceptance, the
+        whole speed-up, needs a draft that predicts the target)."""
         self._llm_opts = {
             "num_slots": int(num_slots),
             "max_len": int(max_len),
@@ -155,15 +155,16 @@ def _draft(opts, model, draft_model):
 def create_llm_predictor(config, model=None, draft_model=None):
     """Front door from the inference Config to the serving stack: the
     Config carries the engine knobs (enable_llm_engine) and `model` is a
-    causal LM exposing the engine's methods (nlp.GPTForPretraining),
-    already on the engine's device. `draft_model` (the target's family
-    and vocabulary, typically far fewer layers) serves the speculative
-    configuration; the other engines ignore it. A Config that was not
-    armed gets the defaults, the dense engine, on the model's device
-    (where its caller put it)."""
+    causal LM exposing the engine's methods (nlp.GPTForPretraining or
+    nlp.LlamaForCausalLM), already on the engine's device. `draft_model`
+    (the target's family and vocabulary, typically far fewer layers)
+    serves the speculative configuration; the other engines ignore it.
+    A Config that was not armed gets the defaults, the dense engine, on
+    the model's device (where its caller put it)."""
     if model is None:
         raise ValueError("create_llm_predictor needs `model` (a causal LM "
-                         "such as nlp.GPTForPretraining)")
+                         "such as nlp.GPTForPretraining or "
+                         "nlp.LlamaForCausalLM)")
     if not config.llm_engine_enabled():
         config.enable_llm_engine(device=model.device)
     return LLMPredictor(config, model, draft_model=draft_model)

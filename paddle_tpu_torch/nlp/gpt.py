@@ -478,6 +478,19 @@ class GPTForPretraining(nn.Module):
     def _head(self, h):
         return h @ self.gpt.embeddings.word_embeddings.weight.T
 
+    def hidden_states(self, input_ids):
+        """[B, S] ids -> hidden states after ln_f."""
+        return self.gpt(input_ids)
+
+    def head(self, h):
+        """Logits [..., vocab] of hidden states h (the tied head)."""
+        return self._head(h)
+
+    def check_horizon(self, max_len):
+        """Raise when positions [0, max_len) do not fit the position
+        table."""
+        self.gpt._check_horizon(max_len)
+
     def init_cache(self, batch, max_len, dtype=torch.float32):
         return self.gpt.init_cache(batch, max_len, dtype, self.device)
 
@@ -703,14 +716,16 @@ def load_jax_optimizer_state(optimizer, state, model, global_step):
 def generate(model, input_ids, max_new_tokens=32, do_sample=False,
              top_k=0, top_p=1.0, temperature=1.0, eos_token_id=None,
              seed=None, use_cache=False, cuda_graph=True):
-    """Autoregressive decode for a causal LM exposing `gpt` and `_head`
-    (the full forward) and, for use_cache=True, init_cache/decode_step
-    (the port of the JAX package's `generate`: greedy, or top-k/top-p
-    sampling at a temperature).
+    """Autoregressive decode for any causal LM of the port (GPT and
+    LLaMA): `hidden_states(ids)`, `head(h)` and `check_horizon(n)`, and
+    for use_cache=True init_cache/decode_step (the port of the JAX
+    package's `generate`: greedy, or top-k/top-p sampling at a
+    temperature).
 
     Works on a fixed [B, prompt_len + max_new_tokens] id buffer on the
     model's device. use_cache=False runs the causal forward over the
-    whole buffer per new token and reads the frontier logits.
+    whole buffer per new token and applies the head to the frontier row
+    only.
     use_cache=True runs the KV-cache step over every position, the
     prompt's teacher-forced from the buffer, with caches in the
     parameters' majority dtype; on the card each position is one replay
@@ -728,9 +743,7 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
            else torch.as_tensor(np.asarray(input_ids))).long()
     b, prompt_len = ids.shape
     L = prompt_len + int(max_new_tokens)
-    if L > model.cfg.max_seq_len:
-        raise ValueError(f"generate length {L} exceeds max_seq_len "
-                         f"{model.cfg.max_seq_len}")
+    model.check_horizon(L)
     eos = -1 if eos_token_id is None else int(eos_token_id)
     if seed is None:
         seed = int(torch.randint(0, 2 ** 62, ()).item())
@@ -754,9 +767,9 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     try:
         if not use_cache:
             for t in range(prompt_len, L):
-                h = model.gpt(buf)[:, t - 1]
+                h = model.hidden_states(buf)[:, t - 1]
                 tok = torch.where(finished, fill,
-                                  pick(model._head(h).float()))
+                                  pick(model.head(h).float()))
                 buf[:, t] = tok
                 if eos_token_id is not None:
                     finished |= tok == eos

@@ -129,7 +129,7 @@ class ServingEngine:
     request occupies which slot and when; the engine only knows slots.
 
     model: a causal LM exposing init_cache / prefill / decode_step /
-        prefill_route (GPTForPretraining).
+        prefill_route (nlp.GPTForPretraining, nlp.LlamaForCausalLM).
     num_slots: concurrent sequences per wave.
     max_len: per-slot horizon (prompt + generated tokens).
     prefill_len: prompt padding bucket (<= max_len; default max_len).
@@ -241,7 +241,7 @@ class ServingEngine:
     @property
     def prefill_route(self):
         """How the prefill bucket is computed: "k1" (flash attention's
-        kernel route) or "dense" (see GPTModel.prefill_route)."""
+        kernel route) or "dense" (see the model's prefill_route)."""
         return self.model.prefill_route(self.prefill_len)
 
     def describe(self):

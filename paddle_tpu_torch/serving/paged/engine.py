@@ -94,7 +94,8 @@ class PagedServingEngine(ServingEngine):
     """Block-table batched decode executor.
 
     model: a causal LM exposing init_paged_cache / decode_step(...,
-        block_tables=) / prefill_chunk (GPTForPretraining).
+        block_tables=) / prefill_chunk (nlp.GPTForPretraining,
+        nlp.LlamaForCausalLM).
     max_len: per-request horizon; a multiple of block_size.
     num_blocks: pool size INCLUDING the scratch block (block 0); default
         num_slots * max_len // block_size + 1 (dense-equivalent).

@@ -1,4 +1,5 @@
-"""The port's `generate` against paddle_tpu's, both `use_cache` paths.
+"""The port's `generate` against paddle_tpu's, both `use_cache` paths, on
+GPT and on a GQA LLaMA.
 
 Small GPT (2 layers, hidden 64, 4 heads, vocab 128, max_seq_len 256,
 dropout 0, initializer_range 0.2), both packages built from the same
@@ -12,11 +13,13 @@ import torch
 
 import paddle_tpu as pt
 from paddle_tpu.framework.tensor import Tensor
+from paddle_tpu.nlp import llama as jllama
 from paddle_tpu.nlp.gpt import GPTConfig as JConfig
 from paddle_tpu.nlp.gpt import GPTForPretraining as JGPT
 from paddle_tpu.nlp.gpt import generate as jgenerate
 from paddle_tpu.nn.decode import top_k_top_p_filtering as jfilter
 from paddle_tpu_torch.nlp import gpt as tgpt
+from paddle_tpu_torch.nlp import llama as tllama
 from paddle_tpu_torch.nn.decode import top_k_top_p_filtering
 from paddle_tpu_torch.ops import flash_attention as tfa
 
@@ -106,6 +109,47 @@ def test_cached_and_full_forward_agree_on_the_kernel_route(models):
     assert not tm.training
     with pytest.raises(ValueError, match="max_seq_len"):
         tgpt.generate(tm, ids, max_new_tokens=200)
+
+
+# LLaMA: the JAX package's generate tests' GQA model (tests/test_llama.py)
+LLAMA = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+             num_kv_heads=2, max_seq_len=32, initializer_range=0.2)
+
+
+@pytest.fixture(scope="module")
+def llamas():
+    pt.seed(0)
+    jm = jllama.LlamaForCausalLM(jllama.LlamaConfig(**LLAMA))
+    jm.eval()
+    tm = tllama.LlamaForCausalLM(tllama.LlamaConfig(**LLAMA), device="cpu")
+    tgpt.load_jax_state(tm, {k: v.numpy()
+                             for k, v in jm.state_dict().items()})
+    return jm, tm
+
+
+@pytest.mark.parametrize("use_cache", [False, True])
+def test_llama_greedy_ids_equal_jax(llamas, use_cache):
+    """generate works on any causal LM of the port: a GQA LLaMA's greedy
+    ids equal JAX's on both paths, the prompt kept."""
+    jm, tm = llamas
+    ids = np.random.RandomState(0).randint(0, 64, (2, 4)).astype(np.int32)
+    want = _jax_ids(jm, ids, max_new_tokens=10, use_cache=use_cache)
+    got = tgpt.generate(tm, ids, max_new_tokens=10, use_cache=use_cache)
+    assert got.shape == (2, 14)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got[:, :4].numpy(), ids)
+    assert len(set(got[:, 4:].flatten().tolist())) >= 3
+
+
+@pytest.mark.parametrize("use_cache", [False, True])
+def test_llama_overlong_decode_rejected(llamas, use_cache):
+    """A decode past the rope table raises, as JAX's does."""
+    jm, tm = llamas
+    prompt = np.zeros((1, 30), np.int32)
+    with pytest.raises(ValueError, match="RoPE"):
+        _jax_ids(jm, prompt, max_new_tokens=8, use_cache=use_cache)
+    with pytest.raises(ValueError, match="RoPE"):
+        tgpt.generate(tm, prompt, max_new_tokens=8, use_cache=use_cache)
 
 
 def test_top_k_top_p_filtering_matches_jax():

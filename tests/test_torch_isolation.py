@@ -32,6 +32,7 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.jit
         import paddle_tpu_torch.kernels
         import paddle_tpu_torch.nlp
+        import paddle_tpu_torch.nlp.llama
         import paddle_tpu_torch.nn
         import paddle_tpu_torch.ops
         import paddle_tpu_torch.optimizer
@@ -78,7 +79,8 @@ def test_no_card_means_no_quiet_cpu_fallback(monkeypatch):
     raises when there is none — it never runs on the CPU unasked."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from paddle_tpu_torch import inference, resolve_device
-    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.nlp import (GPTConfig, GPTForPretraining,
+                                      LlamaConfig, LlamaForCausalLM)
     from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
     cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
                     num_heads=2, max_seq_len=32)
@@ -86,6 +88,10 @@ def test_no_card_means_no_quiet_cpu_fallback(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         GPTForPretraining(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaForCausalLM(LlamaConfig(vocab_size=64, hidden_size=32,
+                                     num_layers=1, num_heads=4,
+                                     num_kv_heads=2, max_seq_len=32))
     model = GPTForPretraining(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedServingEngine(model, num_slots=2, max_len=32, block_size=8)
