@@ -172,7 +172,22 @@ its phases:
                 memory and device time by group, the chunked head's
                 forward and backward timed alone, the dense head never
                 called on the loss path; then the same model with
-                fused_head_loss=False: its step ms and peak memory.
+                fused_head_loss=False: its step ms and peak memory;
+  eager         the Paddle Tensor surface (to_tensor, the op library,
+                autograd): every case of tests/torch_op_cases.py (every
+                op in the port's OP_REGISTRY and the data-dependent-shape
+                ops) on CUDA inputs against the CPU, forward and
+                gradients, outputs on the card, the forward under
+                torch.cuda.set_sync_debug_mode("warn") (the ops that
+                synchronise listed); GPT-2 small written in the Tensor
+                surface (`tensor_gpt_loss`) at f32 against the port's
+                GPTForPretraining from the same weights (batch 2 x seq
+                256: loss and every gradient); 3 bf16 AdamW steps at
+                batch 8 x seq 1024 through pt.Parameters against the
+                nn.Module's eager steps (losses within 2e-2), forward and
+                backward ms apart, K1-K3 and dd 12 launches a step; the
+                host microseconds per dispatched op (pt.add against
+                torch.add on [8] f32).
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -217,7 +232,8 @@ OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
-          "serve_llama", "train", "train_llama", "train_fused_head")
+          "serve_llama", "train", "train_llama", "train_fused_head",
+          "eager")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -3702,6 +3718,401 @@ def scheduled_graph_parity(dev, b, s, steps=5):
 
 
 # ---------------------------------------------------------------------------
+# eager: the Paddle Tensor surface (to_tensor, the op library, autograd) on
+# the card
+# ---------------------------------------------------------------------------
+
+# the f32 parity check's batch and sequence: cut from bench.py's 8 x 1024
+# to a fast check that still takes the kernel route (a multiple of 128)
+EAGER_PARITY_B, EAGER_PARITY_S = 2, 256
+EAGER_STEPS = 3
+# forward tolerance of the CUDA-vs-CPU op sweep by op (relative to
+# max(1, |ref|)): elementwise ops 1e-5; reductions, products, scans,
+# attention and linalg, whose sums the card orders differently, 1e-4
+SWEEP_LOOSE = {
+    "sum", "mean", "prod", "nansum", "nanmean", "logsumexp", "std", "var",
+    "median", "quantile", "cumsum", "cumprod", "logcumsumexp", "matmul",
+    "dot", "bmm", "inner", "outer", "addmm", "kron", "trace", "mv",
+    "tensordot", "norm", "dist", "renorm", "trapezoid", "lerp", "polar",
+    "flash_attention", "sequence_conv", "sequence_softmax",
+    "sequence_topk_avg_pooling", "sequence_pool_sum", "sequence_pool_sqrt",
+    "sequence_pool_average", "cholesky", "inverse", "pinv", "det",
+    "slogdet", "matrix_power", "svd", "qr", "eigh", "eigvalsh", "solve",
+    "triangular_solve", "cholesky_solve", "lstsq", "bincount"}
+
+
+def tensor_gpt_loss(P, attention, params, ids, num_heads, num_layers):
+    """GPT-2's forward and next-token loss written only in the Paddle
+    Tensor surface of package `P` (`paddle_tpu_torch`, or the JAX package
+    in the CPU tests): `params` maps the port's state-dict names
+    (`GPTForPretraining`, torch Linear layout [out, in]) to Tensors,
+    `attention` is the package's registered flash_attention. Pre-norm
+    blocks, LayerNorm eps 1e-5, tanh-GELU, the head tied to the word
+    embeddings; the loss is `gpt_pretrain_loss`'s: the mean over B x
+    (S - 1) positions of logsumexp - the next token's logit, in f32."""
+    w = params
+    b, s = ids.shape
+    wte = w["gpt.embeddings.word_embeddings.weight"]
+    x = P.gather(wte, P.reshape(ids, [-1])).reshape([b, s, -1]) + P.gather(
+        w["gpt.embeddings.position_embeddings.weight"], P.arange(s))
+    hidden = x.shape[-1]
+
+    def ln(v, name):
+        mu = v.mean(axis=-1, keepdim=True)
+        var = ((v - mu) * (v - mu)).mean(axis=-1, keepdim=True)
+        return (v - mu) / P.sqrt(var + 1e-5) * w[name + ".weight"] + \
+            w[name + ".bias"]
+
+    def linear(v, name):
+        return P.matmul(v, w[name + ".weight"], transpose_y=True) + \
+            w[name + ".bias"]
+
+    for i in range(num_layers):
+        pre = f"gpt.blocks.{i}."
+        qkv = linear(ln(x, pre + "ln_1"), pre + "attn.qkv_proj").reshape(
+            [b, s, 3, num_heads, hidden // num_heads])
+        o = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=True,
+                      layout="bshd")
+        x = x + linear(o.reshape([b, s, hidden]), pre + "attn.out_proj")
+        m = linear(ln(x, pre + "ln_2"), pre + "mlp.fc_in")
+        m = 0.5 * m * (1.0 + P.tanh(0.7978845608028654 *
+                                    (m + 0.044715 * m * m * m)))
+        x = x + linear(m, pre + "mlp.fc_out")
+    x = ln(x, "gpt.ln_f")
+    logits = P.matmul(x[:, :-1], wte, transpose_y=True).astype("float32")
+    picked = P.take_along_axis(logits, P.unsqueeze(ids[:, 1:], -1), axis=-1)
+    return (P.logsumexp(logits, axis=-1) - P.squeeze(picked, -1)).mean()
+
+
+def load_op_cases():
+    """tests/torch_op_cases.py (numpy only), by path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_op_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_op_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sweep_close(name, got, want, rtol):
+    import numpy as np
+    check(got.shape == want.shape, f"eager sweep {name}: shape "
+                                   f"{got.shape} != {want.shape}")
+    if want.dtype.kind in "biu":
+        check(np.array_equal(got, want), f"eager sweep {name}: values")
+        return 0.0
+    check((np.isnan(got) == np.isnan(want)).all(),
+          f"eager sweep {name}: NaN positions differ")
+    fin = np.isfinite(want)
+    check(np.array_equal(got[~fin & ~np.isnan(want)],
+                         want[~fin & ~np.isnan(want)]),
+          f"eager sweep {name}: infinities differ")
+    if not fin.any():
+        return 0.0
+    rel = np.abs(got[fin] - want[fin]) / np.maximum(1.0, np.abs(want[fin]))
+    check(float(rel.max()) <= rtol, f"eager sweep {name}: error "
+                                    f"{float(rel.max())} > {rtol}")
+    return float(rel.max())
+
+
+def op_sweep():
+    """Every case of tests/torch_op_cases.py (every op in the port's
+    OP_REGISTRY, and the data-dependent-shape ops) on seeded CUDA inputs
+    against the same op on the CPU: forward values (`SWEEP_LOOSE`'s
+    tolerance), gradients through backward() within 1e-4 x max(1,
+    max|g|), outputs on the card. The forward runs under
+    torch.cuda.set_sync_debug_mode("warn"): the cases that synchronise
+    with the host are listed."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import dispatch
+    cases = load_op_cases()
+    n = cases.port_namespace()
+    names = sorted(cases.CASES)
+    covered = {cases.op_name(k) for k in names}
+    missing = sorted(set(dispatch.OP_REGISTRY) - covered)
+    check(not missing, f"eager sweep: registered ops without a case: "
+                       f"{missing}")
+    syncing, failures, worst_fwd, worst_grad = [], [], 0.0, 0.0
+    old = pt.get_device()
+    try:
+        for name in names:
+            # every case runs; the failures are reported together below
+            try:
+                synced, fwd, grad = sweep_case(cases, n, name)
+            except RuntimeError as e:
+                failures.append(str(e))
+                continue
+            if synced:
+                syncing.append(name)
+            worst_fwd, worst_grad = max(worst_fwd, fwd), max(worst_grad,
+                                                             grad)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        pt.set_device(old)
+    check(not failures, f"eager sweep: {len(failures)} of {len(names)} "
+                        f"cases failed: {failures}")
+    return {"cases": len(names), "registered_ops": len(dispatch.OP_REGISTRY),
+            "max_rel_err_forward": worst_fwd,
+            "max_rel_err_grad": worst_grad, "host_syncing": syncing}
+
+
+def sweep_case(cases, n, name):
+    """One case of `op_sweep`: (whether its forward synchronised with the
+    host, its largest relative forward error, gradient error)."""
+    import warnings
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    pt.set_device("cpu")
+    ref_f, ref_g = cases.run(n, name)
+    pt.set_device("gpu:0")
+    ts = cases.inputs(n, name)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            outs = cases.call(n, name, ts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    synced = any("synchroniz" in str(w.message) for w in caught)
+    for o in outs:
+        check(o._data.device.type == "cuda", f"eager sweep {name}: an "
+                                             f"output left the card "
+                                             f"({o._data.device})")
+    rtol = 1e-4 if name in SWEEP_LOOSE else 1e-5
+    check([d for d, _ in ref_f] == [cases.dtype_name(o) for o in outs],
+          f"eager sweep {name}: dtypes differ")
+    fwd = max(sweep_close(name, cases.host(o), want, rtol)
+              for (_, want), o in zip(ref_f, outs))
+    grad = 0.0
+    if ref_g is None:
+        return synced, fwd, grad
+    for want, g in zip(ref_g, cases.grads(n, name, ts, outs)):
+        check((want is None) == (g is None),
+              f"eager sweep {name}: a gradient is missing")
+        if want is None:
+            continue
+        err = float(np.abs(cases.host(g) - want).max())
+        scale = max(1.0, float(np.abs(want).max()))
+        check(err <= 1e-4 * scale, f"eager sweep {name}: gradient error "
+                                   f"{err} > 1e-4 x {scale}")
+        grad = max(grad, err / scale)
+    return synced, fwd, grad
+
+
+def eager_params(model):
+    """The model's weights as the Tensor surface's Parameters (copies)."""
+    import paddle_tpu_torch as pt
+    return {k: pt.Parameter(v) for k, v in model.state_dict().items()}
+
+
+def eager_gpt_parity(dev):
+    """The f32 Tensor-surface GPT-2 small (`tensor_gpt_loss`) against the
+    port's GPTForPretraining from the same weights: loss within 1e-5
+    relative, every gradient within 1e-4 x max(1, max|g|); K1-K3 and dd
+    launch once per layer in its forward and backward."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    model = GPTForPretraining(train_config(), device=dev,
+                              dtype=torch.float32, seed=SEED)
+    params = eager_params(model)
+    ids_np = np.random.RandomState(1).randint(
+        0, TRAIN_VOCAB, (EAGER_PARITY_B, EAGER_PARITY_S)).astype("int32")
+    ref = gpt_pretrain_loss(model(torch.tensor(ids_np, device=dev)),
+                            torch.tensor(ids_np, device=dev))
+    ref.backward()
+    zero_counts()
+    loss = tensor_gpt_loss(pt, fa.flash_attention, params,
+                           pt.to_tensor(ids_np), HEADS, LAYERS)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    check(launches == {k: LAYERS for k in ("fwd", "dkv", "dq", "dd")},
+          f"eager f32 GPT: flash launches {launches}")
+    ref = float(ref.detach())
+    rel = abs(float(loss) - ref) / abs(ref)
+    check(rel <= 1e-5, f"eager f32 GPT: loss {float(loss)} vs {ref} "
+                       f"(rel {rel})")
+    worst = 0.0
+    named = dict(model.named_parameters())
+    for k, p in params.items():
+        want = named[k].grad
+        check(want is not None and p.grad is not None,
+              f"eager f32 GPT: no gradient for {k}")
+        scale = max(1.0, float(want.abs().max()))
+        err = float((p.grad._data - want).abs().max())
+        check(err <= 1e-4 * scale, f"eager f32 GPT: {k} gradient error "
+                                   f"{err} > 1e-4 x {scale}")
+        worst = max(worst, err / scale)
+    out = {"batch": EAGER_PARITY_B, "seq": EAGER_PARITY_S,
+           "loss": float(loss), "module_loss": ref, "loss_rel": rel,
+           "max_grad_err": worst, "params": len(params),
+           "launches": launches}
+    del model, params
+    return out
+
+
+def eager_steps(dev, steps=EAGER_STEPS):
+    """bench.py's shape (batch 8 x seq 1024, bf16): `steps` AdamW steps of
+    the nn.Module model (forward, gpt_pretrain_loss, backward, step,
+    clear_grad) and of the Tensor-surface GPT over pt.Parameters copied
+    from the same weights, the losses held within 2e-2 relative. Each
+    step's forward and backward timed apart by CUDA events; the counts
+    zeroed before the eager steps and read after."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForPretraining(train_config(), device=dev,
+                              dtype=torch.bfloat16, seed=SEED)
+    params = eager_params(model)
+    model.train()
+    ids_np = np.random.RandomState(0).randint(
+        0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int32")
+    ids_t = torch.tensor(ids_np.astype("int64"), device=dev)
+    ids = pt.to_tensor(ids_np)
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def run(fwd, opt):
+        losses, parts = [], []
+        for _ in range(steps):
+            e0 = ev()
+            loss = fwd()
+            e1 = ev()
+            loss.backward()
+            e2 = ev()
+            opt.step()
+            opt.clear_grad()
+            e3 = ev()
+            torch.cuda.synchronize()
+            losses.append(float(loss.detach()))
+            parts.append((e0.elapsed_time(e1), e1.elapsed_time(e2),
+                          e2.elapsed_time(e3)))
+        # the first step pays for allocations: the later ones are timed
+        timed = np.mean(parts[1:], axis=0)
+        return losses, {"forward_ms": float(timed[0]),
+                        "backward_ms": float(timed[1]),
+                        "optimizer_ms": float(timed[2]),
+                        "step_ms": float(timed.sum())}
+
+    def module_fwd():
+        return gpt_pretrain_loss(model(ids_t), ids_t)
+
+    def eager_fwd():
+        return tensor_gpt_loss(pt, fa.flash_attention, params, ids, HEADS,
+                               LAYERS)
+
+    module_opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    module_losses, module_ms = run(module_fwd, module_opt)
+    opt = AdamW(learning_rate=1e-4, parameters=list(params.values()))
+    # the main path's run: every count is 0 before it and read after
+    zero_counts()
+    eager_losses, eager_ms = run(eager_fwd, opt)
+    counts = kernels.launch_counts()
+    per_step = {k: counts[f"flash_attention.{k}"] // steps
+                for k in ("fwd", "dkv", "dq", "dd")}
+    check(all(counts[f"flash_attention.{k}"] == LAYERS * steps
+              for k in per_step),
+          f"eager steps: flash launches {counts}, not {LAYERS} a step")
+    check(counts["optimizer.adam"] == steps,
+          f"eager steps: {counts['optimizer.adam']} optimizer launches")
+    for a, b in zip(eager_losses, module_losses):
+        check(np.isfinite(a) and abs(a - b) <= 2e-2 * abs(b),
+              f"eager steps: losses {eager_losses} vs module "
+              f"{module_losses}")
+    check(eager_losses[-1] < eager_losses[0],
+          f"eager steps: the loss did not fall {eager_losses}")
+
+    def whole_step(fwd, step_opt):
+        def step(*_):
+            loss = fwd()
+            loss.backward()
+            step_opt.step()
+            step_opt.clear_grad()
+            return loss.detach()
+        return step
+    # where each step's device time goes, after the checked steps
+    profiles = {}
+    for label, fwd, step_opt, ms in (
+            ("eager", eager_fwd, opt, eager_ms["step_ms"]),
+            ("module", module_fwd, module_opt, module_ms["step_ms"])):
+        prof = profile_steps(whole_step(fwd, step_opt), None, ms)
+        if isinstance(prof, dict):
+            del prof["kernel_calls_per_step"]
+            prof["top_kernels"] = prof["top_kernels"][:8]
+        profiles[label] = prof
+    return {"batch": TRAIN_B, "seq": TRAIN_S, "dtype": "bfloat16",
+            "steps": steps, "losses": eager_losses,
+            "module_losses": module_losses, "eager_ms": eager_ms,
+            "module_ms": module_ms, "profile": profiles,
+            "launches_per_step": per_step,
+            "launches": {k: counts[f"flash_attention.{k}"]
+                         for k in per_step},
+            "adam_launches": counts["optimizer.adam"]}
+
+
+def dispatch_overhead(calls=10_000):
+    """Host microseconds per op: `calls` pt.add calls on [8] f32 CUDA
+    tensors (stop_gradient True, then False) against raw torch.add, each
+    loop closed by a synchronize."""
+    import torch
+    import paddle_tpu_torch as pt
+    out = {}
+    a = torch.randn(8, device="cuda")
+    b = torch.randn(8, device="cuda")
+    for label, fn in (
+            ("torch_add", lambda: torch.add(a, b)),
+            ("pt_add", lambda x=pt.to_tensor(a), y=pt.to_tensor(b):
+             pt.add(x, y)),
+            ("pt_add_grad", lambda x=pt.to_tensor(a, stop_gradient=False),
+             y=pt.to_tensor(b): pt.add(x, y))):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) / calls * 1e6
+    out["pt_add_over_torch_us"] = out["pt_add"] - out["torch_add"]
+    return out
+
+
+def eager_phase(dev, smi):
+    """The Tensor surface on the card: the op sweep, the f32 GPT-2 small
+    parity, bf16 AdamW steps at bench.py's shape, the dispatch overhead.
+    Returns the flash kernels' launches in the eager steps."""
+    import torch
+    import paddle_tpu_torch as pt
+    old = pt.get_device()
+    pt.set_device("gpu:0")
+    try:
+        sweep = op_sweep()
+        parity = eager_gpt_parity(dev)
+        torch.cuda.empty_cache()
+        steps = eager_steps(dev)
+        overhead = dispatch_overhead()
+    finally:
+        pt.set_device(old)
+    emit("eager", nvidia_smi=smi, op_sweep=sweep, gpt_f32_parity=parity,
+         steps=steps, dispatch_us=overhead)
+    return steps["launches"]
+
+
+# ---------------------------------------------------------------------------
 # train: GPT-2 small at bench.py's GPU shapes, bf16, through TrainStep
 # ---------------------------------------------------------------------------
 
@@ -4295,6 +4706,7 @@ def main():
     fh = run("train_fused_head", train_fused_head_phase, dev, peaks)
     if fh is not None:
         emit("train_fused_head", **fh)
+    eager_launches = run("eager", eager_phase, dev, smi)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -4333,6 +4745,7 @@ def main():
                      "launches": train_launches[kind],
                      "launches_train_fused_head": fh["launches"][kind],
                      "launches_train_llama": train_llama_launches[kind],
+                     "launches_eager": eager_launches[kind],
                      "ms": row.pop("kernel_ms"), **row})
         if kind == "fwd":
             prefill = dict(fl["fwd_prefill"])

@@ -22,6 +22,13 @@ Three implementations sit behind one dispatch point, the pattern of
                       tensor that does not;
   kernel="auto"       "cuda" for CUDA tensors, "plain" for CPU tensors.
 
+The Tensor surface reaches the same code through the registered
+`flash_attention` op (`_flash_attention_raw`, dispatched by `apply`):
+`flash_attention` given port `Tensor`s goes through the dispatcher, so
+the eager path runs K1 on the card and `loss.backward()` runs dd, K2 and
+K3; given torch tensors (the GPT and LLaMA models, the engines) it runs
+directly.
+
 "plain" and "cuda" run inside one `torch.autograd.Function` that saves
 (q, k, v, out, lse); its backward computes dd = rowsum(dO * O) in f32
 (`row_dot`: torch ops, or a kernel of its own) and then runs dK/dV and
@@ -52,6 +59,9 @@ import os
 import torch
 
 from .. import kernels
+from ..framework import state
+from ..framework.tensor import Tensor
+from .dispatch import apply, register_op
 
 KERNELS = ("auto", "reference", "plain", "cuda")
 
@@ -641,7 +651,23 @@ def flash_attention(q, k, v, attn_mask=None, causal=False, dropout_p=0.0,
     [B, S, H, D], returned in the same layout). window=W (requires
     causal) keeps the last W keys per query. Attention dropout draws
     from `generator` (a torch.Generator on q's device). `kernel` picks
-    the implementation (see the module docstring)."""
+    the implementation (see the module docstring). Given port Tensors,
+    it is the registered op (`_flash_attention_raw` through the
+    dispatcher), with attention dropout drawn from the framework
+    generator, as the JAX package draws `next_rng_key()`."""
+    if isinstance(q, Tensor):
+        args = (q, k, v) if attn_mask is None else (q, k, v, attn_mask)
+        attrs = {"causal": bool(causal),
+                 "scale": None if scale is None else float(scale),
+                 "layout": str(layout),
+                 "window": None if window is None else int(window),
+                 "kernel": kernel}
+        if dropout_p:
+            attrs["dropout_p"] = float(dropout_p)
+            attrs["generator"] = generator or state.rng_generator(
+                q._data.device)
+        return apply(_flash_attention_raw, args, attrs,
+                     name="flash_attention")
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True (sliding-window "
@@ -665,3 +691,19 @@ def flash_attention(q, k, v, attn_mask=None, causal=False, dropout_p=0.0,
     out = _dense(_bhsd(q, bshd), _bhsd(k, bshd), _bhsd(v, bshd), attn_mask,
                  causal, dropout_p, s, window, generator)
     return _bhsd(out, bshd)
+
+
+def _flash_attention_raw(q, k, v, *maybe_mask, causal=False, scale=None,
+                         layout="bhsd", window=None, dropout_p=0.0,
+                         generator=None, kernel=None):
+    """The registered form of the `flash_attention` op (the JAX package's
+    `_flash_attention_raw`): torch tensors in and out, through
+    `_FlashCore` when the shapes are the kernels' (K1 forward; dd, K2
+    and K3 in the backward, on the card), else the dense path."""
+    m = maybe_mask[0] if maybe_mask else None
+    return flash_attention(q, k, v, attn_mask=m, causal=causal,
+                           dropout_p=dropout_p, scale=scale, layout=layout,
+                           window=window, generator=generator, kernel=kernel)
+
+
+register_op("flash_attention", _flash_attention_raw)

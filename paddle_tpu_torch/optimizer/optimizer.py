@@ -81,6 +81,22 @@ def _capturing(params):
         torch.cuda.is_current_stream_capturing()
 
 
+def _torch_param(p):
+    """A parameter as the optimizer holds it: a torch tensor. A port
+    `Tensor` (a `Parameter`, or a leaf with stop_gradient=False) is
+    unwrapped to its `_data`, which it updates in place and whose `.grad`
+    the wrapper reads, so `clear_grad` on either clears both; its
+    `regularizer` and `learning_rate` attributes are carried over."""
+    from ..framework.tensor import Tensor
+    if not isinstance(p, Tensor):
+        return p
+    d = p._data
+    for attr in ("regularizer", "learning_rate"):
+        if attr in p.__dict__:
+            setattr(d, attr, p.__dict__[attr])
+    return d
+
+
 def _regularizer(weight_decay):
     """An optimizer's `weight_decay` as a regularizer object or None: a
     nonzero number is L2Decay."""
@@ -146,7 +162,8 @@ class Optimizer:
             raise TypeError(f"learning_rate must be a float or an "
                             f"LRScheduler, got "
                             f"{type(learning_rate).__name__}")
-        self._parameters = list(parameters) if parameters is not None else []
+        self._parameters = [_torch_param(p) for p in parameters] \
+            if parameters is not None else []
         self._grad_clip = grad_clip
         self._weight_decay = _regularizer(weight_decay)
         self._state = {}           # parameter index -> {slot: tensor}

@@ -19,7 +19,9 @@ import torch
 def _trainable(parameters):
     if parameters is None:
         raise ValueError("pass parameters=model.parameters()")
-    return [p for p in parameters if p.requires_grad]
+    from .optimizer import _torch_param
+    params = [_torch_param(p) for p in parameters]
+    return [p for p in params if p.requires_grad]
 
 
 @contextlib.contextmanager

@@ -26,6 +26,9 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nlp import gpt as tgpt
 from paddle_tpu_torch.ops.chunked_ce import chunked_lm_loss
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 # vocab 4500 > the 4096 chunk: two chunks, the second ragged (404 rows)
 CFG = dict(vocab_size=4500, hidden_size=64, num_layers=2, num_heads=2,
            max_seq_len=64, dropout=0.0, attn_dropout=0.0,

@@ -33,6 +33,9 @@ from paddle_tpu_torch.serving import (HandoffRefused, PagedServingEngine,
                                       SpeculativePagedEngine)
 from paddle_tpu_torch.serving.paged import engine as tpaged
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 VOCAB = 128
 TARGET = dict(vocab_size=VOCAB, hidden_size=128, num_layers=2, num_heads=2,
               max_seq_len=64, dropout=0.0, attn_dropout=0.0,

@@ -26,6 +26,9 @@ from paddle_tpu.ops.pallas.flash_attention import (_flash_array,
                                                    _sdpa_reference)
 from paddle_tpu_torch.ops import flash_attention as fa
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 B, H, D = 1, 2, 64
 TOL = {"float32": dict(atol=1e-4, rtol=0.0),
        "bfloat16": dict(atol=0.15, rtol=0.1)}

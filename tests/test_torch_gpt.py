@@ -19,6 +19,9 @@ from paddle_tpu.nlp.gpt import GPTForPretraining as JGPT
 from paddle_tpu.nn import paged_attention as jpa
 from paddle_tpu_torch.nlp import gpt as tgpt
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 SMALL = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
              max_seq_len=128, dropout=0.0, attn_dropout=0.0,

@@ -11,6 +11,9 @@ import textwrap
 import pytest
 import torch
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
 
@@ -28,6 +31,23 @@ def test_imports_without_jax_and_without_the_jax_package():
 
         sys.meta_path.insert(0, Block())
         import paddle_tpu_torch
+        import paddle_tpu_torch.autograd
+        import paddle_tpu_torch.framework
+        import paddle_tpu_torch.framework.dtype
+        import paddle_tpu_torch.framework.errors
+        import paddle_tpu_torch.framework.selected_rows
+        import paddle_tpu_torch.framework.serialization
+        import paddle_tpu_torch.framework.state
+        import paddle_tpu_torch.framework.tape
+        import paddle_tpu_torch.framework.tensor
+        import paddle_tpu_torch.ops.creation
+        import paddle_tpu_torch.ops.dispatch
+        import paddle_tpu_torch.ops.linalg
+        import paddle_tpu_torch.ops.logic
+        import paddle_tpu_torch.ops.manipulation
+        import paddle_tpu_torch.ops.math
+        import paddle_tpu_torch.ops.sequence
+        import paddle_tpu_torch.tensor
         import paddle_tpu_torch.inference
         import paddle_tpu_torch.jit
         import paddle_tpu_torch.kernels
@@ -44,6 +64,10 @@ def test_imports_without_jax_and_without_the_jax_package():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         assert not bad, bad
+        # the eager surface is there, and nothing was built or placed
+        assert callable(paddle_tpu_torch.to_tensor)
+        assert not paddle_tpu_torch.kernels._loaded
+        assert paddle_tpu_torch.framework.state._current_device is None
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -67,6 +91,8 @@ def test_source_scan_finds_no_jax_or_jax_package_import():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
+    # the op cases chip_smoke.py's eager phase loads on the card
+    files.append(os.path.join(ROOT, "tests", "torch_op_cases.py"))
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

@@ -33,6 +33,9 @@ from paddle_tpu_torch.nlp import gpt as tgpt
 from paddle_tpu_torch.nlp import llama as tllama
 from paddle_tpu_torch.nlp import load_jax_optimizer_state, load_jax_state
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
              num_kv_heads=2, max_seq_len=128, initializer_range=0.2)
 IDS = np.random.RandomState(0).randint(0, 256, (2, 128)).astype("int32")

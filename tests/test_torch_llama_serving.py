@@ -42,6 +42,9 @@ from paddle_tpu_torch.serving import (PagedServingEngine, Request,
                                       SpeculativePagedEngine)
 from paddle_tpu_torch.serving.paged import engine as tpaged
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 RTOL = 1e-4
 VOCAB = 128
 TARGET = dict(vocab_size=VOCAB, hidden_size=96, num_layers=2, num_heads=6,

@@ -26,6 +26,9 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nlp import gpt as tgpt
 from paddle_tpu_torch.optimizer import lr as tlr
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 
 def _halve(epoch):
     return 0.5 ** (epoch % 3)

@@ -31,6 +31,9 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nlp import gpt as tgpt
 from paddle_tpu_torch.optimizer import fused_adam
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 SHAPES = [(6, 5), (7,), (3, 4, 2)]
 CASES = [(n, dt, mp) for n in ("Adam", "AdamW")
          for dt, mp in (("float32", False), ("bfloat16", False),

@@ -20,6 +20,9 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nlp import gpt as tgpt
 from paddle_tpu_torch.optimizer import wrappers as tw
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 SHAPES = [(6, 5), (7,), (3, 4, 2)]
 TOL = dict(rtol=1e-6, atol=1e-7)
 

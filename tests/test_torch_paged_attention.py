@@ -22,6 +22,9 @@ import torch
 from paddle_tpu.nn import paged_attention as jpa
 from paddle_tpu_torch.nn import paged_attention as tpa
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 PORT = ("plain", "reference")
 JAX = ("reference", "lax", "pallas")
 ATOL = RTOL = 1e-5

@@ -29,6 +29,9 @@ from paddle_tpu_torch.serving import (BlockPool, BlockPoolExhausted,
                                       PagedServingEngine, Scheduler)
 from paddle_tpu_torch.serving import engine as tengine
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 VOCAB = 512
 SMALL = dict(vocab_size=VOCAB, hidden_size=128, num_layers=2, num_heads=4,
              max_seq_len=128, dropout=0.0, attn_dropout=0.0,

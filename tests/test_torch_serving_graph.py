@@ -33,6 +33,9 @@ from paddle_tpu_torch.nlp import gpt as tgpt
 from paddle_tpu_torch.serving import PagedServingEngine, Scheduler
 from paddle_tpu_torch.serving import engine as tengine
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 VOCAB = 512
 SMALL = dict(vocab_size=VOCAB, hidden_size=128, num_layers=2, num_heads=4,

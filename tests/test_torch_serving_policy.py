@@ -19,6 +19,7 @@ Tolerances: tokens, finish reasons and counters exactly.
 """
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 from paddle_tpu.nlp.gpt import GPTConfig as JConfig
@@ -35,6 +36,9 @@ from paddle_tpu_torch.serving import (HEALTH_STATES, PagedServingEngine,
                                       Request, RequestState, Scheduler,
                                       ServingEngine, SpeculativePagedEngine)
 from paddle_tpu_torch.serving.metrics import PHASES
+
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
 
 VOCAB = 128
 TARGET = dict(vocab_size=VOCAB, hidden_size=128, num_layers=2, num_heads=2,

@@ -44,6 +44,9 @@ from paddle_tpu_torch.serving import (PagedServingEngine, Scheduler,
 from paddle_tpu_torch.serving.paged.engine import \
     _spec_verify_tail as port_tail
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 VOCAB = 128
 TARGET = dict(vocab_size=VOCAB, hidden_size=128, num_layers=2, num_heads=2,

@@ -31,6 +31,9 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nlp import gpt as tgpt
 
+# one intra-op thread: parallel test workers share the host's cores
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
              max_seq_len=128, dropout=0.0, attn_dropout=0.0,
              initializer_range=0.2)
