@@ -233,7 +233,7 @@ TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
-          "eager")
+          "eager", "nn")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -3726,6 +3726,8 @@ def scheduled_graph_parity(dev, b, s, steps=5):
 # to a fast check that still takes the kernel route (a multiple of 128)
 EAGER_PARITY_B, EAGER_PARITY_S = 2, 256
 EAGER_STEPS = 3
+# steps of each contender timed after the checked ones, in turns
+TIMED_ROUNDS = 6
 # forward tolerance of the CUDA-vs-CPU op sweep by op (relative to
 # max(1, |ref|)): elementwise ops 1e-5; reductions, products, scans,
 # attention and linalg, whose sums the card orders differently, 1e-4
@@ -3782,6 +3784,108 @@ def tensor_gpt_loss(P, attention, params, ids, num_heads, num_layers):
     logits = P.matmul(x[:, :-1], wte, transpose_y=True).astype("float32")
     picked = P.take_along_axis(logits, P.unsqueeze(ids[:, 1:], -1), axis=-1)
     return (P.logsumexp(logits, axis=-1) - P.squeeze(picked, -1)).mean()
+
+
+def layer_gpt(P, attention, vocab, hidden, heads, layers, max_seq):
+    """GPT-2 built only from the `nn` layers of package `P`
+    (`paddle_tpu_torch`, or the JAX package in the CPU tests):
+    `Embedding`, `LayerNorm` and `Linear` ([in, out] weights), tanh-GELU
+    and the cross entropy from `nn.functional`, and `attention`, the
+    package's registered flash_attention, causal in the BSHD layout.
+    Pre-norm blocks, LayerNorm eps 1e-5, the head tied to the word
+    embeddings. Its sublayers carry `GPTForPretraining`'s names, so its
+    state-dict keys are the module's (`layer_gpt_state`); the model
+    returns the logits and `layer_gpt_loss` the next-token loss."""
+    nn, F = P.nn, P.nn.functional
+
+    class Attention(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.qkv_proj = nn.Linear(hidden, 3 * hidden)
+            self.out_proj = nn.Linear(hidden, hidden)
+
+        def forward(self, x):
+            b, s = x.shape[0], x.shape[1]
+            qkv = self.qkv_proj(x).reshape([b, s, 3, heads, hidden // heads])
+            o = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                          causal=True, layout="bshd")
+            return self.out_proj(o.reshape([b, s, hidden]))
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc_in = nn.Linear(hidden, 4 * hidden)
+            self.fc_out = nn.Linear(4 * hidden, hidden)
+
+        def forward(self, x):
+            return self.fc_out(F.gelu(self.fc_in(x), approximate=True))
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln_1 = nn.LayerNorm(hidden, epsilon=1e-5)
+            self.attn = Attention()
+            self.ln_2 = nn.LayerNorm(hidden, epsilon=1e-5)
+            self.mlp = MLP()
+
+        def forward(self, x):
+            x = x + self.attn(self.ln_1(x))
+            return x + self.mlp(self.ln_2(x))
+
+    class Embeddings(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word_embeddings = nn.Embedding(vocab, hidden)
+            self.position_embeddings = nn.Embedding(max_seq, hidden)
+
+        def forward(self, ids):
+            return self.word_embeddings(ids) + self.position_embeddings(
+                P.arange(ids.shape[1]))
+
+    class Model(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embeddings = Embeddings()
+            self.blocks = nn.LayerList([Block() for _ in range(layers)])
+            self.ln_f = nn.LayerNorm(hidden, epsilon=1e-5)
+
+        def forward(self, ids):
+            x = self.embeddings(ids)
+            for blk in self.blocks:
+                x = blk(x)
+            return self.ln_f(x)
+
+    class GPT(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.gpt = Model()
+
+        def forward(self, ids):
+            return P.matmul(self.gpt(ids),
+                            self.gpt.embeddings.word_embeddings.weight,
+                            transpose_y=True)
+
+    return GPT()
+
+
+def layer_gpt_loss(P, logits, ids):
+    """`gpt_pretrain_loss` in the Tensor surface: position t scored
+    against ids[t + 1], the last position's label -1 and ignored, F's
+    cross entropy (a mean over the valid rows)."""
+    b, s, v = logits.shape
+    labels = P.concat([ids[:, 1:], P.full([b, 1], -1, dtype=ids.dtype)],
+                      axis=1)
+    return P.nn.functional.cross_entropy(
+        logits.reshape([b * s, v]), labels.reshape([b * s]), ignore_index=-1)
+
+
+def layer_gpt_state(model):
+    """The port GPTForPretraining `model`'s state dict for `layer_gpt`:
+    the same keys, each Linear weight transposed to [in, out]."""
+    from paddle_tpu_torch.nlp.gpt import _linear_weight_names
+    linear = _linear_weight_names(model)
+    return {k: (v.t() if k in linear else v).detach()
+            for k, v in model.state_dict().items()}
 
 
 def load_op_cases():
@@ -3958,13 +4062,19 @@ def eager_gpt_parity(dev):
     return out
 
 
-def eager_steps(dev, steps=EAGER_STEPS):
-    """bench.py's shape (batch 8 x seq 1024, bf16): `steps` AdamW steps of
-    the nn.Module model (forward, gpt_pretrain_loss, backward, step,
-    clear_grad) and of the Tensor-surface GPT over pt.Parameters copied
-    from the same weights, the losses held within 2e-2 relative. Each
-    step's forward and backward timed apart by CUDA events; the counts
-    zeroed before the eager steps and read after."""
+def gpt_steps(dev, main, steps=EAGER_STEPS):
+    """bench.py's shape (batch 8 x seq 1024, bf16): `steps` AdamW steps
+    (forward, loss, backward, step, clear_grad) of the nn.Module model,
+    of the Tensor-surface GPT (`tensor_gpt_loss`) over pt.Parameters and,
+    when `main` is "layer", of `layer_gpt` over `layer.parameters()`, all
+    from the same weights; the losses held within 2e-2 relative of the
+    module's. The counts are zeroed before the steps of `main` ("tensor"
+    or "layer", the path the phase drives) and read after: 12 launches
+    each of K1-K3 and dd and 1 Adam launch a step. Then `TIMED_ROUNDS`
+    more steps of each contender, in turns, each step's forward, backward
+    and optimizer step timed apart by CUDA events (medians); then two
+    more steps of each, profiled (`profile_steps`, kernel groups
+    `STEP_GROUPS`)."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
@@ -3975,6 +4085,19 @@ def eager_steps(dev, steps=EAGER_STEPS):
     model = GPTForPretraining(train_config(), device=dev,
                               dtype=torch.bfloat16, seed=SEED)
     params = eager_params(model)
+    contenders = {"module": (lambda: gpt_pretrain_loss(model(ids_t), ids_t),
+                             model.parameters()),
+                  "tensor": (lambda: tensor_gpt_loss(
+                      pt, fa.flash_attention, params, ids, HEADS, LAYERS),
+                      list(params.values()))}
+    if main == "layer":
+        layer = layer_gpt(pt, fa.flash_attention, TRAIN_VOCAB, 768, HEADS,
+                          LAYERS, TRAIN_S).to(dtype="bfloat16")
+        missing, unexpected = layer.set_state_dict(layer_gpt_state(model))
+        check(not missing and not unexpected,
+              f"layer_gpt state: missing {missing}, unexpected {unexpected}")
+        contenders["layer"] = (lambda: layer_gpt_loss(pt, layer(ids), ids),
+                               layer.parameters())
     model.train()
     ids_np = np.random.RandomState(0).randint(
         0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int32")
@@ -3986,55 +4109,62 @@ def eager_steps(dev, steps=EAGER_STEPS):
         e.record()
         return e
 
-    def run(fwd, opt):
-        losses, parts = [], []
-        for _ in range(steps):
-            e0 = ev()
-            loss = fwd()
-            e1 = ev()
-            loss.backward()
-            e2 = ev()
-            opt.step()
-            opt.clear_grad()
-            e3 = ev()
-            torch.cuda.synchronize()
-            losses.append(float(loss.detach()))
-            parts.append((e0.elapsed_time(e1), e1.elapsed_time(e2),
-                          e2.elapsed_time(e3)))
-        # the first step pays for allocations: the later ones are timed
-        timed = np.mean(parts[1:], axis=0)
-        return losses, {"forward_ms": float(timed[0]),
-                        "backward_ms": float(timed[1]),
-                        "optimizer_ms": float(timed[2]),
-                        "step_ms": float(timed.sum())}
+    def one_step(fwd, opt):
+        """(loss, (forward, backward, optimizer ms)) of one step."""
+        e0 = ev()
+        loss = fwd()
+        e1 = ev()
+        loss.backward()
+        e2 = ev()
+        opt.step()
+        opt.clear_grad()
+        e3 = ev()
+        torch.cuda.synchronize()
+        return float(loss.detach()), (e0.elapsed_time(e1),
+                                      e1.elapsed_time(e2),
+                                      e2.elapsed_time(e3))
 
-    def module_fwd():
-        return gpt_pretrain_loss(model(ids_t), ids_t)
-
-    def eager_fwd():
-        return tensor_gpt_loss(pt, fa.flash_attention, params, ids, HEADS,
-                               LAYERS)
-
-    module_opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    module_losses, module_ms = run(module_fwd, module_opt)
-    opt = AdamW(learning_rate=1e-4, parameters=list(params.values()))
-    # the main path's run: every count is 0 before it and read after
-    zero_counts()
-    eager_losses, eager_ms = run(eager_fwd, opt)
-    counts = kernels.launch_counts()
+    losses, opts = {}, {}
+    for label, (fwd, ps) in contenders.items():
+        opts[label] = AdamW(learning_rate=1e-4, parameters=ps)
+        if label == main:
+            # the main path's run: every count is 0 before it, read after
+            zero_counts()
+        losses[label] = [one_step(fwd, opts[label])[0]
+                         for _ in range(steps)]
+        if label == main:
+            counts = kernels.launch_counts()
+    # the timed steps: the contenders in turns, forward and back, after
+    # the checked steps (their first step paid for the allocations);
+    # medians of each part
+    parts = {label: [] for label in contenders}
+    labels = list(contenders)
+    for r in range(TIMED_ROUNDS):
+        for label in (labels if r % 2 == 0 else labels[::-1]):
+            parts[label].append(one_step(contenders[label][0],
+                                         opts[label])[1])
+    ms = {}
+    for label, rows in parts.items():
+        med = np.median(rows, axis=0)
+        ms[label] = {"forward_ms": float(med[0]),
+                     "backward_ms": float(med[1]),
+                     "optimizer_ms": float(med[2]),
+                     "step_ms": float(np.median(np.sum(rows, axis=1))),
+                     "steps_timed": len(rows)}
     per_step = {k: counts[f"flash_attention.{k}"] // steps
                 for k in ("fwd", "dkv", "dq", "dd")}
     check(all(counts[f"flash_attention.{k}"] == LAYERS * steps
               for k in per_step),
-          f"eager steps: flash launches {counts}, not {LAYERS} a step")
+          f"{main} steps: flash launches {counts}, not {LAYERS} a step")
     check(counts["optimizer.adam"] == steps,
-          f"eager steps: {counts['optimizer.adam']} optimizer launches")
-    for a, b in zip(eager_losses, module_losses):
-        check(np.isfinite(a) and abs(a - b) <= 2e-2 * abs(b),
-              f"eager steps: losses {eager_losses} vs module "
-              f"{module_losses}")
-    check(eager_losses[-1] < eager_losses[0],
-          f"eager steps: the loss did not fall {eager_losses}")
+          f"{main} steps: {counts['optimizer.adam']} optimizer launches")
+    for label in contenders:
+        for a, b in zip(losses[label], losses["module"]):
+            check(np.isfinite(a) and abs(a - b) <= 2e-2 * abs(b),
+                  f"{label} steps: losses {losses[label]} vs module "
+                  f"{losses['module']}")
+        check(losses[label][-1] < losses[label][0],
+              f"{label} steps: the loss did not fall {losses[label]}")
 
     def whole_step(fwd, step_opt):
         def step(*_):
@@ -4046,19 +4176,17 @@ def eager_steps(dev, steps=EAGER_STEPS):
         return step
     # where each step's device time goes, after the checked steps
     profiles = {}
-    for label, fwd, step_opt, ms in (
-            ("eager", eager_fwd, opt, eager_ms["step_ms"]),
-            ("module", module_fwd, module_opt, module_ms["step_ms"])):
-        prof = profile_steps(whole_step(fwd, step_opt), None, ms)
+    for label, (fwd, _) in contenders.items():
+        prof = profile_steps(whole_step(fwd, opts[label]), None,
+                             ms[label]["step_ms"], categories=STEP_GROUPS,
+                             other=STEP_OTHER)
         if isinstance(prof, dict):
             del prof["kernel_calls_per_step"]
             prof["top_kernels"] = prof["top_kernels"][:8]
         profiles[label] = prof
     return {"batch": TRAIN_B, "seq": TRAIN_S, "dtype": "bfloat16",
-            "steps": steps, "losses": eager_losses,
-            "module_losses": module_losses, "eager_ms": eager_ms,
-            "module_ms": module_ms, "profile": profiles,
-            "launches_per_step": per_step,
+            "steps": steps, "main": main, "losses": losses, "ms": ms,
+            "profile": profiles, "launches_per_step": per_step,
             "launches": {k: counts[f"flash_attention.{k}"]
                          for k in per_step},
             "adam_launches": counts["optimizer.adam"]}
@@ -4103,13 +4231,259 @@ def eager_phase(dev, smi):
         sweep = op_sweep()
         parity = eager_gpt_parity(dev)
         torch.cuda.empty_cache()
-        steps = eager_steps(dev)
+        steps = gpt_steps(dev, "tensor")
         overhead = dispatch_overhead()
     finally:
         pt.set_device(old)
     emit("eager", nvidia_smi=smi, op_sweep=sweep, gpt_f32_parity=parity,
          steps=steps, dispatch_us=overhead)
     return steps["launches"]
+
+
+# ---------------------------------------------------------------------------
+# nn: Layer, nn.functional and the layers on the card
+# ---------------------------------------------------------------------------
+
+def layer_gpt_parity(dev):
+    """The f32 `layer_gpt` GPT-2 small against the port's
+    GPTForPretraining from the same weights (batch 2 x seq 256): loss
+    within 1e-5 relative, every gradient within 1e-4 x max(1, max|g|)
+    (each Linear weight's transposed); K1-K3 and dd launch once per
+    layer in its forward and backward."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.nlp.gpt import _linear_weight_names
+    from paddle_tpu_torch.ops import flash_attention as fa
+    model = GPTForPretraining(train_config(), device=dev,
+                              dtype=torch.float32, seed=SEED)
+    layer = layer_gpt(pt, fa.flash_attention, TRAIN_VOCAB, 768, HEADS,
+                      LAYERS, TRAIN_S)
+    layer.set_state_dict(layer_gpt_state(model))
+    ids_np = np.random.RandomState(1).randint(
+        0, TRAIN_VOCAB, (EAGER_PARITY_B, EAGER_PARITY_S)).astype("int32")
+    ids_t = torch.tensor(ids_np, device=dev)
+    ref = gpt_pretrain_loss(model(ids_t), ids_t)
+    ref.backward()
+    zero_counts()
+    ids = pt.to_tensor(ids_np)
+    loss = layer_gpt_loss(pt, layer(ids), ids)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    check(launches == {k: LAYERS for k in ("fwd", "dkv", "dq", "dd")},
+          f"layer_gpt f32: flash launches {launches}")
+    ref = float(ref.detach())
+    rel = abs(float(loss) - ref) / abs(ref)
+    check(rel <= 1e-5, f"layer_gpt f32: loss {float(loss)} vs {ref} "
+                       f"(rel {rel})")
+    named = dict(model.named_parameters())
+    linear = _linear_weight_names(model)
+    worst = 0.0
+    for k, p in layer.named_parameters():
+        want = named[k].grad
+        check(want is not None and p.grad is not None,
+              f"layer_gpt f32: no gradient for {k}")
+        want = want.t() if k in linear else want
+        scale = max(1.0, float(want.abs().max()))
+        err = float((p.grad._data - want).abs().max())
+        check(err <= 1e-4 * scale, f"layer_gpt f32: {k} gradient error "
+                                   f"{err} > 1e-4 x {scale}")
+        worst = max(worst, err / scale)
+    out = {"batch": EAGER_PARITY_B, "seq": EAGER_PARITY_S,
+           "loss": float(loss), "module_loss": ref, "loss_rel": rel,
+           "max_grad_err": worst, "params": len(layer.parameters()),
+           "launches": launches}
+    del model, layer
+    return out
+
+
+def llama_attention_check(dev):
+    """The registered `llama_attention` op at the serving LLaMA's shape
+    (12 heads over 4 KV heads of 64, x [8, 1024, 768], wqkv [768, 1280],
+    bf16, bshd): forward and backward on the kernel route, counted (K1,
+    dd, K2 and K3 once each), held against the op's plain route on the
+    same inputs within 2e-2 x max(1, |ref|) (the output elementwise, the
+    gradients against max(1, max|g|))."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nlp.llama import rope_tables
+    from paddle_tpu_torch.ops import dispatch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.randn(TRAIN_B, TRAIN_S, 768, generator=gen,
+                     device=dev).bfloat16()
+    w0 = (0.03 * torch.randn(768, 1280, generator=gen, device=dev)
+          ).bfloat16()
+    cot = torch.randn(TRAIN_B, TRAIN_S, 768, generator=gen, device=dev)
+    cos, sin = (t.to(dev) for t in rope_tables(TRAIN_S, HEAD_DIM))
+
+    def run(kernel):
+        x = pt.to_tensor(x0, stop_gradient=False)
+        w = pt.to_tensor(w0, stop_gradient=False)
+        with fa.kernel_scope(kernel):
+            out = dispatch.apply(
+                dispatch.OP_REGISTRY["llama_attention"],
+                (x, w, pt.to_tensor(cos), pt.to_tensor(sin)),
+                {"num_heads": HEADS, "num_kv_heads": 4,
+                 "head_dim": HEAD_DIM, "attn_layout": "bshd"},
+                name="llama_attention")
+            (out.astype("float32") * pt.to_tensor(cot)).sum().backward()
+        return out._data.detach(), x.grad._data, w.grad._data
+
+    zero_counts()
+    got = run("auto")
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    check(launches == {k: 1 for k in ("fwd", "dkv", "dq", "dd")},
+          f"llama_attention: flash launches {launches}")
+    ref = run("plain")
+    errs = {}
+    for name, g, r, elementwise in zip(("out", "dx", "dwqkv"), got, ref,
+                                       (True, False, False)):
+        g, r = g.float(), r.float()
+        check(bool(torch.isfinite(g).all()), f"llama_attention {name}: "
+                                             f"not finite")
+        bound = torch.clamp_min(r.abs(), 1.0) if elementwise else \
+            max(1.0, float(r.abs().max()))
+        rel = float(((g - r).abs() / bound).max())
+        check(rel <= 2e-2, f"llama_attention {name}: error {rel} > 2e-2")
+        errs[name] = rel
+    return {"x": [TRAIN_B, TRAIN_S, 768], "wqkv": [768, 1280],
+            "heads": HEADS, "kv_heads": 4, "dtype": "bfloat16",
+            "layout": "bshd", "max_rel_err": errs, "launches": launches}
+
+
+def sparse_embedding_check(dev, steps=3):
+    """An `nn.Embedding(sparse=True)` table (32768 x 768, f32) trained by
+    `Adam(lazy_mode=True)` for `steps` steps on the card and on the CPU
+    from the same weights and ids: each step's gradient a SelectedRows;
+    the rows no id touched bitwise unchanged; the touched rows the CPU's
+    within 1e-5 x max(1, |ref|)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.selected_rows import SelectedRows
+    from paddle_tpu_torch.optimizer import Adam
+    vocab, dim = TRAIN_VOCAB, 768
+    w0 = torch.randn(vocab, dim, generator=torch.Generator().manual_seed(
+        SEED))
+    r = np.random.RandomState(3)
+    ids_np = r.randint(0, vocab, (steps, 8, 64)).astype("int32")
+    cot = r.randn(8, 64, dim).astype("f4")
+
+    def train(place):
+        pt.set_device(place)
+        emb = pt.nn.Embedding(vocab, dim, sparse=True)
+        emb.set_state_dict({"weight": w0})
+        opt = Adam(learning_rate=1e-2, parameters=emb.parameters(),
+                   lazy_mode=True)
+        c = pt.to_tensor(cot)
+        for t in range(steps):
+            (emb(pt.to_tensor(ids_np[t])) * c).sum().backward()
+            check(isinstance(emb.weight.grad, SelectedRows),
+                  f"sparse embedding on {place}: the grad is "
+                  f"{type(emb.weight.grad).__name__}")
+            opt.step()
+            opt.clear_grad()
+        return emb.weight._data.detach().cpu()
+
+    gpu = train("gpu:0")
+    cpu = train("cpu")
+    pt.set_device("gpu:0")
+    touched = torch.from_numpy(np.unique(ids_np)).long()
+    mask = torch.zeros(vocab, dtype=torch.bool)
+    mask[touched] = True
+    check(torch.equal(gpu[~mask], w0[~mask]) and
+          torch.equal(cpu[~mask], w0[~mask]),
+          "sparse embedding: an untouched row changed")
+    check(not torch.equal(gpu[mask], w0[mask]),
+          "sparse embedding: the touched rows did not move")
+    rel = float(((gpu[mask] - cpu[mask]).abs()
+                 / cpu[mask].abs().clamp_min(1.0)).max())
+    check(rel <= 1e-5, f"sparse embedding: card vs CPU error {rel}")
+    return {"table": [vocab, dim], "steps": steps,
+            "touched_rows": int(touched.numel()), "max_rel_err": rel}
+
+
+def conv_net_check(dev):
+    """A small conv net (Conv2D -> BatchNorm2D -> ReLU -> MaxPool2D ->
+    Flatten -> Linear, batch 64 of 1x28x28, f32, training mode) on the
+    card and on the CPU from the same weights: the logits, the cross
+    entropy, every gradient and the BatchNorm running statistics within
+    1e-4 x max(1, |ref|)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    nn, F = pt.nn, pt.nn.functional
+    r = np.random.RandomState(5)
+    x_np = r.randn(64, 1, 28, 28).astype("f4")
+    y_np = r.randint(0, 10, (64,)).astype("int32")
+
+    def build():
+        return nn.Sequential(nn.Conv2D(1, 8, 3, padding=1),
+                             nn.BatchNorm2D(8), nn.ReLU(), nn.MaxPool2D(2),
+                             nn.Flatten(), nn.Linear(8 * 14 * 14, 10))
+
+    def run(place, state=None):
+        pt.set_device(place)
+        net = build()
+        if state is not None:
+            net.set_state_dict(state)
+        out = net(pt.to_tensor(x_np))
+        loss = F.cross_entropy(out, pt.to_tensor(y_np))
+        loss.backward()
+        vals = {"logits": out._data, "loss": loss._data}
+        vals.update({f"grad {k}": p.grad._data
+                     for k, p in net.named_parameters()})
+        vals.update({f"buffer {k}": b._data
+                     for k, b in net.named_buffers()})
+        return net, {k: v.detach().cpu() for k, v in vals.items()}
+
+    cpu_net, ref = run("cpu")
+    state = {k: v._data.detach().clone() for k, v in
+             cpu_net.state_dict().items()}
+    # the CPU net's buffers moved in its forward: the card's start from
+    # the same initial values
+    state["1._mean"] = torch.zeros(8)
+    state["1._variance"] = torch.ones(8)
+    _, got = run("gpu:0", state)
+    worst = 0.0
+    for k, want in ref.items():
+        rel = float(((got[k] - want).abs()
+                     / want.abs().clamp_min(1.0)).max())
+        check(rel <= 1e-4, f"conv net {k}: card vs CPU error {rel}")
+        worst = max(worst, rel)
+    return {"batch": 64, "compared": len(ref), "max_rel_err": worst,
+            "loss": float(ref["loss"])}
+
+
+def nn_phase(dev, smi):
+    """The nn slice on the card: `layer_gpt` at f32 against
+    GPTForPretraining, its bf16 AdamW steps at bench.py's shape beside
+    the module's and the Tensor surface's (the main path's launches), the
+    registered llama_attention, the sparse embedding under lazy Adam, a
+    small conv net. Returns the layer steps' launches of K1-K3, dd and
+    Adam, and llama_attention's."""
+    import torch
+    import paddle_tpu_torch as pt
+    old = pt.get_device()
+    pt.set_device("gpu:0")
+    try:
+        parity = layer_gpt_parity(dev)
+        torch.cuda.empty_cache()
+        steps = gpt_steps(dev, "layer")
+        torch.cuda.empty_cache()
+        llama = llama_attention_check(dev)
+        sparse = sparse_embedding_check(dev)
+        conv = conv_net_check(dev)
+    finally:
+        pt.set_device(old)
+    emit("nn", nvidia_smi=smi, layer_gpt_f32_parity=parity, steps=steps,
+         llama_attention=llama, sparse_embedding=sparse, conv_net=conv)
+    return {**steps["launches"], "adam": steps["adam_launches"],
+            "llama_attention": llama["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4467,6 +4841,12 @@ PROFILE_GROUPS = (("flash attention (K1-K3, dd)", ("flash_", "row_dot")),
 
 
 OTHER_GROUP = "other (elementwise, norms, loss, copies)"
+# the eager and nn phases' steps: the norms, GELU and the softmax/loss
+# kernels apart from the other elementwise kernels
+STEP_GROUPS = PROFILE_GROUPS + (
+    ("layer_norm", ("layer_norm",)), ("gelu", ("gelu",)),
+    ("softmax and cross entropy", ("softmax", "nll_loss")))
+STEP_OTHER = "other (elementwise, copies)"
 
 
 def device_rows(prof, calls):
@@ -4497,7 +4877,8 @@ def by_group(rows, categories=PROFILE_GROUPS, other=OTHER_GROUP):
     return groups
 
 
-def profile_steps(step, ids, step_ms, steps=2):
+def profile_steps(step, ids, step_ms, steps=2, categories=PROFILE_GROUPS,
+                  other=OTHER_GROUP):
     """Device time of `steps` training steps by kernel, from
     torch.profiler (CUPTI): per-step ms by category, the device's idle
     share, the calls per step of each kernel in DEVICE_NAMES, and the top
@@ -4537,7 +4918,7 @@ def profile_steps(step, ids, step_ms, steps=2):
             # against the unprofiled step: below 0 when the profiler's
             # slowdown of the kernels exceeds the idle time
             "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
-            "ms_per_step_by_group": by_group(rows),
+            "ms_per_step_by_group": by_group(rows, categories, other),
             "top_kernels": [{"ms": ms, "calls": n, "name": key[:90]}
                             for ms, n, key in rows[:16]]}
 
@@ -4707,6 +5088,7 @@ def main():
     if fh is not None:
         emit("train_fused_head", **fh)
     eager_launches = run("eager", eager_phase, dev, smi)
+    nn_launches = run("nn", nn_phase, dev, smi)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -4746,6 +5128,9 @@ def main():
                      "launches_train_fused_head": fh["launches"][kind],
                      "launches_train_llama": train_llama_launches[kind],
                      "launches_eager": eager_launches[kind],
+                     "launches_nn": nn_launches[kind],
+                     "launches_nn_llama_attention":
+                         nn_launches["llama_attention"][kind],
                      "ms": row.pop("kernel_ms"), **row})
         if kind == "fwd":
             prefill = dict(fl["fwd_prefill"])
@@ -4761,6 +5146,7 @@ def main():
                  "launches": train_launches["adam"],
                  "launches_train_fused_head": fh["launches"]["adam"],
                  "launches_train_llama": train_llama_launches["adam"],
+                 "launches_nn": nn_launches["adam"],
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

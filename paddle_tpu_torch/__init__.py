@@ -23,7 +23,9 @@ torch autograd (`Tensor.backward`, `grad`, `autograd.PyLayer`); tensors
 live on the CUDA card unless `set_device("cpu")` was called. The
 registered `flash_attention` op (`ops.flash_attention`) runs K1 forward
 and K2, K3 and dd in `loss.backward()`, and the optimizers take
-`Parameter`s. Importing the package builds and launches nothing.
+`Parameter`s. `nn` holds `Layer` (a `torch.nn.Module` under Paddle's
+names), `nn.functional` and the layers. Importing the package builds and
+launches nothing.
 """
 __version__ = "0.1.0"
 
@@ -85,6 +87,10 @@ from . import autograd  # noqa: F401
 from . import tensor  # noqa: F401
 from .autograd import grad  # noqa: F401
 from .framework.serialization import save, load  # noqa: F401
+from . import nn  # noqa: F401,E402
+# the registry holds every op once the package is imported: nlp.llama
+# registers llama_attention and rms_norm
+from . import nlp  # noqa: F401,E402
 
 
 def _inplace(x, out):

@@ -18,28 +18,18 @@ from .errors import enforce, enforce_eq, enforce_shape
 def create_parameter(shape, dtype="float32", name=None, attr=None,
                      is_bias=False, default_initializer=None):
     """paddle.create_parameter: a fresh trainable Parameter on the current
-    place, zeros when `is_bias`, else from `default_initializer` (or
-    `attr.initializer`), called as `init(shape, dtype)`. The JAX
-    package's default, Xavier-normal, comes with `nn.initializer`
-    (ROADMAP Queue 1 item 3(b))."""
+    place from `default_initializer` (or `attr.initializer`), called as
+    `init(shape, dtype)`; by default zeros when `is_bias`, else
+    Xavier-normal (`nn.initializer`)."""
+    from ..nn import initializer as I
     init = default_initializer
     if init is None and attr is not None:
         init = getattr(attr, "initializer", None)
-    shape = tuple(int(s) for s in shape)
     if init is None:
-        if not is_bias:
-            raise NotImplementedError(
-                "create_parameter: the default Xavier-normal initializer "
-                "comes with nn.initializer (ROADMAP Queue 1 item 3(b)); "
-                "pass default_initializer=")
-        import torch
-        data = torch.zeros(shape, dtype=convert_dtype(dtype),
-                           device=state.current_device())
-    else:
-        data = init(shape, dtype)
-    p = Parameter(data, dtype=dtype,
+        init = I.Constant(0.0) if is_bias else I.XavierNormal()
+    shape = tuple(int(s) for s in shape)
+    p = Parameter(init(shape, dtype), dtype=dtype,
                   name=name or (getattr(attr, "name", None) if attr else None))
     if attr is not None and getattr(attr, "regularizer", None) is not None:
         p.regularizer = attr.regularizer
     return p
-

@@ -6,8 +6,10 @@ accumulation).
 A SelectedRows holds (rows, values[len(rows), dim], height): the gradient
 of an embedding lookup touches only the looked-up rows. rows and values
 are torch tensors on one device; nothing here reads them back to the
-host. The sparse embedding gradient that makes them comes with
-`F.embedding` (ROADMAP Queue 1 item 3(b)).
+host. `F.embedding(sparse=True)` on a trainable leaf table makes the
+table's gradient a torch sparse COO tensor; the table's `.grad` presents
+it as a SelectedRows (`from_sparse`), and the optimizers update the rows
+it names (`lazy_mode`).
 """
 import torch
 
@@ -75,6 +77,12 @@ class SelectedRows:
         return self.to_dense() + _tensor(other)
 
     __radd__ = __add__
+
+    @classmethod
+    def from_sparse(cls, g):
+        """A torch sparse COO gradient [height, ...] as a SelectedRows
+        (its rows as they are, duplicates included)."""
+        return cls(g._indices()[0], g._values(), g.shape[0])
 
     def __repr__(self):
         return (f"SelectedRows(height={self.height}, "

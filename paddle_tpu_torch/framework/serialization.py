@@ -2,13 +2,17 @@
 ref python/paddle/framework/io.py:202,292 — pickled nested containers of
 tensors, each tensor serialised as a numpy payload).
 
-The file format is the JAX package's: `load` reads a file written by the
-JAX package's `save` (its pickle names
-`paddle_tpu.framework.serialization._TensorPayload`, which `_Unpickler`
-maps onto this module's payload class without importing the JAX
-package), and bfloat16 payloads (a uint16 view) come back as
-`torch.bfloat16`. The JAX package cannot read the port's files as
-tensors: their pickle names this module's class.
+The file format is the JAX package's, in both directions. Each tensor is
+pickled as a payload object under the JAX package's global
+`paddle_tpu.framework.serialization _TensorPayload`, in its layout
+(`is_bf16`, `dtype`, `data` as numpy, a uint16 view for bfloat16, and
+`shape`), so the JAX package's `load` reads the port's files as tensors.
+`_Pickler` writes that global itself: the stock pickler's `save_global`
+would import the named module to check the class, and that is the JAX
+package. `_Unpickler` maps the same name back onto this module's class,
+so `load` reads the port's files and the JAX package's alike, without
+importing the JAX package; bfloat16 payloads come back as
+`torch.bfloat16`.
 
 Writes are ATOMIC: the payload streams into a temp file in the
 destination directory, is fsync'd, and lands via `os.replace`, so a
@@ -61,6 +65,23 @@ class _TensorPayload:
         if self.is_bf16:
             return torch.from_numpy(data.view(np.int16)).view(torch.bfloat16)
         return torch.from_numpy(data)
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler, writing `_TensorPayload` under the JAX
+    package's global without importing it."""
+
+    def save_global(self, obj, name=None):
+        if obj is not _TensorPayload:
+            return super().save_global(obj, name)
+        if self.proto >= 4:
+            self.save(_JAX_MODULE)
+            self.save("_TensorPayload")
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + f"{_JAX_MODULE}\n_TensorPayload\n"
+                       .encode("utf-8"))
+        self.memoize(obj)
 
 
 class _Unpickler(pickle.Unpickler):
@@ -155,7 +176,7 @@ def save(obj, path, protocol=4, **configs):
 
     def _write(f):
         sink = _CheckpointSink(f)
-        pickle.dump(_pack(obj), sink, protocol=protocol)
+        _Pickler(sink, protocol=protocol).dump(_pack(obj))
         return sink.hexdigest()
 
     return _atomic_write(path, _write)

@@ -148,9 +148,14 @@ class Tensor:
 
     @property
     def grad(self):
+        """The gradient as a Tensor, or a `SelectedRows` when it is
+        row-sparse (a table read by `F.embedding(sparse=True)`)."""
         d = self._data
         if d.grad_fn is not None or d.grad is None:
             return None
+        if d.grad.is_sparse:
+            from .selected_rows import SelectedRows
+            return SelectedRows.from_sparse(d.grad)
         return Tensor._wrap(d.grad)
 
     @grad.setter

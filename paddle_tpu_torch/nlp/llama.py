@@ -44,6 +44,7 @@ from ..nn.paged_attention import (paged_chunk_attention,
                                   paged_decode_attention)
 from ..nn.transformer import (cached_decode_attention, scatter_block_kv_at,
                               scatter_block_kv_chunk_batched, scatter_kv_at)
+from ..ops.dispatch import register_op
 from ..ops.flash_attention import flash_attention, kernel_len
 from .gpt import (FusedHeadLogits, _recompute, _use_fused_head,
                   gpt_pretrain_loss)
@@ -597,3 +598,45 @@ def llama_pretrain_loss(logits, labels):
     """The label-shift cross entropy of `gpt_pretrain_loss`, the fused
     head included."""
     return gpt_pretrain_loss(logits, labels)
+
+
+# ------------------------------------------------- the registered LLaMA ops
+# (the JAX package's `rms_norm` and `llama_attention`, run by the op
+# library's dispatcher on the Tensor surface)
+
+def _rms_norm_raw(x_, w, eps=1e-6):
+    """RMSNorm with the statistics and the product in f32, the result in
+    x's dtype."""
+    xf = x_.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x_.dtype)
+
+
+def _llama_attention_raw(x, wqkv, cos, sin, num_heads=1, num_kv_heads=1,
+                         head_dim=1, attn_layout="bhsd", window=None):
+    """One fused GQA attention: x @ wqkv ([hidden, (nh + 2 nkv) hd]), RoPE
+    from the cos/sin table inputs (held without gradient), each KV head
+    repeated nh / nkv times, then causal flash attention in the `bshd` or
+    `bhsd` layout (K1 forward, dd, K2 and K3 backward on the card)."""
+    nh, nkv, hd = num_heads, num_kv_heads, head_dim
+    cos, sin = cos.detach(), sin.detach()
+    b, s, _ = x.shape
+    q, k, v = (x @ wqkv).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+    q, k, v = (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
+               v.reshape(b, s, nkv, hd))
+    if attn_layout == "bshd":
+        out = _gqa_flash_bshd(apply_rope_bshd(q, cos, sin),
+                              apply_rope_bshd(k, cos, sin), v, window)
+        return out.reshape(b, s, nh * hd)
+    q = apply_rope(q.transpose(1, 2), cos, sin)
+    k = apply_rope(k.transpose(1, 2), cos, sin)
+    v = v.transpose(1, 2)
+    if nkv != nh:
+        k = k.repeat_interleave(nh // nkv, dim=1)
+        v = v.repeat_interleave(nh // nkv, dim=1)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    return out.transpose(1, 2).reshape(b, s, nh * hd)
+
+
+register_op("rms_norm", _rms_norm_raw)
+register_op("llama_attention", _llama_attention_raw)

@@ -129,17 +129,17 @@ def apply(fn, tensors, attrs=None, name=None, differentiable=True):
         if isinstance(t, Tensor):
             dev = t._data.device
             break
-    arrays = tuple(_input(t, dev) for t in tensors)
+    arrays = tuple([_input(t, dev) for t in tensors])
     amp = state.get_amp_state()
     if amp is not None:
         arrays = _amp_cast(arrays, name, amp)
-    f = functools.partial(fn, **attrs) if attrs else fn
+    kw = attrs or {}
     try:
         if not differentiable and torch.is_grad_enabled():
             with torch.no_grad():
-                outs = f(*arrays)
+                outs = fn(*arrays, **kw)
         else:
-            outs = f(*arrays)
+            outs = fn(*arrays, **kw)
     except Exception as e:
         # attach the op name/inputs/attrs IN PLACE (type preserved): the
         # eager analog of ref framework/op_call_stack.cc

@@ -92,12 +92,14 @@ register_op("scale", _scale_raw)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    """x * scale + bias (or (x + bias) * scale), then the `nn.functional`
+    activation named `act`, if any."""
+    out = apply(_scale_raw, (x, scale, bias),
+                {"bias_after_scale": bool(bias_after_scale)}, name="scale")
     if act:
-        raise NotImplementedError(
-            "scale(act=...): activations come with nn.functional (ROADMAP "
-            "Queue 1 item 3(b))")
-    return apply(_scale_raw, (x, scale, bias),
-                 {"bias_after_scale": bool(bias_after_scale)}, name="scale")
+        from ..nn import functional as F
+        out = getattr(F, act)(out)
+    return out
 
 
 def _unary(fn, name, promote=False):

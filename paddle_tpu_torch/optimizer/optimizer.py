@@ -239,9 +239,54 @@ class Optimizer:
         if not items:
             return
         if self._grad_clip is not None:
+            # clipping needs dense magnitudes: row-sparse grads densify
+            items = [(i, p, g.to_dense() if g.is_sparse else g)
+                     for i, p, g in items]
             pairs = self._grad_clip([(p, g) for _, p, g in items])
             items = [(i, p, g) for (i, _, _), (p, g) in zip(items, pairs)]
-        self._apply(items)
+        sparse = [it for it in items if it[2].is_sparse]
+        if sparse:
+            items = [it for it in items if not it[2].is_sparse]
+            if self._can_row_update():
+                for i, p, g in sparse:
+                    self._sparse_step(i, p, g)
+            else:
+                # a stateful rule without lazy_mode decays its state on
+                # every row: the dense update
+                items += [(i, p, g.to_dense()) for i, p, g in sparse]
+        if items:
+            self._apply(items)
+
+    def _can_row_update(self):
+        """Whether a row-sparse gradient updates only its rows: exact for
+        a stateless rule (SGD), `lazy_mode`'s semantics for a stateful
+        one, and never under multi_precision (the rows would move behind
+        the f32 master's back)."""
+        if self._multi_precision:
+            return False
+        return not self._state_names or getattr(self, "_lazy_mode", False)
+
+    def _sparse_step(self, i, p, g):
+        """The rule on the touched rows alone (ref sgd_op.h
+        SparseSGDFunctor, adam lazy_mode): the rows of the weight and of
+        each state slot gathered, updated by `_update`, scattered back.
+        Duplicate rows are summed first."""
+        g = g.coalesce()
+        rows = g.indices()[0]
+        vals = g.values().to(p.dtype)
+        st = self._ensure_state(i)
+        p_rows = p[rows]
+        reg = self._regularizer_of(p)
+        if reg is not None:
+            vals = reg.append(p_rows, vals)
+        st_rows = {n: st[n][rows] for n in self._state_names}
+        lr, step = self._scalars[0], self._scalars[1]
+        scale = _lr_scale(p)
+        self._update([p_rows], [vals], [st_rows],
+                     lr if scale == 1.0 else lr * scale, step)
+        p.index_copy_(0, rows, p_rows)
+        for n, v in st_rows.items():
+            st[n].index_copy_(0, rows, v)
 
     def _apply(self, items):
         """The plain update of (index, param, grad) items: the gradient
@@ -358,10 +403,12 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
-    """Adam with f32 moments. `lazy_mode` is accepted as the JAX package
-    takes it: it changes only the update of row-sparse (SelectedRows)
-    gradients, which update the touched rows alone; the port's gradients
-    are dense, so with it the trajectory is the default one."""
+    """Adam with f32 moments. `lazy_mode` changes only the update of a
+    row-sparse gradient (a table read by `F.embedding(sparse=True)`):
+    with it the touched rows alone are updated, their moments and
+    weights (`_sparse_step`); without it the gradient is densified and
+    every row's moments decay. Dense gradients take the same update
+    either way."""
     _state_names = ("moment1", "moment2")
     _state_f32 = True
     _decoupled = False     # AdamW: the decoupled weight decay

@@ -113,9 +113,19 @@ def test_port_round_trip_and_the_direction_back(tmp_path):
     assert isinstance(back["lst"], tuple) and back["lst"][0].tolist() == \
         [4, 5]
     assert not list(tmp_path.glob("*.tmp.*"))        # atomic: no litter
-    # the JAX package unpickles the port's payload objects, not tensors
+    # the JAX package reads the port's file as its own tensors, bf16
+    # included (its payload global, written without importing it)
     jl = pj.load(str(path))
-    assert type(jl["w"]).__module__ == t_ser.__name__
+    assert isinstance(jl["w"], pj.Tensor) and isinstance(jl["b"], pj.Tensor)
+    close(jl["w"].numpy(), t["w"].numpy())
+    assert str(jl["b"].dtype) == "bfloat16"
+    np.testing.assert_array_equal(np.asarray(jl["b"].numpy(), "f4"),
+                                  t["b"].numpy())
+    assert isinstance(jl["lst"], tuple) and jl["lst"][1] == 1.0
+    assert jl["lst"][0].numpy().tolist() == [4, 5]
+    assert str(jl["lst"][0].dtype) == "int32"
+    jnp_arrays = pj.load(str(path), return_numpy=True)
+    assert jnp_arrays["w"].dtype == np.float32
 
 
 def test_manifest_matches_jax_and_detects_a_torn_pair(tmp_path):
@@ -298,8 +308,13 @@ def test_create_parameter_and_top_level_surface():
     q = pt.create_parameter([2], "float32", default_initializer=lambda s, d:
                             np.full(s, 0.5, "f4"))
     close(q, [0.5, 0.5])
-    with pytest.raises(NotImplementedError, match="3\\(b\\)"):
-        pt.create_parameter([2], "float32")
+    # the default is Xavier-normal (fans 300 and 200), as in the JAX
+    # package
+    pt.seed(0)
+    x = pt.create_parameter([300, 200], "float32").numpy()
+    std = np.sqrt(2.0 / 500)
+    assert abs(x.mean()) < 4 * std / np.sqrt(x.size)
+    assert abs(x.std() - std) < 4 * std / np.sqrt(2 * x.size)
     for name in ("to_tensor", "grad", "save", "load", "set_device",
                  "no_grad", "matmul", "gather", "logsumexp",
                  "take_along_axis", "cholesky", "equal_all", "zeros"):

@@ -54,6 +54,17 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.nlp
         import paddle_tpu_torch.nlp.llama
         import paddle_tpu_torch.nn
+        import paddle_tpu_torch.nn.activation
+        import paddle_tpu_torch.nn.conv
+        import paddle_tpu_torch.nn.functional
+        import paddle_tpu_torch.nn.initializer
+        import paddle_tpu_torch.nn.layer
+        import paddle_tpu_torch.nn.layers_common
+        import paddle_tpu_torch.nn.loss
+        import paddle_tpu_torch.nn.norm
+        import paddle_tpu_torch.nn.param_attr
+        import paddle_tpu_torch.nn.pooling
+        import paddle_tpu_torch.nn.utils
         import paddle_tpu_torch.ops
         import paddle_tpu_torch.optimizer
         import paddle_tpu_torch.optimizer.lr

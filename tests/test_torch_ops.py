@@ -1,9 +1,13 @@
 """The port's op library against the JAX package's, one case per op name
 that the ported modules register (`ops/creation.py`, `math.py`,
-`manipulation.py`, `logic.py`, `linalg.py`, `sequence.py` and the
-registered `flash_attention`): the same seeded numpy inputs go through
+`manipulation.py`, `logic.py`, `linalg.py`, `sequence.py`, the
+registered `flash_attention`, `nn/functional.py`, `nn/layers_common.py`'s
+`bilinear` and `nlp/llama.py`'s `rms_norm` and `llama_attention`): the
+same seeded numpy inputs go through
 both packages on the CPU, and the forward outputs and the gradients of a
-fixed random projection of them are compared.
+fixed random projection of them are compared. The `nn.functional`
+cases run from `tests/test_torch_nn_ops.py` (another file, so another
+test worker); the coverage check here counts them.
 
 Tolerances: f32 forward within 1e-5 x max(1, |ref|) elementwise;
 gradients within 1e-4 x max(1, max|g|); integer and bool outputs and all
@@ -35,7 +39,7 @@ from paddle_tpu_torch.ops import logic as t_logic
 from paddle_tpu_torch.ops import manipulation as t_manip
 from paddle_tpu_torch.ops import math as t_math
 from paddle_tpu_torch.ops import sequence as t_seq
-from torch_op_cases import CASES, NS, op_name, run
+from torch_op_cases import CASES, NN_CASES, NS, op_name, run
 
 # one intra-op thread: parallel test workers share the host's cores
 torch.set_num_threads(1)
@@ -45,11 +49,14 @@ GRAD_RTOL = 1e-4
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = ("creation", "math", "manipulation", "logic", "linalg",
            "sequence")
+NN_SOURCES = ("nn/functional.py", "nn/layers_common.py", "nlp/llama.py")
 
 
 j_flash = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
-JAX = NS(pj, j_creation, j_math, j_manip, j_logic, j_linalg, j_seq, j_flash)
-PORT = NS(pt, t_creation, t_math, t_manip, t_logic, t_linalg, t_seq, t_flash)
+JAX = NS(pj, j_creation, j_math, j_manip, j_logic, j_linalg, j_seq, j_flash,
+         pj.nn.functional, j_dispatch)
+PORT = NS(pt, t_creation, t_math, t_manip, t_logic, t_linalg, t_seq, t_flash,
+          pt.nn.functional, t_dispatch)
 
 
 @pytest.fixture(autouse=True)
@@ -76,8 +83,14 @@ def _close(got, want, rtol, what):
         f"{what}: max err {err.max()} (bound {rtol} x max(1, |ref|))"
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(set(CASES) - set(NN_CASES)))
 def test_op_matches_jax(name):
+    check_case(name)
+
+
+def check_case(name):
+    """Case `name` through both packages: dtypes, forward values and
+    gradients."""
     jf, jg = run(JAX, name)
     tf, tg = run(PORT, name)
     assert len(jf) == len(tf), name
@@ -103,10 +116,12 @@ def test_op_matches_jax(name):
 
 
 def _jax_module_names():
-    """The op names the six JAX op modules register (their quoted names in
-    the JAX registry), and flash_attention."""
+    """The op names the six JAX op modules, `nn/functional.py`,
+    `nn/layers_common.py` and `nlp/llama.py` register (their quoted names
+    in the JAX registry), and flash_attention."""
     srcs = [(ROOT / "paddle_tpu" / "ops" / f"{m}.py").read_text()
             for m in MODULES]
+    srcs += [(ROOT / "paddle_tpu" / path).read_text() for path in NN_SOURCES]
     def registers(src, n):
         q = re.escape(f'"{n}"')
         return re.search(rf"(register_op|def_op)\(\s*{q}", src) or \
@@ -123,4 +138,4 @@ def test_registry_covers_the_jax_modules_and_every_name_has_a_case():
     cased = {op_name(k) for k in CASES}
     assert not sorted(names - cased), sorted(names - cased)
     # reported in CHANGES.md
-    assert len(names) >= 215, len(names)
+    assert len(names) >= 303, len(names)

@@ -14,20 +14,26 @@ import numpy as np
 
 
 class NS:
-    """One package's op modules, as the cases address them."""
+    """One package's op modules, as the cases address them: `F` is its
+    `nn.functional`, `dispatch` its `ops.dispatch` (the registered ops
+    that have no function of their own are run through its `apply`)."""
 
-    def __init__(self, P, creation, math, manip, logic, linalg, seq, flash):
+    def __init__(self, P, creation, math, manip, logic, linalg, seq, flash,
+                 F, dispatch):
         self.P, self.creation, self.math, self.manip = P, creation, math, manip
         self.logic, self.linalg, self.seq, self.flash = logic, linalg, seq, \
             flash
+        self.F, self.dispatch = F, dispatch
 
 
 def port_namespace():
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.ops import (creation, flash_attention, linalg,
-                                      logic, manipulation, math, sequence)
+    from paddle_tpu_torch.nn import functional
+    from paddle_tpu_torch.ops import (creation, dispatch, flash_attention,
+                                      linalg, logic, manipulation, math,
+                                      sequence)
     return NS(pt, creation, math, manipulation, logic, linalg, sequence,
-              flash_attention)
+              flash_attention, functional, dispatch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,6 +111,363 @@ def abs_all(n, outs):
     return tuple(n.math.abs(o) for o in outs)
 
 
+# ------------------------------------------------------ nn.functional cases
+
+def rs(seed):
+    return np.random.RandomState(1000 + seed)
+
+
+def uni(shape, lo=-1.0, hi=1.0, seed=0):
+    return rs(seed).uniform(lo, hi, shape).astype("f4")
+
+
+def ints(shape, lo, hi, seed=0):
+    return rs(seed).randint(lo, hi, shape).astype("int32")
+
+
+def signs(shape, seed=0):
+    return np.where(rs(seed).rand(*shape) > 0.5, 1.0, -1.0).astype("f4")
+
+
+def act(name, scale=1.0, **kw):
+    return case(lambda n, x: getattr(n.F, name)(x, **kw),
+                [scale * arr("x")], [0])
+
+
+def run_op(n, name, tensors, **attrs):
+    """Registered op `name` through the package's dispatcher (ops with no
+    function of their own)."""
+    d = n.dispatch
+    return d.apply(d.OP_REGISTRY[name], tuple(tensors), attrs, name=name)
+
+
+def dropped(n, y, x, scale):
+    """A dropout's output with each dropped cell replaced by what the
+    kept ones hold (x * scale): the same in every package and on every
+    draw, and its gradient the op's."""
+    return n.manip.where(y == 0, x * scale, y)
+
+
+_ALPHA_P = -1.6732632423543772 * 1.0507009873554805
+_COEF_A = (0.5 + _ALPHA_P ** 2 * 0.5 * 0.5) ** -0.5
+_COEF_B = -_COEF_A * _ALPHA_P * 0.5
+
+
+def alpha_dropped(n, x):
+    """alpha_dropout(p=0.5) with each dropped cell (the constant
+    coef_a * alpha_p + coef_b) replaced by the kept form coef_a x +
+    coef_b."""
+    y = n.F.alpha_dropout(x, p=0.5)
+    kept = x * _COEF_A + _COEF_B
+    c0 = _COEF_A * _ALPHA_P + _COEF_B
+    return n.manip.where(n.math.abs(y - c0) < 1e-4, kept, y)
+
+
+def gumbel(n, x):
+    y = n.F.gumbel_softmax(x, temperature=0.5)
+    h = n.F.gumbel_softmax(x, hard=True, axis=0)
+    # the hard sample's max is 1 wherever it falls; its gradient would be
+    # the drawn cell's
+    return (n.math.sum(y, axis=-1), n.math.sum(h, axis=0),
+            n.math.max(h, axis=0).detach())
+
+
+def batch_norm(n, x, rm, rv, w, b, x2):
+    y = n.F.batch_norm(x, rm, rv, w, b, training=True, momentum=0.8)
+    ev = n.F.batch_norm(x, rm, rv, w, b, training=False)
+    y2 = n.F.batch_norm(x2, rm, rv, None, b, training=True,
+                        data_format="NHWC")
+    return y, ev, y2, rm, rv
+
+
+def rope_np(seq, hd):
+    inv = 1.0 / (10000.0 ** (np.arange(0, hd, 2) / hd))
+    f = np.outer(np.arange(seq), inv)
+    return np.cos(f).astype("f4"), np.sin(f).astype("f4")
+
+
+COS, SIN = rope_np(128, 64)
+CTC_LOGITS = uni((6, 2, 4), seed=40)
+CTC_LABELS = np.array([[1, 2, 2], [3, 1, 0]], "int32")
+CE_LABELS = np.array([1, 4, -100, 0], "int32")
+
+NN_CASES = {
+    # activations
+    **{k: act(k) for k in ("relu", "silu", "mish", "tanhshrink", "softsign",
+                           "log_sigmoid", "selu")},
+    **{k: act(k, 4.0) for k in ("relu6", "hardswish", "hardsigmoid")},
+    "gelu": case(lambda n, x: (n.F.gelu(x), n.F.gelu(x, approximate=True)),
+                 [2 * arr("x")], [0]),
+    "leaky_relu": act("leaky_relu", negative_slope=0.1),
+    "elu": act("elu", 2.0, alpha=0.7),
+    "celu": act("celu", 2.0, alpha=0.5),
+    "prelu": case(lambda n, x, w, x2, w1: (n.F.prelu(x, w),
+                                           n.F.prelu(x2, w, "NHWC"),
+                                           n.F.prelu(x, w1)),
+                  [uni((2, 3, 4)), uni((3,), 0.1, 0.5, 1), uni((2, 4, 3), seed=2),
+                   uni((1,), 0.1, 0.5, 3)], [0, 1, 2, 3]),
+    "hardtanh": act("hardtanh", min=-0.5, max=0.4),
+    "hardshrink": act("hardshrink", threshold=0.3),
+    "softshrink": act("softshrink", threshold=0.3),
+    "softplus": act("softplus", 2.0, beta=2.0, threshold=1.5),
+    "thresholded_relu": act("thresholded_relu", threshold=0.2),
+    "maxout": case(lambda n, x: (n.F.maxout(x, 2), n.F.maxout(x, 3, axis=2)),
+                   [uni((2, 4, 6))], [0]),
+    "softmax": case(lambda n, x: (n.F.softmax(x), n.F.softmax(x, axis=0),
+                                  n.F.softmax(x, dtype="float32")),
+                    [2 * arr("x")], [0]),
+    "log_softmax": case(lambda n, x: (n.F.log_softmax(x, axis=0),
+                                      n.F.log_softmax(x)),
+                        [2 * arr("x")], [0]),
+    "gumbel_softmax": case(gumbel, [arr("x")], [0]),
+    # linear, embedding, dropout
+    "linear": case(lambda n, x, w, b: (n.F.linear(x, w, b), n.F.linear(x, w)),
+                   [uni((2, 3, 4)), uni((4, 5), seed=1), uni((5,), seed=2)],
+                   [0, 1, 2]),
+    "embedding": case(lambda n, i, w: (n.F.embedding(i, w),
+                                       n.F.embedding(i, w, padding_idx=-2)),
+                      [ints((2, 3), 0, 6), uni((6, 4), seed=1)], [1]),
+    "dropout": case(lambda n, x: (dropped(n, n.F.dropout(x, 0.5), x, 2.0),
+                                  dropped(n, n.F.dropout(x, 0.5, axis=[0]),
+                                          x, 2.0),
+                                  dropped(n, n.F.dropout(
+                                      x, 0.5, mode="downscale_in_infer"),
+                                      x, 1.0),
+                                  n.F.dropout(x, 0.5, training=False)),
+                    [arr("x")], [0]),
+    "alpha_dropout": case(alpha_dropped, [arr("x")], [0]),
+    # conv and pooling
+    "conv1d": case(lambda n, x, w, b: n.F.conv1d(x, w, b, stride=2,
+                                                 padding=[1, 2]),
+                   [uni((2, 3, 8)), uni((4, 3, 3), seed=1), uni((4,), seed=2)],
+                   [0, 1, 2]),
+    "conv2d": case(lambda n, x, w, b, x2, w2: (
+        n.F.conv2d(x, w, b, stride=2, padding="SAME"),
+        n.F.conv2d(n.manip.transpose(x, [0, 2, 3, 1]), w, b, padding=1,
+                   data_format="NHWC"),
+        n.F.conv2d(x2, w2, groups=2, dilation=2,
+                   padding=[[1, 0], [0, 1]])),
+        [uni((2, 3, 6, 6)), uni((4, 3, 3, 3), seed=1), uni((4,), seed=2),
+         uni((2, 4, 6, 6), seed=3), uni((6, 2, 3, 3), seed=4)],
+        [0, 1, 2, 3, 4]),
+    "conv3d": case(lambda n, x, w, b: n.F.conv3d(x, w, b, padding=1),
+                   [uni((1, 2, 4, 4, 4)), uni((3, 2, 2, 2, 2), seed=1),
+                    uni((3,), seed=2)], [0, 1, 2]),
+    "conv2d_transpose": case(lambda n, x, w, b: (
+        n.F.conv2d_transpose(x, w, b, stride=2, padding=1, output_padding=1),
+        n.F.conv2d_transpose(n.manip.transpose(x, [0, 2, 3, 1]), w, b,
+                             stride=2, padding=[0, 1], data_format="NHWC")),
+        [uni((2, 3, 4, 4)), uni((3, 2, 3, 3), seed=1), uni((2,), seed=2)],
+        [0, 1, 2]),
+    "conv1d_transpose": case(lambda n, x, w, b: n.F.conv1d_transpose(
+        x, w, b, stride=2, padding=[1, 0], output_padding=1),
+        [uni((2, 4, 5)), uni((4, 3, 3), seed=1), uni((3,), seed=2)],
+        [0, 1, 2]),
+    "conv3d_transpose": case(lambda n, x, w: n.F.conv3d_transpose(
+        x, w, stride=2, padding=1),
+        [uni((1, 2, 3, 3, 3)), uni((2, 2, 2, 2, 2), seed=1)], [0, 1]),
+    "max_pool2d": case(lambda n, x: (
+        n.F.max_pool2d(x, 3, 2, padding=1, ceil_mode=True),
+        n.F.max_pool2d(n.manip.transpose(x, [0, 2, 3, 1]), 2, 3,
+                       padding="SAME", data_format="NHWC"),
+        n.F.max_pool1d(n.manip.reshape(x, [2, 3, 49]), 4, 3, padding=1)),
+        [uni((2, 3, 7, 7))], [0]),
+    "avg_pool2d": case(lambda n, x: (
+        n.F.avg_pool2d(x, 3, 2, padding=1, ceil_mode=True),
+        n.F.avg_pool2d(x, 3, 2, padding=1, ceil_mode=True,
+                       count_include_pad=False),
+        n.F.avg_pool2d(x, [2, 3], padding="SAME", count_include_pad=False),
+        n.F.avg_pool1d(n.manip.reshape(x, [2, 3, 49]), 5, 4, padding=2)),
+        [uni((2, 3, 7, 7))], [0]),
+    "max_pool3d": case(lambda n, x: n.F.max_pool3d(x, 2, 2, ceil_mode=True),
+                       [uni((1, 2, 5, 5, 5))], [0]),
+    "avg_pool3d": case(lambda n, x: (
+        n.F.avg_pool3d(x, 2, 2, ceil_mode=True),
+        n.F.avg_pool3d(x, 3, 2, padding=1, count_include_pad=False)),
+        [uni((1, 2, 5, 5, 5))], [0]),
+    "adaptive_avg_pool2d": case(lambda n, x: (
+        n.F.adaptive_avg_pool2d(x, [3, 2]), n.F.adaptive_avg_pool2d(x, 1),
+        n.F.adaptive_avg_pool2d(n.manip.transpose(x, [0, 2, 3, 1]), [2, 3],
+                                data_format="NHWC")),
+        [uni((2, 3, 7, 6))], [0]),
+    "adaptive_max_pool2d": case(lambda n, x: (
+        n.F.adaptive_max_pool2d(x, [3, 2]), n.F.adaptive_max_pool2d(x, 2)),
+        [uni((2, 3, 7, 6))], [0]),
+    "adaptive_avg_pool1d": case(lambda n, x: n.F.adaptive_avg_pool1d(x, 4),
+                                [uni((2, 3, 8))], [0]),
+    "adaptive_max_pool1d": case(lambda n, x: n.F.adaptive_max_pool1d(x, 2),
+                                [uni((2, 3, 8))], [0]),
+    "adaptive_avg_pool3d": case(lambda n, x: n.F.adaptive_avg_pool3d(x, 2),
+                                [uni((1, 2, 4, 4, 4))], [0]),
+    "adaptive_max_pool3d": case(
+        lambda n, x: n.F.adaptive_max_pool3d(x, [2, 1, 2]),
+        [uni((1, 2, 4, 4, 4))], [0]),
+    # norms
+    "batch_norm": case(batch_norm,
+                       [uni((4, 3, 2, 2)), uni((3,), -0.1, 0.1, 1),
+                        uni((3,), 0.5, 1.5, 2), uni((3,), 0.5, 1.5, 3),
+                        uni((3,), seed=4), uni((2, 2, 2, 3), seed=5)],
+                       [0, 3, 4, 5]),
+    "layer_norm": case(lambda n, x, w, b: (
+        n.F.layer_norm(x, [3, 4], w, b), n.F.layer_norm(x, 4, epsilon=1e-3)),
+        [uni((2, 3, 4)), uni((3, 4), 0.5, 1.5, 1), uni((3, 4), seed=2)],
+        [0, 1, 2]),
+    "instance_norm": case(lambda n, x, w, b: (
+        n.F.instance_norm(x, weight=w, bias=b), n.F.instance_norm(x)),
+        [uni((2, 3, 4, 4)), uni((3,), 0.5, 1.5, 1), uni((3,), seed=2)],
+        [0, 1, 2]),
+    "group_norm": case(lambda n, x, w, b: n.F.group_norm(x, 2, weight=w,
+                                                         bias=b),
+                       [uni((2, 4, 3, 3)), uni((4,), 0.5, 1.5, 1),
+                        uni((4,), seed=2)], [0, 1, 2]),
+    "normalize": case(lambda n, x: (n.F.normalize(x),
+                                    n.F.normalize(x, p=1, axis=0)),
+                      [arr("x")], [0]),
+    "local_response_norm": case(lambda n, x: n.F.local_response_norm(
+        x, 3, alpha=0.1, beta=0.75, k=1.5), [uni((2, 6, 3, 3))], [0]),
+    # losses
+    "cross_entropy": case(lambda n, x, lab, w, soft, p, x3, lab3: (
+        n.F.cross_entropy(x, lab), n.F.cross_entropy(x, lab, weight=w),
+        n.F.cross_entropy(x, n.manip.unsqueeze(lab, -1), reduction="sum"),
+        n.F.cross_entropy(x, lab, reduction="none"),
+        n.F.cross_entropy(x, soft, soft_label=True),
+        n.F.cross_entropy(p, lab, use_softmax=False),
+        n.F.cross_entropy(x, lab * 0 - 100),
+        n.F.cross_entropy(x3, lab3, axis=1)),
+        [uni((4, 5), -2, 2), CE_LABELS, uni((5,), 0.5, 1.5, 1),
+         rs(2).dirichlet(np.ones(5), 4).astype("f4"),
+         rs(3).dirichlet(np.ones(5), 4).astype("f4"), uni((2, 5, 3), seed=4),
+         ints((2, 3), 0, 5, 5)], [0, 2, 4, 5]),
+    "nll_loss": case(lambda n, lp, lab, w: (
+        n.F.nll_loss(lp, lab), n.F.nll_loss(lp, lab, weight=w),
+        n.F.nll_loss(lp, lab, reduction="none")),
+        [np.log(rs(6).dirichlet(np.ones(5), 4)).astype("f4"), CE_LABELS,
+         uni((5,), 0.5, 1.5, 7)], [0, 2]),
+    "mse_loss": case(lambda n, a, b: (n.F.mse_loss(a, b),
+                                      n.F.mse_loss(a, b, "none")),
+                     [X, Y], [0, 1]),
+    "l1_loss": case(lambda n, a, b: n.F.l1_loss(a, b, "sum"), [X, Y], [0, 1]),
+    "smooth_l1_loss": case(lambda n, a, b: (
+        n.F.smooth_l1_loss(a, b, delta=0.5),
+        n.F.smooth_l1_loss(a, b, "none")), [2 * X, Y], [0, 1]),
+    "binary_cross_entropy": case(lambda n, p, y, w: (
+        n.F.binary_cross_entropy(p, y),
+        n.F.binary_cross_entropy(p, y, w, "none")),
+        [arr("p01"), (arr("x", seed=2) > 0).astype("f4"),
+         uni((3, 4), 0.5, 1.5, 8)], [0, 2]),
+    "bce_with_logits": case(lambda n, z, y, w, pw: (
+        n.F.binary_cross_entropy_with_logits(z, y),
+        n.F.binary_cross_entropy_with_logits(z, y, w, "sum", pos_weight=pw)),
+        [2 * X, (arr("x", seed=2) > 0).astype("f4"),
+         uni((3, 4), 0.5, 1.5, 8), uni((4,), 0.5, 2.0, 9)], [0, 2, 3]),
+    "kl_div": case(lambda n, lp, y: (n.F.kl_div(lp, y),
+                                     n.F.kl_div(lp, y, "batchmean"),
+                                     n.F.kl_div(lp, y, "none")),
+                   [np.log(arr("p01")), arr("p01", seed=3)], [0, 1]),
+    "margin_ranking_loss": case(lambda n, a, b, y: n.F.margin_ranking_loss(
+        a, b, y, margin=0.1), [X, Y, signs((3, 4))], [0, 1]),
+    "hinge_embedding_loss": case(lambda n, a, y: n.F.hinge_embedding_loss(
+        a, y, margin=0.5, reduction="none"), [X, signs((3, 4))], [0]),
+    "cosine_similarity": case(lambda n, a, b: (
+        n.F.cosine_similarity(a, b), n.F.cosine_similarity(a, b, axis=0)),
+        [X, Y], [0, 1]),
+    "square_error_cost": case(lambda n, a, b: n.F.square_error_cost(a, b),
+                              [X, Y], [0, 1]),
+    "sigmoid_focal_loss": case(lambda n, z, y, nz: (
+        n.F.sigmoid_focal_loss(z, y),
+        n.F.sigmoid_focal_loss(z, y, nz, reduction="mean")),
+        [2 * X, (arr("x", seed=2) > 0).astype("f4"),
+         np.array([3.0], "f4")], [0]),
+    "hsigmoid_loss": case(lambda n, x, lab, w, b: (
+        n.F.hsigmoid_loss(x, lab, 5, w, b), n.F.hsigmoid_loss(x, lab, 5, w)),
+        [uni((4, 3)), I(0, 4, 2, 3), uni((4, 3), seed=1),
+         uni((4, 1), seed=2)], [0, 2, 3]),
+    "ctc_loss": case(lambda n, lp, lab, il, ll: (
+        n.F.ctc_loss(lp, lab, il, ll), n.F.ctc_loss(lp, lab, il, ll,
+                                                    reduction="sum"),
+        n.F.ctc_loss(lp, lab, il, ll, reduction="none", norm_by_times=True)),
+        [CTC_LOGITS, CTC_LABELS, I(6, 5), I(3, 2)], [0]),
+    "npair_loss": case(lambda n, a, p, y: n.F.npair_loss(a, p, y),
+                       [uni((4, 3)), uni((4, 3), seed=1), I(0, 1, 0, 2)],
+                       [0, 1]),
+    # padding, resampling, vision helpers
+    "pad": case(lambda n, x: (
+        n.F.pad(x, [1, 2, 0, 1]), n.F.pad(x, [2, 1, 1, 3], mode="reflect"),
+        n.F.pad(x, [1, 2, 3, 0], mode="replicate"),
+        n.F.pad(x, [2, 1, 1, 2], mode="circular"),
+        n.F.pad(x, [0, 0, 1, 0, 1, 1, 0, 2], value=0.5),
+        n.F.pad(x, [1, 1, 2, 0], data_format="NHWC")),
+        [uni((2, 3, 4, 4))], [0]),
+    "unfold": case(lambda n, x: (n.F.unfold(x, 2, paddings=1),
+                                 n.F.unfold(x, [3, 2], strides=2,
+                                            dilations=[1, 2])),
+                   [uni((2, 3, 5, 5))], [0]),
+    "interpolate": case(lambda n, x, x1, x3: (
+        n.F.interpolate(x, size=[6, 7], mode="bilinear"),
+        n.F.interpolate(x, size=[6, 7], mode="bilinear", align_corners=True),
+        n.F.interpolate(x, size=[3, 8], mode="bilinear", align_mode=1),
+        n.F.interpolate(x, scale_factor=2, mode="nearest"),
+        n.F.interpolate(x, size=[7, 3], mode="nearest", align_corners=True),
+        n.F.interpolate(x, size=[6, 9], mode="bicubic"),
+        n.F.interpolate(x, size=[5, 4], mode="bicubic", align_corners=True),
+        n.F.interpolate(x, size=[2, 3], mode="area"),
+        n.F.interpolate(x, size=[7, 3], mode="area"),
+        n.F.interpolate(x1, size=8, mode="linear", data_format="NCW"),
+        n.F.interpolate(x3, size=[5, 4, 2], mode="trilinear",
+                        data_format="NCDHW"),
+        n.F.upsample(n.manip.transpose(x, [0, 2, 3, 1]), size=[3, 7],
+                     mode="bilinear", data_format="NHWC")),
+        [uni((1, 2, 4, 5)), uni((1, 2, 5), seed=1),
+         uni((1, 1, 3, 3, 3), seed=2)], [0, 1, 2]),
+    "pixel_shuffle": case(lambda n, x: n.F.pixel_shuffle(x, 2),
+                          [uni((1, 8, 2, 3))], [0]),
+    "temporal_shift": case(lambda n, x: n.F.temporal_shift(x, 2, 0.25),
+                           [uni((4, 4, 2, 2))], [0]),
+    "grid_sample": case(lambda n, x, g: (
+        n.F.grid_sample(x, g), n.F.grid_sample(x, g, padding_mode="border",
+                                               align_corners=False)),
+        [uni((1, 2, 4, 5)), uni((1, 3, 3, 2), -1.2, 1.2, 1)], [0, 1]),
+    "affine_grid": case(lambda n, t: (
+        n.F.affine_grid(t, [2, 1, 3, 4]),
+        n.F.affine_grid(t, [2, 1, 2, 3], align_corners=False)),
+        [uni((2, 2, 3))], [0]),
+    "label_smooth": case(lambda n, y, p: (n.F.label_smooth(y),
+                                          n.F.label_smooth(y, p, 0.2)),
+                         [arr("p01"), uni((4,), 0.1, 0.4, 1)], [0, 1]),
+    "diag_embed": case(lambda n, x: n.F.diag_embed(x), [uni((2, 3))], [0]),
+    "sequence_mask": case(lambda n, ln: (n.F.sequence_mask(ln, 6),
+                                         n.F.sequence_mask(ln),
+                                         n.F.sequence_mask(ln, 4, "float32")),
+                          [I(3, 0, 5)]),
+    "pairwise_distance": case(lambda n, a, b: (
+        n.F.pairwise_distance(a, b),
+        n.F.pairwise_distance(a, b, p=1.0, keepdim=True)), [X, Y], [0, 1]),
+    "gather_tree": case(lambda n, i, p: n.F.gather_tree(i, p),
+                        [ints((4, 2, 3), 0, 9), ints((4, 2, 3), 0, 3, 1)]),
+    "deform_conv2d": case(lambda n, x, off, w, m, b: (
+        n.F.deform_conv2d(x, off, w, b, padding=1, mask=m),
+        n.F.deform_conv2d(x, off[:, :, ::2, ::2], w, stride=2, padding=1)),
+        [uni((1, 2, 5, 5)), uni((1, 18, 5, 5), -0.7, 0.7, 1),
+         uni((3, 2, 3, 3), seed=2), uni((1, 9, 5, 5), 0.1, 0.9, 3),
+         uni((3,), seed=4)], [0, 1, 2, 3, 4]),
+    "bilinear": case(lambda n, a, b, w, bias: n.F.bilinear(a, b, w, bias),
+                     [uni((3, 2)), uni((3, 4), seed=1),
+                      uni((5, 2, 4), seed=2), uni((1, 5), seed=3)],
+                     [0, 1, 2, 3]),
+    # the LLaMA ops: RMSNorm, and the fused GQA attention (K1-K3's route:
+    # the port's plain blocks on the CPU, JAX's Pallas kernels in
+    # interpret mode)
+    "rms_norm": case(lambda n, x, w: run_op(n, "rms_norm", (x, w), eps=1e-5),
+                     [uni((2, 3, 8)), uni((8,), 0.5, 1.5, 1)], [0, 1]),
+    "llama_attention": case(lambda n, x, w, c, s: tuple(
+        run_op(n, "llama_attention", (x, w, c, s), num_heads=2,
+               num_kv_heads=1, head_dim=64, attn_layout=lay)
+        for lay in ("bshd", "bhsd")),
+        [uni((1, 128, 32)), uni((32, 256), -0.2, 0.2, 1), COS, SIN],
+        [0, 1]),
+}
+
+
 CASES = {
     # creation
     "tril": case(lambda n, x: n.creation.tril(x, diagonal=1), [X], [0]),
@@ -143,6 +506,10 @@ CASES = {
                       [arr("small") - 1, Y]),
     "scale": case(lambda n, x: n.math.scale(x, scale=2.0, bias=0.5), [X],
                   [0]),
+    "scale_act": case(lambda n, x: (n.math.scale(x, 2.0, 0.5, act="tanh"),
+                                    n.math.scale(x, 3.0, -1.0, False,
+                                                 act="relu")),
+                      [X], [0], op="scale"),
     # math: unary
     **{k: unary(k) for k in ("abs", "neg", "exp", "expm1", "square", "sin",
                              "cos", "tan", "atan", "sinh", "cosh", "tanh",
@@ -461,6 +828,7 @@ CASES = {
         lambda n, q, k, v: n.flash.flash_attention(q, k, v, causal=True,
                                                    layout="bshd"),
         [arr("x", (1, 128, 2, 64), s) for s in (0, 1, 2)], [0, 1, 2]),
+    **NN_CASES,
 }
 
 
