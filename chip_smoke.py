@@ -32,7 +32,11 @@ its phases:
                 beside), with the port's whole backward against SDPA's,
                 both captured in CUDA graphs; K1 again at the dense
                 prefill's shape [1, 768, 12, 64], against its plain
-                version and SDPA's forward;
+                version and SDPA's forward; K1-K3 and dd at
+                Transformer-base's two attention shapes (8 heads,
+                non-causal BSHD: self [64, 384, 8, 64], cross q 256 over
+                k 384), held and timed at batch 64, beside their
+                bounds, plain versions and SDPA;
   optimizer     the fused Adam/AdamW kernel against its plain
                 `_foreach_*` twin over GPT-2 small's 148 parameter
                 shapes (AdamW with bf16 and f32 weights and with bf16
@@ -187,7 +191,30 @@ its phases:
                 nn.Module's eager steps (losses within 2e-2), forward and
                 backward ms apart, K1-K3 and dd 12 launches a step; the
                 host microseconds per dispatched op (pt.add against
-                torch.add on [8] f32).
+                torch.add on [8] f32);
+  nn            GPT-2 small built from nn layers (`layer_gpt`) at f32
+                against GPTForPretraining, its bf16 eager steps beside
+                the module's and the Tensor surface's, the same model in
+                a graphed jit.TrainStep (12 launches each of K1-K3 and
+                dd and 1 Adam launch a step; its loss equal to the eager
+                Layer step's; timed in turns with the module's graphed
+                step and the eager Layer step), llama_attention, a
+                sparse embedding under lazy Adam, a small conv net;
+  transformer   Transformer-base (Vaswani et al. 2017, Table 3 "base":
+                6 + 6 layers, d_model 512, 8 heads, d_ff 2048, vocab
+                37000) built from nn layers (`layer_transformer`): f32
+                at batch 2 through the kernels against kernel="plain"
+                (loss and every gradient) and the graphed TrainStep
+                against the eager one over 3 steps; dropout drawn afresh
+                by every replay; bf16 at batch 64 x (384 source, 256
+                target) tokens on AdamW/NoamDecay as one graph replay a
+                step (12 launches each of K1-K3 and dd, 1 Adam): step
+                ms, tokens/s, MFU, peak memory, device time by group,
+                the dense masked attention timed alone, the eager step;
+                incremental decoding (gen_cache, 32 greedy steps)
+                against the full decoder; beam search (beam 4, batch 64,
+                64 steps) on the card against the CPU, over a cell that
+                contracts in f32 and over one that does not in f64.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -230,10 +257,17 @@ OPT_REPLACES = ("no Pallas counterpart: the jnp update that XLA fuses into "
 # training shapes of bench.py's GPU configuration: GPT-2 small (12 heads
 # of 64), vocab 32768, batch 8, seq 1024
 TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
+# Transformer-base (Vaswani et al. 2017, "Attention Is All You Need",
+# Table 3, "base"): 6 + 6 layers, d_model 512, 8 heads of 64, d_ff 2048,
+# P_drop 0.1, the shared WMT14 EN-DE BPE vocabulary of 37000 tokens;
+# batch 64 x 384 source tokens (24576, the paper's ~25000 a batch) and
+# 256 target tokens
+TF_VOCAB, TF_D, TF_HEADS, TF_FF, TF_LAYERS = 37000, 512, 8, 2048, 6
+TF_B, TF_SRC, TF_TGT = 64, 384, 256
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
-          "eager", "nn")
+          "eager", "nn", "transformer")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -2969,23 +3003,25 @@ def serve_llama_phase(dev, smi):
 # flash: K1-K3 against their plain versions at the training path's shapes
 # ---------------------------------------------------------------------------
 
-def flash_inputs(b, sq, sk, dtype, gen, dev, bshd=True, qkv=True):
+def flash_inputs(b, sq, sk, dtype, gen, dev, bshd=True, qkv=True,
+                 heads=HEADS):
     """q, k, v as the training path gives them (bshd: strided views of
-    one [B, S, 3, H, D] projection when sq == sk) and an upstream grad
-    dO in q's layout."""
+    one [B, S, 3, H, D] projection when sq == sk and `qkv`; separate
+    projections otherwise, as nn.MultiHeadAttention's) and an upstream
+    grad dO in q's layout."""
     import torch
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen).to(dev, dtype)
     if bshd and qkv and sq == sk:
-        a = rnd(b, sq, 3, HEADS, HEAD_DIM)
+        a = rnd(b, sq, 3, heads, HEAD_DIM)
         q, k, v = a[:, :, 0], a[:, :, 1], a[:, :, 2]
     elif bshd:
-        q = rnd(b, sq, HEADS, HEAD_DIM)
-        k, v = rnd(b, sk, HEADS, HEAD_DIM), rnd(b, sk, HEADS, HEAD_DIM)
+        q = rnd(b, sq, heads, HEAD_DIM)
+        k, v = rnd(b, sk, heads, HEAD_DIM), rnd(b, sk, heads, HEAD_DIM)
     else:
-        q = rnd(b, HEADS, sq, HEAD_DIM)
-        k, v = rnd(b, HEADS, sk, HEAD_DIM), rnd(b, HEADS, sk, HEAD_DIM)
+        q = rnd(b, heads, sq, HEAD_DIM)
+        k, v = rnd(b, heads, sk, HEAD_DIM), rnd(b, heads, sk, HEAD_DIM)
     return q, k, v, rnd(*q.shape)
 
 
@@ -3106,25 +3142,34 @@ def flash_phase(dev, peaks):
 
     gen = torch.Generator().manual_seed(SEED + 3)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    # (name, batch, sq, sk, causal, window, bshd)
-    cases = [("main", TRAIN_B, TRAIN_S, TRAIN_S, True, None, True),
-             ("main bhsd", TRAIN_B, TRAIN_S, TRAIN_S, True, None, False),
-             ("window256", 2, TRAIN_S, TRAIN_S, True, 256, True),
-             ("sq<sk", 2, 512, TRAIN_S, False, None, False),
-             ("sq<sk causal window", 2, 256, 640, True, 64, False),
-             ("single tile", 2, 128, 128, True, None, True),
+    # (name, batch, sq, sk, causal, window, bshd, heads)
+    cases = [("main", TRAIN_B, TRAIN_S, TRAIN_S, True, None, True, HEADS),
+             ("main bhsd", TRAIN_B, TRAIN_S, TRAIN_S, True, None, False,
+              HEADS),
+             ("window256", 2, TRAIN_S, TRAIN_S, True, 256, True, HEADS),
+             ("sq<sk", 2, 512, TRAIN_S, False, None, False, HEADS),
+             ("sq<sk causal window", 2, 256, 640, True, 64, False, HEADS),
+             ("single tile", 2, 128, 128, True, None, True, HEADS),
              # a window that is no multiple of a tile
-             ("window100", 2, TRAIN_S, TRAIN_S, True, 100, True),
+             ("window100", 2, TRAIN_S, TRAIN_S, True, 100, True, HEADS),
              # k blocks 0-2 see no query: K2 writes zeros there
-             ("sq<sk causal window64", 2, 128, 640, True, 64, False),
+             ("sq<sk causal window64", 2, 128, 640, True, 64, False, HEADS),
              # q rows 0-127 see no key
-             ("sq>sk causal", 2, 256, 128, True, None, False)]
+             ("sq>sk causal", 2, 256, 128, True, None, False, HEADS),
+             # nn.Transformer's attention (Transformer-base): separate
+             # q/k/v projections, BSHD, non-causal, 8 heads; the encoder's
+             # self-attention and the decoder's cross-attention
+             ("transformer self", TF_B, TF_SRC, TF_SRC, False, None, True,
+              TF_HEADS),
+             ("transformer cross", TF_B, TF_TGT, TF_SRC, False, None, True,
+              TF_HEADS)]
     which = {"out": "fwd", "lse": "fwd", "dk": "dkv", "dv": "dkv",
              "dq": "dq"}
     worst = {}
-    for name, b, sq, sk, causal, window, bshd in cases:
+    for name, b, sq, sk, causal, window, bshd, heads in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, do = flash_inputs(b, sq, sk, dtype, gen, dev, bshd)
+            q, k, v, do = flash_inputs(b, sq, sk, dtype, gen, dev, bshd,
+                                       qkv=heads == HEADS, heads=heads)
             got = flash_run(fa, "cuda", q, k, v, do, causal, window, bshd)
             ref = flash_run(fa, "plain", q, k, v, do, causal, window, bshd)
             torch.cuda.synchronize()
@@ -3242,76 +3287,24 @@ def flash_phase(dev, peaks):
           f"flash dd: misaligned dO was not refused ({refused})")
 
     # times at the main path's shapes, one input set per layer
-    sets = [flash_inputs(TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, gen,
-                         dev) for _ in range(LAYERS)]
-    scale = 1.0 / HEAD_DIM ** 0.5
-    saved = []
-    for q, k, v, do in sets:
-        out, lse = fa.cuda_fwd(q, k, v, True, scale, True)
-        saved.append((out, lse, fa.cuda_row_dot(do, out, True)))
-    it = {"i": 0}
-
-    def nxt():
-        it["i"] = (it["i"] + 1) % LAYERS
-        return sets[it["i"]] + saved[it["i"]]
-
-    def call(kind, impl):
-        fwd, dkv, dq = fa._IMPLS[impl]
-
-        def run():
-            q, k, v, do, out, lse, dd = nxt()
-            if kind == "fwd":
-                fwd(q, k, v, True, scale, True)
-            elif kind == "dd":
-                fa.row_dot(do, out, True, impl)
-            elif kind == "dkv":
-                dkv(q, k, v, do, lse, dd, True, scale, True)
-            else:
-                dq(q, k, v, do, lse, dd, True, scale, True)
-        return run
-
-    def port_bwd():
-        # the port's whole backward, as _FlashCore.backward runs it
-        q, k, v, do, out, lse, _ = nxt()
-        dd = fa.cuda_row_dot(do, out, True)
-        fa.cuda_bwd_dkv(q, k, v, do, lse, dd, True, scale, True)
-        fa.cuda_bwd_dq(q, k, v, do, lse, dd, True, scale, True)
-
-    lib = sdpa_yardstick(sets)
+    results = flash_at_shape(fa, peaks, [
+        flash_inputs(TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, gen, dev)
+        for _ in range(LAYERS)], causal=True)
+    for kind in ("fwd", "dkv", "dq", "dd"):
+        results[kind]["max_abs_err"] = worst[(kind, "bfloat16")]
+        results[kind]["max_abs_err_f32"] = worst[(kind, "float32")]
     # dd: no one PyTorch call computes rowsum(dO * O) in f32 from bf16
     # inputs; cuDNN's dot_do_o inside SDPA's backward is the reference
     # figure, reported beside the row
-    library = {"fwd": lib["fwd_ms"], "dkv": lib["bwd_ms"],
-               "dq": lib["bwd_ms"], "dd": None}
+    lib = results["bwd"]["library"]
     dot_do_o = None
     if lib["bwd_profiler_kernels_ms"]:
         dot_do_o = sum(ms for n, ms in lib["bwd_profiler_kernels_ms"].items()
                        if "dot_do_o" in n) or None
-    q0, k0 = sets[0][0], sets[0][1]
-    results = {"bwd": {"bwd_ms": graph_ms(port_bwd, LAYERS),
-                       "library_bwd_ms": lib["bwd_ms"],
-                       "what": "bwd_ms: dd + K2 + K3 by graph replay; "
-                               "library_bwd_ms: SDPA's backward (dQ, dK "
-                               "and dV) on the same inputs",
-                       "library": lib}}
-    for kind in ("fwd", "dkv", "dq", "dd"):
-        bound_ms, bound_by = flash_bound(kind, q0, k0, True, None, True,
-                                         peaks)
-        kernel_ms = graph_ms(call(kind, "cuda"), LAYERS)
-        results[kind] = {
-            "max_abs_err": worst[(kind, "bfloat16")],
-            "max_abs_err_f32": worst[(kind, "float32")],
-            "kernel_ms": kernel_ms,
-            "eager_call_ms": time_ms(call(kind, "cuda"), 60),
-            "plain_ms": time_ms(call(kind, "plain"), 3),
-            "library_ms": library[kind],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        }
-        if kind != "dd":
-            results[kind]["tflops"] = flash_flops(
-                kind, q0, k0, True, None, True) / kernel_ms * 1e-9
-    q0b = q0.numel() * q0.element_size()
-    results["dd"]["gbytes_per_s"] = (2 * q0b + q0.numel() // HEAD_DIM * 4
+    n_q = 1
+    for dim in results["q"]:
+        n_q *= dim
+    results["dd"]["gbytes_per_s"] = (2 * 2 * n_q + n_q // HEAD_DIM * 4
                                      ) / results["dd"]["kernel_ms"] * 1e-6
     results["dd"]["cudnn_dot_do_o_ms"] = dot_do_o
     for kind, kernel, smem in (
@@ -3333,9 +3326,84 @@ def flash_phase(dev, peaks):
         "dd": "none: no one PyTorch call computes rowsum(dO * O) in f32 "
               "from bf16 inputs; cudnn_dot_do_o_ms is cuDNN's kernel for "
               "it inside SDPA's backward (profiler)"}
-    del sets, saved
     results["fwd_prefill"] = flash_prefill_shape(fa, gen, dev, peaks)
+    torch.cuda.empty_cache()
+    results["transformer_shapes"] = {
+        name: flash_at_shape(fa, peaks, [
+            flash_inputs(TF_B, sq, TF_SRC, torch.bfloat16, gen, dev,
+                         qkv=False, heads=TF_HEADS)
+            for _ in range(TF_LAYERS)], causal=False)
+        for name, sq in (("self", TF_SRC), ("cross", TF_TGT))}
     return results
+
+
+def flash_at_shape(fa, peaks, sets, causal):
+    """K1, dd, K2 and K3 over `sets` (bf16 BSHD (q, k, v, dO) input sets
+    of one training shape, one per layer): each kernel timed by graph
+    replay (and eagerly) beside its bound and its plain version's time,
+    the port's whole backward (dd + K2 + K3, as _FlashCore.backward runs
+    it) beside SDPA's forward and backward on [B, H, S, D] views of the
+    same tensors (`sdpa_yardstick`)."""
+    import torch
+    n_sets = len(sets)
+    scale = 1.0 / HEAD_DIM ** 0.5
+    saved = []
+    for q, k, v, do in sets:
+        out, lse = fa.cuda_fwd(q, k, v, causal, scale, True)
+        saved.append((out, lse, fa.cuda_row_dot(do, out, True)))
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % n_sets
+        return sets[it["i"]] + saved[it["i"]]
+
+    def call(kind, impl):
+        fwd, dkv, dq = fa._IMPLS[impl]
+
+        def run():
+            q, k, v, do, out, lse, dd = nxt()
+            if kind == "fwd":
+                fwd(q, k, v, causal, scale, True)
+            elif kind == "dd":
+                fa.row_dot(do, out, True, impl)
+            elif kind == "dkv":
+                dkv(q, k, v, do, lse, dd, causal, scale, True)
+            else:
+                dq(q, k, v, do, lse, dd, causal, scale, True)
+        return run
+
+    def port_bwd():
+        q, k, v, do, out, lse, _ = nxt()
+        dd = fa.cuda_row_dot(do, out, True)
+        fa.cuda_bwd_dkv(q, k, v, do, lse, dd, causal, scale, True)
+        fa.cuda_bwd_dq(q, k, v, do, lse, dd, causal, scale, True)
+
+    lib = sdpa_yardstick(sets, causal=causal)
+    library = {"fwd": lib["fwd_ms"], "dkv": lib["bwd_ms"],
+               "dq": lib["bwd_ms"], "dd": None}
+    q0, k0 = sets[0][0], sets[0][1]
+    out = {"q": list(q0.shape), "k": list(k0.shape), "dtype": "bfloat16",
+           "causal": causal, "layout": "bshd",
+           "bwd": {"bwd_ms": graph_ms(port_bwd, n_sets),
+                   "library_bwd_ms": lib["bwd_ms"],
+                   "what": "bwd_ms: dd + K2 + K3 by graph replay; "
+                           "library_bwd_ms: SDPA's backward (dQ, dK "
+                           "and dV) on the same inputs",
+                   "library": lib}}
+    for kind in ("fwd", "dkv", "dq", "dd"):
+        bound_ms, bound_by = flash_bound(kind, q0, k0, causal, None, True,
+                                         peaks)
+        kernel_ms = graph_ms(call(kind, "cuda"), n_sets)
+        out[kind] = {"kernel_ms": kernel_ms,
+                     "eager_call_ms": time_ms(call(kind, "cuda"), 60),
+                     "plain_ms": time_ms(call(kind, "plain"), 3),
+                     "library_ms": library[kind],
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        if kind != "dd":
+            out[kind]["tflops"] = flash_flops(
+                kind, q0, k0, causal, None, True) / kernel_ms * 1e-9
+    del sets[:], saved
+    return out
 
 
 def flash_prefill_shape(fa, gen, dev, peaks):
@@ -3393,7 +3461,7 @@ def flash_prefill_shape(fa, gen, dev, peaks):
             "blocks_per_launch": HEADS * DENSE_BUCKET // 128}
 
 
-def sdpa_yardstick(sets):
+def sdpa_yardstick(sets, causal=True):
     """SDPA's forward and backward on the training shapes, as [B, H, S,
     D] views of the same tensors, timed as the kernels are: calls
     captured in a CUDA graph and replayed. The backward is graph(forward
@@ -3407,34 +3475,35 @@ def sdpa_yardstick(sets):
     lib_sets = [tuple(t.transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v)) + (do.transpose(1, 2),)
                 for q, k, v, do in sets]
+    n = len(lib_sets)
     it = {"i": 0}
 
     def nxt():
-        it["i"] = (it["i"] + 1) % LAYERS
+        it["i"] = (it["i"] + 1) % n
         return lib_sets[it["i"]]
 
     def fwd_no_grad():
         q, k, v, _ = nxt()
         with torch.no_grad():
-            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
     def fwd():
         q, k, v, _ = nxt()
-        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
     def fwd_bwd():
         q, k, v, do = nxt()
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
         torch.autograd.grad(out, (q, k, v), do)
 
     runs, refused = [], None
     try:
         for _ in range(3):
-            runs.append(graph_ms(fwd_bwd, LAYERS) - graph_ms(fwd, LAYERS))
+            runs.append(graph_ms(fwd_bwd, n) - graph_ms(fwd, n))
     except RuntimeError as exc:
         refused = f"{type(exc).__name__}: {exc}"[:400]
     torch.cuda.synchronize()
-    pf, pfb = profile_calls(fwd, LAYERS), profile_calls(fwd_bwd, LAYERS)
+    pf, pfb = profile_calls(fwd, n), profile_calls(fwd_bwd, n)
     prof_ms, bwd_kernels = None, None
     if isinstance(pf, dict) and isinstance(pfb, dict):
         prof_ms = pfb["device_ms_per_call"] - pf["device_ms_per_call"]
@@ -3444,7 +3513,7 @@ def sdpa_yardstick(sets):
     check(not refused or prof_ms is not None,
           f"SDPA backward: graph capture refused ({refused}) and the "
           f"profiler recorded no device time")
-    return {"fwd_ms": graph_ms(fwd_no_grad, LAYERS),
+    return {"fwd_ms": graph_ms(fwd_no_grad, n),
             "bwd_ms": prof_ms if refused else sorted(runs)[1],
             "bwd_graph_ms_runs": runs,
             "bwd_graph_capture": refused or "captured",
@@ -3886,6 +3955,60 @@ def layer_gpt_state(model):
     linear = _linear_weight_names(model)
     return {k: (v.t() if k in linear else v).detach()
             for k, v in model.state_dict().items()}
+
+
+def layer_transformer(P, vocab, d_model, nhead, layers, d_ff, dropout,
+                      tgt_len):
+    """The Transformer of Vaswani et al. 2017 built only from the `nn`
+    layers of package `P` (`paddle_tpu_torch`, or the JAX package in the
+    CPU tests): source and target `Embedding(vocab, d_model)` scaled by
+    sqrt(d_model), the legacy `add_position_encoding`,
+    `nn.Transformer(d_model, nhead, layers, layers, d_ff,
+    dropout=dropout, attn_dropout=0.0)` (attention dropout would send
+    every attention to the dense route, in both packages) and a
+    `Linear(d_model, vocab)` head. The decoder's causal mask
+    (`generate_square_subsequent_mask(tgt_len)`) is built once, a
+    non-persistable buffer, so no step builds it. `forward(src, tgt)`
+    returns the logits [B, tgt_len, vocab]; `transformer_loss` the cross
+    entropy."""
+    nn = P.nn
+    scale = float(d_model) ** 0.5
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embedding = nn.Embedding(vocab, d_model)
+            self.tgt_embedding = nn.Embedding(vocab, d_model)
+            self.transformer = nn.Transformer(
+                d_model, nhead, layers, layers, d_ff, dropout=dropout,
+                attn_dropout=0.0)
+            self.head = nn.Linear(d_model, vocab)
+            self.register_buffer(
+                "tgt_mask",
+                self.transformer.generate_square_subsequent_mask(tgt_len),
+                persistable=False)
+
+        def embed(self, table, ids):
+            return P.ops.legacy.add_position_encoding(table(ids) * scale)
+
+        def encode(self, src):
+            return self.transformer.encoder(self.embed(self.src_embedding,
+                                                       src))
+
+        def forward(self, src, tgt):
+            out = self.transformer(self.embed(self.src_embedding, src),
+                                   self.embed(self.tgt_embedding, tgt),
+                                   tgt_mask=self.tgt_mask)
+            return self.head(out)
+
+    return Seq2Seq()
+
+
+def transformer_loss(P, logits, labels):
+    """The mean token cross entropy of `layer_transformer`'s logits."""
+    b, s, v = logits.shape
+    return P.nn.functional.cross_entropy(logits.reshape([b * s, v]),
+                                         labels.reshape([b * s]))
 
 
 def load_op_cases():
@@ -4459,13 +4582,100 @@ def conv_net_check(dev):
             "loss": float(ref["loss"])}
 
 
+def layer_trainstep(dev, steps=5, per_round=5):
+    """GPT-2 small built from layers (`layer_gpt`) at bench.py's shape
+    (batch 8 x seq 1024, bf16) in a graphed `jit.TrainStep` with AdamW,
+    by bench.py's recipe (`graphed_train`: the counts set to 0 before the
+    warm-up calls and read after, 12 launches each of K1-K3 and dd and 1
+    Adam launch in the graph, `steps` timed replays that launch nothing
+    from Python). Its loss after those calls equals that of the eager
+    Layer step (the same TrainStep with cuda_graph=False) on a twin from
+    the same weights after as many steps, within 1e-6 x max(1, |eager|).
+    Then the graphed module (GPTForPretraining in TrainStep), the graphed
+    Layer step and the eager Layer step are timed in turns:
+    `TIMED_ROUNDS` rounds of `per_round` steps each, host clock to a
+    synchronize, medians."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    module = GPTForPretraining(train_config(), device=dev,
+                               dtype=torch.bfloat16, seed=SEED)
+    state = layer_gpt_state(module)
+
+    def make_layer():
+        layer = layer_gpt(pt, fa.flash_attention, TRAIN_VOCAB, 768, HEADS,
+                          LAYERS, TRAIN_S).to(dtype="bfloat16")
+        check(layer.set_state_dict(state) == ([], []),
+              "layer_gpt: state keys differ from the module's")
+        return layer
+
+    def loss_fn(logits, ids):
+        return layer_gpt_loss(pt, logits, ids)
+    ids_np = np.random.RandomState(0).randint(
+        0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int32")
+    ids = pt.to_tensor(ids_np)
+    ids_t = torch.tensor(ids_np.astype("int64"), device=dev)
+    layer = make_layer()
+    run = graphed_train(layer, loss_fn, AdamW(
+        learning_rate=1e-4, parameters=layer.parameters()), ids,
+        "nn TrainStep(layer_gpt)", steps)
+    calls = 3 + steps
+    twin = make_layer()
+    eager = TrainStep(twin, loss_fn, AdamW(learning_rate=1e-4,
+                                           parameters=twin.parameters()),
+                      cuda_graph=False)
+    eager_losses = [float(eager(ids, ids)) for _ in range(calls)]
+    graphed_loss = run["final"]
+    gap = abs(graphed_loss - eager_losses[-1])
+    check(gap <= 1e-6 * max(1.0, abs(eager_losses[-1])),
+          f"nn TrainStep(layer_gpt): graphed loss {graphed_loss} after "
+          f"{calls} steps, eager {eager_losses[-1]}")
+    mod_step = TrainStep(module, gpt_pretrain_loss, AdamW(
+        learning_rate=1e-4, parameters=module.parameters()))
+    for _ in range(3):
+        float(mod_step(ids_t, ids_t))
+    contenders = {"module_graphed": (mod_step, ids_t),
+                  "layer_graphed": (run["step"], ids),
+                  "layer_eager": (eager, ids)}
+    times = {k: [] for k in contenders}
+    labels = list(contenders)
+    for r in range(TIMED_ROUNDS):
+        for label in (labels if r % 2 == 0 else labels[::-1]):
+            step, x = contenders[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(per_round):
+                loss = step(x, x)
+            float(loss)
+            times[label].append((time.perf_counter() - t0) * 1e3
+                                / per_round)
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "dtype": "bfloat16",
+           "graphed_step_ms": run["dt"] * 1e3,
+           "launches_per_step": run["per_step"], "launches": run["launches"],
+           "routes": run["routes"], "graphed_loss": graphed_loss,
+           "eager_loss": eager_losses[-1], "loss_gap": gap,
+           "steps_compared": calls,
+           "ms_in_turns": {k: float(np.median(v)) for k, v in times.items()},
+           "ms_in_turns_all": times,
+           "profile": run["profile"]}
+    if isinstance(out["profile"], dict):
+        out["profile"]["top_kernels"] = out["profile"]["top_kernels"][:8]
+    del run, layer, twin, module, contenders, mod_step, eager
+    return out
+
+
 def nn_phase(dev, smi):
     """The nn slice on the card: `layer_gpt` at f32 against
     GPTForPretraining, its bf16 AdamW steps at bench.py's shape beside
-    the module's and the Tensor surface's (the main path's launches), the
+    the module's and the Tensor surface's (the main path's launches),
+    `layer_gpt` in a graphed TrainStep (`layer_trainstep`), the
     registered llama_attention, the sparse embedding under lazy Adam, a
     small conv net. Returns the layer steps' launches of K1-K3, dd and
-    Adam, and llama_attention's."""
+    Adam, the TrainStep's, and llama_attention's."""
     import torch
     import paddle_tpu_torch as pt
     old = pt.get_device()
@@ -4475,29 +4685,586 @@ def nn_phase(dev, smi):
         torch.cuda.empty_cache()
         steps = gpt_steps(dev, "layer")
         torch.cuda.empty_cache()
+        trainstep = layer_trainstep(dev)
+        torch.cuda.empty_cache()
         llama = llama_attention_check(dev)
         sparse = sparse_embedding_check(dev)
         conv = conv_net_check(dev)
     finally:
         pt.set_device(old)
     emit("nn", nvidia_smi=smi, layer_gpt_f32_parity=parity, steps=steps,
-         llama_attention=llama, sparse_embedding=sparse, conv_net=conv)
+         trainstep=trainstep, llama_attention=llama,
+         sparse_embedding=sparse, conv_net=conv)
     return {**steps["launches"], "adam": steps["adam_launches"],
+            "trainstep": trainstep["launches"],
             "llama_attention": llama["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# transformer: Transformer-base built from nn layers, through TrainStep
+# ---------------------------------------------------------------------------
+
+def transformer_flops(b, s_src, s_tgt, d, ff, layers, vocab):
+    """Operations of one training step of `layer_transformer`: 6 per
+    multiply-add of the forward (2 for the forward, 4 for the backward)
+    over every projection and feed-forward product on the tokens it sees
+    (the encoder, and the cross-attention's key and value projections,
+    on the source tokens; the rest of the decoder and the head on the
+    target tokens) and the attention products QK^T and PV over the
+    pairs each attention needs (the decoder's masked self-attention over
+    its causal half)."""
+    enc = layers * (4 * d * d + 2 * d * ff) * b * s_src
+    dec = layers * (6 * d * d + 2 * d * ff) * b * s_tgt + \
+        layers * 2 * d * d * b * s_src
+    head = d * vocab * b * s_tgt
+    pairs = s_src * s_src + s_tgt * s_src + s_tgt * (s_tgt + 1) / 2
+    att = layers * 2 * d * b * pairs
+    return 6 * (enc + dec + head + att)
+
+
+def transformer_model(dropout, dtype="float32"):
+    """`layer_transformer` at Transformer-base's widths and depth on the
+    current place, from the framework seed."""
+    import paddle_tpu_torch as pt
+    pt.seed(SEED)
+    model = layer_transformer(pt, TF_VOCAB, TF_D, TF_HEADS, TF_LAYERS,
+                              TF_FF, dropout, TF_TGT)
+    return model if dtype == "float32" else model.to(dtype=dtype)
+
+
+def transformer_batch(b, seed):
+    """(src [b, TF_SRC], tgt [b, TF_TGT], labels [b, TF_TGT]) int32
+    Tensors on the current place, from `seed`."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    r = np.random.RandomState(seed)
+    return tuple(pt.to_tensor(r.randint(0, TF_VOCAB, (b, n)).astype("int32"))
+                 for n in (TF_SRC, TF_TGT, TF_TGT))
+
+
+def transformer_optimizer(model, lr=None):
+    """The paper's optimizer: AdamW(beta1 0.9, beta2 0.98, epsilon 1e-9)
+    on NoamDecay(d_model, 4000) (or a constant `lr`). Returns (optimizer,
+    schedule or None)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+    sched = NoamDecay(TF_D, 4000) if lr is None else None
+    opt = AdamW(learning_rate=sched if lr is None else lr, beta1=0.9,
+                beta2=0.98, epsilon=1e-9, parameters=model.parameters())
+    return opt, sched
+
+
+def tf_loss(logits, labels):
+    import paddle_tpu_torch as pt
+    return transformer_loss(pt, logits, labels)
+
+
+def transformer_parity(dev):
+    """f32 at batch 2 (384 source, 256 target tokens), dropout 0, full
+    depth and width: the loss and every gradient through the kernels
+    (12 launches each of K1, dd, K2 and K3) against `kernel="plain"`,
+    the loss within 1e-4 x max(1, |ref|), the gradients within 1e-4 x
+    max(1, max|g|); then the graphed TrainStep against the eager one (a
+    twin from the same weights) over 3 steps (eager, capture + replay,
+    replay) within 1e-6 x max(1, |eager|)."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    model = transformer_model(0.0)
+    src, tgt, lab = transformer_batch(2, SEED + 21)
+    model.train()
+
+    def loss_and_grads(kernel):
+        with fa.kernel_scope(kernel):
+            loss = tf_loss(model(src, tgt), lab)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad._data.detach().clone()
+                 for k, p in model.named_parameters()}
+        model.clear_gradients()
+        return float(loss), grads
+    ref_loss, ref_g = loss_and_grads("plain")
+    zero_counts()
+    loss, grads = loss_and_grads("cuda")
+    launches = dict(fa.launches)
+    check(launches == {k: 2 * TF_LAYERS for k in ("fwd", "dkv", "dq", "dd")},
+          f"transformer f32: flash launches {launches}")
+    loss_err = abs(loss - ref_loss)
+    check(loss_err <= 1e-4 * max(1.0, abs(ref_loss)),
+          f"transformer f32: loss {loss} against plain {ref_loss}")
+    worst = 0.0
+    for k, want in ref_g.items():
+        scale = max(1.0, float(want.abs().max()))
+        err = float((grads[k] - want).abs().max())
+        check(err <= 1e-4 * scale, f"transformer f32: {k} gradient error "
+                                   f"{err} > 1e-4 x {scale}")
+        worst = max(worst, err / scale)
+    del ref_g, grads
+    twin = transformer_model(0.0)
+    check(twin.set_state_dict(model.state_dict()) == ([], []),
+          "transformer twin: state keys differ")
+    (opt_g, sched_g), (opt_e, sched_e) = (transformer_optimizer(model),
+                                          transformer_optimizer(twin))
+    graphed = TrainStep(model, tf_loss, opt_g)
+    eager = TrainStep(twin, tf_loss, opt_e, cuda_graph=False)
+    pairs = []
+    for _ in range(3):
+        g = float(graphed((src, tgt), lab))
+        e = float(eager((src, tgt), lab))
+        sched_g.step()
+        sched_e.step()
+        pairs.append((g, e))
+        check(abs(g - e) <= 1e-6 * max(1.0, abs(e)),
+              f"transformer f32: graphed losses {pairs} against eager")
+    (graph,) = graphed.graphs.values()
+    want = {f"flash_attention.{k}": 2 * TF_LAYERS
+            for k in ("fwd", "dkv", "dq", "dd")}
+    want["optimizer.adam"] = 1
+    check(graph is not None and graph.launches == want,
+          f"transformer f32: the graph holds {graph and graph.launches}")
+    out = {"batch": 2, "src": TF_SRC, "tgt": TF_TGT, "dtype": "float32",
+           "loss": loss, "plain_loss": ref_loss, "loss_err": loss_err,
+           "max_grad_err_over_scale": worst, "launches": launches,
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_tensors": len(model.parameters()),
+           "graphed_vs_eager_losses": pairs}
+    del model, twin, graphed, eager, opt_g, opt_e
+    return out
+
+
+def transformer_dropout(dev):
+    """Two replays of the graphed step on identical inputs at lr 0
+    (AdamW with a constant learning rate 0: the weights stay) give
+    different losses with dropout 0.1 (the framework generator is
+    registered with the graph: each replay draws fresh masks) and equal
+    losses with dropout 0."""
+    from paddle_tpu_torch.jit import TrainStep
+    src, tgt, lab = transformer_batch(2, SEED + 22)
+    out = {}
+    for p in (0.1, 0.0):
+        model = transformer_model(p)
+        step = TrainStep(model, tf_loss, transformer_optimizer(model,
+                                                               0.0)[0])
+        losses = [float(step((src, tgt), lab)) for _ in range(4)]
+        check(list(step.graphs.values())[0] is not None,
+              f"transformer dropout {p}: no graph captured")
+        if p:
+            check(losses[2] != losses[3], f"transformer dropout {p}: two "
+                                          f"replays gave {losses[2:]}")
+        else:
+            check(losses[2] == losses[3], f"transformer dropout 0: two "
+                                          f"replays gave {losses[2:]}")
+        out[str(p)] = losses
+        del model, step
+    return out
+
+
+def dense_masked_attention_ms(dev, dtype):
+    """The decoder's masked self-attention as its layers run it (the
+    registered flash_attention op with the additive causal mask: the
+    dense route), forward and backward, TF_LAYERS calls at
+    [TF_B, TF_HEADS, TF_TGT, 64] captured in a CUDA graph and replayed:
+    ms per step."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(SEED + 23)
+    mask = pt.triu(pt.full([TF_TGT, TF_TGT], float("-inf")),
+                   diagonal=1).astype(str(dtype).split(".")[-1])
+    sets = []
+    for _ in range(TF_LAYERS):
+        q, k, v, do = flash_inputs(TF_B, TF_TGT, TF_TGT, dtype, gen, dev,
+                                   bshd=False, heads=TF_HEADS)
+        sets.append([pt.Tensor(t, stop_gradient=False) for t in (q, k, v)]
+                    + [do])
+
+    def run():
+        for q, k, v, do in sets:
+            out = fa.flash_attention(q, k, v, attn_mask=mask)
+            torch.autograd.grad(out._data, [t._data for t in (q, k, v)],
+                                do)
+    before = dict(fa.routes)
+    run()
+    check(fa.routes["dense"] - before["dense"] == TF_LAYERS
+          and fa.routes["kernel"] == before["kernel"],
+          "dense masked attention: a call left the dense route")
+    return graph_ms(run, 1)
+
+
+def transformer_timed(dev, peaks, steps=10):
+    """Transformer-base in bf16 at batch 64 (384 source, 256 target
+    tokens), dropout 0.1, in a graphed TrainStep on the paper's
+    optimizer, by bench.py's recipe (`graphed_train`: the counts set to
+    0, 3 warm-up calls, `steps` timed replays, the schedule stepped after
+    each): 12 launches each of K1, dd, K2 and K3 and 1 Adam launch a
+    step, 24 kernel-route and 12 dense-route attentions in the eager call
+    and the capture. Step ms, target tokens/s, MFU (`transformer_flops`
+    over the bf16 peak), peak memory, device time by kernel group beside
+    the decoder's dense masked attention timed alone, and the eager
+    step's ms. Returns (its fields, the model)."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    model = transformer_model(0.1, "bfloat16")
+    opt, sched = transformer_optimizer(model)
+    src, tgt, lab = transformer_batch(TF_B, SEED + 24)
+    torch.cuda.reset_peak_memory_stats()
+    run = graphed_train(model, tf_loss, opt, (src, tgt), "transformer",
+                        steps, labels=lab, layers=2 * TF_LAYERS,
+                        routes_want={"kernel": 4 * TF_LAYERS,
+                                     "dense": 2 * TF_LAYERS},
+                        after_step=sched.step, groups=TF_GROUPS)
+    dt = run["dt"]
+    flops = transformer_flops(TF_B, TF_SRC, TF_TGT, TF_D, TF_FF, TF_LAYERS,
+                              TF_VOCAB)
+    eager = TrainStep(model, tf_loss, opt, cuda_graph=False)
+    for _ in range(2):
+        float(eager((src, tgt), lab))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss = eager((src, tgt), lab)
+    float(loss)
+    eager_ms = (time.perf_counter() - t0) * 1e3 / 5
+    del eager
+    dense_ms = dense_masked_attention_ms(dev, torch.bfloat16)
+    profile = run["profile"]
+    if isinstance(profile, dict):
+        profile["top_kernels"] = profile["top_kernels"][:16]
+    n_params = sum(p.numel() for p in model.parameters())
+    return {"model": "Transformer-base (6 + 6 layers, d_model 512, 8 "
+                     "heads of 64, d_ff 2048, vocab 37000)",
+            "dtype": "bfloat16", "batch": TF_B, "src": TF_SRC,
+            "tgt": TF_TGT, "dropout": 0.1, "attn_dropout": 0.0,
+            "steps": steps, "step": "one CUDA graph replay per call",
+            "step_ms": dt * 1e3, "target_tokens_per_s": TF_B * TF_TGT / dt,
+            "source_tokens_per_s": TF_B * TF_SRC / dt,
+            "flops_per_step": flops, "mfu": flops / dt / peaks["bf16"],
+            "mfu_formula": "transformer_flops / step s / bf16 peak",
+            "params": n_params, "loss": run["final"],
+            "grad_norm": run["grad_norm"],
+            "max_memory_allocated": run["peak_mem"],
+            "memory_reserved": run["reserved"],
+            "launches_per_step": run["per_step"],
+            "launches": run["launches"], "routes": run["routes"],
+            "eager_step_ms": eager_ms,
+            "dense_masked_attention_ms": dense_ms,
+            "dense_masked_attention_share": dense_ms / (dt * 1e3),
+            "dense_masked_attention_what":
+                "the decoder's 6 masked self-attentions (dense route, "
+                "mask added to f32 logits), forward and backward, timed "
+                "alone by graph replay",
+            "profile": profile}, model
+
+
+def transformer_decode(model, dev, dtype, steps=32):
+    """Incremental decoding at full width in eval: the encoder once
+    (K1 forward at [B, 384, 8, 64], 6 launches), then `steps` greedy
+    steps through TransformerDecoder with gen_cache (each step's input
+    embedded at its position); each step's logits against the full
+    decoder's at that position over the same tokens, within 2e-2 x
+    max(1, |ref|) in bf16 and 1e-4 x max(1, |ref|) in f32."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    b = TF_B if dtype == "bfloat16" else 2
+    src = transformer_batch(b, SEED + 25)[0]
+    model.eval()
+    dec = model.transformer.decoder
+    with torch.no_grad():
+        before = dict(fa.launches)
+        memory = model.encode(src)
+        torch.cuda.synchronize()
+        enc_k1 = fa.launches["fwd"] - before["fwd"]
+        check(enc_k1 == TF_LAYERS, f"transformer decode: the encoder "
+                                   f"launched K1 {enc_k1} times")
+        tokens = pt.zeros([b, 1], dtype="int32")
+        cache = dec.gen_cache(memory)
+        step_logits = []
+        t0 = time.perf_counter()
+        for t in range(steps):
+            x = model.embed(model.tgt_embedding, tokens)[:, t:t + 1]
+            out, cache = dec(x, memory, cache=cache)
+            logits = model.head(out)[:, 0]
+            step_logits.append(logits._data.float())
+            nxt = pt.argmax(logits, axis=-1).astype("int32")
+            tokens = pt.concat([tokens, nxt.unsqueeze(-1)], axis=1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        inp = tokens[:, :steps]
+        full = model.head(dec(model.embed(model.tgt_embedding, inp), memory,
+                              tgt_mask=pt.triu(pt.full(
+                                  [steps, steps], float("-inf")),
+                                  diagonal=1)))._data.float()
+    model.train()
+    got = torch.stack(step_logits, dim=1)
+    check(bool(torch.isfinite(got).all()), "transformer decode: non-finite "
+                                           "logits")
+    err = (got - full).abs()
+    bound = tol * torch.clamp(full.abs(), min=1.0)
+    check(bool((err <= bound).all()),
+          f"transformer decode {dtype}: step logits differ from the full "
+          f"decoder's by {err.max().item()} (tolerance {tol} x max(1, "
+          f"|ref|))")
+    return {"dtype": dtype, "batch": b, "steps": steps,
+            "max_abs_err": err.max().item(), "tolerance": tol,
+            "encoder_k1_launches": enc_k1, "host_ms_per_step": step_ms}
+
+
+def beam_cell(P, vocab, emb, hid, seed, eos):
+    """A small recurrent cell Layer of package P for beam search: an
+    embedding, h' = tanh(x Wx + h Wh), logits = head(h')."""
+    import numpy as np
+    nn = P.nn
+
+    class Cell(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, emb)
+            self.wx = nn.Linear(emb, hid)
+            self.wh = nn.Linear(hid, hid, bias_attr=False)
+            self.head = nn.Linear(hid, vocab)
+
+        def forward(self, x, h):
+            h2 = P.tanh(self.wx(x) + self.wh(h))
+            return h2, h2
+
+    cell = Cell()
+    r = np.random.RandomState(seed)
+    # a contracting recurrence (the Wh product's gain about 0.5), so the
+    # two devices' rounding does not grow from step to step; logits of
+    # a few units, and <eos> raised so that some beams finish
+    scale = {"embedding.weight": 1.0, "wx.weight": emb ** -0.5,
+             "wx.bias": 0.1, "wh.weight": 0.25 * hid ** -0.5,
+             "head.weight": 2.0 * hid ** -0.5, "head.bias": 0.5}
+    state = {k: (r.randn(*v.shape) * scale[k]).astype("f4")
+             for k, v in cell.state_dict().items()}
+    state["head.bias"][eos] += 3.5
+    cell.set_state_dict(state)
+    return cell
+
+
+def beam_margins(step_logits, b, k, eos):
+    """The beam rules of `dynamic_decode` replayed in f64 over the
+    logits one run recorded: per batch row, the smallest gap between
+    adjacent candidates among each step's top k + 1 scores and between
+    adjacent final length-normalised scores (a gap under the tolerance
+    is a near tie, where the two devices may rank differently)."""
+    import torch
+    neg = -1e9
+    log_probs = torch.full((b, k), neg, dtype=torch.float64)
+    log_probs[:, 0] = 0.0
+    finished = torch.zeros((b, k), dtype=torch.bool)
+    lengths = torch.zeros((b, k), dtype=torch.int64)
+    margin = torch.full((b,), float("inf"), dtype=torch.float64)
+    for logits in step_logits:
+        logp = torch.log_softmax(logits.double().reshape(b, k, -1), -1)
+        v = logp.shape[-1]
+        eos_only = torch.full((v,), neg, dtype=torch.float64)
+        eos_only[eos] = 0.0
+        logp = torch.where(finished[..., None], eos_only, logp)
+        top, idx = torch.topk((log_probs[..., None] + logp).reshape(b, -1),
+                              k + 1, dim=1)
+        margin = torch.minimum(margin, (top[:, :-1] - top[:, 1:]).min(1)
+                               .values)
+        parent = torch.div(idx[:, :k], v, rounding_mode="floor")
+        token = idx[:, :k] % v
+        was_fin = torch.gather(finished, 1, parent)
+        prev = torch.gather(lengths, 1, parent)
+        finished = was_fin | (token == eos)
+        lengths = torch.where(was_fin, prev, prev + 1)
+        log_probs = top[:, :k]
+    norm = torch.sort(log_probs / torch.clamp(lengths, min=1), 1,
+                      descending=True).values
+    return torch.minimum(margin, (norm[:, :-1] - norm[:, 1:]).min(1).values)
+
+
+def beam_decode(pt, cell, embed, head, h0, beam, steps, eos, start,
+                recorded=None):
+    """BeamSearchDecoder + dynamic_decode over (cell, embed, head) from
+    the initial states h0, every step's logits appended to `recorded`
+    when it is a list. Returns (ids, lengths, ms)."""
+    from paddle_tpu_torch.framework.tensor import unwrap
+
+    def out_fn(out):
+        logits = head(out)
+        if recorded is not None:
+            recorded.append(unwrap(logits).detach().cpu().clone())
+        return logits
+    decoder = pt.nn.BeamSearchDecoder(cell, start, eos, beam,
+                                      embedding_fn=embed, output_fn=out_fn)
+    t0 = time.perf_counter()
+    ids, lens = pt.nn.dynamic_decode(decoder, inits=h0, max_step_num=steps)
+    ids, lens = ids.numpy(), lens.numpy()
+    return ids, lens, (time.perf_counter() - t0) * 1e3
+
+
+def beam_rows_differ(a, b):
+    """The batch rows whose ids or lengths differ between two runs'
+    (ids, lengths)."""
+    import numpy as np
+    return [r for r in range(a[0].shape[0])
+            if not (np.array_equal(a[0][r], b[0][r])
+                    and np.array_equal(a[1][r], b[1][r]))]
+
+
+def beam_weights_f64(vocab, emb, hid, gain, seed, eos):
+    """f64 numpy weights of `beam_cell`'s recurrence, with Wh's entries of
+    std gain / (2 sqrt(hid)): a Gaussian matrix's gain is then about
+    `gain`."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    w = {"emb": r.randn(vocab, emb), "wx": r.randn(emb, hid) * emb ** -0.5,
+         "bx": r.randn(hid) * 0.1,
+         "wh": r.randn(hid, hid) * gain / (2 * hid ** 0.5),
+         "head": r.randn(hid, vocab) * 2.0 * hid ** -0.5,
+         "hb": r.randn(vocab) * 0.5}
+    w["hb"][eos] += 3.5
+    return w
+
+
+def beam_cell_f64(weights, dev):
+    """`beam_cell`'s recurrence, h' = tanh(x Wx + b + h Wh) and logits =
+    h' W + c, as functions over f64 torch copies of `weights` on `dev`
+    (the port's Layers narrow f64 to f32, as the JAX package's do).
+    Returns (cell, embedding_fn, output_fn)."""
+    import torch
+    from paddle_tpu_torch.framework.tensor import unwrap
+    w = {k: torch.tensor(v, dtype=torch.float64, device=dev)
+         for k, v in weights.items()}
+
+    def cell(x, h):
+        h2 = torch.tanh(unwrap(x) @ w["wx"] + w["bx"] + unwrap(h) @ w["wh"])
+        return h2, h2
+    return (cell, lambda t: w["emb"][unwrap(t).long()],
+            lambda out: unwrap(out) @ w["head"] + w["hb"])
+
+
+def transformer_beam(dev, beam=4, batch=64, steps=64, emb=256, hid=256,
+                     tol=1e-3, tol_f64=1e-9):
+    """BeamSearchDecoder + dynamic_decode (beam 4, batch 64, 64 steps,
+    vocabulary 37000) over a small cell Layer (`beam_cell`), on the card
+    and on the CPU from the same weights and initial states: the ids and
+    lengths equal, except in rows where the CPU run's scores hold a near
+    tie (`beam_margins` under `tol`), as the serving parity allows a
+    top-2 margin under its tolerance. `beam_cell` contracts; the same
+    recurrence with a gain of about 4 (`beam_cell_f64`, which does not
+    contract) is held the same way in f64 (near ties under `tol_f64`).
+    Beside them, not a check: at a gain of about 16, the rows of one f64
+    CPU run that a 1e-13 relative change of the initial states alters
+    (at batch 16), the witness that such a recurrence turns rounding
+    into other beams on any one device."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    eos, start = 2, 1
+    h0 = np.random.RandomState(SEED + 26).randn(batch, hid).astype("f4")
+    res = {}
+    for place in ("gpu:0", "cpu"):
+        pt.set_device(place)
+        cell = beam_cell(pt, TF_VOCAB, emb, hid, SEED + 27, eos)
+        rec = [] if place == "cpu" else None
+        res[place] = beam_decode(
+            pt, lambda x, h, cell=cell: cell(x, h), cell.embedding,
+            cell.head, pt.to_tensor(h0), beam, steps, eos, start, rec) \
+            + (rec,)
+    pt.set_device("gpu:0")
+    (gi, gl, g_ms, _), (ci, cl, c_ms, rec) = res["gpu:0"], res["cpu"]
+    check(gi.shape == (batch, steps, beam) and gl.shape == (batch, beam),
+          f"beam search: shapes {gi.shape} {gl.shape}")
+    differ = beam_rows_differ((gi, gl), (ci, cl))
+    margins = beam_margins(rec, batch, beam, eos)
+    for r in differ:
+        check(float(margins[r]) < tol,
+              f"beam search: row {r} differs between the card and the CPU "
+              f"with no near tie (smallest margin {float(margins[r])})")
+
+    cpu = torch.device("cpu")
+    h64 = np.random.RandomState(SEED + 26).randn(batch, hid)
+    w4 = beam_weights_f64(TF_VOCAB, emb, hid, 4.0, SEED + 27, eos)
+    rec64 = []
+    g64 = beam_decode(pt, *beam_cell_f64(w4, dev),
+                      torch.tensor(h64, device=dev), beam, steps, eos,
+                      start)
+    c64 = beam_decode(pt, *beam_cell_f64(w4, cpu), torch.tensor(h64),
+                      beam, steps, eos, start, rec64)
+    differ64 = beam_rows_differ(g64, c64)
+    margins64 = beam_margins(rec64, batch, beam, eos)
+    for r in differ64:
+        check(float(margins64[r]) < tol_f64,
+              f"beam search f64, gain 4: row {r} differs between the card "
+              f"and the CPU with no near tie (smallest margin "
+              f"{float(margins64[r])})")
+    w16 = beam_weights_f64(TF_VOCAB, emb, hid, 16.0, SEED + 27, eos)
+    runs16 = [beam_decode(pt, *beam_cell_f64(w16, cpu),
+                          torch.tensor(h64[:16] * (1 + eps)), beam, steps,
+                          eos, start) for eps in (0.0, 1e-13)]
+    return {"beam": beam, "batch": batch, "steps": steps,
+            "vocab": TF_VOCAB, "rows_equal": batch - len(differ),
+            "rows_near_tie": len(differ), "tolerance": tol,
+            "finished_beams": int((gl < steps).sum()),
+            "card_ms": g_ms, "cpu_ms": c_ms,
+            "f64_gain4": {"rows_equal": batch - len(differ64),
+                          "rows_near_tie": len(differ64),
+                          "tolerance": tol_f64,
+                          "finished_beams": int((g64[1] < steps).sum()),
+                          "card_ms": g64[2], "cpu_ms": c64[2]},
+            "f64_gain16_cpu_rows_altered_by_1e-13": {
+                "rows": 16, "altered": len(beam_rows_differ(*runs16))}}
+
+
+def transformer_phase(dev, smi, peaks):
+    """Transformer-base (`layer_transformer`) on the card: the f32
+    parity (`transformer_parity`), dropout drawn afresh on every replay
+    (`transformer_dropout`), the timed bf16 step at batch 64 (the main
+    path: `transformer_timed`), incremental decoding in bf16 at batch 64
+    and in f32 at batch 2 (`transformer_decode`), and beam search on the
+    card against the CPU (`transformer_beam`). Returns the timed step's
+    launches of K1-K3, dd and Adam."""
+    import torch
+    import paddle_tpu_torch as pt
+    old = pt.get_device()
+    pt.set_device("gpu:0")
+    try:
+        parity = transformer_parity(dev)
+        torch.cuda.empty_cache()
+        dropout = transformer_dropout(dev)
+        torch.cuda.empty_cache()
+        timed, model = transformer_timed(dev, peaks)
+        decode_bf16 = transformer_decode(model, dev, "bfloat16")
+        del model
+        torch.cuda.empty_cache()
+        f32 = transformer_model(0.0)
+        decode_f32 = transformer_decode(f32, dev, "float32")
+        del f32
+        torch.cuda.empty_cache()
+        beam = transformer_beam(dev)
+    finally:
+        pt.set_device(old)
+    emit("transformer", nvidia_smi=smi, parity=parity, dropout=dropout,
+         timed=timed, decode={"bfloat16": decode_bf16,
+                              "float32": decode_f32}, beam_search=beam)
+    return timed["launches"]
 
 
 # ---------------------------------------------------------------------------
 # train: GPT-2 small at bench.py's GPU shapes, bf16, through TrainStep
 # ---------------------------------------------------------------------------
 
-def graphed_train(model, loss_fn, opt, ids, name, steps=10):
+def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
+                  layers=LAYERS, routes_want=None, after_step=None,
+                  groups=None):
     """bench.py's GPU recipe on `model`: the counts set to 0, a
     TrainStep, 3 warm-up calls (eager, capture, replay), then `steps`
-    timed graph replays. The graph must hold 12 launches of each flash
-    kernel (fwd, dkv, dq, dd) and 1 of the optimizer kernel, every layer
-    must take the kernel route, the timed calls must launch nothing from
+    timed graph replays of `step(ids, labels)` (labels default to ids).
+    The graph must hold `layers` launches of each flash kernel (fwd, dkv,
+    dq, dd) and 1 of the optimizer kernel, the attention routes of the
+    eager call and the capture must be `routes_want` (default: every
+    layer on the kernel route), the timed calls must launch nothing from
     Python, and the profiler must see the graph's kernels once each a
-    replay. Returns the step and its measurements."""
+    replay. `after_step` runs on the host after every call (a schedule's
+    step()); `groups` are the profile's kernel groups (default
+    PROFILE_GROUPS). Returns the step and its measurements."""
     import numpy as np
     import torch
     from paddle_tpu_torch import kernels
@@ -4506,34 +5273,39 @@ def graphed_train(model, loss_fn, opt, ids, name, steps=10):
 
     # the main path's run, from building the step to its last timed
     # call: every count is 0 before it and read after
+    labels = ids if labels is None else labels
+    after_step = after_step or (lambda: None)
     zero_counts()
     fa.routes["kernel"] = fa.routes["dense"] = 0
     step = TrainStep(model, loss_fn, opt, donate=True)
     # call 1 runs eagerly on a side stream, call 2 captures the step and
     # replays it, call 3 replays
     for _ in range(3):
-        float(step(ids, ids))
+        float(step(ids, labels))
+        after_step()
     graphs = list(step.graphs.values())
     check(len(graphs) == 1 and graphs[0] is not None,
           f"{name}: {len(graphs)} graphs after three calls")
     graph = graphs[0]
     per_step = dict(graph.launches)
-    want = {f"flash_attention.{k}": LAYERS for k in ("fwd", "dkv", "dq",
+    want = {f"flash_attention.{k}": layers for k in ("fwd", "dkv", "dq",
                                                      "dd")}
     want["optimizer.adam"] = 1
     check(per_step == want, f"{name}: the graph holds the launches "
                             f"{per_step}, not {want}")
     routes = dict(fa.routes)
-    check(routes == {"kernel": 2 * LAYERS, "dense": 0},
+    routes_want = routes_want or {"kernel": 2 * layers, "dense": 0}
+    check(routes == routes_want,
           f"{name}: attention routes {routes} in the eager call and the "
-          f"capture: a layer took the dense path")
+          f"capture, not {routes_want}")
     warm = kernels.launch_counts()
     replays0 = graph.replays
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
-        loss = step(ids, ids)
+        loss = step(ids, labels)
+        after_step()
     final = float(loss)                             # one sync at the end
     dt = (time.perf_counter() - t0) / steps
     peak_mem = torch.cuda.max_memory_allocated()
@@ -4550,7 +5322,9 @@ def graphed_train(model, loss_fn, opt, ids, name, steps=10):
     # it below)
     launches = {k.split(".")[1]: n * steps for k, n in per_step.items()}
     grad_norm = step.last_grad_norm()
-    profile = profile_steps(step, ids, dt * 1e3)
+    profile = profile_steps(step, ids, dt * 1e3, labels=labels,
+                            **({} if groups is None else
+                               {"categories": groups, "other": STEP_OTHER}))
     check(isinstance(profile, dict), f"{name}: profile {profile}")
     for key, dev_name in DEVICE_NAMES.items():
         seen = profile["kernel_calls_per_step"][dev_name]
@@ -4834,6 +5608,10 @@ def train_fused_head_phase(dev, peaks, steps=5):
 
 
 # kernel-name fragments -> category of a training step's device time
+# the record_function names of the graphs.Program runs (a replay's range
+# is mirrored on the device)
+PROGRAM_RANGES = ("jit.TrainStep", "generate.decode_step",
+                  "serving.decode_wave", "serving.prefill_chunk")
 PROFILE_GROUPS = (("flash attention (K1-K3, dd)", ("flash_", "row_dot")),
                   ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                   ("optimizer (fused adam, foreach)",
@@ -4847,20 +5625,32 @@ STEP_GROUPS = PROFILE_GROUPS + (
     ("layer_norm", ("layer_norm",)), ("gelu", ("gelu",)),
     ("softmax and cross entropy", ("softmax", "nll_loss")))
 STEP_OTHER = "other (elementwise, copies)"
+# the transformer step's: the dense route's f32 QK^T and PV products
+# (the decoder's masked self-attention; every other matmul is bf16),
+# the dropout masks, the norms and the softmax/loss kernels apart
+TF_GROUPS = (PROFILE_GROUPS[0],
+             ("dense attention's f32 gemms", ("gemm_f32f32",))) + \
+    PROFILE_GROUPS[1:] + (
+    ("layer_norm", ("layer_norm", "gammabeta")),
+    ("dropout masks", ("bernoulli",)),
+    ("softmax and cross entropy", ("softmax", "nll_loss")))
 
 
 def device_rows(prof, calls):
     """(ms, launches, name) per call of each device kernel in a profile
     of `calls` calls, largest first. Device activities only: CPU ranges
     (ops, autograd Functions) carry their kernels' time too and would
-    count it twice."""
+    count it twice, and so do the ranges mirrored on the device (a
+    profiler step, a `graphs.Program`'s record_function around a graph
+    replay, such as "jit.TrainStep")."""
     from torch.autograd import DeviceType
     rows = [(e.self_device_time_total / 1e3 / calls, e.count / calls, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0
-            # a profiler schedule's step range, mirrored on the device
-            and not e.key.startswith("ProfilerStep")]
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("ProfilerStep")
+            and e.key not in PROGRAM_RANGES]
     return sorted(rows, reverse=True)
 
 
@@ -4878,7 +5668,7 @@ def by_group(rows, categories=PROFILE_GROUPS, other=OTHER_GROUP):
 
 
 def profile_steps(step, ids, step_ms, steps=2, categories=PROFILE_GROUPS,
-                  other=OTHER_GROUP):
+                  other=OTHER_GROUP, labels=None):
     """Device time of `steps` training steps by kernel, from
     torch.profiler (CUPTI): per-step ms by category, the device's idle
     share, the calls per step of each kernel in DEVICE_NAMES, and the top
@@ -4887,19 +5677,20 @@ def profile_steps(step, ids, step_ms, steps=2, categories=PROFILE_GROUPS,
     profiler warms up on one step of its own (tracing on, events
     dropped) before the recorded window: on an H100 a window opened cold
     once recorded 23 of the 24 flash_fwd_wgmma launches of two replays.
-    Returns "not measured: ..." when the profiler records no device
-    time."""
+    Each step is `step(ids, labels)` (labels default to ids). Returns
+    "not measured: ..." when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
+    labels = ids if labels is None else labels
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        float(step(ids, ids))
+        float(step(ids, labels))
         torch.cuda.synchronize()
         prof.step()                     # the warm-up ends: record
         t0 = time.perf_counter()
         for _ in range(steps):
-            loss = step(ids, ids)
+            loss = step(ids, labels)
         float(loss)
         wall = (time.perf_counter() - t0) * 1e3 / steps
         prof.step()                     # the recorded window ends
@@ -5089,6 +5880,7 @@ def main():
         emit("train_fused_head", **fh)
     eager_launches = run("eager", eager_phase, dev, smi)
     nn_launches = run("nn", nn_phase, dev, smi)
+    tf_launches = run("transformer", transformer_phase, dev, smi, peaks)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -5129,8 +5921,13 @@ def main():
                      "launches_train_llama": train_llama_launches[kind],
                      "launches_eager": eager_launches[kind],
                      "launches_nn": nn_launches[kind],
+                     "launches_nn_trainstep": nn_launches["trainstep"][kind],
                      "launches_nn_llama_attention":
                          nn_launches["llama_attention"][kind],
+                     "launches_transformer": tf_launches[kind],
+                     "transformer_shapes": {
+                         name: shape[kind] for name, shape in
+                         fl["transformer_shapes"].items()},
                      "ms": row.pop("kernel_ms"), **row})
         if kind == "fwd":
             prefill = dict(fl["fwd_prefill"])
@@ -5147,6 +5944,8 @@ def main():
                  "launches_train_fused_head": fh["launches"]["adam"],
                  "launches_train_llama": train_llama_launches["adam"],
                  "launches_nn": nn_launches["adam"],
+                 "launches_nn_trainstep": nn_launches["trainstep"]["adam"],
+                 "launches_transformer": tf_launches["adam"],
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

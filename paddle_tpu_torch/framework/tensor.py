@@ -401,13 +401,17 @@ class Tensor:
         return self._data.__dlpack_device__()
 
 
+def unwrap(x):
+    """The torch tensor under a Tensor; anything else as it is."""
+    return x._data if isinstance(x, Tensor) else x
+
+
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     """paddle.to_tensor: a new leaf holding a copy of `data` on `place`
     (default: the current place, the CUDA card unless `set_device("cpu")`
     was called; raises when that is the card and there is none)."""
     if isinstance(data, (Tensor, torch.Tensor)):
-        src = data._data if isinstance(data, Tensor) else data
-        data = src.detach().clone()
+        data = unwrap(data).detach().clone()
         if place is None:
             place = state.get_place()
     return Tensor(data, dtype=dtype, place=place,

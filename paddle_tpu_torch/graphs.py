@@ -1,5 +1,5 @@
 """CUDA-graph programs over static device buffers, shared by the
-serving engines and `nlp.generate`.
+serving engines, `nlp.generate` and `jit.TrainStep`.
 
 `StaticInputs` holds a program's inputs in one device byte buffer that
 is never replaced, written through one pinned host buffer and one copy
@@ -80,19 +80,20 @@ class Program:
     """One program, `fn(key)` over the engine's static buffers,
     returning its output tensors. Eager on the CPU or with
     `cuda_graph=False`. Otherwise one CUDA graph per key, captured as
-    `jit.TrainStep` captures a step: the first call with a key runs `fn`
-    eagerly on a side stream, the second captures it (the generator
-    registered, so every replay draws fresh noise) and replays, every
+    the first call with a key runs `fn` eagerly on a side stream (a real
+    run that initialises the kernel libraries, cuBLAS and any state `fn`
+    creates), the second captures it (every generator of `generators`
+    registered, so each replay draws fresh noise) and replays, every
     later call replays and returns the graph's own output tensors, which
     the next replay overwrites. `graphs` maps each key to its `_Graph`
     (None after its eager first call). The graphs of one program share a
     memory pool; each program has its own."""
 
-    def __init__(self, name, fn, device, cuda_graph, generator):
+    def __init__(self, name, fn, device, cuda_graph, generators):
         self.name = name
         self._fn = fn
         self._device = device
-        self._generator = generator
+        self._generators = list(generators)
         self.graphed = bool(cuda_graph) and device.type == "cuda"
         self.graphs = {}
         self._pool = None
@@ -135,7 +136,8 @@ class Program:
         # it now (torch.cuda.graph no longer does)
         gc.collect()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._generator)
+        for gen in self._generators:
+            graph.register_generator_state(gen)
         before = kernels.launch_counts()
         try:
             with torch.cuda.graph(graph, pool=self._pool):

@@ -5,44 +5,60 @@ The JAX package compiles forward, backward and the optimizer into one
 donated XLA program that takes the learning rate and the step index as
 device scalars. Here, for a model on a CUDA device, `TrainStep` captures
 the same sequence — forward and loss, `backward()`, the grad-norm
-sentinel, the optimizer's clip and in-place update — into one
-`torch.cuda.CUDAGraph` per input signature (shapes, dtypes, devices),
-all sharing one memory pool, as `jax.jit` keeps one program per
-signature:
+sentinel, the optimizer's clip and in-place update — as a
+`graphs.Program`: one `torch.cuda.CUDAGraph` per input signature
+(shapes, dtypes, devices), all sharing one memory pool, as `jax.jit`
+keeps one program per signature:
 
-  * the first call with a signature runs the sequence eagerly on a side
-    stream, a real step that initialises the optimizer state, the kernel
-    libraries, cuBLAS and autograd;
-  * the second copies the inputs into static buffers, captures the
-    sequence with every grad unset (so the graph's backward writes them)
-    and replays it once: also exactly one step;
+  * the first call with a signature copies the inputs into static
+    buffers and runs the sequence eagerly on a side stream, a real step
+    that initialises the optimizer state, the kernel libraries, cuBLAS
+    and autograd;
+  * the second copies the inputs into place, captures the sequence with
+    every grad unset (so the graph's backward writes them) and replays
+    it once: also exactly one step;
   * every later call copies the inputs and the optimizer's [lr, step]
     pair into place and replays.
 
-The model's dropout generator, and the optimizer's noise generator
-where it has one (`Dpsgd`), are registered with each graph, so every
-replay draws fresh masks and noise. The optimizer's learning rate is
-read on the host before each replay (`_advance`), so a schedule
-(`optimizer.lr`) moves it without a new capture. The optimizer must be
-an `optimizer.Optimizer`: the wrappers (EMA, ModelAverage, Lookahead,
-GradientMerge) branch on the host every k steps and are refused, as the
-JAX TrainStep takes only an optimizer's functional update. A replay
-returns a clone of the graph's loss
-(and of its outputs, when `return_outputs`); the grads stay the graph's
-own tensors, which the step keeps, and `p.grad` is left unset between
-steps as in the eager sequence. A capture that fails raises with its
-reason: nothing falls back to the eager sequence. The graph replays on
-the addresses it captured: the kernels' TMA descriptors are encoded from
-them, so its buffers are never swapped.
+The model is a `torch.nn.Module` over torch tensors (the GPT and LLaMA
+models) or an `nn.Layer`, whose forward takes and returns port
+`Tensor`s and whose `parameters()` are port `Parameter`s: inputs and
+labels may be Tensors or torch tensors either way, and the loss comes
+back as the model's kind of tensor. The device is that of the model's
+first torch leaf.
+
+The model's dropout generator (`model.generator`), the optimizer's noise
+generator where it has one (`Dpsgd`) and the framework generator of the
+model's device (`framework.state.rng_generator`, which `nn.Dropout`,
+`F.dropout` and the registered ops draw from) are registered with each
+graph, so every replay draws fresh masks and noise. (`seed()` replaces
+the framework's generators: a step captured before it keeps drawing
+from the old one; build a new `TrainStep` after reseeding.) Nothing the
+step runs may read device memory from the host: build masks and other
+constants outside it. The optimizer's learning rate is read on the host
+before each replay (`_advance`), so a schedule (`optimizer.lr`) moves it
+without a new capture. The optimizer must be an `optimizer.Optimizer`:
+the wrappers (EMA, ModelAverage, Lookahead, GradientMerge) branch on the
+host every k steps and are refused, as the JAX TrainStep takes only an
+optimizer's functional update. A replay returns a clone of the graph's
+loss (and of its outputs, when `return_outputs`); the grads stay the
+graph's own tensors, which the program keeps, and `p.grad` is left unset
+between steps as in the eager sequence. A capture that fails raises with
+its reason: nothing falls back to the eager sequence. The graph replays
+on the addresses it captured: the kernels' TMA descriptors are encoded
+from them, so its buffers are never swapped.
 
 On the CPU, or with `cuda_graph=False`, the sequence runs eagerly on
-every call and the grads are cleared after the update. `donate=True` is
-accepted: the updates are in place anyway. The flight-recorder
-instrumentation of the JAX TrainStep is not ported (ROADMAP Queue 1).
+every call, on the caller's tensors, and the grads are cleared after
+the update. `donate=True` is accepted: the updates are in place anyway.
+The flight-recorder instrumentation of the JAX TrainStep is not ported
+(ROADMAP Queue 1).
 """
 import torch
 
-from .. import kernels
+from ..framework import state
+from ..framework.tensor import Tensor, unwrap
+from ..graphs import Program
 from ..optimizer import Optimizer
 
 
@@ -66,22 +82,12 @@ def _signature(args):
                  for a in args)
 
 
-class _Graph:
-    """One captured step: the graph, its static inputs and outputs, the
-    grads its backward writes, the kernel launches it holds (by
-    `kernels.launch_counts` key) and how often it was replayed."""
-
-    def __init__(self, graph, inputs, loss, outs, grad_norm, nonfinite,
-                 grads, launches):
-        self.graph = graph
-        self.inputs = inputs
-        self.loss = loss
-        self.outs = outs
-        self.grad_norm = grad_norm
-        self.nonfinite = nonfinite
-        self.grads = grads
-        self.launches = launches
-        self.replays = 0
+def _leaf_device(model):
+    """The device of the model's first torch leaf (a Layer's parameters
+    are port Parameters over torch leaves)."""
+    for p in model.parameters():
+        return unwrap(p).device
+    raise ValueError("TrainStep: the model has no parameters")
 
 
 class TrainStep:
@@ -97,7 +103,8 @@ class TrainStep:
     when `return_outputs`). With `cuda_graph` (the default) a model on a
     CUDA device runs as CUDA graphs; `cuda_graph=False`, or a model on
     the CPU, runs the eager sequence. `graphs` maps each input signature
-    to its `_Graph` once captured (None after its eager first call)."""
+    to its captured graph (`graphs._Graph`: its `launches` and
+    `replays`; None after its eager first call)."""
 
     def __init__(self, model, loss_fn, optimizer, donate=True,
                  return_outputs=False, cuda_graph=True):
@@ -107,116 +114,119 @@ class TrainStep:
                 f"{type(optimizer).__name__}: the optimizer wrappers (EMA, "
                 f"ModelAverage, Lookahead, GradientMerge) run eagerly; call "
                 f"their step() after backward() yourself")
+        from ..nn import Layer
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.return_outputs = return_outputs
+        self._layer = isinstance(model, Layer)
         self._last_grad_norm = None
         self._last_nonfinite = None
-        self._device = next(model.parameters()).device
+        self._device = _leaf_device(model)
         self._graphed = bool(cuda_graph) and self._device.type == "cuda"
-        self.graphs = {}
-        self._pool = None
+        self._args = {}
+        gens = []
+        if self._graphed:
+            for owner in (model, optimizer):
+                gen = getattr(owner, "generator", None)
+                if isinstance(gen, torch.Generator) and \
+                        gen.device.type == "cuda":
+                    gens.append(gen)
+            gens.append(state.rng_generator(self._device))
+        self.program = Program("jit.TrainStep", self._program, self._device,
+                               self._graphed, gens)
         model.train()
 
+    @property
+    def graphs(self):
+        return self.program.graphs
+
     def _run(self, inputs, labels):
-        """Forward, loss, backward, sentinel and the optimizer's update:
-        device work only, no host reads."""
+        """Forward, loss, backward, sentinel and the optimizer's update
+        on torch tensors: device work only, no host reads. Returns the
+        loss and the outputs (detached, as the model's kind of tensor)."""
+        if self._layer:
+            inputs = tuple(Tensor._wrap(a) if isinstance(a, torch.Tensor)
+                           else a for a in inputs)
+            labels = tuple(Tensor._wrap(a) if isinstance(a, torch.Tensor)
+                           else a for a in labels)
         out = self.model(*inputs)
         outs = out if isinstance(out, tuple) else (out,)
         loss = self.loss_fn(*outs, *labels)
-        loss.backward()
+        unwrap(loss).backward()
         grads = [p.grad for p in self.optimizer._parameters
                  if p.grad is not None]
         self._last_grad_norm, self._last_nonfinite = \
-            grad_norm_sentinel(loss, grads)
+            grad_norm_sentinel(unwrap(loss), grads)
         self.optimizer.step()
         # the outputs are read only when asked for: detaching the fused
         # head's logits would compute the dense head product
         return loss.detach(), (tuple(o.detach() for o in outs)
                                if self.return_outputs else ())
 
+    def _program(self, key):
+        """The step over the static buffers of signature `key`."""
+        return self._step(*self._args[key])
+
+    def _step(self, args, n_in):
+        """One step over `args` (the inputs, then the labels), every grad
+        unset before and after. The grads the step wrote are returned
+        with the loss, so a captured graph keeps them (the addresses its
+        backward writes and its optimizer reads)."""
+        self.optimizer.clear_grad()
+        loss, outs = self._run(args[:n_in], args[n_in:])
+        grads = [p.grad for p in self.optimizer._parameters]
+        self.optimizer.clear_grad()
+        return (loss, outs, self._last_grad_norm, self._last_nonfinite,
+                grads)
+
     def __call__(self, inputs, labels):
         inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
             else (inputs,)
         labels = tuple(labels) if isinstance(labels, (list, tuple)) \
             else (labels,)
+        args = tuple(unwrap(a) for a in inputs + labels)
+        key = _signature(args)
         if not self._graphed:
-            loss, outs = self._run(inputs, labels)
-            self.optimizer.clear_grad()
+            step = self._step(args, len(inputs))
+        elif key not in self._args:
+            # the static buffers of this signature: its graph replays on
+            # their addresses
+            self._args[key] = (tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args), len(inputs))
         else:
-            key = _signature(inputs + labels)
-            if key not in self.graphs:
-                loss, outs = self._warm_up(inputs, labels)
-                self.graphs[key] = None
-            else:
-                if self.graphs[key] is None:
-                    self.graphs[key] = self._capture(inputs, labels)
-                loss, outs = self._replay(self.graphs[key], inputs + labels)
+            for dst, src in zip(self._args[key][0], args):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src, non_blocking=True)
+            # a capture's step() does not advance the optimizer: its
+            # replays read [lr, step] from the device pair written here
+            self.optimizer._advance()
+        if self._graphed:
+            step = self.program(key)
+        loss, outs, norm, nonfinite, _ = step
+        self._last_grad_norm, self._last_nonfinite = norm, nonfinite
+        if self._graphed and self.graphs[key] is not None:
+            loss = loss.clone()
+            outs = tuple(o.clone() for o in outs)
         if self.return_outputs:
             return loss, outs
         return loss
 
-    def _warm_up(self, inputs, labels):
-        """The eager step on a side stream (PyTorch's recipe before a
-        whole-network capture)."""
-        current = torch.cuda.current_stream(self._device)
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            loss, outs = self._run(inputs, labels)
-            self.optimizer.clear_grad()
-        current.wait_stream(side)
-        return loss, outs
-
-    def _capture(self, inputs, labels):
-        static = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                       for a in inputs + labels)
-        n_in = len(inputs)
-        params = self.optimizer._parameters
-        self.optimizer.clear_grad()
-        graph = torch.cuda.CUDAGraph()
-        for owner in (self.model, self.optimizer):
-            gen = getattr(owner, "generator", None)
-            if isinstance(gen, torch.Generator) and \
-                    gen.device.type == "cuda":
-                graph.register_generator_state(gen)
-        before = kernels.launch_counts()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                loss, outs = self._run(static[:n_in], static[n_in:])
-        except Exception as exc:
-            raise RuntimeError(f"TrainStep: CUDA-graph capture of the train "
-                               f"step failed: {exc}") from exc
-        after = kernels.launch_counts()
-        if self._pool is None:
-            self._pool = graph.pool()
-        grads = [p.grad for p in params]
-        self.optimizer.clear_grad()
-        return _Graph(graph, static, loss, outs,
-                      self._last_grad_norm, self._last_nonfinite, grads,
-                      {k: n - before.get(k, 0) for k, n in after.items()
-                       if n != before.get(k, 0)})
-
-    def _replay(self, g, args):
-        for dst, src in zip(g.inputs, args):
-            if isinstance(dst, torch.Tensor):
-                dst.copy_(src, non_blocking=True)
-        self.optimizer._advance()
-        g.graph.replay()
-        g.replays += 1
-        self._last_grad_norm, self._last_nonfinite = g.grad_norm, g.nonfinite
-        return g.loss.clone(), tuple(o.clone() for o in g.outs)
-
     def eval_fn(self, fn=None):
         """An eval forward over the live state: `run(*inputs)` puts the
         model in eval mode, calls it under `torch.no_grad()` and puts
-        the training mode back. It runs eagerly, on the card too (no
-        CUDA graph). `fn` is accepted for the JAX signature and not
-        used: the forward is the model's."""
+        the training mode back. Inputs may be Tensors or torch tensors;
+        the output is the model's kind of tensor. It runs eagerly, on
+        the card too (no CUDA graph). `fn` is accepted for the JAX
+        signature and not used: the forward is the model's."""
         model = self.model
+        layer = self._layer
 
         def run(*inputs):
+            inputs = tuple(
+                Tensor._wrap(a) if layer and isinstance(a, torch.Tensor)
+                else (a if layer else unwrap(a)) for a in inputs)
             was_training = model.training
             model.eval()
             try:

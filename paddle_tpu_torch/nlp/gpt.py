@@ -794,7 +794,8 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
             t.add_(1)
             return ()
 
-        program = Program("generate.decode_step", step, dev, cuda_graph, gen)
+        program = Program("generate.decode_step", step, dev, cuda_graph,
+                          [gen])
         for _ in range(L - 1):
             program(None)
         return buf

@@ -1,11 +1,10 @@
 """paddle_tpu_torch.nn — the port of `paddle_tpu/nn`: `Layer` and its
 containers, `functional`, the initializers, `ParamAttr`, the layers
 (common, conv, norm, pooling, activation, loss), `utils`, gradient
-clipping (`clip`), and the serving primitives: the dense and paged
-KV-cache helpers (`transformer`), the fused paged-attention dispatch
-(`paged_attention`) and the sampling filters of generation (`decode`).
-The transformer layers and `rnn` come with ROADMAP Queue 1 items 3(c)
-and 4."""
+clipping (`clip`), the Transformer layers and the dense and paged
+KV-cache helpers (`transformer`), beam search and the sampling filters
+of generation (`decode`), and the fused paged-attention dispatch
+(`paged_attention`). `rnn` comes with ROADMAP Queue 1 item 4."""
 from . import functional
 from . import initializer
 from .layer import (Layer, LayerList, Sequential, ParameterList,
@@ -38,6 +37,11 @@ from .loss import (CTCLoss,
                    BCELoss, BCEWithLogitsLoss, KLDivLoss, MarginRankingLoss,
                    HingeEmbeddingLoss, HSigmoidLoss)
 from . import clip, decode, paged_attention, transformer
+from .transformer import (MultiHeadAttention, TransformerEncoderLayer,
+                          TransformerEncoder, TransformerDecoderLayer,
+                          TransformerDecoder, Transformer)
+from .decode import (BeamSearchDecoder, dynamic_decode,
+                     top_k_top_p_filtering, sampling_id, greedy_search)
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue)

@@ -32,11 +32,14 @@ methods that call the overridden ones with torch's arguments
 Layer.
 
 A layer built the same way in both packages gives the same state-dict
-keys and shapes. `functional_state`, `_use_state` and `functional_call`,
-which the JAX package needs for tracing, raise: the port's `TrainStep`
-and models are re-based on `Layer` by ROADMAP Queue 1 item 3(c).
+keys and shapes. `functional_state` returns the torch tensors under the
+JAX package's names, `_use_state` swaps others in (in torch's registry
+and in the wrappers, restored on exit) and `functional_call` runs the
+layer over them, returning (outputs, new buffers) as the JAX package's
+does.
 """
 import collections
+import contextlib
 
 import numpy as np
 import torch
@@ -44,7 +47,7 @@ from torch.nn.modules import module as _tm
 
 from ..framework import state
 from ..framework.dtype import convert_dtype
-from ..framework.tensor import Parameter, Tensor, to_torch
+from ..framework.tensor import Parameter, Tensor, to_torch, unwrap
 from . import initializer as I
 
 
@@ -70,7 +73,7 @@ def _write(t, value):
     `numpy()`) into the tensor `t` in place, cast to its dtype."""
     d = t._data
     if isinstance(value, (Tensor, torch.Tensor)):
-        src = value._data if isinstance(value, Tensor) else value
+        src = unwrap(value)
     else:
         src = value.numpy() if hasattr(value, "numpy") and \
             not isinstance(value, np.ndarray) else value
@@ -382,22 +385,83 @@ class Layer(torch.nn.Module):
 
     # ------------------------------------------------------------ functional
     def functional_state(self):
-        raise NotImplementedError(
-            "Layer.functional_state: the port traces nothing; TrainStep "
-            "and the models are re-based on Layer by ROADMAP Queue 1 item "
-            "3(c)")
+        """(params, buffers): flat name -> torch tensor dicts (the
+        tensors torch's registry holds), under the JAX package's names."""
+        params = {n: p._data for n, p in self.named_parameters()}
+        buffers = {n: b._data for n, b in self.named_buffers()}
+        return params, buffers
 
+    def _owners(self, kind):
+        """id(wrapper) -> [(layer, attribute)] of every layer that holds
+        the wrapper, for `kind` "params" or "buffers" (a shared
+        Parameter sits in more than one layer)."""
+        owners = {}
+        for _, layer in self.named_sublayers(include_self=True):
+            d = layer._pt_params if kind == "params" else layer._pt_buffers
+            for attr, w in d.items():
+                owners.setdefault(id(w), []).append((layer, attr))
+        return owners
+
+    @contextlib.contextmanager
     def _use_state(self, params=None, buffers=None):
-        raise NotImplementedError(
-            "Layer._use_state: the port traces nothing (ROADMAP Queue 1 "
-            "item 3(c))")
+        """Swap the torch tensors of `params` and `buffers` (name ->
+        tensor, the names of `functional_state`) in for the layer's own,
+        in the wrappers' `_data` and in torch's registry; every swapped
+        tensor is put back on exit, also when the body raises. Yields
+        (named parameters, named buffers): name -> the port wrappers."""
+        named_p = dict(self.named_parameters())
+        named_b = dict(self.named_buffers())
+        saved = []
+
+        def swap(named, values, kind):
+            owners = self._owners(kind)
+            for n, arr in values.items():
+                w = named[n]
+                if isinstance(arr, Tensor):
+                    arr = arr._data
+                regs = [(layer._parameters if kind == "params"
+                         else layer._buffers, attr)
+                        for layer, attr in owners.get(id(w), ())]
+                saved.append((w, w._data, [(r, a, r[a]) for r, a in regs]))
+                w._data = arr
+                for r, a in regs:
+                    r[a] = arr
+        try:
+            if params is not None:
+                swap(named_p, params, "params")
+            if buffers is not None:
+                swap(named_b, buffers, "buffers")
+            yield named_p, named_b
+        finally:
+            for w, data, regs in reversed(saved):
+                w._data = data
+                for r, a, old in regs:
+                    r[a] = old
 
     def functional_call(self, params, buffers, *inputs, method=None,
                         **kwargs):
-        raise NotImplementedError(
-            "Layer.functional_call: the port traces nothing; TrainStep "
-            "and the models are re-based on Layer by ROADMAP Queue 1 item "
-            "3(c)")
+        """The layer (or its `method`) over `params` and `buffers`
+        instead of its own state: returns (outputs, new_buffers), the
+        buffers as the call left them. Torch tensors and numpy arrays
+        among `inputs` are wrapped as Tensors; anything else (a cache
+        tuple, a scalar) passes through untouched. Gradients reach the
+        tensors of `params` that require grad."""
+        def wrap(i):
+            if isinstance(i, torch.Tensor):
+                return Tensor._wrap(i)
+            if isinstance(i, np.ndarray):
+                return Tensor(i)
+            return i
+
+        # the buffers the call updates in place (running statistics) are
+        # copies: the caller's tensors stay as they were
+        if buffers is not None:
+            buffers = {n: unwrap(b).clone() for n, b in buffers.items()}
+        with self._use_state(params, buffers) as (_, named_b):
+            fn = getattr(self, method) if method else self
+            out = fn(*[wrap(i) for i in inputs], **kwargs)
+            new_buffers = {n: named_b[n]._data for n in (buffers or {})}
+        return out, new_buffers
 
     def __repr__(self):
         lines = []

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..framework import state
-from ..framework.tensor import Tensor
+from ..framework.tensor import Tensor, unwrap
 from ..ops.dispatch import apply
 from . import functional as F
 from . import initializer as I
@@ -225,7 +225,7 @@ class SpectralNorm(Layer):
 
     def forward(self, weight):
         dim, iters, eps = self._dim, self._power_iters, self._eps
-        warr = weight._data if isinstance(weight, Tensor) else weight
+        warr = unwrap(weight)
         with torch.no_grad():
             u, v = _power_iteration(_matricize(warr.detach(), dim),
                                     self.weight_u._data, self.weight_v._data,

@@ -1,8 +1,22 @@
-"""KV-cache primitives and the dense attention cores they feed — the
-serving subset of `paddle_tpu/nn/transformer.py`: the dense cache's
-per-row scatter (`scatter_kv_at`) and the paged cache's (one token per
-lane; a chunk of tokens per lane, for the prefill and the speculative
-verify).
+"""The Transformer stack and the KV-cache primitives — the port of
+`paddle_tpu/nn/transformer.py` (ref python/paddle/nn/layer/
+transformer.py:115-1094).
+
+The layers: `MultiHeadAttention`, `TransformerEncoderLayer`,
+`TransformerEncoder`, `TransformerDecoderLayer`, `TransformerDecoder` and
+`Transformer`, with the JAX package's state-dict keys. Their attention
+core is the registered `flash_attention` op: without a mask, a cache or
+`need_weights`, `MultiHeadAttention` feeds it [B, S, H, D] views of the
+projections (`attn_layout="bshd"`, the default), which is K1 forward
+and dd, K2 and K3 backward on the card when both lengths are multiples
+of 128 and there is no attention dropout; otherwise it goes through
+`scaled_dot_product_attention` in [B, H, S, D], where a mask or dropout
+takes the dense route, as in the JAX package.
+
+The primitives (the serving subset): the dense cache's per-row scatter
+(`scatter_kv_at`) and the paged cache's (one token per lane; a chunk of
+tokens per lane, for the prefill and the speculative verify), and the
+dense attention cores they feed.
 
 The pool is `[num_blocks, Hkv, block_size, D]`; a request's cache is the
 ordered sequence of pool blocks named by its block TABLE (int32 ids,
@@ -20,7 +34,17 @@ The scatters update the pools IN PLACE (`index_put_`) and return them:
 there is no donation in PyTorch, the engines simply keep mutating the
 same tensors.
 """
+import collections
+import math
+
 import torch
+
+from ..framework.tensor import Tensor
+from ..ops.dispatch import apply
+from . import functional as F
+from .layer import Layer, LayerList
+from .layers_common import Dropout, Linear
+from .norm import LayerNorm
 
 
 def _positions(pos, b, device):
@@ -190,3 +214,377 @@ def infer_cache_dtype(model):
     if low and sum(low.values()) > counts.get(torch.float32, 0):
         return max(low, key=low.get)
     return torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the Transformer layers
+# ---------------------------------------------------------------------------
+
+def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
+                                 training=True, causal=False, scale=None):
+    """q, k, v: [B, H, S, D] Tensors, through the registered
+    flash_attention op (the kernels when the shapes allow, else the
+    dense route)."""
+    from ..ops.flash_attention import flash_attention
+    return flash_attention(q, k, v, attn_mask=attn_mask, causal=causal,
+                           dropout_p=dropout_p if training else 0.0,
+                           scale=scale)
+
+
+def _attention_weights(q, k, scale):
+    """softmax(q k^T * scale) in f32, [B, H, Sq, Sk]."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    return torch.softmax(logits, dim=-1)
+
+
+class MultiHeadAttention(Layer):
+    """ref transformer.py:115: q/k/v/out projections over embed_dim
+    ([in, out] Linear weights, the JAX package's layout)."""
+
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, attn_layout=None):
+        super().__init__()
+        self.attn_layout = attn_layout or "bshd"
+        self.embed_dim = embed_dim
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.need_weights = need_weights
+        self.head_dim = embed_dim // num_heads
+        if self.head_dim * num_heads != embed_dim:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+        self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr)
+        self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+
+    def _reshape_heads(self, x):
+        # [B, S, E] -> [B, H, S, D]
+        b, s = x.shape[0], x.shape[1]
+        return x.reshape([b, s, self.num_heads, self.head_dim]) \
+                .transpose([0, 2, 1, 3])
+
+    def gen_cache(self, key, value=None, type=Cache):
+        """A StaticCache of the projected key and value (cross
+        attention), an empty incremental Cache ([B, H, 0, D], in key's
+        dtype and on its device) when `value` is None, else
+        Cache(key, value)."""
+        if type == MultiHeadAttention.StaticCache:
+            k = self._reshape_heads(self.k_proj(key))
+            v = self._reshape_heads(self.v_proj(value if value is not None
+                                                else key))
+            return self.StaticCache(k, v)
+        if value is None:
+            d = key._data
+            empty = torch.zeros((key.shape[0], self.num_heads, 0,
+                                 self.head_dim), dtype=d.dtype,
+                                device=d.device)
+            return self.Cache(Tensor._wrap(empty), Tensor._wrap(empty))
+        return self.Cache(key, value)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        key = query if key is None else key
+        value = key if value is None else value
+        if (self.attn_layout == "bshd" and cache is None
+                and not self.need_weights and attn_mask is None):
+            # [B, S, E] -> [B, S, H, D] views straight into the op
+            from ..ops.flash_attention import flash_attention
+            b, s = query.shape[0], query.shape[1]
+            hd = (self.num_heads, self.head_dim)
+            q = self.q_proj(query).reshape([b, s, *hd])
+            k = self.k_proj(key).reshape([b, key.shape[1], *hd])
+            v = self.v_proj(value).reshape([b, value.shape[1], *hd])
+            out = flash_attention(
+                q, k, v, causal=False,
+                dropout_p=self.dropout if self.training else 0.0,
+                layout="bshd")
+            return self.out_proj(out.reshape([b, s, self.embed_dim]))
+        q = self._reshape_heads(self.q_proj(query))
+        if isinstance(cache, MultiHeadAttention.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._reshape_heads(self.k_proj(key))
+            v = self._reshape_heads(self.v_proj(value))
+            if isinstance(cache, MultiHeadAttention.Cache):
+                from ..ops.manipulation import concat
+                k = concat([cache.k, k], axis=2)
+                v = concat([cache.v, v], axis=2)
+                cache = self.Cache(k, v)
+        weights = None
+        if self.need_weights:
+            weights = apply(_attention_weights, (q, k),
+                            {"scale": 1.0 / math.sqrt(q.shape[-1])},
+                            name="attn_weights")
+        out = scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+            training=self.training)
+        # [B, H, S, D] -> [B, S, E]
+        b, s = out.shape[0], out.shape[2]
+        out = out.transpose([0, 2, 1, 3]).reshape([b, s, self.embed_dim])
+        out = self.out_proj(out)
+        outs = [out]
+        if self.need_weights:
+            outs.append(weights)
+        if isinstance(cache, MultiHeadAttention.Cache):
+            outs.append(cache)
+        return out if len(outs) == 1 else tuple(outs)
+
+
+def _config(d_model, nhead, dim_feedforward, dropout, activation,
+            attn_dropout, act_dropout, normalize_before, weight_attr,
+            bias_attr):
+    return dict(d_model=d_model, nhead=nhead,
+                dim_feedforward=dim_feedforward, dropout=dropout,
+                activation=activation, attn_dropout=attn_dropout,
+                act_dropout=act_dropout, normalize_before=normalize_before,
+                weight_attr=weight_attr, bias_attr=bias_attr)
+
+
+class TransformerEncoderLayer(Layer):
+    """ref transformer.py TransformerEncoderLayer: self-attention and the
+    feed-forward block, post-norm or (`normalize_before`) pre-norm."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        self._config = _config(d_model, nhead, dim_feedforward, dropout,
+                               activation, attn_dropout, act_dropout,
+                               normalize_before, weight_attr, bias_attr)
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, incremental_cache = self.self_attn(src, src, src, src_mask,
+                                                    cache)
+        src = residual + self.dropout1(src)
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src if cache is None else (src, incremental_cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src)
+
+
+class TransformerEncoder(Layer):
+    """`num_layers` encoder layers: the given one and fresh clones of it
+    (`_clone_layer`), then `norm` when given."""
+
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([encoder_layer] + [
+            _clone_layer(encoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        output = src
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask=src_mask)
+            else:
+                output, new_cache = mod(output, src_mask=src_mask,
+                                        cache=cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    """ref transformer.py TransformerDecoderLayer: self-attention,
+    cross-attention over `memory` and the feed-forward block."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        self._config = _config(d_model, nhead, dim_feedforward, dropout,
+                               activation, attn_dropout, act_dropout,
+                               normalize_before, weight_attr, bias_attr)
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             weight_attr=weight_attr,
+                                             bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incremental_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                                    cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        if cache is None:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+        else:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask, cache[1])
+            if isinstance(tgt, tuple):
+                tgt = tgt[0]
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental_cache, cache[1]))
+
+    def gen_cache(self, memory):
+        incremental = self.self_attn.gen_cache(memory)
+        static = self.cross_attn.gen_cache(memory, memory,
+                                           MultiHeadAttention.StaticCache)
+        return incremental, static
+
+
+class TransformerDecoder(Layer):
+    """`num_layers` decoder layers: the given one and fresh clones of it
+    (`_clone_layer`), then `norm` when given."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([decoder_layer] + [
+            _clone_layer(decoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask=tgt_mask,
+                             memory_mask=memory_mask)
+            else:
+                output, new_cache = mod(output, memory, tgt_mask=tgt_mask,
+                                        memory_mask=memory_mask,
+                                        cache=cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        if do_zip:
+            cache = list(zip(*cache))
+        return cache
+
+
+class Transformer(Layer):
+    """ref transformer.py:886: the encoder-decoder Transformer (a final
+    LayerNorm on each stack when `normalize_before`)."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        self.d_model = d_model
+        self.nhead = nhead
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            enc_norm = LayerNorm(d_model) if normalize_before else None
+            self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
+                                              enc_norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            dec_norm = LayerNorm(d_model) if normalize_before else None
+            self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,
+                                              dec_norm)
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask=src_mask)
+        return self.decoder(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+
+    def generate_square_subsequent_mask(self, length):
+        """[length, length] additive mask: -inf above the diagonal, 0 on
+        and below it (on the current place)."""
+        from ..ops.creation import full, triu
+        return triu(full([length, length], float("-inf")), diagonal=1)
+
+
+def _clone_layer(layer):
+    """A fresh layer with the same config and its own initialisation
+    (the reference rebuilds each layer from its config)."""
+    return type(layer)(**layer._config)

@@ -1,5 +1,6 @@
 """The port's op library (`paddle_tpu/ops`): creation, math, manipulation,
-logic, linalg and sequence ops behind the eager dispatcher, and the
+logic, linalg and sequence ops and the fluid-era tail (`legacy`) behind
+the eager dispatcher, and the
 operators that hold a kernel — flash attention (K1-K3, registered as the
 `flash_attention` op) and the chunked LM head (`chunked_ce`).
 
@@ -7,7 +8,7 @@ Importing it wires the op functions onto `Tensor` as methods and dunders
 (ref pybind/op_function_generator.cc:488, the reference's generated
 `core.ops` methods); nothing is built or launched at import.
 """
-from . import creation, math, manipulation, logic, linalg, sequence
+from . import creation, math, manipulation, logic, linalg, sequence, legacy
 from . import flash_attention
 from .dispatch import OP_REGISTRY, apply, def_op, as_array
 from ..framework.tensor import Tensor

@@ -12,7 +12,7 @@ import torch
 from ..framework import state
 from ..framework.dtype import convert_dtype
 from ..framework import tensor as _tensor
-from ..framework.tensor import Tensor, to_torch
+from ..framework.tensor import Tensor, to_torch, unwrap
 from .dispatch import apply, register_op
 
 
@@ -199,8 +199,8 @@ def standard_normal(shape, dtype=None, name=None):
 
 def normal(mean=0.0, std=1.0, shape=None, name=None):
     if isinstance(mean, Tensor) or isinstance(std, Tensor):
-        m = mean._data if isinstance(mean, Tensor) else mean
-        s = std._data if isinstance(std, Tensor) else std
+        m = unwrap(mean)
+        s = unwrap(std)
         dev = (m if isinstance(m, torch.Tensor) else s).device
         shp = torch.broadcast_shapes(getattr(m, "shape", ()),
                                      getattr(s, "shape", ()))

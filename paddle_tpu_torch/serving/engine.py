@@ -209,7 +209,7 @@ class ServingEngine:
             self.wave_inputs.add(name, torch.zeros(
                 (S, self.vocab_size), device=self.device))
         self.wave_program = Program(self._WAVE_NAME, self._wave_program,
-                                    self.device, cuda_graph, self._gen)
+                                    self.device, cuda_graph, [self._gen])
         # f32 logits [S, V] of the latest wave: the program's output,
         # overwritten by the next wave
         self.last_wave_logits = None
@@ -221,7 +221,7 @@ class ServingEngine:
                 (self.vocab_size,), device=self.device))
         self.prefill_program = Program(self._PREFILL_NAME,
                                        self._prefill_program, self.device,
-                                       cuda_graph, self._gen)
+                                       cuda_graph, [self._gen])
         # f32 frontier logits [V] of the latest prefill (the program's
         # output, overwritten by the next one)
         self.last_prefill_logits = None

@@ -629,7 +629,8 @@ class SpeculativePagedEngine(PagedServingEngine):
                             ("g_res", (S, V)), ("g_fb", (S, V))):
             add(name, torch.zeros(shape, device=self.device))
         self.draft_program = Program(self._DRAFT_NAME, self._draft_program,
-                                     self.device, self.cuda_graph, self._gen)
+                                     self.device, self.cuda_graph,
+                                     [self._gen])
 
     @property
     def draft_compiles(self):

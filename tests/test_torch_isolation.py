@@ -43,6 +43,7 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.ops.creation
         import paddle_tpu_torch.ops.dispatch
         import paddle_tpu_torch.ops.linalg
+        import paddle_tpu_torch.ops.legacy
         import paddle_tpu_torch.ops.logic
         import paddle_tpu_torch.ops.manipulation
         import paddle_tpu_torch.ops.math
@@ -56,6 +57,7 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.nn
         import paddle_tpu_torch.nn.activation
         import paddle_tpu_torch.nn.conv
+        import paddle_tpu_torch.nn.decode
         import paddle_tpu_torch.nn.functional
         import paddle_tpu_torch.nn.initializer
         import paddle_tpu_torch.nn.layer
@@ -64,6 +66,7 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.nn.norm
         import paddle_tpu_torch.nn.param_attr
         import paddle_tpu_torch.nn.pooling
+        import paddle_tpu_torch.nn.transformer
         import paddle_tpu_torch.nn.utils
         import paddle_tpu_torch.ops
         import paddle_tpu_torch.optimizer
@@ -71,6 +74,7 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.optimizer.wrappers
         import paddle_tpu_torch.ops.chunked_ce
         import paddle_tpu_torch.regularizer
+        import paddle_tpu_torch.graphs
         import paddle_tpu_torch.serving
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))

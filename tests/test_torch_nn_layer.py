@@ -148,11 +148,17 @@ def test_registration_sublayers_and_the_torch_registry():
     tp = torch.nn.Parameter(torch.ones(2))
     extra.q = tp
     assert isinstance(extra.q, pt.Parameter) and extra.q._data is tp
-    for name in ("functional_state", "_use_state"):
-        with pytest.raises(NotImplementedError, match="3\\(c\\)"):
-            getattr(extra, name)()
-    with pytest.raises(NotImplementedError, match="3\\(c\\)"):
-        extra.functional_call({}, {})
+    # the functional methods see the same registry: torch leaves under
+    # the JAX package's names, swapped in and put back
+    params, buffers = extra.functional_state()
+    assert list(params) == ["p", "q", "lin.weight", "lin.bias"]
+    assert params["q"] is tp and params["p"] is extra.p._data
+    assert list(buffers) == ["buf", "tmp"]
+    with extra._use_state({"p": torch.ones(2)}, None):
+        assert float(extra.p.sum()) == 2.0
+        assert float(extra._parameters["p"].sum()) == 2.0
+    assert extra.p._data is params["p"] and float(extra.p.sum()) == 0.0
+    assert extra._parameters["p"] is params["p"]
 
 
 def test_train_eval_apply_hooks_and_containers():

@@ -19,21 +19,21 @@ class NS:
     that have no function of their own are run through its `apply`)."""
 
     def __init__(self, P, creation, math, manip, logic, linalg, seq, flash,
-                 F, dispatch):
+                 F, dispatch, legacy=None):
         self.P, self.creation, self.math, self.manip = P, creation, math, manip
         self.logic, self.linalg, self.seq, self.flash = logic, linalg, seq, \
             flash
-        self.F, self.dispatch = F, dispatch
+        self.F, self.dispatch, self.legacy = F, dispatch, legacy
 
 
 def port_namespace():
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nn import functional
     from paddle_tpu_torch.ops import (creation, dispatch, flash_attention,
-                                      linalg, logic, manipulation, math,
-                                      sequence)
+                                      legacy, linalg, logic, manipulation,
+                                      math, sequence)
     return NS(pt, creation, math, manipulation, logic, linalg, sequence,
-              flash_attention, functional, dispatch)
+              flash_attention, functional, dispatch, legacy)
 
 
 @functools.lru_cache(maxsize=None)
@@ -468,6 +468,264 @@ NN_CASES = {
 }
 
 
+# ------------------------------------------------------------ legacy cases
+# the fluid-era ops of ops/legacy.py (`n.legacy`); the random creators
+# are held by their shapes and moments, as draws differ between packages
+# and devices
+
+def elementwise(name, kx="x", ky="x"):
+    return case(lambda n, x, y, y2: (
+        run_op(n, name, (x, y), axis=1), run_op(n, name, (x, y2))),
+        [uni((2, 3, 4), seed=60) if kx == "x" else uni((2, 3, 4), 0.5, 2.0,
+                                                       60),
+         uni((3, 1), seed=61) if ky == "x" else uni((3, 1), 0.5, 2.0, 61),
+         uni((4,), seed=62) if ky == "x" else uni((4,), 0.5, 2.0, 62)],
+        [0, 1, 2])
+
+
+def moments_ok(n, z, mean, std, lo=None, hi=None):
+    """Whether a draw's mean and standard deviation lie within about 5
+    standard errors of `mean` and `std` (and its values within [lo,
+    hi]): a bool Tensor."""
+    m, s = n.math.mean(z), n.math.std(z)
+    se = std / z.shape[0] ** 0.5
+    ok = n.logic.logical_and(n.math.abs(m - mean) < 5 * se,
+                             n.math.abs(s - std) < 6 * se)
+    if lo is not None:
+        ok = n.logic.logical_and(ok, n.math.min(z) >= lo)
+        ok = n.logic.logical_and(ok, n.math.max(z) <= hi)
+    return ok
+
+
+def chunk_tags(seed, hi):
+    tags = ints((3, 7), 0, hi, seed)
+    lab = tags.copy()
+    flip = rs(seed + 1).rand(3, 7) < 0.3
+    lab[flip] = ints((3, 7), 0, hi, seed + 2)[flip]
+    return tags, lab
+
+
+def chunk_all(n, lens, *tags):
+    out = ()
+    for (inf, lab), (scheme, types) in zip(
+            zip(tags[::2], tags[1::2]),
+            (("IOB", 2), ("IOE", 2), ("IOBES", 2), ("plain", 3))):
+        out += tuple(n.legacy.chunk_eval(inf, lab, lens,
+                                         num_chunk_types=types,
+                                         chunk_scheme=scheme))
+    return out
+
+
+TREE_EDGES = np.array([[1, 2], [1, 3], [2, 4], [2, 5], [3, 6], [0, 0]],
+                      "int32")
+HASH_IDS = np.array([[3], [-7], [2147483647], [123456]], "int32")
+_BS_IDS = ints((2, 3), 1, 5, 70)
+_BS_IDS[0, 1] = 0
+
+LEGACY_CASES = {
+    "huber_loss": case(lambda n, x, y: n.legacy.huber_loss(x, y, delta=0.5),
+                       [X, Y], [0, 1]),
+    "rank_loss": case(lambda n, lab, a, b: n.legacy.rank_loss(lab, a, b),
+                      [np.array([[0.0], [0.5], [1.0], [1.0]], "f4"),
+                       uni((4, 1), seed=1), uni((4, 1), seed=2)], [1, 2]),
+    "bpr_loss": case(lambda n, x, lab: n.legacy.bpr_loss(x, lab),
+                     [uni((4, 5)), ints((4,), 0, 5, 3)], [0]),
+    "hinge_loss": case(lambda n, x, lab: n.legacy.hinge_loss(x, lab),
+                       [uni((4, 1), -2, 2), np.array([[0], [1], [1], [0]],
+                                                     "f4")], [0]),
+    "center_loss": case(lambda n, x, lab, c: (
+        *n.legacy.center_loss(x, lab, c, alpha=0.2),
+        n.legacy.center_loss(x, lab, c, need_update=False)[0]),
+        [uni((4, 3)), I(0, 2, 0, 1), uni((3, 3), seed=4)], [0, 2]),
+    "cos_sim": case(lambda n, x, y, y1: (n.legacy.cos_sim(x, y),
+                                         n.legacy.cos_sim(x, y1)),
+                    [X, Y, arr("x", (1, 4), 5)], [0, 1, 2]),
+    "squared_l2_norm": case(lambda n, x: n.legacy.squared_l2_norm(x), [X],
+                            [0]),
+    "l1_norm": case(lambda n, x: n.legacy.l1_norm(x), [X], [0]),
+    "frobenius_norm": case(lambda n, x: (
+        n.legacy.frobenius_norm(x, axis=[1, 2], keepdim=True),
+        n.legacy.frobenius_norm(x)), [uni((2, 3, 4), seed=6)], [0]),
+    "p_norm": case(lambda n, x: (
+        n.legacy.p_norm(x, porder=3.0, axis=1),
+        n.legacy.p_norm(x, porder=1.0, axis=0, keepdim=True),
+        n.legacy.p_norm(x, porder=float("inf")),
+        n.legacy.p_norm(x, porder=float("-inf"), axis=0)), [X], [0]),
+    "nce_loss": case(lambda n, x, w, b, lab, s: n.legacy.nce_loss(
+        x, w, b, lab, s),
+        [uni((3, 4)), uni((6, 4), seed=1), uni((6,), seed=2), I(1, 4, 1),
+         I(0, 5, 4, 2)], [0, 1, 2]),
+    "linear_chain_crf": case(
+        lambda n, e, t, lab, ln: n.legacy.linear_chain_crf(e, t, lab, ln),
+        [uni((2, 5, 3), seed=7), uni((5, 3), seed=8), ints((2, 5), 0, 3, 9),
+         I(5, 3)], [0, 1]),
+    "mul": case(lambda n, x, y, y2: (
+        n.legacy.mul(x, y), n.legacy.mul(x, y2, x_num_col_dims=2)),
+        [uni((2, 3, 4), seed=10), uni((12, 5), seed=11),
+         uni((4, 5), seed=12)], [0, 1, 2]),
+    "multiplex": case(lambda n, a, b, c, i: n.legacy.multiplex([a, b, c], i),
+                      [uni((4, 3), seed=13), uni((4, 3), seed=14),
+                       uni((4, 3), seed=15), np.array([[2], [0], [1], [2]],
+                                                      "int32")], [0, 1, 2]),
+    "segment_pool": case(lambda n, x, ids: tuple(
+        n.legacy.segment_pool(x, ids, pool_type=p, num_segments=4)
+        for p in ("SUM", "MEAN", "MAX", "MIN")) + (
+        n.legacy.segment_pool(x, ids),),
+        [uni((5, 3), seed=16), I(0, 0, 1, 3, 3)], [0]),
+    "cvm": case(lambda n, x, c: (n.legacy.cvm(x, c),
+                                 n.legacy.cvm(x, c, use_cvm=False)),
+                [uni((3, 5), seed=17), uni((3, 2), 0.5, 3.0, 18)], [0, 1]),
+    "data_norm": case(lambda n, x, bs, s, sq: n.legacy.data_norm(x, bs, s,
+                                                                 sq),
+                      [uni((3, 4), seed=19), uni((4,), 5, 10, 20),
+                       uni((4,), seed=21), uni((4,), 1, 3, 22)],
+                      [0, 1, 2, 3]),
+    "shuffle_batch": case(lambda n, x: (
+        n.math.sum(n.legacy.shuffle_batch(x), axis=0),
+        n.math.sum(n.legacy.shuffle_batch(x, seed=5), axis=0)),
+        [uni((6, 3), seed=23)], [0]),
+    "im2sequence": case(lambda n, x: (
+        n.legacy.im2sequence(x, kernels=(2, 3), strides=(2, 1),
+                             paddings=(1, 0, 1, 1)),
+        n.legacy.im2sequence(x, kernels=(3, 2), paddings=(0, 1))),
+        [uni((2, 2, 5, 5), seed=24)], [0]),
+    "row_conv": case(lambda n, x, w: n.legacy.row_conv(x, w),
+                     [uni((2, 5, 3), seed=25), uni((3, 3), seed=26)],
+                     [0, 1]),
+    "conv_shift": case(lambda n, x, y: n.legacy.conv_shift(x, y),
+                       [uni((2, 5), seed=27), uni((2, 3), seed=28)], [0, 1]),
+    "fsp": case(lambda n, x, y: n.legacy.fsp(x, y),
+                [uni((2, 3, 4, 4), seed=29), uni((2, 2, 4, 4), seed=30)],
+                [0, 1]),
+    "increment": case(lambda n, x, i: (n.legacy.increment(x, value=2.0),
+                                       n.legacy.increment(i)),
+                      [X, arr("int")], [0]),
+    "expand_as_v2": case(lambda n, x, y: n.legacy.expand_as_v2(x, y),
+                         [uni((1, 4), seed=31), uni((3, 4), seed=32)], [0]),
+    "reverse": case(lambda n, x: (n.legacy.reverse(x, axis=[0, 1]),
+                                  n.legacy.reverse(x, axis=1)), [X], [0]),
+    **{k: elementwise(k) for k in ("elementwise_add", "elementwise_sub",
+                                   "elementwise_mul", "elementwise_max",
+                                   "elementwise_min")},
+    "elementwise_div": elementwise("elementwise_div", ky="pos"),
+    "elementwise_pow": elementwise("elementwise_pow", kx="pos"),
+    "elementwise_mod": elementwise("elementwise_mod", ky="pos"),
+    "crf_decoding": case(lambda n, e, t, ln: n.legacy.crf_decoding(e, t, ln),
+                         [uni((2, 5, 3), seed=33), uni((5, 3), seed=34),
+                          I(5, 3)]),
+    "beam_search": case(lambda n, i, s, p: n.legacy.beam_search(
+        i, s, p, beam_size=3, end_id=0),
+        [_BS_IDS, uni((2, 3), -3, 0, 35), uni((2, 3, 5), 0.05, 1.0, 36)]),
+    "sample_logits": case(lambda n, x, lab, s: n.legacy.sample_logits(
+        x, lab, s), [uni((3, 6), seed=37), np.array([[1], [4], [0]], "int32"),
+                     I(1, 4, 2)]),
+    "auc": case(lambda n, p, lab, sp, sn: n.legacy.auc(p, lab, sp, sn,
+                                                       num_thresholds=10),
+                [uni((8, 2), 0.0, 1.0, 38), ints((8, 1), 0, 2, 39),
+                 np.arange(11, dtype="f4"), np.ones(11, "f4")]),
+    "chunk_eval": case(chunk_all, [I(7, 5, 6), *chunk_tags(40, 5),
+                                   *chunk_tags(43, 5),
+                                   *chunk_tags(46, 9), *chunk_tags(49, 4)]),
+    "positive_negative_pair": case(
+        lambda n, s, lab, q: n.legacy.positive_negative_pair(s, lab, q),
+        [np.array([0.3, 0.1, 0.3, 0.9, -0.2, 0.5, 0.5, 0.0], "f4"),
+         ints((8,), 0, 3, 52), ints((8,), 0, 2, 53)]),
+    "partial_sum": case(lambda n, a, b, c: (
+        n.legacy._partial_sum_impl(a, b, c, start_index=1, length=3),
+        n.legacy._partial_sum_impl(a, b, start_index=2)),
+        [uni((3, 5), seed=54), uni((3, 5), seed=55), uni((3, 5), seed=56)],
+        [0, 1, 2]),
+    "partial_concat": case(lambda n, a, b, c: (
+        n.legacy._partial_concat_impl(a, b, c, start_index=1, length=3),
+        n.legacy._partial_concat_impl(a, b, start_index=2)),
+        [uni((3, 5), seed=54), uni((3, 5), seed=55), uni((3, 5), seed=56)],
+        [0, 1, 2]),
+    "batch_fc": case(lambda n, x, w, b: n.legacy.batch_fc(x, w, b),
+                     [uni((2, 3, 4), seed=57), uni((2, 4, 5), seed=58),
+                      uni((2, 1, 5), seed=59)], [0, 1, 2]),
+    "spectral_norm_op": case(lambda n, w, u, v, u1, v1: (
+        *n.legacy.spectral_norm_op(w, u, v, dim=0, power_iters=2),
+        *n.legacy.spectral_norm_op(w, u1, v1, dim=1)),
+        [uni((4, 3, 2), seed=63), uni((4,), seed=64), uni((6,), seed=65),
+         uni((3,), seed=66), uni((8,), seed=67)], [0]),
+    "fill_zeros_like": case(lambda n, x: n.legacy.fill_zeros_like(x), [X]),
+    "lod_reset": case(lambda n, x, ln: n.legacy.lod_reset(x, ln),
+                      [uni((3, 2), seed=68), I(1, 2)]),
+    "gaussian_random": case(lambda n: (
+        n.legacy.gaussian_random([4000], mean=1.0, std=2.0) * 0,
+        moments_ok(n, n.legacy.gaussian_random([4000], mean=1.0, std=2.0),
+                   1.0, 2.0)), []),
+    "uniform_random": case(lambda n: (
+        n.legacy.uniform_random([4000], min=-1.0, max=3.0) * 0,
+        moments_ok(n, n.legacy.uniform_random([4000], min=-1.0, max=3.0),
+                   1.0, 4.0 / 12 ** 0.5, -1.0, 3.0)), []),
+    "truncated_gaussian_random": case(lambda n: (
+        n.legacy.truncated_gaussian_random([4000], mean=1.0, std=2.0) * 0,
+        moments_ok(n, n.legacy.truncated_gaussian_random(
+            [4000], mean=1.0, std=2.0), 1.0, 2.0 * 0.87962566, -3.0,
+            5.0)), []),
+    "inplace_abn": case(lambda n, x, m, v, s, b: tuple(
+        n.legacy.inplace_abn(x, m, v, s, b, activation=a, alpha=0.2)
+        for a in ("identity", "leaky_relu", "elu")),
+        [uni((2, 3, 4), -2, 2, 69), uni((3,), seed=70),
+         uni((3,), 0.5, 2, 71), uni((3,), seed=72), uni((3,), seed=73)],
+        [0, 1, 2, 3, 4]),
+    "hash_op": case(lambda n, x, x2: (
+        n.legacy.hash_op(x, num_hash=3, mod_by=1000),
+        n.legacy.hash_op(x2, num_hash=2, mod_by=97)),
+        [HASH_IDS, np.concatenate([HASH_IDS, HASH_IDS[::-1] * 3 - 1], 1)]),
+    "edit_distance": case(lambda n, h, r, hl, rl: (
+        n.legacy.edit_distance(h, r, hl, rl),
+        n.legacy.edit_distance(h, r, hl, rl, normalized=False)),
+        [ints((3, 6), 0, 4, 74), ints((3, 5), 0, 4, 75), I(6, 4, 0),
+         I(5, 5, 3)]),
+    "ctc_align": case(lambda n, x, ln: (
+        *n.legacy.ctc_align(x, ln),
+        *n.legacy.ctc_align(x, ln, blank=2, merge_repeated=False)),
+        [np.array([[1, 1, 0, 2, 2, 0, 0, 3], [0, 3, 3, 3, 1, 0, 1, 1],
+                   [2, 2, 1, 0, 0, 0, 0, 0]], "int32"), I(8, 5, 0)]),
+    "mean_iou": case(lambda n, p, lab: n.legacy.mean_iou(p, lab,
+                                                         num_classes=4),
+                     [ints((10,), 0, 3, 76), ints((10,), 0, 3, 77)]),
+    "spp": case(lambda n, x: (n.legacy.spp(x, pyramid_height=3),
+                              n.legacy.spp(x, pool_type="avg")),
+                [uni((2, 2, 4, 4), seed=78)], [0]),
+    "add_position_encoding": case(lambda n, x, x5: (
+        n.legacy.add_position_encoding(x, alpha=0.5, beta=2.0),
+        n.legacy.add_position_encoding(x5)),
+        [uni((2, 5, 6), seed=79), uni((2, 3, 5), seed=80)], [0, 1]),
+    "dequantize_abs_max": case(lambda n, x, s: n.legacy.dequantize_abs_max(
+        x, s), [ints((3, 4), -127, 128, 81), np.array([2.5], "f4")]),
+    "dequantize_log": case(lambda n, x, d: n.legacy.dequantize_log(x, d),
+                           [ints((3, 4), -128, 256, 82),
+                            uni((128,), seed=83)]),
+    "match_matrix_tensor": case(
+        lambda n, x, y, w: n.legacy.match_matrix_tensor(x, y, w),
+        [uni((2, 3, 4), seed=84), uni((2, 5, 3), seed=85),
+         uni((4, 2, 3), seed=86)], [0, 1, 2]),
+    "tree_conv": case(lambda n, x, e, f: (
+        n.legacy.tree_conv(x, e, f), n.legacy.tree_conv(x, e, f,
+                                                         max_depth=3)),
+        [uni((6, 4), seed=87), TREE_EDGES, uni((4, 3, 2, 3), seed=88)],
+        [0, 2]),
+    "var_conv_2d": case(lambda n, x, r, c, f: (
+        n.legacy.var_conv_2d(x, r, c, f),
+        n.legacy.var_conv_2d(x, r, c, f, stride=(2, 2))),
+        [uni((2, 2, 5, 5), seed=89), I(5, 3), I(4, 5),
+         uni((3, 2, 3, 3), seed=90)], [0, 3]),
+    "pyramid_hash": case(lambda n, i, e: (
+        n.legacy.pyramid_hash(i, e), n.legacy.pyramid_hash(
+            i, e, min_win=1, max_win=4, mod_by=37)),
+        [ints((2, 6), 0, 1000, 91), uni((50, 4), seed=92)], [1]),
+    "bilateral_slice": case(lambda n, g, g2, gd, x: (
+        n.legacy.bilateral_slice(g, gd, x),
+        n.legacy.bilateral_slice(g2, gd, x, has_offset=True)),
+        [uni((1, 6, 3, 4, 4), seed=93), uni((1, 9, 3, 4, 4), seed=94),
+         uni((1, 5, 6), 0.1, 0.9, 95), uni((1, 2, 5, 6), seed=96)],
+        [0, 1, 2, 3]),
+}
+
+
 CASES = {
     # creation
     "tril": case(lambda n, x: n.creation.tril(x, diagonal=1), [X], [0]),
@@ -829,6 +1087,7 @@ CASES = {
                                                    layout="bshd"),
         [arr("x", (1, 128, 2, 64), s) for s in (0, 1, 2)], [0, 1, 2]),
     **NN_CASES,
+    **LEGACY_CASES,
 }
 
 
