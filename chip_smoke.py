@@ -36,7 +36,10 @@ its phases:
                 Transformer-base's two attention shapes (8 heads,
                 non-causal BSHD: self [64, 384, 8, 64], cross q 256 over
                 k 384), held and timed at batch 64, beside their
-                bounds, plain versions and SDPA;
+                bounds, plain versions and SDPA; and at BERT-base's
+                self-attention (12 heads, separate q/k/v projections,
+                non-causal BSHD [16, 512, 12, 64]), held at f32 and bf16
+                and timed the same way;
   optimizer     the fused Adam/AdamW kernel against its plain
                 `_foreach_*` twin over GPT-2 small's 148 parameter
                 shapes (AdamW with bf16 and f32 weights and with bf16
@@ -214,7 +217,25 @@ its phases:
                 incremental decoding (gen_cache, 32 greedy steps)
                 against the full decoder; beam search (beam 4, batch 64,
                 64 steps) on the card against the CPU, over a cell that
-                contracts in f32 and over one that does not in f64.
+                contracts in f32 and over one that does not in f64;
+  bert          BERT-base pretraining (`scripts/bench_sweep.py:158-181`:
+                12 layers, 768 wide, 12 heads of 64, FFN 3072, vocab
+                30522, no dropout) built from nn layers
+                (`nlp.BertForPretraining`): f32 at 2 layers and batch 2
+                x 512 through the kernels against kernel="plain" (loss
+                and every gradient) and the graphed TrainStep against
+                the eager one over 3 steps; bf16 at batch 16 x 512 (15%
+                MLM and NSP labels) on AdamW(1e-4) as one graph replay a
+                step (12 launches each of K1-K3 and dd, 1 Adam): step
+                ms, samples/s, tokens/s, MFU, peak memory, device time
+                by group, the eager step;
+  amp           the f32 GPT-2 small Layer at 8 x 1024 under
+                `amp.auto_cast()`: 3 eager steps with a GradScaler and a
+                graphed TrainStep entered under auto_cast, K1-K3 launched
+                in bf16 (12 a step); 3 steps at 2 layers and batch 2 x
+                1024 against the same steps on the CPU's plain kernels
+                (losses within 2e-2 relative); auto_cast(dtype="float16")
+                into attention raises the kernel wrapper's TypeError.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -264,10 +285,14 @@ TRAIN_B, TRAIN_S, TRAIN_VOCAB = 8, 1024, 32768
 # 256 target tokens
 TF_VOCAB, TF_D, TF_HEADS, TF_FF, TF_LAYERS = 37000, 512, 8, 2048, 6
 TF_B, TF_SRC, TF_TGT = 64, 384, 256
+# BERT-base pretraining (`scripts/bench_sweep.py:158-181`, BASELINE.json
+# configs[2]): 12 layers, 768 wide, 12 heads of 64, FFN 3072, vocab 30522;
+# batch 16 x 512, 15% MLM labels and NSP labels; bf16, AdamW(1e-4)
+BERT_B, BERT_S = 16, 512
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
-          "eager", "nn", "transformer")
+          "eager", "nn", "transformer", "bert", "amp")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -802,9 +827,9 @@ def train_config(**over):
 
 def gpt2_param_shapes():
     """The 148 parameter shapes of the train phase's GPT-2 small."""
-    import torch
+    from paddle_tpu_torch.framework.state import host_init_ctx
     from paddle_tpu_torch.nlp.gpt import GPTModel
-    with torch.device("meta"):
+    with host_init_ctx(SEED):
         model = GPTModel(train_config())
     return [tuple(p.shape) for p in model.parameters()]
 
@@ -2314,14 +2339,15 @@ def replay_alone_ms(graph, replays=20):
 
 def generate_run(model, dev, batch=8, prompt_len=64, new_tokens=64):
     """`generate(use_cache=True)` on seeded prompts: graphed twice and
-    eagerly once; the graphed ids equal the eager ones. Every call
-    builds its own program, so a graphed call's wall time is its whole
-    cost: position 0 eager, position 1 captured, then one replay per
-    position (the first call also holds the process's one-time CUDA
-    set-up). The replays are timed on the device as well: CUDA events
-    around each replay of the second call, the first event to the last
-    over the replays (the host enqueues far ahead of the card, so they
-    run back to back)."""
+    eagerly once; the graphed ids equal the eager ones. The model keeps
+    its programs: the first graphed call runs position 0 eagerly,
+    captures position 1 and replays the rest (it also holds the
+    process's one-time CUDA set-up); the second call, of the same
+    signature, replays the one captured graph at every position, so
+    the model holds one graphed program with one capture. The replays
+    are timed on the device as well: CUDA events around each replay of
+    the second call, the first event to the last over the replays (the
+    host enqueues far ahead of the card, so they run back to back)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.nlp import generate
@@ -2342,41 +2368,53 @@ def generate_run(model, dev, batch=8, prompt_len=64, new_tokens=64):
 
     ids = torch.tensor(np.random.default_rng(SEED + 5).integers(
         0, model.cfg.vocab_size, (batch, prompt_len)), device=dev)
-    walls, outs = [], []
-    for graphed in (True, True, False):
-        events.clear()
-        gpt_module.Program = Timed
-        try:
+    model.__dict__.pop("_pt_gen_programs", None)
+    walls, outs, timed = [], [], []
+    gpt_module.Program = Timed      # the programs made here time replays
+    try:
+        for graphed in (True, True, False):
+            events.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs.append(generate(model, ids, max_new_tokens=new_tokens,
                                  use_cache=True, cuda_graph=graphed))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        finally:
-            gpt_module.Program = plain
-        if len(walls) == 2:
-            replays = len(events)
-            replay_ms = events[0][0].elapsed_time(events[-1][1]) / replays
+            timed.append(len(events))
+            if len(walls) == 2:
+                replay_ms = events[0][0].elapsed_time(events[-1][1]) \
+                    / len(events)
+    finally:
+        gpt_module.Program = plain
     check(torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2]),
           "generate: graphed ids differ from eager ids")
     check(torch.equal(outs[0][:, :prompt_len], ids),
           "generate: the prompt was not kept")
     steps = prompt_len + new_tokens - 1
-    # the capture's own replay (position 1) is not timed
-    check(replays == steps - 2,
-          f"generate: {replays} timed replays for {steps} positions")
+    # call 1: the capture's own replay (position 1) is not timed; call 2
+    # replays the same graph at every position
+    check(timed[:2] == [steps - 2, steps],
+          f"generate: {timed[:2]} timed replays for {steps} positions")
+    graphed_programs = [run.program for run in
+                        gpt_module._gen_programs(model).values()
+                        if run.program.graphed]
+    check(len(graphed_programs) == 1 and graphed_programs[0].compiles == 1,
+          f"generate: {len(graphed_programs)} graphed programs kept, "
+          f"captures {[p.compiles for p in graphed_programs]}")
     return {"batch": batch, "prompt_len": prompt_len,
             "new_tokens": new_tokens, "use_cache": True, "positions": steps,
-            "per_call": "position 0 eager, position 1 captured, then "
-                        "one graph replay per position",
+            "per_call": "call 1: position 0 eager, position 1 captured, "
+                        "then one graph replay per position; call 2: "
+                        "one replay of the kept graph per position",
+            "graphed_programs": len(graphed_programs),
+            "captures": graphed_programs[0].compiles,
             "graphed_wall_s": walls[1], "first_call_wall_s": walls[0],
             "eager_wall_s": walls[2],
             "tokens_per_s": batch * new_tokens / walls[1],
             "eager_tokens_per_s": batch * new_tokens / walls[2],
             "ms_per_position": walls[1] * 1e3 / steps,
             "eager_ms_per_position": walls[2] * 1e3 / steps,
-            "timed_replays": replays, "replay_ms_per_position": replay_ms,
+            "timed_replays": timed[1], "replay_ms_per_position": replay_ms,
             "distinct_tokens": len(set(outs[1][:, prompt_len:]
                                        .flatten().tolist()))}
 
@@ -2856,7 +2894,7 @@ def llama_op_ms(model, lanes, rows):
     from torch.nn import functional as F
     from paddle_tpu_torch.nlp.llama import apply_rope_positions
     cfg, dev = model.cfg, model.device
-    dtype = next(model.parameters()).dtype
+    dtype = next(iter(model.parameters())).dtype
     gen = torch.Generator(device=dev).manual_seed(SEED)
     hd = cfg.hidden_size // cfg.num_heads
 
@@ -2871,7 +2909,8 @@ def llama_op_ms(model, lanes, rows):
         lanes, rows, cfg.intermediate_size)
     pos = torch.randint(0, 1024, (lanes, rows), generator=gen, device=dev)
     norm, rope, L = model.model.norm, model.model.rope, cfg.num_layers
-    return {"rms_norm": graph_ms(lambda: norm(x), 2 * L + 1) * (2 * L + 1),
+    return {"rms_norm": graph_ms(lambda: norm.infer(x), 2 * L + 1)
+            * (2 * L + 1),
             "rope": graph_ms(lambda: (
                 apply_rope_positions(q, rope.cos, rope.sin, pos),
                 apply_rope_positions(k, rope.cos, rope.sin, pos)), L) * L,
@@ -3162,14 +3201,18 @@ def flash_phase(dev, peaks):
              ("transformer self", TF_B, TF_SRC, TF_SRC, False, None, True,
               TF_HEADS),
              ("transformer cross", TF_B, TF_TGT, TF_SRC, False, None, True,
-              TF_HEADS)]
+              TF_HEADS),
+             # BERT-base's self-attention: separate q/k/v projections,
+             # BSHD, non-causal, 12 heads, at the train batch
+             ("bert", BERT_B, BERT_S, BERT_S, False, None, True, HEADS)]
     which = {"out": "fwd", "lse": "fwd", "dk": "dkv", "dv": "dkv",
              "dq": "dq"}
     worst = {}
     for name, b, sq, sk, causal, window, bshd, heads in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = flash_inputs(b, sq, sk, dtype, gen, dev, bshd,
-                                       qkv=heads == HEADS, heads=heads)
+                                       qkv=heads == HEADS and name != "bert",
+                                       heads=heads)
             got = flash_run(fa, "cuda", q, k, v, do, causal, window, bshd)
             ref = flash_run(fa, "plain", q, k, v, do, causal, window, bshd)
             torch.cuda.synchronize()
@@ -3334,6 +3377,9 @@ def flash_phase(dev, peaks):
                          qkv=False, heads=TF_HEADS)
             for _ in range(TF_LAYERS)], causal=False)
         for name, sq in (("self", TF_SRC), ("cross", TF_TGT))}
+    results["bert_shape"] = flash_at_shape(fa, peaks, [
+        flash_inputs(BERT_B, BERT_S, BERT_S, torch.bfloat16, gen, dev,
+                     qkv=False) for _ in range(LAYERS)], causal=False)
     return results
 
 
@@ -3555,7 +3601,7 @@ def train_parity_phase(dev):
             m = model().train()
             with fa.kernel_scope(kernel):
                 gpt_pretrain_loss(m(ids), ids).backward()
-            grads[kernel] = {n: p.grad for n, p in m.named_parameters()}
+            grads[kernel] = leaf_grads(m)
         gerr = 0.0
         for n, g in grads["reference"].items():
             err = (grads["cuda"][n] - g).abs().max().item()
@@ -3609,8 +3655,8 @@ def train_parity_phase(dev):
                                  ("graph lr", "_graph_set_lr"))}}
 
     # two replays on one batch at lr 0: equal without dropout, and
-    # different with it (the graph draws fresh masks from the model's
-    # registered generator)
+    # different with it (the graph draws fresh masks from the framework
+    # generator it registers)
     replays = {}
     for p in (0.0, 0.1):
         m = GPTForPretraining(GPTConfig(
@@ -3622,7 +3668,7 @@ def train_parity_phase(dev):
                          SGD(0.0, parameters=m.parameters()))
         losses = [step(ids, ids) for _ in range(3)]
         replays[p] = [float(x) for x in losses[1:]]
-        same = torch.equal(losses[1], losses[2])
+        same = replays[p][0] == replays[p][1]
         check(same == (p == 0.0) and all(np.isfinite(replays[p])),
               f"train parity: lr 0, dropout {p}: replay losses "
               f"{replays[p]} {'differ' if p == 0.0 else 'are equal'}")
@@ -3665,7 +3711,7 @@ def llama_train_parity(dev, ids, steps=5):
             check((fa.launches["fwd"] - fwd == 2) == (kernel == "cuda"),
                   f"llama train parity: {kernel} launched K1 "
                   f"{fa.launches['fwd'] - fwd} times")
-            grads[kernel] = {n: p.grad for n, p in m.named_parameters()}
+            grads[kernel] = leaf_grads(m)
         gerr = 0.0
         for n, g in grads["reference"].items():
             err = (grads["cuda"][n] - g).abs().max().item()
@@ -3724,7 +3770,7 @@ def fused_head_parity(dev, b, s):
         loss = gpt_pretrain_loss(logits, ids)
         loss.backward()
         losses[fused] = float(loss.detach())
-        grads[fused] = {n: p.grad for n, p in m.named_parameters()}
+        grads[fused] = leaf_grads(m)
     check(abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[False]),
           f"fused head parity: loss {losses[True]} against the dense "
           f"{losses[False]}")
@@ -3815,8 +3861,8 @@ SWEEP_LOOSE = {
 def tensor_gpt_loss(P, attention, params, ids, num_heads, num_layers):
     """GPT-2's forward and next-token loss written only in the Paddle
     Tensor surface of package `P` (`paddle_tpu_torch`, or the JAX package
-    in the CPU tests): `params` maps the port's state-dict names
-    (`GPTForPretraining`, torch Linear layout [out, in]) to Tensors,
+    in the CPU tests): `params` maps the state-dict names of
+    `GPTForPretraining` (Linear weights [in, out]) to Tensors,
     `attention` is the package's registered flash_attention. Pre-norm
     blocks, LayerNorm eps 1e-5, tanh-GELU, the head tied to the word
     embeddings; the loss is `gpt_pretrain_loss`'s: the mean over B x
@@ -3835,8 +3881,7 @@ def tensor_gpt_loss(P, attention, params, ids, num_heads, num_layers):
             w[name + ".bias"]
 
     def linear(v, name):
-        return P.matmul(v, w[name + ".weight"], transpose_y=True) + \
-            w[name + ".bias"]
+        return P.matmul(v, w[name + ".weight"]) + w[name + ".bias"]
 
     for i in range(num_layers):
         pre = f"gpt.blocks.{i}."
@@ -3949,12 +3994,14 @@ def layer_gpt_loss(P, logits, ids):
 
 
 def layer_gpt_state(model):
-    """The port GPTForPretraining `model`'s state dict for `layer_gpt`:
-    the same keys, each Linear weight transposed to [in, out]."""
-    from paddle_tpu_torch.nlp.gpt import _linear_weight_names
-    linear = _linear_weight_names(model)
-    return {k: (v.t() if k in linear else v).detach()
-            for k, v in model.state_dict().items()}
+    """The port GPTForPretraining `model`'s state dict for `layer_gpt`
+    (the same keys and layout) as torch tensors."""
+    return {k: v._data.detach() for k, v in model.state_dict().items()}
+
+
+def leaf_grads(model):
+    """name -> the torch gradient of each of a Layer's parameters."""
+    return {n: p._data.grad for n, p in model.named_parameters()}
 
 
 def layer_transformer(P, vocab, d_model, nhead, layers, d_ff, dropout,
@@ -4167,9 +4214,9 @@ def eager_gpt_parity(dev):
     check(rel <= 1e-5, f"eager f32 GPT: loss {float(loss)} vs {ref} "
                        f"(rel {rel})")
     worst = 0.0
-    named = dict(model.named_parameters())
+    named = leaf_grads(model)
     for k, p in params.items():
-        want = named[k].grad
+        want = named[k]
         check(want is not None and p.grad is not None,
               f"eager f32 GPT: no gradient for {k}")
         scale = max(1.0, float(want.abs().max()))
@@ -4370,14 +4417,12 @@ def eager_phase(dev, smi):
 def layer_gpt_parity(dev):
     """The f32 `layer_gpt` GPT-2 small against the port's
     GPTForPretraining from the same weights (batch 2 x seq 256): loss
-    within 1e-5 relative, every gradient within 1e-4 x max(1, max|g|)
-    (each Linear weight's transposed); K1-K3 and dd launch once per
-    layer in its forward and backward."""
+    within 1e-5 relative, every gradient within 1e-4 x max(1, max|g|);
+    K1-K3 and dd launch once per layer in its forward and backward."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
-    from paddle_tpu_torch.nlp.gpt import _linear_weight_names
     from paddle_tpu_torch.ops import flash_attention as fa
     model = GPTForPretraining(train_config(), device=dev,
                               dtype=torch.float32, seed=SEED)
@@ -4401,14 +4446,12 @@ def layer_gpt_parity(dev):
     rel = abs(float(loss) - ref) / abs(ref)
     check(rel <= 1e-5, f"layer_gpt f32: loss {float(loss)} vs {ref} "
                        f"(rel {rel})")
-    named = dict(model.named_parameters())
-    linear = _linear_weight_names(model)
+    named = leaf_grads(model)
     worst = 0.0
     for k, p in layer.named_parameters():
-        want = named[k].grad
+        want = named[k]
         check(want is not None and p.grad is not None,
               f"layer_gpt f32: no gradient for {k}")
-        want = want.t() if k in linear else want
         scale = max(1.0, float(want.abs().max()))
         err = float((p.grad._data - want).abs().max())
         check(err <= 1e-4 * scale, f"layer_gpt f32: {k} gradient error "
@@ -5251,6 +5294,300 @@ def transformer_phase(dev, smi, peaks):
 # train: GPT-2 small at bench.py's GPU shapes, bf16, through TrainStep
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# bert: BERT-base pretraining as one graph a step; amp: auto_cast on GPT
+# ---------------------------------------------------------------------------
+
+def bert_batch(cfg, b, s, seed, dev):
+    """ids [B, S], 15% MLM labels (-100 elsewhere) and NSP labels, seeded
+    numpy draws as `scripts/bench_sweep.py` makes them, int64 on the
+    card."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (b, s))
+    mlm = np.where(rng.rand(b, s) < 0.15,
+                   rng.randint(0, cfg.vocab_size, (b, s)), -100)
+    nsp = rng.randint(0, 2, (b,))
+    return tuple(torch.tensor(a.astype("int64"), device=dev)
+                 for a in (ids, mlm, nsp))
+
+
+def bert_parity(dev, layers=2, b=2):
+    """f32 BERT at full width and `layers` layers (batch 2 x 512) through
+    the kernels (2 launches each of K1, dd, K2 and K3) against
+    `kernel="plain"`: the loss within 1e-5 relative, every gradient
+    within 1e-4 x max(1, max|g|); then the graphed TrainStep (AdamW)
+    against the eager one on a twin from the same seed over 3 steps
+    (eager, capture + replay, replay), within 1e-6 x max(1, |eager|)."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import (BertForPretraining, bert_base,
+                                      bert_pretrain_loss)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert_base(max_seq_len=BERT_S, dropout=0.0, attn_dropout=0.0)
+    cfg.num_layers = layers
+    model = BertForPretraining(cfg, device=dev, seed=SEED).train()
+    ids, mlm, nsp = bert_batch(cfg, b, BERT_S, SEED + 30, dev)
+
+    def loss_and_grads(kernel):
+        with fa.kernel_scope(kernel):
+            loss = bert_pretrain_loss(*model(ids), mlm, nsp)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: g.detach().clone() for k, g in leaf_grads(model).items()}
+        model.clear_gradients()
+        return float(loss), grads
+    ref_loss, ref_g = loss_and_grads("plain")
+    zero_counts()
+    loss, grads = loss_and_grads("cuda")
+    launches = dict(fa.launches)
+    check(launches == {k: layers for k in ("fwd", "dkv", "dq", "dd")},
+          f"bert f32: flash launches {launches}")
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    check(rel <= 1e-5, f"bert f32: loss {loss} against plain {ref_loss}")
+    worst = 0.0
+    for k, want in ref_g.items():
+        scale = max(1.0, float(want.abs().max()))
+        err = float((grads[k] - want).abs().max())
+        check(err <= 1e-4 * scale, f"bert f32: {k} gradient error {err} "
+                                   f"> 1e-4 x {scale}")
+        worst = max(worst, err / scale)
+    del ref_g, grads
+    twin = BertForPretraining(cfg, device=dev, seed=SEED)
+    check(all(torch.equal(a._data, b_._data) for a, b_ in zip(
+        model.parameters(), twin.parameters())),
+        "bert twin: one seed gave two sets of weights")
+    graphed = TrainStep(model, bert_pretrain_loss,
+                        AdamW(learning_rate=1e-4,
+                              parameters=model.parameters()))
+    eager = TrainStep(twin, bert_pretrain_loss,
+                      AdamW(learning_rate=1e-4,
+                            parameters=twin.parameters()),
+                      cuda_graph=False)
+    pairs = []
+    for _ in range(3):
+        pairs.append((float(graphed(ids, (mlm, nsp))),
+                      float(eager(ids, (mlm, nsp)))))
+        g, e = pairs[-1]
+        check(abs(g - e) <= 1e-6 * max(1.0, abs(e)),
+              f"bert f32: graphed losses {pairs} against eager")
+    (graph,) = graphed.graphs.values()
+    want = {f"flash_attention.{k}": layers for k in ("fwd", "dkv", "dq",
+                                                     "dd")}
+    want["optimizer.adam"] = 1
+    check(graph is not None and graph.launches == want,
+          f"bert f32: the graph holds {graph and graph.launches}")
+    out = {"layers": layers, "batch": b, "seq": BERT_S, "dtype": "float32",
+           "loss": loss, "plain_loss": ref_loss, "loss_rel": rel,
+           "max_grad_err_over_scale": worst, "launches": launches,
+           "graphed_vs_eager_losses": pairs}
+    del model, twin, graphed, eager
+    return out
+
+
+def bert_timed(dev, peaks, steps=10):
+    """BERT-base in bf16 at batch 16 x 512 with AdamW(1e-4), by bench.py's
+    recipe (`graphed_train`: the counts set to 0, 3 warm-up calls,
+    `steps` timed replays; 12 launches each of K1, dd, K2 and K3 and 1
+    Adam launch in the graph, every attention on the kernel route). Step
+    ms, samples/s, tokens/s, MFU (6 x params x tokens/s over the bf16
+    peak, as `scripts/bench_sweep.py` counts), peak memory, the idle
+    share and the device time by kernel group; then the eager step."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import (BertForPretraining, bert_base,
+                                      bert_pretrain_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = bert_base(max_seq_len=BERT_S, dropout=0.0, attn_dropout=0.0)
+    model = BertForPretraining(cfg, device=dev, dtype=torch.bfloat16,
+                               seed=SEED)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    ids, mlm, nsp = bert_batch(cfg, BERT_B, BERT_S, SEED + 31, dev)
+    torch.cuda.reset_peak_memory_stats()
+    run = graphed_train(model, bert_pretrain_loss, opt, ids, "bert", steps,
+                        labels=(mlm, nsp), groups=STEP_GROUPS)
+    dt = run["dt"]
+    eager = TrainStep(model, bert_pretrain_loss, opt, cuda_graph=False)
+    for _ in range(2):
+        float(eager(ids, (mlm, nsp)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss = eager(ids, (mlm, nsp))
+    float(loss)
+    eager_ms = (time.perf_counter() - t0) * 1e3 / 5
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = BERT_B * BERT_S / dt
+    profile = run["profile"]
+    if isinstance(profile, dict):
+        profile["top_kernels"] = profile["top_kernels"][:16]
+    out = {"model": "BERT-base (12 layers, 768 wide, 12 heads of 64, FFN "
+                    "3072, vocab 30522)",
+           "dtype": "bfloat16", "batch": BERT_B, "seq": BERT_S,
+           "steps": steps, "step": "one CUDA graph replay per call",
+           "step_ms": dt * 1e3, "samples_per_s": BERT_B / dt,
+           "tokens_per_s": tokens_per_s, "params": n_params,
+           "mfu": 6 * n_params * tokens_per_s / peaks["bf16"],
+           "mfu_formula": "6 x params x tokens/s / bf16 peak",
+           "loss": run["final"], "grad_norm": run["grad_norm"],
+           "max_memory_allocated": run["peak_mem"],
+           "memory_reserved": run["reserved"],
+           "launches_per_step": run["per_step"],
+           "launches": run["launches"], "routes": run["routes"],
+           "eager_step_ms": eager_ms, "profile": profile}
+    del model, opt, run, eager
+    return out
+
+
+def bert_phase(dev, smi, peaks):
+    """BERT-base pretraining (`bert_timed`) after the f32 parity of the
+    kernels against plain at 2 layers (`bert_parity`). Returns the
+    kernels' launches in the timed run."""
+    parity = bert_parity(dev)
+    timed = bert_timed(dev, peaks)
+    emit("bert", parity=parity, **timed, nvidia_smi=smi)
+    launches = dict(timed["launches"])
+    return launches
+
+
+def amp_cpu_parity(dev, steps=3, layers=2, b=2):
+    """GPT-2 small's width at `layers` layers, f32 weights from one seed,
+    `steps` AdamW steps under auto_cast + GradScaler on the card (K1-K3
+    in bf16) and on the CPU (the plain kernels): each step's loss within
+    2e-2 relative. Returns the losses and the CPU's wall seconds."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = np.random.RandomState(SEED + 40).randint(
+        0, TRAIN_VOCAB, (b, TRAIN_S)).astype("int64")
+    losses, walls = {}, {}
+    for where in (dev, "cpu"):
+        model = GPTForPretraining(train_config(num_layers=layers),
+                                  device=where, seed=SEED).train()
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        scaler = amp.GradScaler()
+        x = torch.tensor(ids, device=where)
+        t0 = time.perf_counter()
+        got = []
+        for _ in range(steps):
+            with amp.auto_cast():
+                loss = gpt_pretrain_loss(model(x), x)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            got.append(float(loss))
+        walls[str(where)] = time.perf_counter() - t0
+        losses[str(where)] = got
+        del model, opt
+    card, cpu = losses[str(dev)], losses["cpu"]
+    for a, c in zip(card, cpu):
+        check(abs(a - c) <= 2e-2 * abs(c),
+              f"amp: card losses {card} against the CPU's {cpu}")
+    return {"layers": layers, "batch": b, "seq": TRAIN_S, "steps": steps,
+            "card_losses": card, "cpu_losses": cpu, "wall_s": walls}
+
+
+def amp_phase(dev, smi):
+    """The f32 GPT-2 small Layer (GPTForPretraining, f32 weights) at 8 x
+    1024 under `amp.auto_cast()` (bf16): 3 eager steps with a
+    GradScaler, the counts set to 0 before them (12 launches each of K1,
+    dd, K2 and K3 a step, every K1 input bf16), timed; then the same
+    model in a graphed TrainStep entered under auto_cast (the capture
+    keeps the casts; bf16 needs no loss scaling, and the scaler's host
+    read of its inf check cannot sit in a graph): 12 launches each and 1
+    Adam a step, timed beside the bf16 model's train phase;
+    `amp_cpu_parity`; and `auto_cast(dtype="float16")` into attention
+    raises the kernel wrapper's TypeError."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTForPretraining(train_config(), device=dev, seed=SEED)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler()
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, TRAIN_VOCAB, (TRAIN_B, TRAIN_S)).astype("int64"), device=dev)
+    dtypes = []
+    core = fa._FlashCore.apply
+
+    def spy(q, *args):
+        dtypes.append(q.dtype)
+        return core(q, *args)
+    fa._FlashCore.apply = spy
+    try:
+        zero_counts()
+        losses, step_ms = [], []
+        for _ in range(EAGER_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp.auto_cast():
+                loss = gpt_pretrain_loss(model(ids), ids)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        eager_launches = dict(fa.launches)
+        check(eager_launches == {k: LAYERS * EAGER_STEPS
+                                 for k in ("fwd", "dkv", "dq", "dd")},
+              f"amp eager: flash launches {eager_launches}")
+        check(dtypes == [torch.bfloat16] * LAYERS * EAGER_STEPS,
+              f"amp eager: K1 inputs {set(dtypes)}")
+        check(all(np.isfinite(losses)) and scaler.state_dict()["scale"]
+              == 2.0 ** 15, f"amp eager: losses {losses}, scaler "
+                            f"{scaler.state_dict()}")
+        dtypes.clear()
+        graph_model = GPTForPretraining(train_config(), device=dev,
+                                        seed=SEED)
+        graph_opt = AdamW(learning_rate=1e-4,
+                          parameters=graph_model.parameters())
+        with amp.auto_cast():
+            run = graphed_train(graph_model, gpt_pretrain_loss, graph_opt,
+                                ids, "amp TrainStep", 10)
+        check(dtypes and set(dtypes) == {torch.bfloat16},
+              f"amp TrainStep: K1 inputs {set(dtypes)}")
+    finally:
+        fa._FlashCore.apply = core
+    parity = amp_cpu_parity(dev)
+    refused = None
+    try:
+        with torch.no_grad(), amp.auto_cast(dtype="float16"):
+            model(ids[:1])
+    except TypeError as exc:
+        refused = str(exc).split("\n")[0]
+    check(refused is not None and "float32 or bfloat16" in refused,
+          f"amp float16: attention did not refuse f16 ({refused})")
+    profile = run["profile"]
+    if isinstance(profile, dict):
+        profile["top_kernels"] = profile["top_kernels"][:8]
+    tokens_per_s = TRAIN_B * TRAIN_S / run["dt"]
+    emit("amp", model="gpt2_small (f32 weights)", autocast="bfloat16",
+         batch=TRAIN_B, seq=TRAIN_S, eager_losses=losses,
+         eager_step_ms=step_ms, eager_launches=eager_launches,
+         scaler=scaler.state_dict(), graphed_step_ms=run["dt"] * 1e3,
+         graphed_tokens_per_s=tokens_per_s, graphed_loss=run["final"],
+         launches_per_step=run["per_step"], launches=run["launches"],
+         max_memory_allocated=run["peak_mem"],
+         memory_reserved=run["reserved"], cpu_parity=parity,
+         float16_refused=refused, profile=profile, nvidia_smi=smi)
+    launches = dict(run["launches"])
+    del model, graph_model, opt, graph_opt, run
+    return launches
+
+
 def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
                   layers=LAYERS, routes_want=None, after_step=None,
                   groups=None):
@@ -5386,7 +5723,7 @@ def train_phase(dev, peaks):
         e1 = ev()
         lo.backward()
         e2 = ev()
-        grad_norm_sentinel(lo, [p.grad for p in model.parameters()])
+        grad_norm_sentinel(lo, list(leaf_grads(model).values()))
         e3 = ev()
         opt.step()
         opt.clear_grad()
@@ -5469,7 +5806,8 @@ def train_fused_head_phase(dev, peaks, steps=5):
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
-    from paddle_tpu_torch.nlp.gpt import _use_fused_head
+    from paddle_tpu_torch.nlp import gpt as gpt_mod
+    from paddle_tpu_torch.nlp.gpt import FusedHeadLogits, _use_fused_head
     from paddle_tpu_torch.ops.chunked_ce import chunked_lm_loss
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -5481,13 +5819,22 @@ def train_fused_head_phase(dev, peaks, steps=5):
         "train_fused_head: the auto threshold does not pick the fused head")
     model = GPTForPretraining(cfg, device=dev, dtype=torch.bfloat16,
                               seed=SEED)
+    # the dense head product: the forward's `matmul` when the head is not
+    # fused, `FusedHeadLogits.dense` when something reads fused logits
     head_calls = []
-    dense_head = model._head
+    dense_head = gpt_mod.matmul
 
-    def counted_head(h):
+    def counted_head(h, w, **kw):
         head_calls.append(tuple(h.shape))
-        return dense_head(h)
-    model._head = counted_head
+        return dense_head(h, w, **kw)
+    gpt_mod.matmul = counted_head
+    dense_of_fused = FusedHeadLogits.dense
+
+    def counted_dense(logits):
+        if logits._dense is None:
+            head_calls.append(tuple(logits.hidden.shape))
+        return dense_of_fused(logits)
+    FusedHeadLogits.dense = counted_dense
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
     ids = torch.tensor(np.random.RandomState(1).randint(
         0, FUSED_VOCAB, (FUSED_B, TRAIN_S)).astype("int64"), device=dev)
@@ -5548,7 +5895,7 @@ def train_fused_head_phase(dev, peaks, steps=5):
     # by CUDA-graph replay
     h = (torch.randn(FUSED_B * TRAIN_S, cfg.hidden_size, device=dev)
          .to(torch.bfloat16).requires_grad_())
-    w = model.gpt.embeddings.word_embeddings.weight
+    w = model.gpt.embeddings.word_embeddings.weight._data
     lab = ids.reshape(-1).roll(-1)
 
     def head_step():
@@ -5586,7 +5933,8 @@ def train_fused_head_phase(dev, peaks, steps=5):
           f"{len(head_calls)} times, not 2 (the eager call and the "
           f"capture; a replay runs no Python)")
     del dense_step, dense_graph
-    model._head = dense_head
+    gpt_mod.matmul = dense_head
+    FusedHeadLogits.dense = dense_of_fused
     torch.cuda.empty_cache()
     return {"model": "gpt2_small", "dtype": "bfloat16", "vocab": FUSED_VOCAB,
             "batch": FUSED_B, "seq": TRAIN_S, "steps": steps,
@@ -5881,6 +6229,8 @@ def main():
     eager_launches = run("eager", eager_phase, dev, smi)
     nn_launches = run("nn", nn_phase, dev, smi)
     tf_launches = run("transformer", transformer_phase, dev, smi, peaks)
+    bert_launches = run("bert", bert_phase, dev, smi, peaks)
+    amp_launches = run("amp", amp_phase, dev, smi)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -5925,6 +6275,9 @@ def main():
                      "launches_nn_llama_attention":
                          nn_launches["llama_attention"][kind],
                      "launches_transformer": tf_launches[kind],
+                     "launches_bert": bert_launches[kind],
+                     "launches_amp": amp_launches[kind],
+                     "bert_shape": dict(fl["bert_shape"][kind]),
                      "transformer_shapes": {
                          name: shape[kind] for name, shape in
                          fl["transformer_shapes"].items()},
@@ -5946,6 +6299,8 @@ def main():
                  "launches_nn": nn_launches["adam"],
                  "launches_nn_trainstep": nn_launches["trainstep"]["adam"],
                  "launches_transformer": tf_launches["adam"],
+                 "launches_bert": bert_launches["adam"],
+                 "launches_amp": amp_launches["adam"],
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

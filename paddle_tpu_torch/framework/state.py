@@ -239,6 +239,22 @@ def rng_generator(device):
     return _default_generator.generator(device)
 
 
+@contextlib.contextmanager
+def host_init_ctx(seed):
+    """Parameters made inside the block are drawn on the CPU from a
+    framework generator seeded with `seed`, so one seed gives the same
+    weights whatever device the model moves to afterwards. The current
+    place and the framework generator are put back on exit."""
+    global _current_place, _current_device, _default_generator
+    saved = _current_place, _current_device, _default_generator
+    _current_place, _current_device = CPUPlace(), None
+    _default_generator = Generator(seed)
+    try:
+        yield
+    finally:
+        _current_place, _current_device, _default_generator = saved
+
+
 # --------------------------------------------------------------------------- flags
 
 _FLAGS = {

@@ -147,7 +147,7 @@ def _draft(opts, model, draft_model):
         raise ValueError("speculative serving needs a draft model: pass "
                          "draft_model= to create_llm_predictor or "
                          "draft_config= to enable_llm_engine")
-    dtype = next(model.parameters()).dtype
+    dtype = next(iter(model.parameters())).dtype
     return type(model)(opts["draft_config"], device=model.device,
                        dtype=dtype)
 

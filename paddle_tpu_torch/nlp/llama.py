@@ -3,28 +3,37 @@ RMSNorm, interleaved-pair RoPE, grouped-query attention, SwiGLU.
 
 Pre-norm blocks, a fused QKV projection sized for GQA
 (`[q: heads * hd | k: kv_heads * hd | v: kv_heads * hd]`), no biases, the
-LM head tied to the token embeddings unless `tie_embeddings=False`.
-Submodules are named as the JAX state dict names them
-(`model.layers.0.self_attn.qkv_proj.weight`, ...), so `load_jax_state`
-copies a JAX model's weights across by name.
+LM head tied to the token embeddings unless `tie_embeddings=False` (then
+an untied `lm_head`). The model is an `nn.Layer` built as the JAX
+package builds it, with its state-dict keys and shapes and Paddle's
+[in, out] Linear layout (`model.layers.0.self_attn.qkv_proj.weight`,
+...), so a JAX model's `state_dict()` loads with `set_state_dict` or
+`load_jax_state` as it is. Weights are drawn on the CPU from a framework
+generator seeded with `seed` (normal(0, initializer_range); o_proj and
+down_proj scaled by 1/sqrt(2 layers); RMSNorm weights 1), then moved.
 
 RoPE: one cos/sin table pair per model ([max_seq_len, head_dim / 2],
 built with numpy in f64 and cast to f32, as the JAX package builds it),
-held by the model's `rope` as non-persistent buffers (no state-dict
-key) that follow the model's device and stay f32. Every gather of a
+held by the model's `rope`, a plain `torch.nn.Module` beside the
+layers: no state-dict key, no Parameter, and the tables follow the
+model's device and stay f32 under `to(dtype=...)`. Every gather of a
 table row is clamped to the table on the device: lanes parked at the
 horizon and a chunk's padded tail reach past it, and their rows are
 never used.
 
 Training: `LlamaForCausalLM.forward` -> logits (`FusedHeadLogits` when
-the tied head is fused), `llama_pretrain_loss`. Attention rotates q and
-k in f32, repeats each KV head `heads / kv_heads` times along the head
-axis (query head j reads KV head j // rep) and runs
+the tied head is fused), `llama_pretrain_loss`. The forward runs in the
+Paddle surface (the registered `rms_norm` and `llama_attention` ops, as
+the JAX package's does; torch ids give torch logits, Tensors a Tensor).
+Attention rotates q and k in f32, repeats each KV head `heads /
+kv_heads` times along the head axis (query head j reads KV head j //
+rep) and runs
 `ops.flash_attention` causal, K1 on the card, K2, K3 and dd in its
 backward; autograd sums dK/dV over each group through the repeat.
 
-Serving, dense: `init_cache` ([B, kv_heads, L, hd] x2), `prefill` (with
-`frontier=`; the bucket padded to a multiple of 128 on the "k1" route,
+Serving runs on the layers' torch leaves. Dense: `init_cache` ([B,
+kv_heads, L, hd] x2), `prefill` (with `frontier=`; the bucket padded to
+a multiple of 128 on the "k1" route,
 `prefill_route`) and `decode_step` with a scalar or [B] position.
 Serving, paged: `init_paged_cache`, `decode_step(..., block_tables=)`
 (K4's decode form), `prefill_chunk` and `decode_chunk` (its chunk form).
@@ -36,18 +45,22 @@ import os
 
 import numpy as np
 import torch
-from torch import nn
-from torch.nn import functional as F
+from torch.nn import functional as TF
 
+from .. import nn
 from ..device import resolve_device
+from ..framework import state
+from ..framework.tensor import Tensor
+from ..nn import functional as F
 from ..nn.paged_attention import (paged_chunk_attention,
                                   paged_decode_attention)
 from ..nn.transformer import (cached_decode_attention, scatter_block_kv_at,
                               scatter_block_kv_chunk_batched, scatter_kv_at)
-from ..ops.dispatch import register_op
+from ..ops.dispatch import apply, register_op
 from ..ops.flash_attention import flash_attention, kernel_len
-from .gpt import (FusedHeadLogits, _recompute, _use_fused_head,
-                  gpt_pretrain_loss)
+from ..ops.math import matmul
+from .gpt import (FusedHeadLogits, _normal_attr, _out_std, _recompute,
+                  _use_fused_head, as_tensor_in, gpt_pretrain_loss, linear_t)
 
 
 class LlamaConfig:
@@ -89,21 +102,35 @@ class LlamaConfig:
                              f"num_kv_heads {self.num_kv_heads}")
 
 
-class RMSNorm(nn.Module):
+def _rms_norm_raw(x_, w, eps=1e-6):
+    """RMSNorm with the statistics and the product in f32, the result in
+    x's dtype."""
+    xf = x_.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x_.dtype)
+
+
+register_op("rms_norm", _rms_norm_raw)
+
+
+class RMSNorm(nn.Layer):
     """Root-mean-square norm (no mean subtraction, no bias):
     x / sqrt(mean(x^2) + eps) * weight, the statistics and the product in
-    f32, the result in x's dtype."""
+    f32, the result in x's dtype (the registered `rms_norm` op)."""
 
     def __init__(self, dim, eps=1e-6):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
+        self.weight = self.create_parameter(
+            [dim], default_initializer=nn.initializer.Constant(1.0))
 
     def forward(self, x):
-        xf = x.float()
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps)
-                * self.weight.float()).to(x.dtype)
+        return apply(_rms_norm_raw, (x, self.weight), {"eps": float(self.eps)},
+                     name="rms_norm")
+
+    def infer(self, x):
+        """The norm on the torch leaf."""
+        return _rms_norm_raw(x, self.weight._data, self.eps)
 
 
 def rope_tables(seq_len, head_dim, theta=10000.0):
@@ -183,9 +210,10 @@ def apply_rope_at(x, cos, sin, pos):
     return _rotate_pairs(x, c[:, None, None], sn[:, None, None])
 
 
-class RoPE(nn.Module):
-    """A model's one pair of rope tables, as non-persistent buffers: no
-    state-dict key, and `.to()` moves them but keeps them f32."""
+class RoPE(torch.nn.Module):
+    """A model's one pair of rope tables, as non-persistent buffers of a
+    plain torch module (the `Layer`s skip it): no state-dict key, and
+    `.to()` moves them but keeps them f32."""
 
     def __init__(self, seq_len, head_dim, theta):
         super().__init__()
@@ -221,7 +249,7 @@ def _gqa_flash_bshd(q, k, v, window):
                            window=window)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(nn.Layer):
     def __init__(self, cfg, rope):
         super().__init__()
         h = cfg.hidden_size
@@ -231,9 +259,13 @@ class LlamaAttention(nn.Module):
         self.attn_layout = cfg.attn_layout
         self.attn_window = cfg.attn_window
         qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * self.head_dim
-        self.qkv_proj = nn.Linear(h, qkv_out, bias=False)
-        self.o_proj = nn.Linear(cfg.num_heads * self.head_dim, h, bias=False)
-        # the model's one table, not a submodule of every layer
+        self.qkv_proj = nn.Linear(h, qkv_out, bias_attr=False,
+                                  weight_attr=_normal_attr(
+                                      cfg.initializer_range))
+        self.o_proj = nn.Linear(cfg.num_heads * self.head_dim, h,
+                                bias_attr=False,
+                                weight_attr=_normal_attr(_out_std(cfg)))
+        # the model's one table, not a sublayer of every layer
         self.__dict__["rope"] = rope
 
     def _split(self, x):
@@ -241,8 +273,8 @@ class LlamaAttention(nn.Module):
         views of the projection, split by sizes."""
         b, s, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        q, k, v = self.qkv_proj(x).split([nh * hd, nkv * hd, nkv * hd],
-                                         dim=-1)
+        q, k, v = linear_t(self.qkv_proj, x).split(
+            [nh * hd, nkv * hd, nkv * hd], dim=-1)
         return (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
                 v.reshape(b, s, nkv, hd))
 
@@ -261,20 +293,17 @@ class LlamaAttention(nn.Module):
                 apply_rope_positions(k, cos, sin, positions), v)
 
     def forward(self, x):
-        b, s, _ = x.shape
-        if self.attn_layout == "bshd":
-            q, k, v = self._split_rope_bshd(x)
-            out = _gqa_flash_bshd(q, k, v, self.attn_window)
-            return self.o_proj(out.reshape(b, s, -1))
-        cos, sin = self.rope.cos, self.rope.sin
-        q, k, v = (t.transpose(1, 2) for t in self._split(x))
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        rep = self.num_heads // self.num_kv_heads
-        if rep > 1:
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
-        out = flash_attention(q, k, v, causal=True, window=self.attn_window)
-        return self.o_proj(out.transpose(1, 2).reshape(b, s, -1))
+        """x [B, S, hidden] (a Tensor) through the registered
+        `llama_attention` op, then o_proj."""
+        out = apply(_llama_attention_raw,
+                    (x, self.qkv_proj.weight, self.rope.cos, self.rope.sin),
+                    {"num_heads": self.num_heads,
+                     "num_kv_heads": self.num_kv_heads,
+                     "head_dim": self.head_dim,
+                     "attn_layout": self.attn_layout,
+                     "window": self.attn_window},
+                    name="llama_attention")
+        return self.o_proj(out)
 
     def init_cache(self, batch, max_len, dtype, device):
         """Dense KV cache [B, kv_heads, L, head_dim] x2 (GQA caches the
@@ -309,7 +338,7 @@ class LlamaAttention(nn.Module):
             out = paged_decode_attention(q, ck, cv, block_tables, pos,
                                          scale, window=self.attn_window)
         out = out.transpose(1, 2).reshape(b, 1, -1)
-        return self.o_proj(out.to(x_t.dtype))
+        return linear_t(self.o_proj, out.to(x_t.dtype))
 
     def prefill_chunk(self, x, cache, block_tables, chunk_start, valid_len):
         """C tokens a lane, x [S, C, hidden], at chunk_start + arange(C):
@@ -329,7 +358,7 @@ class LlamaAttention(nn.Module):
                                     1.0 / math.sqrt(self.head_dim),
                                     window=self.attn_window)
         out = out.transpose(1, 2).reshape(b, s, -1)
-        return self.o_proj(out.to(x.dtype))
+        return linear_t(self.o_proj, out.to(x.dtype))
 
     decode_chunk = prefill_chunk
 
@@ -343,24 +372,31 @@ class LlamaAttention(nn.Module):
         ck[:, :, :n] = k[:, :n].transpose(1, 2).to(ck.dtype)
         cv[:, :, :n] = v[:, :n].transpose(1, 2).to(cv.dtype)
         out = _gqa_flash_bshd(q, k, v, self.attn_window)
-        return self.o_proj(out.reshape(b, s, -1).to(x.dtype))
+        return linear_t(self.o_proj, out.reshape(b, s, -1).to(x.dtype))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(nn.Layer):
     """SwiGLU: down(silu(gate(x)) * up(x))."""
 
     def __init__(self, cfg):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(h, m, bias=False)
-        self.up_proj = nn.Linear(h, m, bias=False)
-        self.down_proj = nn.Linear(m, h, bias=False)
+        attr = _normal_attr(cfg.initializer_range)
+        self.gate_proj = nn.Linear(h, m, bias_attr=False, weight_attr=attr)
+        self.up_proj = nn.Linear(h, m, bias_attr=False, weight_attr=attr)
+        self.down_proj = nn.Linear(m, h, bias_attr=False,
+                                   weight_attr=_normal_attr(_out_std(cfg)))
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
+    def infer(self, x):
+        """SwiGLU on the torch leaves."""
+        return linear_t(self.down_proj, TF.silu(linear_t(self.gate_proj, x))
+                        * linear_t(self.up_proj, x))
 
-class LlamaBlock(nn.Module):
+
+class LlamaBlock(nn.Layer):
     def __init__(self, cfg, rope):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
@@ -368,47 +404,54 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
         self.mlp = LlamaMLP(cfg)
 
-    def _mlp(self, x):
+    def forward(self, x):
+        x = x + self.self_attn(self.input_layernorm(x))
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def forward(self, x):
-        return self._mlp(x + self.self_attn(self.input_layernorm(x)))
+    def _mlp(self, x):
+        return x + self.mlp.infer(self.post_attention_layernorm.infer(x))
 
     def decode(self, x, cache, pos, block_tables=None):
         return self._mlp(x + self.self_attn.decode(
-            self.input_layernorm(x), cache, pos, block_tables))
+            self.input_layernorm.infer(x), cache, pos, block_tables))
 
     def prefill(self, x, cache, n):
-        return self._mlp(x + self.self_attn.prefill(self.input_layernorm(x),
-                                                    cache, n))
+        return self._mlp(x + self.self_attn.prefill(
+            self.input_layernorm.infer(x), cache, n))
 
     def prefill_chunk(self, x, cache, block_tables, chunk_start, valid_len):
         return self._mlp(x + self.self_attn.prefill_chunk(
-            self.input_layernorm(x), cache, block_tables, chunk_start,
+            self.input_layernorm.infer(x), cache, block_tables, chunk_start,
             valid_len))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(nn.Layer):
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.embed_tokens = nn.Embedding(
+            cfg.vocab_size, cfg.hidden_size,
+            weight_attr=_normal_attr(cfg.initializer_range))
         self.rope = RoPE(cfg.max_seq_len, cfg.hidden_size // cfg.num_heads,
                          cfg.rope_theta)
-        self.layers = nn.ModuleList([LlamaBlock(cfg, self.rope)
-                                     for _ in range(cfg.num_layers)])
+        self.layers = nn.LayerList([LlamaBlock(cfg, self.rope)
+                                    for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
 
     def forward(self, input_ids):
         """[B, S] ids -> hidden states [B, S, hidden] (after the final
-        norm). With cfg.use_recompute every block is checkpointed."""
-        x = self.embed_tokens(input_ids)
+        norm; torch ids give a torch tensor, Tensors a Tensor). With
+        cfg.use_recompute every block is checkpointed."""
+        ids, torch_in = as_tensor_in(input_ids)
+        x = self.embed_tokens(ids)
+        remat = self.cfg.use_recompute and torch.is_grad_enabled()
         for blk in self.layers:
-            if self.cfg.use_recompute and torch.is_grad_enabled():
-                x = _recompute(blk, x, None)
-            else:
-                x = blk(x)
-        return self.norm(x)
+            x = _recompute(blk, x, None) if remat else blk(x)
+        h = self.norm(x)
+        return h._data if torch_in else h
+
+    def _embed(self, ids):
+        return TF.embedding(ids, self.embed_tokens.weight._data)
 
     def check_horizon(self, max_len):
         if max_len > self.rope.length:
@@ -448,79 +491,67 @@ class LlamaModel(nn.Module):
             raise ValueError(f"prompt bucket {n} > cache length {max_len}")
         caches = self.init_cache(b, max_len, dtype, input_ids.device)
         c = kernel_len(n) if self.prefill_route(n) == "k1" else n
-        x = self.embed_tokens(F.pad(input_ids, (0, c - n)))
+        x = self._embed(TF.pad(input_ids, (0, c - n)))
         for blk, cache in zip(self.layers, caches):
             x = blk.prefill(x, cache, n)
-        return self.norm(x[:, :n]), caches
+        return self.norm.infer(x[:, :n]), caches
 
     def decode_step(self, tok, caches, pos, block_tables=None):
         """tok: [B, 1] ids; pos: [B] positions or a scalar. Returns
         (h, caches); the caches (dense, or pools named by block_tables)
         are written in place."""
-        x = self.embed_tokens(tok)
+        x = self._embed(tok)
         for blk, cache in zip(self.layers, caches):
             x = blk.decode(x, cache, pos, block_tables)
-        return self.norm(x), caches
+        return self.norm.infer(x), caches
 
     def prefill_chunk(self, tok_chunk, caches, block_tables, chunk_start,
                       valid_len):
         """C tokens a lane ([S, C] ids) at chunk_start + arange(C)
         against the block pools: a prompt chunk (scalar start) or the
         speculative verify ([S] starts). Returns (h, caches)."""
-        x = self.embed_tokens(tok_chunk)
+        x = self._embed(tok_chunk)
         for blk, cache in zip(self.layers, caches):
             x = blk.prefill_chunk(x, cache, block_tables, chunk_start,
                                   valid_len)
-        return self.norm(x), caches
+        return self.norm.infer(x), caches
 
     decode_chunk = prefill_chunk
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(nn.Layer):
     """LLaMA with the LM head tied to the token embeddings (or an untied
-    `lm_head`). Weights are drawn from an explicit generator seeded with
-    `seed` (normal(0, initializer_range); o_proj and down_proj scaled by
-    1/sqrt(2 layers); RMSNorm weights 1), on the CPU, then moved to
-    `device` (None = the CUDA card) and `dtype`; the rope tables stay
-    f32. The model starts in eval mode (serving); `jit.TrainStep` puts
-    it in training mode."""
+    `lm_head`). The weights are drawn on the CPU from a framework
+    generator seeded with `seed`, then moved to `device` (None = the
+    CUDA card) and cast to `dtype`; the rope tables stay f32. The model
+    starts in eval mode (serving); `jit.TrainStep` puts it in training
+    mode."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
         super().__init__()
+        dev = resolve_device(device)
+        with state.host_init_ctx(int(seed)):
+            self.model = LlamaModel(cfg)
+            if not cfg.tie_embeddings:
+                self.lm_head = nn.Linear(
+                    cfg.hidden_size, cfg.vocab_size, bias_attr=False,
+                    weight_attr=_normal_attr(cfg.initializer_range))
         self.cfg = cfg
-        self.model = LlamaModel(cfg)
-        if not cfg.tie_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False)
-        self._init_weights(torch.Generator().manual_seed(int(seed)))
-        self.to(device=resolve_device(device), dtype=dtype)
+        self.to(device=dev, dtype=dtype)
         self.eval()
-
-    @torch.no_grad()
-    def _init_weights(self, gen):
-        std = self.cfg.initializer_range
-        out_std = std / math.sqrt(2 * self.cfg.num_layers)
-        for name, mod in self.named_modules():
-            if isinstance(mod, nn.Linear):
-                proj_out = name.endswith(("o_proj", "down_proj"))
-                mod.weight.normal_(0.0, out_std if proj_out else std,
-                                   generator=gen)
-            elif isinstance(mod, nn.Embedding):
-                mod.weight.normal_(0.0, std, generator=gen)
-            elif isinstance(mod, RMSNorm):
-                mod.weight.fill_(1.0)
 
     @property
     def device(self):
-        return self.model.norm.weight.device
+        return self.model.norm.weight._data.device
 
     def _head(self, h):
         if self.cfg.tie_embeddings:
-            return h @ self.model.embed_tokens.weight.T
-        return self.lm_head(h)
+            return h @ self.model.embed_tokens.weight._data.t()
+        return linear_t(self.lm_head, h)
 
     def hidden_states(self, input_ids):
-        """[B, S] ids -> hidden states after the final norm."""
+        """[B, S] torch ids -> hidden states after the final norm
+        (torch)."""
         return self.model(input_ids)
 
     def head(self, h):
@@ -532,14 +563,20 @@ class LlamaForCausalLM(nn.Module):
         self.model.check_horizon(max_len)
 
     def forward(self, input_ids):
-        """[B, S] ids -> logits [B, S, vocab]; a `FusedHeadLogits` when
-        the head is tied and the config asks for the fused head."""
-        h = self.model(input_ids)
-        w = self.model.embed_tokens.weight
-        if self.cfg.tie_embeddings and _use_fused_head(
-                self.cfg, (*h.shape[:-1], w.shape[0])):
-            return FusedHeadLogits(h, w, self._head)
-        return self._head(h)
+        """[B, S] ids -> logits [B, S, vocab] (torch ids give torch
+        logits, Tensors a Tensor); a `FusedHeadLogits` when the head is
+        tied and the config asks for the fused head."""
+        ids, torch_in = as_tensor_in(input_ids)
+        h = self.model(ids)
+        if not self.cfg.tie_embeddings:
+            logits = self.lm_head(h)
+        else:
+            w = self.model.embed_tokens.weight
+            if _use_fused_head(self.cfg, (*h.shape[:-1], w.shape[0])):
+                logits = Tensor._wrap(FusedHeadLogits(h._data, w._data))
+            else:
+                logits = matmul(h, w, transpose_y=True)
+        return logits._data if torch_in else logits
 
     def loss(self, logits, labels):
         return llama_pretrain_loss(logits, labels)
@@ -600,17 +637,9 @@ def llama_pretrain_loss(logits, labels):
     return gpt_pretrain_loss(logits, labels)
 
 
-# ------------------------------------------------- the registered LLaMA ops
-# (the JAX package's `rms_norm` and `llama_attention`, run by the op
-# library's dispatcher on the Tensor surface)
-
-def _rms_norm_raw(x_, w, eps=1e-6):
-    """RMSNorm with the statistics and the product in f32, the result in
-    x's dtype."""
-    xf = x_.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x_.dtype)
-
+# ------------------------------------------------- the registered attention
+# (the JAX package's `llama_attention`, run by the op library's
+# dispatcher on the Tensor surface)
 
 def _llama_attention_raw(x, wqkv, cos, sin, num_heads=1, num_kv_heads=1,
                          head_dim=1, attn_layout="bhsd", window=None):
@@ -638,5 +667,4 @@ def _llama_attention_raw(x, wqkv, cos, sin, num_heads=1, num_kv_heads=1,
     return out.transpose(1, 2).reshape(b, s, nh * hd)
 
 
-register_op("rms_norm", _rms_norm_raw)
 register_op("llama_attention", _llama_attention_raw)

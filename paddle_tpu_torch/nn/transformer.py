@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from ..framework.tensor import Tensor
+from ..framework.tensor import Tensor, unwrap
 from ..ops.dispatch import apply
 from . import functional as F
 from .layer import Layer, LayerList
@@ -208,6 +208,7 @@ def infer_cache_dtype(model):
     KV caches (halving the bytes that bound decode), an f32 model f32."""
     counts = {}
     for p in model.parameters():
+        p = unwrap(p)
         if p.dtype in (torch.bfloat16, torch.float16, torch.float32):
             counts[p.dtype] = counts.get(p.dtype, 0) + p.numel()
     low = {d: c for d, c in counts.items() if d != torch.float32}

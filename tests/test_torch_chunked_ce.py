@@ -130,12 +130,13 @@ def test_dense_head_is_not_computed_on_the_loss_path(monkeypatch):
     TrainStep, call the dense head 0 times; reading the logits computes
     it once and gives the true dense values."""
     calls = []
-    head = tgpt.GPTForPretraining._head
+    dense = tgpt.FusedHeadLogits.dense
 
-    def counted(self, h):
-        calls.append(tuple(h.shape))
-        return head(self, h)
-    monkeypatch.setattr(tgpt.GPTForPretraining, "_head", counted)
+    def counted(self):
+        if self._dense is None:
+            calls.append(tuple(self.hidden.shape))
+        return dense(self)
+    monkeypatch.setattr(tgpt.FusedHeadLogits, "dense", counted)
     _, tm = _pair(fused_head_loss=True)
     ids = torch.tensor(IDS, dtype=torch.long)
     logits = tm(ids)
@@ -151,7 +152,7 @@ def test_dense_head_is_not_computed_on_the_loss_path(monkeypatch):
     with torch.no_grad():
         logits = tm(ids)
         h = tm.gpt(ids)
-        want = h @ tm.gpt.embeddings.word_embeddings.weight.T
+        want = h @ tm.gpt.embeddings.word_embeddings.weight._data.T
         got = logits[:, 5]
     assert calls == [(2, 64, 64)]
     torch.testing.assert_close(got, want[:, 5], rtol=0, atol=0)

@@ -56,20 +56,26 @@ def _pools_close(jc, tc):
 
 
 def test_load_jax_state_round_trip(pair):
-    """Every key lands, with its shape, Linear weights transposed
-    ([in, out] -> [out, in]) and everything else as is."""
+    """Every key lands, with its shape, as it is: the port's Linear
+    weights are [in, out] like the JAX package's, so nothing is
+    transposed in either direction (the JAX state is the port's, and
+    the port's `state_dict()` loads back into a JAX model unchanged)."""
     jm, tm = pair
     jsd = {k: v.numpy() for k, v in jm.state_dict().items()}
     tsd = tm.state_dict()
-    assert sorted(jsd) == sorted(tsd) and len(tsd) == 28
-    linear = {f"{n}.weight" for n, m in tm.named_modules()
-              if isinstance(m, torch.nn.Linear)}
-    assert len(linear) == 4 * SMALL["num_layers"]
+    assert list(jsd) == list(tsd) and len(tsd) == 28
+    qkv = "gpt.blocks.0.attn.qkv_proj.weight"
+    assert tuple(tsd[qkv].shape) == (128, 3 * 128)
     for k, arr in jsd.items():
         got = tsd[k].numpy()
-        want = arr.T if k in linear else arr
-        assert got.shape == want.shape, k
-        np.testing.assert_array_equal(got, want, err_msg=k)
+        assert got.shape == arr.shape, k
+        np.testing.assert_array_equal(got, arr, err_msg=k)
+    back = JGPT(JConfig(**SMALL))
+    missing, unexpected = back.set_state_dict(
+        {k: v.numpy() for k, v in tsd.items()})
+    assert not missing and not unexpected
+    for k, v in back.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), jsd[k], err_msg=k)
 
 
 def test_load_jax_state_rejects_mismatches(pair):

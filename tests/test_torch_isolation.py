@@ -31,6 +31,7 @@ def test_imports_without_jax_and_without_the_jax_package():
 
         sys.meta_path.insert(0, Block())
         import paddle_tpu_torch
+        import paddle_tpu_torch.amp
         import paddle_tpu_torch.autograd
         import paddle_tpu_torch.framework
         import paddle_tpu_torch.framework.dtype
@@ -53,6 +54,8 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.jit
         import paddle_tpu_torch.kernels
         import paddle_tpu_torch.nlp
+        import paddle_tpu_torch.nlp.bert
+        import paddle_tpu_torch.nlp.gpt
         import paddle_tpu_torch.nlp.llama
         import paddle_tpu_torch.nn
         import paddle_tpu_torch.nn.activation
@@ -120,7 +123,8 @@ def test_no_card_means_no_quiet_cpu_fallback(monkeypatch):
     raises when there is none — it never runs on the CPU unasked."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from paddle_tpu_torch import inference, resolve_device
-    from paddle_tpu_torch.nlp import (GPTConfig, GPTForPretraining,
+    from paddle_tpu_torch.nlp import (BertConfig, BertForPretraining,
+                                      GPTConfig, GPTForPretraining,
                                       LlamaConfig, LlamaForCausalLM)
     from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
     cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
@@ -133,6 +137,10 @@ def test_no_card_means_no_quiet_cpu_fallback(monkeypatch):
         LlamaForCausalLM(LlamaConfig(vocab_size=64, hidden_size=32,
                                      num_layers=1, num_heads=4,
                                      num_kv_heads=2, max_seq_len=32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BertForPretraining(BertConfig(vocab_size=64, hidden_size=32,
+                                      num_layers=1, num_heads=2,
+                                      intermediate_size=64, max_seq_len=32))
     model = GPTForPretraining(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedServingEngine(model, num_slots=2, max_len=32, block_size=8)

@@ -349,7 +349,7 @@ def test_front_door_paged_dense_and_draft_config(models):
     built = pred.engine.draft_model
     assert type(built) is tllama.LlamaForCausalLM
     assert built.cfg.num_layers == 1 and built.device == tm.device
-    assert next(built.parameters()).dtype == torch.float32
+    assert built.parameters()[0].dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

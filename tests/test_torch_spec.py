@@ -548,7 +548,7 @@ def test_front_door_speculative(target, draft):
     pred = inference.create_llm_predictor(cfg, model=tm)
     built = pred.engine.draft_model
     assert built.cfg.num_layers == 1 and built.device == tm.device
-    assert next(built.parameters()).dtype == torch.float32
+    assert built.parameters()[0].dtype == torch.float32
     assert pred.generate(prompt, max_tokens=6) == want
     with pytest.raises(ValueError, match="draft"):
         inference.create_llm_predictor(
