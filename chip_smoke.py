@@ -235,7 +235,36 @@ its phases:
                 in bf16 (12 a step); 3 steps at 2 layers and batch 2 x
                 1024 against the same steps on the CPU's plain kernels
                 (losses within 2e-2 relative); auto_cast(dtype="float16")
-                into attention raises the kernel wrapper's TypeError.
+                into attention raises the kernel wrapper's TypeError;
+  hapi          SKILL.md flow 1 (BASELINE.json configs[0]): LeNet through
+                `hapi.Model` (Adam, cross entropy, Accuracy) fit on the
+                synthetic MNIST for 2 epochs at batch 64, one graph
+                replay a step; evaluate (test accuracy above 0.7),
+                predict, a save/load round trip, a save at step 10
+                resumed by load_latest and fit(resume=True) against the
+                run without a stop, the first 20 losses against the
+                same fit on the CPU; then GPT-2 small (the Layer
+                GPTForPretraining) at bench.py's shapes through
+                `Model.fit` on a DataLoader of seeded ids: one replay a
+                step holding 12 launches each of K1-K3 and dd and 1
+                Adam launch, fit's step ms against the bare graphed
+                TrainStep's on the same batches, in turns;
+  resnet        ResNet-50 (BASELINE.json configs[1],
+                `scripts/bench_sweep.py:130-155`: 1000 classes, bf16,
+                Momentum(0.1, 0.9), batch 128) through `Model.fit` on a
+                seeded class-per-directory tree of .npy images read by
+                `vision.datasets.DatasetFolder` (RandomResizedCrop(224),
+                RandomHorizontalFlip, ToTensor, Normalize) and a
+                DataLoader of forked shared-memory workers, with
+                Accuracy(top 1, top 5): images/s, step ms, the
+                data-wait share, MFU, peak memory, the bare graphed
+                step on staged batches in turns, the device time by
+                group (convolutions, BatchNorm, layout transposes,
+                elementwise, optimizer), evaluate's images/s; the
+                forked loader's batches against the single-process
+                loader's, f32 steps on the card against the CPU, and
+                the graphed step against the eager one with BatchNorm's
+                running statistics moving on every replay.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -245,6 +274,7 @@ limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without printing a result when there
 is none, or when run outside a checkout of the repository.
 """
+import contextlib
 import gc
 import json
 import os
@@ -292,7 +322,7 @@ BERT_B, BERT_S = 16, 512
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
-          "eager", "nn", "transformer", "bert", "amp")
+          "eager", "nn", "transformer", "bert", "amp", "hapi", "resnet")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -5588,6 +5618,682 @@ def amp_phase(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------- hapi
+# BASELINE.json configs[0] (.claude/skills/verify/SKILL.md flow 1): LeNet
+# on MNIST through hapi, batch 64, 2 epochs (the synthetic MNIST's 4096
+# training samples: 64 steps an epoch); the resume cut and the CPU's
+# losses
+LENET_BATCH, LENET_EPOCHS = 64, 2
+RESUME_AT, RESUME_STEPS, CPU_LOSSES = 10, 10, 20
+# GPT-2 small through Model.fit: timed fits of this many steps
+GPT_FIT_STEPS = 10
+# BASELINE.json configs[1] (`scripts/bench_sweep.py:130-155`): ResNet-50,
+# 1000 classes, bf16, Momentum(0.1, 0.9), batch 128; the image tree holds
+# RN_STEPS batches of uint8 HWC images of 256-384 pixels a side
+RN_BATCH, RN_CLASSES, RN_STEPS = 128, 1000, 16
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+# the ResNet step's device time by group (first match wins): cuDNN's
+# layout transposes, BatchNorm (cuDNN's bn_* or torch's batch_norm_*),
+# the convolutions' implicit-gemm kernels, the optimizer's foreach
+# kernels, pooling, plain gemm kernels (cuDNN runs some 1x1 convolutions
+# as gemms; the classifier), and the rest
+RN_GROUPS = (
+    ("layout transposes (NCHW <-> NHWC)", ("nchwtonhwc", "nhwctonchw")),
+    ("BatchNorm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm", "welford")),
+    ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
+    ("optimizer (Momentum, foreach)", ("multi_tensor", "foreach")),
+    ("pooling", ("pool",)),
+    ("gemms (1x1 convolutions, the classifier)",
+     ("gemm", "nvjet", "cutlass", "xmma")))
+RN_OTHER = "elementwise (ReLU, residual adds, casts, loss, copies)"
+
+
+def place_name(dev):
+    """The framework's place name of a torch device."""
+    return "cpu" if dev.type == "cpu" else f"gpu:{dev.index or 0}"
+
+
+@contextlib.contextmanager
+def on_place(dev):
+    """Run a block with the framework's current place on `dev` (the
+    default place of a DataLoader and of `to_tensor`), then put the old
+    place back."""
+    import paddle_tpu_torch as pt
+    old = pt.get_device()
+    pt.set_device(place_name(dev))
+    try:
+        yield
+    finally:
+        pt.set_device(old)
+
+
+def lenet_model(dev):
+    """A hapi Model of LeNet on `dev`, its weights drawn on the CPU from
+    SEED (the same on every device), with Adam, cross entropy and
+    Accuracy: SKILL.md flow 1's recipe."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.state import host_init_ctx
+    from paddle_tpu_torch.vision.models import LeNet
+    with host_init_ctx(SEED):
+        net = LeNet()
+    net.to(device=place_name(dev))
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.Adam(parameters=net.parameters()),
+                  pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+    return model
+
+
+def lenet_fit(model, data, dev, **kw):
+    """`model.fit` over `data` at batch 64 with the numpy seed set (the
+    shuffle order) and the current place on `dev`."""
+    import numpy as np
+    with on_place(dev):
+        np.random.seed(SEED)
+        return model.fit(data, batch_size=LENET_BATCH, verbose=0, **kw)
+
+
+def graph_of(step, name):
+    """A TrainStep's one captured graph."""
+    graphs = list(step.graphs.values())
+    check(len(graphs) == 1 and graphs[0] is not None,
+          f"{name}: {len(graphs)} graphs, {graphs}")
+    return graphs[0]
+
+
+def hapi_lenet(dev):
+    """SKILL.md flow 1 on the card: LeNet fit on the synthetic MNIST (2
+    epochs at batch 64, one graph replay a step after the eager first
+    call and the capture), evaluate (test accuracy above 0.7), predict
+    (its argmax accuracy equal to evaluate's), a save/load round trip
+    whose evaluate is equal, a save at step 10 resumed by load_latest and
+    fit(resume=True) against the same steps run without a stop (within
+    1e-6 x max(1, |loss|)), and the first 20 losses against the same fit
+    on the CPU (1e-4 relative; TF32 is off)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.vision.datasets import MNIST
+    train, test = MNIST(mode="train"), MNIST(mode="test")
+    model = lenet_model(dev)
+    t0 = time.perf_counter()
+    hist = lenet_fit(model, train, dev, epochs=LENET_EPOCHS)
+    fit_s = time.perf_counter() - t0
+    losses = hist["loss"]
+    steps = LENET_EPOCHS * len(train) // LENET_BATCH
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"lenet: {len(losses)} losses of {steps}, finite: "
+          f"{np.isfinite(losses).all()}")
+    graph = graph_of(model._train_step, "lenet")
+    check(graph.replays == steps - 1,
+          f"lenet: {graph.replays} replays in {steps} steps")
+    t0 = time.perf_counter()
+    ev = model.evaluate(test, batch_size=LENET_BATCH, verbose=0)
+    eval_s = time.perf_counter() - t0
+    check(ev["acc"] > 0.7, f"lenet: test accuracy {ev['acc']}")
+    (pred,) = model.predict(test, batch_size=LENET_BATCH, stack_outputs=True)
+    check(pred.shape == (len(test), 10) and np.isfinite(pred).all(),
+          f"lenet: predict gave {pred.shape}")
+    pred_acc = float((pred.argmax(1) == test.labels).mean())
+    check(abs(pred_acc - float(ev["acc"])) <= 1e-6,
+          f"lenet: predict's accuracy {pred_acc}, evaluate's {ev['acc']}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    try:
+        model.save(os.path.join(tmp, "saved", "lenet"))
+        again = lenet_model(dev)
+        again.load(os.path.join(tmp, "saved", "lenet"))
+        ev2 = again.evaluate(test, batch_size=LENET_BATCH, verbose=0)
+        check(ev2 == ev, f"lenet: evaluate after load {ev2}, before {ev}")
+        total = RESUME_AT + RESUME_STEPS
+        full = lenet_fit(lenet_model(dev), train, dev, epochs=1,
+                         num_iters=total)["loss"]
+        cut = lenet_fit(lenet_model(dev), train, dev, epochs=1,
+                        num_iters=RESUME_AT, save_dir=os.path.join(
+                            tmp, "ckpt"), save_steps=RESUME_AT)["loss"]
+        # cuDNN's backward may sum in another order from run to run: two
+        # fits from one seed agree within the graphed-vs-eager gate
+        rerun_err = max(abs(a - b) / max(1.0, abs(b))
+                        for a, b in zip(cut, full))
+        check(rerun_err <= 1e-6,
+              f"lenet: two fits from one seed differ: {cut} {full}")
+        resumed = lenet_model(dev)
+        prefix = resumed.load_latest(os.path.join(tmp, "ckpt"))
+        check(prefix is not None and prefix.endswith(f"step{RESUME_AT}"),
+              f"lenet: load_latest gave {prefix}")
+        after = lenet_fit(resumed, train, dev, epochs=1,
+                          num_iters=RESUME_STEPS, resume=True)["loss"]
+        resume_err = max(abs(a - b) / max(1.0, abs(b))
+                         for a, b in zip(after, full[RESUME_AT:]))
+        check(len(after) == RESUME_STEPS and resume_err <= 1e-6,
+              f"lenet: resumed losses {after} against {full[RESUME_AT:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cpu = torch.device("cpu")
+    cpu_losses = lenet_fit(lenet_model(cpu), train, cpu, epochs=1,
+                           num_iters=CPU_LOSSES)["loss"]
+    cpu_err = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses[:CPU_LOSSES], cpu_losses))
+    check(cpu_err <= 1e-4, f"lenet: card losses {losses[:CPU_LOSSES]} "
+                           f"against the CPU's {cpu_losses}")
+    return {"model": "LeNet", "data": "synthetic MNIST (4096 train, 4096 "
+                                      "test)",
+            "batch": LENET_BATCH, "epochs": LENET_EPOCHS, "steps": steps,
+            "fit_s": fit_s, "fit_ms_per_step": fit_s * 1e3 / steps,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "test": plain_logs(ev), "evaluate_s": eval_s,
+            "predict_acc": pred_acc,
+            "launches_per_step": dict(graph.launches),
+            "resume": {"at": RESUME_AT, "steps": RESUME_STEPS,
+                       "max_rel_err": resume_err,
+                       "rerun_max_rel_err": rerun_err},
+            "cpu_first_losses_max_rel_err": cpu_err,
+            "data_wait_s_mean": float(np.mean(hist["data_wait_s"]))}
+
+
+def hapi_gpt(dev, peaks):
+    """GPT-2 small (`nlp.GPTForPretraining`, a Layer) at bench.py's shapes
+    (bf16, batch 8 x 1024, vocab 32768, AdamW(1e-4), `gpt_pretrain_loss`)
+    through `Model.fit` on a DataLoader over a seeded TensorDataset of
+    ids. The counts set to 0 before the first fit: 3 warm-up steps
+    (eager, capture, replay), then in turns `fit` over 10 batches and the
+    bare graphed TrainStep (`model._train_step`) fed the same batches
+    staged on the card, twice each. Every fit step must be one replay of
+    the one graph (12 launches each of K1, K2, K3 and dd and 1 Adam
+    launch) and launch nothing from Python. The gap between the two is
+    hapi's host work (the loss and metric reads, the callbacks) and the
+    loader's."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the main path's run, from building the model to the last fit:
+    # every count is 0 before it and read after
+    zero_counts()
+    net = GPTForPretraining(train_config(), device=dev, dtype=torch.bfloat16,
+                            seed=SEED)
+    model = pt.Model(net)
+    model.prepare(AdamW(learning_rate=1e-4, parameters=net.parameters()),
+                  gpt_pretrain_loss)
+    ids = np.random.RandomState(SEED + 50).randint(
+        0, TRAIN_VOCAB, (TRAIN_B * GPT_FIT_STEPS, TRAIN_S)).astype("int64")
+    loader = DataLoader(TensorDataset([ids, ids]), batch_size=TRAIN_B)
+    warm = model.fit(loader, epochs=1, num_iters=3, verbose=0)["loss"]
+    step = model._train_step
+    graph = graph_of(step, "hapi gpt")
+    per_step = dict(graph.launches)
+    want = {f"flash_attention.{k}": LAYERS for k in ("fwd", "dkv", "dq",
+                                                     "dd")}
+    want["optimizer.adam"] = 1
+    check(per_step == want, f"hapi gpt: the graph holds {per_step}, not "
+                            f"{want}")
+    staged = [batch for batch in loader]
+    torch.cuda.synchronize()
+    counts0, replays0 = kernels.launch_counts(), graph.replays
+    fit_ms, bare_ms, losses = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = model.fit(loader, epochs=1, verbose=0)
+        fit_ms.append((time.perf_counter() - t0) * 1e3 / GPT_FIT_STEPS)
+        losses += hist["loss"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, y in staged:
+            loss = step(x, y)
+        losses.append(float(loss))
+        bare_ms.append((time.perf_counter() - t0) * 1e3 / GPT_FIT_STEPS)
+    timed = graph.replays - replays0
+    check(timed == 4 * GPT_FIT_STEPS,
+          f"hapi gpt: {timed} replays in {4 * GPT_FIT_STEPS} steps")
+    check(kernels.launch_counts() == counts0,
+          "hapi gpt: a timed step launched kernels from Python")
+    check(np.isfinite(losses).all() and np.isfinite(warm).all(),
+          f"hapi gpt: losses {warm} {losses}")
+    n_params = sum(p.numel() for p in net.parameters())
+    tokens = TRAIN_B * TRAIN_S
+    fit, bare = float(np.mean(fit_ms)), float(np.mean(bare_ms))
+    out = {"model": "GPT-2 small (GPTForPretraining, an nn.Layer)",
+           "dtype": "bfloat16", "batch": TRAIN_B, "seq": TRAIN_S,
+           "vocab": TRAIN_VOCAB, "optimizer": "AdamW(1e-4)",
+           "steps_timed": timed, "fit_step_ms": fit_ms,
+           "bare_step_ms": bare_ms, "fit_vs_bare_ms": fit - bare,
+           "fit_tokens_per_s": tokens * 1e3 / fit,
+           "bare_tokens_per_s": tokens * 1e3 / bare,
+           "fit_mfu": 6 * n_params * tokens * 1e3 / fit / peaks["bf16"],
+           "losses": losses, "launches_per_step": per_step,
+           "launches": {k.split(".")[1]: n * timed
+                        for k, n in per_step.items()}}
+    del model, net, step, graph, staged
+    return out
+
+
+def hapi_phase(dev, smi, peaks):
+    """hapi on the card: SKILL.md flow 1 (`hapi_lenet`), then GPT-2 small
+    through Model.fit (`hapi_gpt`). Returns the kernels' launches in the
+    GPT fits."""
+    lenet = hapi_lenet(dev)
+    gpt = hapi_gpt(dev, peaks)
+    emit("hapi", lenet=lenet, gpt=gpt, nvidia_smi=smi)
+    return gpt["launches"]
+
+
+# ---------------------------------------------------------------- resnet
+
+
+def write_image_tree(root, n):
+    """`n` seeded uint8 HWC images of 256-384 pixels a side, as .npy
+    files in a class-per-subdirectory tree of RN_CLASSES classes (the
+    layout DatasetFolder reads; ImageNet's train split is one)."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 60)
+    labels = rng.randint(0, RN_CLASSES, n)
+    for c in range(RN_CLASSES):
+        os.makedirs(os.path.join(root, f"n{c:04d}"))
+    for i in range(n):
+        h, w = rng.randint(256, 385, 2)
+        np.save(os.path.join(root, f"n{labels[i]:04d}", f"{i:05d}.npy"),
+                rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def bf16_input(net):
+    """A Layer casting its input to bf16 before `net` (a bf16 model fed
+    the loader's f32 images, as the sweep feeds bf16 ones)."""
+    from paddle_tpu_torch import nn
+
+    class BF16Input(nn.Layer):
+        def __init__(self, inner):
+            super().__init__()
+            self.net = inner
+
+        def forward(self, x):
+            return self.net(x.astype("bfloat16"))
+
+    return BF16Input(net)
+
+
+def conv_linear_macs(net, x):
+    """Multiply-adds a forward of `x` takes in `net`'s Conv2D and Linear
+    layers, counted from their output and weight shapes."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    nn = pt.nn
+    total = [0]
+
+    def hook(layer, inputs, out):
+        o, w = out.shape, layer.weight.shape
+        if isinstance(layer, nn.Conv2D):    # [out, in / groups, kh, kw]
+            total[0] += int(np.prod(o)) * w[1] * w[2] * w[3]
+        else:                               # Linear: [in, out]
+            total[0] += int(np.prod(o[:-1])) * w[0] * w[1]
+
+    handles = [layer.register_forward_post_hook(hook)
+               for layer in net.sublayers()
+               if isinstance(layer, (nn.Conv2D, nn.Linear))]
+    was_training = net.training
+    net.eval()
+    with pt.no_grad():
+        net(x)
+    net.train(was_training)
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def step_clock():
+    """A hapi callback stamping the host clock (`.stamps`) when fit
+    starts and after every train step."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def on_train_begin(self, logs=None):
+            self.stamps = [time.perf_counter()]
+
+        def on_train_batch_end(self, step, logs=None):
+            self.stamps.append(time.perf_counter())
+
+    return StepClock()
+
+
+def plain_logs(logs):
+    """hapi logs (numpy scalars, lists of them) as JSON numbers."""
+    return {k: [float(x) for x in v] if isinstance(v, (list, tuple))
+            else float(v) for k, v in logs.items()}
+
+
+def transform_ms(ds, images=64):
+    """Host ms an image of each step of a DatasetFolder's loading, on one
+    intra-op thread as a loader worker runs it: the .npy read, then each
+    transform of its Compose on the previous one's output."""
+    import numpy as np
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    steps = [("load", ds.loader)] + [(type(t).__name__, t)
+                                     for t in ds.transform.transforms]
+    spent = dict.fromkeys([name for name, _ in steps], 0.0)
+    try:
+        np.random.seed(SEED + 11)
+        for path, _ in ds.samples[:images]:
+            out = path
+            for name, fn in steps:
+                t0 = time.perf_counter()
+                out = fn(out)
+                spent[name] += time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    return {name: ms * 1e3 / images for name, ms in spent.items()}
+
+
+def resnet_train(dev, peaks, root):
+    """ResNet-50 bf16 at batch 128 through `Model.fit` on the image tree,
+    read by DatasetFolder through the training transforms and a
+    DataLoader of forked shared-memory workers (one per core but one),
+    with Accuracy(top 1, top 5). 3 warm-up steps (eager, capture,
+    replay), then in turns an epoch of `fit` (16 steps) and 16 steps of
+    the bare graphed TrainStep on 4 batches staged on the card, twice
+    each: images/s, step ms (from the third step of each fit), the
+    data-wait share, MFU; the device time by kernel group from
+    torch.profiler; peak memory; evaluate over the tree (the eval
+    transforms) and the eval forward alone; the host ms an image of each
+    loading step (`transform_ms`)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import DatasetFolder
+    from paddle_tpu_torch.vision.models import resnet50
+    gc.collect()
+    torch.cuda.empty_cache()
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    train_ds = DatasetFolder(root, transform=T.Compose([
+        T.RandomResizedCrop(224), T.RandomHorizontalFlip(), T.ToTensor(),
+        T.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+    loader = DataLoader(train_ds, batch_size=RN_BATCH, shuffle=True,
+                        num_workers=workers, use_shared_memory=True,
+                        drop_last=True)
+    pt.seed(SEED)
+    net = resnet50(num_classes=RN_CLASSES)
+    net.to(dtype="bfloat16")
+    macs = conv_linear_macs(net, pt.randn([1, 3, 224, 224]).astype(
+        "bfloat16"))
+    model = pt.Model(bf16_input(net))
+    model.prepare(pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                        parameters=net.parameters()),
+                  pt.nn.CrossEntropyLoss(), pt.metric.Accuracy(topk=(1, 5)))
+    torch.cuda.reset_peak_memory_stats()
+    np.random.seed(SEED)
+    t0 = time.perf_counter()
+    warm = model.fit(loader, epochs=1, num_iters=3, verbose=0)["loss"]
+    warm_s = time.perf_counter() - t0
+    step = model._train_step
+    graph = graph_of(step, "resnet")
+    it = iter(loader)
+    staged = [next(it) for _ in range(4)]
+    it.close()
+    flops = 2 * 3 * macs * RN_BATCH
+    fits, bare_ms, losses = [], [], []
+    for _ in range(2):
+        stamps = step_clock()
+        torch.cuda.synchronize()
+        hist = model.fit(loader, epochs=1, verbose=0, callbacks=[stamps])
+        gaps = np.diff(stamps.stamps)
+        check(len(gaps) == RN_STEPS, f"resnet: {len(gaps)} fit steps")
+        steady, waits = gaps[2:], np.asarray(hist["data_wait_s"][2:])
+        fits.append({"epoch_images_per_s": RN_BATCH * RN_STEPS / float(
+                         stamps.stamps[-1] - stamps.stamps[0]),
+                     "step_ms": float(steady.mean() * 1e3),
+                     "images_per_s": RN_BATCH / float(steady.mean()),
+                     "data_wait_share": float(waits.sum() / steady.sum()),
+                     "data_wait_ms_mean": float(waits.mean() * 1e3),
+                     "first_step_ms": float(gaps[0] * 1e3)})
+        losses += hist["loss"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(RN_STEPS):
+            x, y = staged[i % len(staged)]
+            loss = step(x, y)[0]
+        losses.append(float(loss))
+        bare_ms.append((time.perf_counter() - t0) * 1e3 / RN_STEPS)
+    peak_mem = torch.cuda.max_memory_allocated()
+    check(np.isfinite(losses).all() and np.isfinite(warm).all(),
+          f"resnet: losses {warm} {losses}")
+    bare = float(np.mean(bare_ms))
+    fit_ms = float(np.mean([f["step_ms"] for f in fits]))
+    x, y = staged[0]
+    profile = profile_steps(lambda a, b: step(a, b)[0], x, bare, labels=y,
+                            categories=RN_GROUPS, other=RN_OTHER)
+    if isinstance(profile, dict):
+        del profile["kernel_calls_per_step"]
+    eval_ds = DatasetFolder(root, transform=T.Compose([
+        T.Resize(256), T.CenterCrop(224), T.ToTensor(),
+        T.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+    eval_loader = DataLoader(eval_ds, batch_size=RN_BATCH,
+                             num_workers=workers, use_shared_memory=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = model.evaluate(eval_loader, verbose=0)
+    eval_s = time.perf_counter() - t0
+    model.network.eval()
+    with pt.no_grad():
+        fwd_ms = time_ms(lambda: model.network(x), 10)
+    model.network.train()
+    n_eval = len(eval_ds)
+    host = {"train": transform_ms(train_ds), "eval": transform_ms(eval_ds)}
+    return {"model": "ResNet-50 (1000 classes, NCHW)", "dtype": "bfloat16",
+            "batch": RN_BATCH, "optimizer": "Momentum(0.1, 0.9)",
+            "images": len(train_ds), "workers": workers,
+            "host_cores": os.cpu_count(),
+            "loader_host_ms_per_image": host,
+            "warmup_s": warm_s, "fits": fits, "fit_step_ms": fit_ms,
+            "fit_images_per_s": RN_BATCH * 1e3 / fit_ms,
+            "bare_step_ms": bare_ms,
+            "bare_images_per_s": RN_BATCH * 1e3 / bare,
+            "macs_per_image": macs,
+            "flops_per_step": flops,
+            "flop_count": "conv and linear multiply-adds from their shapes "
+                          "(conv_linear_macs) x 2 x 3 (forward and "
+                          "backward) x batch",
+            "mfu_fit": flops * 1e3 / fit_ms / peaks["bf16"],
+            "mfu_bare": flops * 1e3 / bare / peaks["bf16"],
+            "max_memory_allocated": peak_mem,
+            "memory_reserved": torch.cuda.memory_reserved(),
+            "losses": losses, "launches_per_step": dict(graph.launches),
+            "evaluate": {**plain_logs(ev),
+                         "images": n_eval, "wall_s": eval_s,
+                         "images_per_s": n_eval / eval_s,
+                         "forward_ms_per_batch": fwd_ms,
+                         "host_share": 1 - (-(-n_eval // RN_BATCH)) * fwd_ms
+                         / (eval_s * 1e3)},
+            "profile": profile}
+
+
+def resnet_loader_check(root):
+    """The forked shared-memory loader's first 3 batches (batch 16,
+    shuffled) equal the single-process loader's under the same numpy
+    seed, on the eval transforms: the training transforms draw from the
+    numpy RNG each worker was forked with, in both packages."""
+    import numpy as np
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import DatasetFolder
+    ds = DatasetFolder(root, transform=T.Compose([
+        T.Resize(256), T.CenterCrop(224), T.ToTensor(),
+        T.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+    got = {}
+    for workers in (0, 3):
+        np.random.seed(SEED + 7)
+        it = iter(DataLoader(ds, batch_size=16, shuffle=True,
+                             num_workers=workers,
+                             use_shared_memory=workers > 0))
+        got[workers] = [[t.numpy() for t in next(it)] for _ in range(3)]
+        it.close()
+    for a, b in zip(got[0], got[3]):
+        check(all(np.array_equal(u, v) for u, v in zip(a, b)),
+              "resnet: the forked loader's batches differ from the "
+              "single-process loader's")
+    return {"batches": 3, "batch": 16, "equal": True}
+
+
+def resnet_f32(perturb=0.0):
+    """An f32 ResNet-50 on the CPU, its weights drawn from one seed, each
+    residual block's last BatchNorm scale set to 0 (Goyal et al. 2017,
+    "Accurate, Large Minibatch SGD", 5.1) and, with `perturb`, every
+    weight scaled by (1 + perturb x N(0, 1))."""
+    import torch
+    from paddle_tpu_torch.framework.state import host_init_ctx
+    from paddle_tpu_torch.vision.models import resnet50
+    with host_init_ctx(SEED + 1):
+        net = resnet50(num_classes=RN_CLASSES)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    with torch.no_grad():
+        for k, p in net.named_parameters():
+            if k.endswith("bn3.weight"):
+                p._data.zero_()
+            elif perturb:
+                p._data.mul_(1 + perturb * torch.randn(
+                    p._data.shape, generator=gen))
+    return net
+
+
+def resnet_f32_cpu(dev, steps=2):
+    """f32 ResNet-50 at batch 2 x 3 x 224 x 224 (`resnet_f32`): `steps`
+    Model.train_batch steps with Momentum(0.1, 0.9) on the card and on
+    the CPU from the same weights (TF32 off): each loss within 1e-4
+    relative, every parameter and BatchNorm running statistic after them
+    within 1e-4 x max(1, max|ref|). From the default init (every
+    BatchNorm scale 1) this is no test: at batch 2 the training step is
+    chaotic, and two CPU runs whose weights differ by 1e-6 end apart by
+    percents. So the blocks' last BatchNorm scales start at 0, and the
+    CPU runs once more from weights perturbed by 1e-6 (relative) to show
+    the comparison resolves what it checks (`cpu_perturbed_1e-6`)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    r = np.random.RandomState(SEED + 8)
+    x = r.randn(2, 3, 224, 224).astype("f4")
+    y = r.randint(0, RN_CLASSES, (2, 1)).astype("int64")
+    runs = []
+    cpu = torch.device("cpu")
+    for where, perturb in ((dev, 0.0), (cpu, 0.0), (cpu, 1e-6)):
+        with on_place(where):
+            net = resnet_f32(perturb)
+            net.to(device=place_name(where))
+            model = pt.Model(net)
+            model.prepare(pt.optimizer.Momentum(
+                learning_rate=0.1, momentum=0.9,
+                parameters=net.parameters()), pt.nn.CrossEntropyLoss())
+            t0 = time.perf_counter()
+            losses = [model.train_batch(x, y)[0] for _ in range(steps)]
+            runs.append((losses, time.perf_counter() - t0, {
+                k: v._data.detach().float().cpu().clone()
+                for k, v in net.state_dict().items()}))
+        del model, net
+
+    def worst(got, ref):
+        return max(float((got[k] - want).abs().max())
+                   / max(1.0, float(want.abs().max()))
+                   for k, want in ref.items())
+
+    (card, card_s, got), (ref_losses, cpu_s, ref), (_, _, moved) = runs
+    for a, b in zip(card, ref_losses):
+        check(abs(a - b) <= 1e-4 * abs(b),
+              f"resnet f32: card losses {card} against the CPU's "
+              f"{ref_losses}")
+    err = worst(got, ref)
+    check(err <= 1e-4, f"resnet f32: a tensor {err} x max(1, max|ref|) "
+                       f"from the CPU's")
+    return {"batch": 2, "steps": steps, "card_losses": card,
+            "cpu_losses": ref_losses, "tensors": len(ref),
+            "max_err_over_scale": err,
+            "cpu_perturbed_1e-6_max_err_over_scale": worst(moved, ref),
+            "card_wall_s": card_s, "cpu_wall_s": cpu_s}
+
+
+def resnet_graph_check(dev, b=8, steps=3):
+    """f32 ResNet-50 (`resnet_f32`) at batch `b`: a graphed TrainStep
+    against an eager one (cuda_graph=False) on a twin from the same
+    weights over `steps` Momentum(0.1, 0.9) steps (eager, capture +
+    replay, replay), cuDNN held to deterministic algorithms: each loss
+    and every BatchNorm running statistic within 1e-6 x max(1, |eager|),
+    and the graphed model's running statistics moved by every replay."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    r = np.random.RandomState(SEED + 9)
+    x = torch.tensor(r.randn(b, 3, 224, 224).astype("f4"), device=dev)
+    y = torch.tensor(r.randint(0, RN_CLASSES, (b,)).astype("int64"),
+                     device=dev)
+    nets = [resnet_f32().to(device=place_name(dev)) for _ in range(2)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed, eager = (TrainStep(net, pt.nn.CrossEntropyLoss(),
+                                    pt.optimizer.Momentum(
+                                        learning_rate=0.1, momentum=0.9,
+                                        parameters=net.parameters()),
+                                    cuda_graph=graphed_)
+                          for net, graphed_ in zip(nets, (True, False)))
+        pairs, worst = [], 0.0
+        before = None
+        for i in range(steps):
+            g, e = float(graphed(x, y)), float(eager(x, y))
+            pairs.append((g, e))
+            check(abs(g - e) <= 1e-6 * max(1.0, abs(e)),
+                  f"resnet graphed: losses {pairs}")
+            stats = {k: v._data.detach().clone()
+                     for k, v in nets[0].named_buffers()}
+            for k, v in nets[1].named_buffers():
+                scale = max(1.0, float(v._data.abs().max()))
+                err = float((stats[k] - v._data).abs().max())
+                check(err <= 1e-6 * scale,
+                      f"resnet graphed: step {i} {k} error {err}")
+                worst = max(worst, err / scale)
+            if before is not None:
+                still = [k for k in stats if torch.equal(stats[k],
+                                                         before[k])]
+                check(not still, f"resnet graphed: step {i} left "
+                                 f"{len(still)} running statistics, e.g. "
+                                 f"{still[:2]}")
+            before = stats
+        graph_of(graphed, "resnet f32")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"batch": b, "steps": steps, "losses_graphed_eager": pairs,
+            "bn_buffers": len(before), "max_buffer_err_over_scale": worst}
+
+
+def resnet_phase(dev, smi, peaks):
+    """ResNet-50 (BASELINE.json configs[1]) on the card: a seeded image
+    tree written to a temporary directory, the bf16 training run at batch
+    128 through Model.fit and the forked loader (`resnet_train`), the
+    loader's order check, the f32 card-against-CPU steps and the graphed
+    step against the eager one."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_resnet_")
+    try:
+        t0 = time.perf_counter()
+        write_image_tree(root, RN_BATCH * RN_STEPS)
+        tree_s = time.perf_counter() - t0
+        train = resnet_train(dev, peaks, root)
+        loader = resnet_loader_check(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    f32 = resnet_f32_cpu(dev)
+    graphed = resnet_graph_check(dev)
+    emit("resnet", **train, image_tree_s=tree_s, loader_order=loader,
+         f32_cpu=f32, graphed_vs_eager=graphed, nvidia_smi=smi)
+
+
 def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
                   layers=LAYERS, routes_want=None, after_step=None,
                   groups=None):
@@ -6231,6 +6937,8 @@ def main():
     tf_launches = run("transformer", transformer_phase, dev, smi, peaks)
     bert_launches = run("bert", bert_phase, dev, smi, peaks)
     amp_launches = run("amp", amp_phase, dev, smi)
+    hapi_launches = run("hapi", hapi_phase, dev, smi, peaks)
+    run("resnet", resnet_phase, dev, smi, peaks)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -6277,6 +6985,7 @@ def main():
                      "launches_transformer": tf_launches[kind],
                      "launches_bert": bert_launches[kind],
                      "launches_amp": amp_launches[kind],
+                     "launches_hapi": hapi_launches[kind],
                      "bert_shape": dict(fl["bert_shape"][kind]),
                      "transformer_shapes": {
                          name: shape[kind] for name, shape in
@@ -6301,6 +7010,7 @@ def main():
                  "launches_transformer": tf_launches["adam"],
                  "launches_bert": bert_launches["adam"],
                  "launches_amp": amp_launches["adam"],
+                 "launches_hapi": hapi_launches["adam"],
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -24,8 +24,11 @@ live on the CUDA card unless `set_device("cpu")` was called. The
 registered `flash_attention` op (`ops.flash_attention`) runs K1 forward
 and K2, K3 and dd in `loss.backward()`, and the optimizers take
 `Parameter`s. `nn` holds `Layer` (a `torch.nn.Module` under Paddle's
-names), `nn.functional` and the layers. Importing the package builds and
-launches nothing.
+names), `nn.functional` and the layers. `hapi.Model` fits a Layer
+through `jit.TrainStep` on batches of `io.DataLoader` (forked
+shared-memory workers with `num_workers`), with `metric`'s metrics and
+`vision`'s models, transforms and datasets. Importing the package builds
+and launches nothing.
 """
 __version__ = "0.1.0"
 
@@ -91,6 +94,9 @@ from . import nn  # noqa: F401,E402
 # the registry holds every op once the package is imported: nlp.llama
 # registers llama_attention and rms_norm
 from . import nlp  # noqa: F401,E402
+from . import optimizer, jit, amp  # noqa: F401,E402
+from . import io, metric, reader, dataset, vision, hapi  # noqa: F401,E402
+from .hapi import Model, summary  # noqa: F401,E402
 
 
 def _inplace(x, out):

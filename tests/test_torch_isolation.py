@@ -79,6 +79,19 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.regularizer
         import paddle_tpu_torch.graphs
         import paddle_tpu_torch.serving
+        import paddle_tpu_torch.hapi
+        import paddle_tpu_torch.hapi.model
+        import paddle_tpu_torch.hapi.callbacks
+        import paddle_tpu_torch.io
+        import paddle_tpu_torch.io.multiprocess
+        import paddle_tpu_torch.metric
+        import paddle_tpu_torch.reader
+        import paddle_tpu_torch.dataset
+        import paddle_tpu_torch.vision
+        import paddle_tpu_torch.vision.transforms
+        import paddle_tpu_torch.vision.datasets
+        import paddle_tpu_torch.vision.models
+        import paddle_tpu_torch.utils.resume
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         assert not bad, bad
@@ -157,6 +170,25 @@ def test_no_card_means_no_quiet_cpu_fallback(monkeypatch):
     eng = PagedServingEngine(model, num_slots=2, max_len=32, block_size=8,
                              device="cpu")
     assert eng.paged_kernel == "plain"
+
+
+def test_dataloader_places_batches_on_the_card_by_default(monkeypatch):
+    """A DataLoader without `places` lands its batches on the current
+    place: the card, which raises with none, unless set_device("cpu")."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = TensorDataset([torch.arange(6).reshape(3, 2)])
+    old = pt.get_device()
+    try:
+        pt.set_device("gpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DataLoader(ds)
+        pt.set_device("cpu")
+        (batch,) = list(DataLoader(ds, batch_size=3))
+        assert batch[0].place == pt.CPUPlace()
+    finally:
+        pt.set_device(old)
 
 
 def test_seed_replays_the_global_generators():
