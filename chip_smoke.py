@@ -264,7 +264,28 @@ its phases:
                 forked loader's batches against the single-process
                 loader's, f32 steps on the card against the CPU, and
                 the graphed step against the eager one with BatchNorm's
-                running statistics moving on every replay.
+                running statistics moving on every replay;
+  rnn           the recurrent stack (`nn.rnn`): every sequence op
+                (`lstm_seq`, `gru_seq`, `simple_rnn_seq` tanh and relu,
+                forward and reverse, at T 35 x batch 20 x 1500; with
+                lengths 35, 17, 1 at batch 3), `gru_unit`, `lstm_unit`,
+                `lstmp_seq` and `viterbi_decode`, and bidirectional
+                2-layer `nn.LSTM` and `nn.GRU`, on the card (cudnn and
+                plain forms) against the plain form on the CPU in f32:
+                outputs, final states and every gradient within the
+                training gates; the PTB LSTM language model at Zaremba's
+                "large" size (2 x 1500, vocab 10000, 35 x 20, dropout
+                0.65, SGD lr 1, clip 10) as one TrainStep graph in f32
+                and bf16, each with the sequence ops on auto (cuDNN) and
+                on the captured plain loop: step ms, tokens/s, MFU, the
+                eager step, peak memory, idle share, device time by
+                group, the kernels a replay launches, the forms taken,
+                timed again in turns; graphed equal to eager with
+                dropout 0, fresh dropout masks every replay, the f32
+                step at batch 2 against the CPU; the model through
+                `Model.fit`; the label-semantic-roles twin (bidirectional
+                GRU + CRF, lengths, Adam) trained 160 graphed steps to
+                the JAX example's bar.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -322,7 +343,8 @@ BERT_B, BERT_S = 16, 512
 PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
-          "eager", "nn", "transformer", "bert", "amp", "hapi", "resnet")
+          "eager", "nn", "transformer", "bert", "amp", "hapi", "resnet",
+          "rnn")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -496,6 +518,19 @@ def bound(q, pk, start, window, peaks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# torch.profiler has dropped device records of a window's work in whole
+# runs of this script: `train` saw 18 of the 24 flash_fwd_wgmma launches of
+# two replays, and a window of two replays of one graph counted 5905
+# kernels, an odd number. Every window idles this long on the host after
+# it opens and, its work synchronized, before it closes, so the work sits
+# away from both edges of the window whose timestamps the profiler keeps.
+PROFILE_MARGIN_S = 0.5
+
+
+def window_margin():
+    time.sleep(PROFILE_MARGIN_S)
+
+
 def profile_calls(fn, calls, name="paged_attn"):
     """What `calls` eager calls of `fn` run on the device, from
     torch.profiler (CUPTI): device activities (kernels, copies, fills)
@@ -509,9 +544,11 @@ def profile_calls(fn, calls, name="paged_attn"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        window_margin()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        window_margin()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     if not rows:
@@ -2126,11 +2163,13 @@ def profile_serve(pred, prompts, warm_rounds=8, rounds=20):
     waves0, chunks0 = eng.decode_waves_run, eng.prefill_chunks_run
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        window_margin()
         t0 = time.perf_counter()
         for _ in range(rounds):
             sched.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        window_margin()
     waves = eng.decode_waves_run - waves0
     chunks = eng.prefill_chunks_run - chunks0
     pred.run()
@@ -3885,7 +3924,9 @@ SWEEP_LOOSE = {
     "sequence_topk_avg_pooling", "sequence_pool_sum", "sequence_pool_sqrt",
     "sequence_pool_average", "cholesky", "inverse", "pinv", "det",
     "slogdet", "matrix_power", "svd", "qr", "eigh", "eigvalsh", "solve",
-    "triangular_solve", "cholesky_solve", "lstsq", "bincount"}
+    "triangular_solve", "cholesky_solve", "lstsq", "bincount",
+    # the recurrences' products (cuDNN's on the card)
+    "simple_rnn_seq", "lstm_seq", "gru_seq", "gru_unit", "lstmp_seq"}
 
 
 def tensor_gpt_loss(P, attention, params, ids, num_heads, num_layers):
@@ -6294,6 +6335,658 @@ def resnet_phase(dev, smi, peaks):
          f32_cpu=f32, graphed_vs_eager=graphed, nvidia_smi=smi)
 
 
+# ---------------------------------------------------------------- rnn
+
+# the PTB word-level LSTM language model at the "large" size of Zaremba,
+# Sutskever and Vinyals, "Recurrent Neural Network Regularization" (arXiv
+# 1409.2329, section 4; PaddlePaddle's PTB model's "large" config): 2 LSTM
+# layers of 1500 units, vocab 10000, unrolled for 35 steps, batch 20,
+# weights U[-0.04, 0.04], dropout 0.65 on the non-recurrent connections,
+# SGD at lr 1.0 with the gradient clipped to a global norm of 10, the
+# loss summed over the 35 steps and averaged over the batch. Nothing cut
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS, PTB_T, PTB_B = 10000, 1500, 2, 35, 20
+PTB_INIT, PTB_DROPOUT, PTB_LR, PTB_CLIP = 0.04, 0.65, 1.0, 10.0
+
+
+def ptb_lm(P, vocab=PTB_VOCAB, hidden=PTB_HIDDEN, layers=PTB_LAYERS,
+           dropout=PTB_DROPOUT, init=PTB_INIT):
+    """The PTB LSTM language model from package `P`'s layers (the port,
+    or the JAX package in the CPU tests): Embedding, Dropout, a stacked
+    LSTM with dropout between its layers, Dropout and the Linear head,
+    every weight U[-init, init]. Batch-major ids [B, T] -> logits
+    [B, T, vocab]; the state starts at 0 every step."""
+    nn = P.nn
+
+    class PTBLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            attr = nn.ParamAttr(initializer=nn.initializer.Uniform(
+                -init, init))
+            self.embedding = nn.Embedding(vocab, hidden, weight_attr=attr)
+            self.drop_in = nn.Dropout(dropout)
+            self.lstm = nn.LSTM(hidden, hidden, num_layers=layers,
+                                dropout=dropout, weight_ih_attr=attr,
+                                weight_hh_attr=attr, bias_ih_attr=attr,
+                                bias_hh_attr=attr)
+            self.drop_out = nn.Dropout(dropout)
+            self.head = nn.Linear(hidden, vocab, weight_attr=attr,
+                                  bias_attr=attr)
+
+        def forward(self, ids):
+            y, _ = self.lstm(self.drop_in(self.embedding(ids)))
+            return self.head(self.drop_out(y))
+
+    return PTBLM()
+
+
+def ptb_loss(P, batch):
+    """Zaremba's loss: the cross entropy summed over every position and
+    divided by the batch."""
+    ce = P.nn.CrossEntropyLoss(reduction="sum")
+
+    def loss(logits, labels):
+        return ce(logits.reshape([-1, logits.shape[-1]]),
+                  labels.reshape([-1])) / batch
+    return loss
+
+
+def ptb_optimizer(P, model, lr=PTB_LR):
+    return P.optimizer.SGD(learning_rate=lr, parameters=model.parameters(),
+                           grad_clip=P.nn.ClipGradByGlobalNorm(PTB_CLIP))
+
+
+def ptb_ids(seed, batch=PTB_B, steps=PTB_T, vocab=PTB_VOCAB):
+    """Seeded ids [batch, steps + 1]: the inputs are [:, :-1], the labels
+    the same ids shifted by one, [:, 1:]."""
+    import numpy as np
+    ids = np.random.RandomState(seed).randint(0, vocab, (batch, steps + 1))
+    return ids[:, :-1].astype("int64"), ids[:, 1:].astype("int64")
+
+
+def srl_tagger(P, vocab, labels, emb, hidden, seq):
+    """`examples/label_semantic_roles.py`'s model from package `P`'s
+    layers: word and predicate embeddings, a bidirectional GRU, the
+    emission head and the CRF transitions ([labels + 2, labels], the
+    `linear_chain_crf` layout), N(0, 0.1). `forward(words, pred,
+    lengths=None)`: `lengths` go to the GRU (the plain form's masked
+    loop)."""
+    nn = P.nn
+
+    class SRLTagger(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word_emb = nn.Embedding(vocab, emb)
+            self.pred_emb = nn.Embedding(vocab, emb)
+            self.rnn = nn.GRU(2 * emb, hidden, direction="bidirect")
+            self.emit = nn.Linear(2 * hidden, labels)
+            self.transition = self.create_parameter(
+                [labels + 2, labels],
+                default_initializer=nn.initializer.Normal(std=0.1))
+
+        def forward(self, words, pred, lengths=None):
+            we = self.word_emb(words)
+            pe = P.tile(self.pred_emb(pred).unsqueeze(1), [1, seq, 1])
+            h, _ = self.rnn(P.concat([we, pe], axis=-1),
+                            sequence_length=lengths)
+            return self.emit(h)
+
+    return SRLTagger()
+
+
+# the rnn phase's kernel groups of a step's device time: cuDNN's RNN
+# kernels (by name) before the gemms they may share a name fragment with
+RNN_GROUPS = (
+    ("cuDNN RNN (recurrence, elementwise cells)",
+     ("rnn", "lstm", "gru", "persist")),
+    ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+    ("dropout masks", ("bernoulli", "dropout")),
+    ("softmax and cross entropy", ("softmax", "nll_loss")),
+    ("SGD and the clip (foreach)", ("multi_tensor", "foreach")),
+    ("embedding", ("embedding", "index")))
+RNN_OTHER = "other (the plain loop's gate math, copies, sums)"
+# name fragments (lower case) of cuDNN's own RNN kernels (its cells and
+# their backward, its persistent kernels), which no ATen kernel of the
+# plain loop carries
+CUDNN_RNN_KERNELS = ("elemwisernncell", "lstm_elementwise", "gru_elementwise",
+                     "rnn_elementwise", "blockpersist")
+# the sequence ops' cases at the PTB width: T 35, batch 20, 1500 in and
+# out; the length cases at batch 3
+RNN_T, RNN_B, RNN_W, RNN_LENS = 35, 20, 1500, (35, 17, 1)
+SRL_STEPS, SRL_B, SRL_T, SRL_H, SRL_E = 160, 64, 32, 64, 32
+PTB_FIT_STEPS = 20
+
+
+def rnn_forms():
+    """{"lstm_seq.cudnn": calls, ...} of the sequence ops, nonzero only."""
+    from paddle_tpu_torch.nn import rnn
+    return {k: n for k, n in rnn.calls.items() if n}
+
+
+def zero_rnn_forms():
+    from paddle_tpu_torch.nn import rnn
+    for k in rnn.calls:
+        rnn.calls[k] = 0
+
+
+def rnn_seq_run(fn, arrays, diff, dev, form, cot_seed):
+    """`fn(*Tensors)` on `dev` under `form`: its float outputs and the
+    gradients of `arrays[i]` for i in `diff` of a fixed random projection
+    of them, as numpy."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import rnn
+    with on_place(dev):
+        ts = [pt.to_tensor(a, stop_gradient=i not in diff)
+              for i, a in enumerate(arrays)]
+        with rnn.form_scope(form):
+            outs = fn(*ts)
+        outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+        loss = None
+        for k, o in enumerate(outs):
+            if o.stop_gradient:
+                continue
+            w = np.random.RandomState(cot_seed + k).uniform(
+                -1, 1, o.shape).astype("f4")
+            term = (o * pt.to_tensor(w)).sum()
+            loss = term if loss is None else loss + term
+        if loss is not None:
+            loss.backward()
+        return ([o.numpy().copy() for o in outs],
+                [ts[i].grad.numpy().copy() for i in diff])
+
+
+def held_f32(name, got, want, grads=False):
+    """The training gates: f32 values within 1e-4 x max(1, |ref|),
+    gradients within 1e-4 x max(1, max|g|); integer outputs exactly.
+    Returns the largest error over its scale."""
+    import numpy as np
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape, f"{name} {k}: shape {g.shape} != {w.shape}")
+        if w.dtype.kind in "iub":
+            check(np.array_equal(g, w), f"{name} {k}: integers differ")
+            continue
+        g, w = g.astype("f8"), w.astype("f8")
+        scale = max(1.0, float(np.abs(w).max())) if grads else \
+            np.maximum(1.0, np.abs(w))
+        err = float((np.abs(g - w) / scale).max())
+        check(err <= 1e-4, f"{name} {'grad' if grads else 'out'} {k}: "
+                           f"error {err} over the 1e-4 gate")
+        worst = max(worst, err)
+    return worst
+
+
+def rnn_seq_cases(gen):
+    """name -> (fn(*Tensors), numpy inputs, differentiated indices, uses
+    lengths): every sequence op at the PTB width, forward and reverse,
+    the length cases at batch 3, the step ops and viterbi_decode."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    rnn = pt.nn.rnn
+    T, B, W = RNN_T, RNN_B, RNN_W
+    s = 1.0 / np.sqrt(W)
+
+    def u(*shape, scale=1.0):
+        return (gen.uniform(-1, 1, shape) * scale).astype("f4")
+
+    def seq_inputs(gates, b, p=None):
+        return [u(T, b, W), u(b, p or W), *([u(b, W)] if gates == 4 else []),
+                u(gates * W, W, scale=s), u(gates * W, p or W, scale=s),
+                u(gates * W, scale=s), u(gates * W, scale=s)]
+    lens = np.asarray(RNN_LENS, "int32")
+    cases = {}
+    for op, gates, kw in (("lstm_seq", 4, {}), ("gru_seq", 3, {}),
+                          ("simple_rnn_seq", 1, {"activation": "tanh"}),
+                          ("simple_rnn_seq", 1, {"activation": "relu"})):
+        name = op + (f"[{kw['activation']}]" if kw else "")
+        f = getattr(rnn, op)
+        n = 7 if gates == 4 else 6
+        for rev in (False, True):
+            cases[f"{name}{'[reverse]' if rev else ''}"] = (
+                lambda *ts, f=f, kw=kw, rev=rev: f(*ts, None, reverse=rev,
+                                                   **kw),
+                seq_inputs(gates, B), range(n), False)
+            cases[f"{name}[lengths{', reverse' if rev else ''}]"] = (
+                lambda *ts, f=f, kw=kw, rev=rev: f(*ts, reverse=rev, **kw),
+                seq_inputs(gates, 3) + [lens], range(n), True)
+    cases["gru_unit"] = (
+        lambda x, h, w, b: (*rnn.gru_unit(x, h, w, b),
+                            *rnn.gru_unit(x, h, w, b, origin_mode=True)),
+        [u(B, 3 * W), u(B, W), u(W, 3 * W, scale=s), u(1, 3 * W)], range(4),
+        False)
+    cases["lstm_unit"] = (lambda x, c: rnn.lstm_unit(x, c, forget_bias=1.0),
+                          [u(B, 4 * W), u(B, W)], range(2), False)
+    cases["lstmp_seq[lengths, reverse]"] = (
+        lambda *ts: rnn.lstmp_seq(*ts, reverse=True),
+        seq_inputs(4, 3, p=512) + [u(W, 512, scale=s), lens], range(8), True)
+    pot = gen.randn(B, T, 9).astype("f4")
+    pot[:, :, 3] = pot[:, :, 5]                 # ties: the first wins
+    cases["viterbi_decode[lengths]"] = (
+        lambda p, t, ln: pt.text.viterbi_decode(p, t, ln),
+        [pot, gen.randn(9, 9).astype("f4"),
+         gen.randint(1, T + 1, B).astype("int32")], (), True)
+    return cases
+
+
+def rnn_op_checks(dev):
+    """Every sequence op on the card against its plain version on the
+    CPU in f32 (TF32 off): outputs, final states and the gradients of
+    every input and weight within the training gates. A length-free case
+    runs twice on the card, in the cudnn form and in the plain one; a
+    case with lengths runs plain. Then a bidirectional 2-layer LSTM and
+    GRU (`nn.LSTM`, `nn.GRU`), with and without lengths, against the same
+    layer on the CPU."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.state import host_init_ctx
+    cpu = torch.device("cpu")
+    gen = np.random.RandomState(SEED + 70)
+    out = {}
+    for k, (name, (fn, arrays, diff, lengths)) in enumerate(
+            rnn_seq_cases(gen).items()):
+        diff = tuple(diff)
+        want = rnn_seq_run(fn, arrays, diff, cpu, "plain", 100 * k)
+        row = {}
+        for form in (("plain",) if lengths else ("cudnn", "plain")):
+            zero_rnn_forms()
+            got = rnn_seq_run(fn, arrays, diff, dev, form, 100 * k)
+            row[form] = {"max_err_out": held_f32(name, got[0], want[0]),
+                         "max_err_grad": held_f32(name, got[1], want[1],
+                                                  grads=True),
+                         "forms": rnn_forms()}
+        out[name] = row
+    x = gen.uniform(-1, 1, (RNN_B, RNN_T, RNN_W)).astype("f4")
+    lens = np.full(RNN_B, RNN_T, "int32")
+    lens[:3] = RNN_LENS
+    for kind in ("LSTM", "GRU"):
+        with host_init_ctx(SEED):
+            ref = getattr(pt.nn, kind)(RNN_W, RNN_W, num_layers=2,
+                                       direction="bidirect")
+        with on_place(dev):
+            layer = getattr(pt.nn, kind)(RNN_W, RNN_W, num_layers=2,
+                                         direction="bidirect")
+        layer.set_state_dict({k: v.numpy() for k, v in
+                              ref.state_dict().items()})
+        for with_lens in (False, True):
+            name = (f"nn.{kind}(2 layers, bidirect"
+                    f"{', lengths' if with_lens else ''})")
+            res = {}
+            for tag, d, m in (("cpu", cpu, ref), ("card", dev, layer)):
+                zero_rnn_forms()
+                with on_place(d):
+                    xt = pt.to_tensor(x, stop_gradient=False)
+                    y, st = m(xt, sequence_length=pt.to_tensor(lens)
+                              if with_lens else None)
+                    outs = [y] + list(st if isinstance(st, tuple) else (st,))
+                    loss = None
+                    for j, o in enumerate(outs):
+                        w = np.random.RandomState(j).uniform(
+                            -1, 1, o.shape).astype("f4")
+                        t = (o * pt.to_tensor(w)).sum()
+                        loss = t if loss is None else loss + t
+                    loss.backward()
+                res[tag] = ([o.numpy().copy() for o in outs],
+                               [xt.grad.numpy().copy()] +
+                               [p.grad.numpy().copy()
+                                for p in m.parameters()], rnn_forms())
+                m.clear_gradients()
+            got, want = res["card"], res["cpu"]
+            out[name] = {"max_err_out": held_f32(name, got[0], want[0]),
+                         "max_err_grad": held_f32(name, got[1], want[1],
+                                                  grads=True),
+                         "forms": got[2]}
+    return out
+
+
+def ptb_build(dev, dtype="float32", dropout=PTB_DROPOUT):
+    """The PTB-large model on `dev` in `dtype`, its weights drawn on the
+    CPU from SEED (the same on every device), and its SGD."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.state import host_init_ctx
+    with host_init_ctx(SEED):
+        model = ptb_lm(pt, dropout=dropout)
+    model.to(device=place_name(dev), dtype=dtype)
+    return model, ptb_optimizer(pt, model)
+
+
+def ptb_matmul_params(model):
+    """The parameters of the products (the LSTM's weights and the head's):
+    6 x these x tokens is the step's FLOPs."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if n.startswith(("lstm.weight", "head.weight")))
+
+
+def ptb_graphed(dev, peaks, dtype, form, ids, labels, steps=10):
+    """The PTB-large step as one TrainStep CUDA graph in `dtype` with the
+    sequence ops pinned to `form` ("auto" or "plain"): 3 warm-up calls
+    (eager, capture, replay), then `steps` timed replays; the eager step
+    beside it; the forms the sequence ops took; MFU against the dtype's
+    peak; peak memory; the profile (idle share, device ms by group) and
+    the kernels a replay launches."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import rnn
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt = ptb_build(dev, dtype)
+    loss_fn = ptb_loss(pt, PTB_B)
+    zero_rnn_forms()
+    with rnn.form_scope(form):
+        step = TrainStep(model, loss_fn, opt)
+        torch.cuda.reset_peak_memory_stats()
+        warm = [float(step(ids, labels)) for _ in range(3)]
+        graph = graph_of(step, f"ptb {dtype} {form}")
+        forms = rnn_forms()
+        replays0 = graph.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(ids, labels)
+        final = float(loss)
+        dt = (time.perf_counter() - t0) / steps
+        peak = torch.cuda.max_memory_allocated()
+        check(graph.replays - replays0 == steps
+              and np.isfinite(warm + [final]).all(),
+              f"ptb {dtype} {form}: {graph.replays} replays, losses {warm} "
+              f"{final}")
+        check(not step.last_nonfinite(), f"ptb {dtype} {form}: non-finite")
+        profile = profile_steps(step, ids, dt * 1e3, labels=labels,
+                                categories=RNN_GROUPS, other=RNN_OTHER)
+        rows = replay_rows(graph.graph, calls=2)
+        replay = rows_profile(rows, categories=RNN_GROUPS, other=RNN_OTHER)
+        cells = sorted({key[:60] for _, _, key in rows
+                        if any(f in key.lower() for f in CUDNN_RNN_KERNELS)})
+        if rows:
+            check(bool(cells) == (form == "auto"),
+                  f"ptb {dtype} {form}: cuDNN's RNN kernels in a replay: "
+                  f"{cells}")
+        eager = TrainStep(model, loss_fn, opt, cuda_graph=False)
+        for _ in range(2):
+            float(eager(ids, labels))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = eager(ids, labels)
+        float(loss)
+        eager_dt = (time.perf_counter() - t0) / steps
+    tokens = PTB_B * PTB_T
+    flops = 6 * ptb_matmul_params(model) * tokens
+    if isinstance(profile, dict):
+        del profile["kernel_calls_per_step"]
+    peak_rate = peaks["bf16" if dtype == "bfloat16" else "f32"]
+    return {"step": step, "out": {
+        "dtype": dtype, "form": form, "params": sum(
+            p.numel() for p in model.parameters()), "forms_eager_and_capture": forms,
+        "step_ms": dt * 1e3, "tokens_per_s": tokens / dt,
+        "tflop_per_step": flops / 1e12,
+        "mfu": flops / dt / peak_rate, "mfu_peak": peak_rate,
+        "eager_step_ms": eager_dt * 1e3,
+        "eager_tokens_per_s": tokens / eager_dt,
+        "max_memory_allocated_warmup_capture_and_replays": peak,
+        "losses_warmup": warm, "loss": final,
+        "kernels_per_replay": (replay["kernels"] if isinstance(replay, dict)
+                               else replay),
+        "cudnn_rnn_kernels_in_replay": cells if rows else replay,
+        "replay_device_ms": (replay["device_ms"] if isinstance(replay, dict)
+                             else replay),
+        "profile": profile}}
+
+
+def ptb_turns(runs, ids, labels, steps=10):
+    """The graphed steps of `runs` (name -> TrainStep) timed in turns, a
+    then b then b then a: host ms a step, one sync at the end of each."""
+    import torch
+    names = list(runs)
+    order = names + names[::-1]
+    out = {n: [] for n in names}
+    for n in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = runs[n](ids, labels)
+        float(loss)
+        out[n].append((time.perf_counter() - t0) * 1e3 / steps)
+    return out
+
+
+# graphed against eager over 3 steps with dropout 0: f32 at the training
+# gate, bf16 (held only against itself) at the repo's bf16 gate
+PTB_GRAPH_GATES = {"float32": 1e-6, "bfloat16": 2e-2}
+
+
+def ptb_checks(dev, ids, labels):
+    """With dropout 0, in f32 and in bf16 (the sequence ops on auto): the
+    graphed step against the eager one over 3 steps (losses within
+    PTB_GRAPH_GATES[dtype] x max(1, |eager|)), two replays at lr 0
+    bitwise equal; with dropout 0.65, two f32 replays at lr 0 differ
+    (fresh masks). Then the first f32 step at batch 2 on the card against
+    the CPU: the loss and every gradient within the training gates."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    loss_fn = ptb_loss(pt, PTB_B)
+    vs_eager = {}
+    for dtype, gate in PTB_GRAPH_GATES.items():
+        runs = {}
+        for graphed in (True, False):
+            model, opt = ptb_build(dev, dtype, dropout=0.0)
+            step = TrainStep(model, loss_fn, opt, cuda_graph=graphed)
+            zero_rnn_forms()
+            runs[graphed] = [float(step(ids, labels)) for _ in range(3)]
+            forms = rnn_forms()
+            check(set(forms) == {"lstm_seq.cudnn"},
+                  f"ptb {dtype}: the sequence ops took {forms}")
+            if graphed:
+                opt.set_lr(0.0)
+                a, b = float(step(ids, labels)), float(step(ids, labels))
+                check(a == b, f"ptb {dtype}: dropout 0 replays at lr 0 "
+                              f"differ: {a} {b}")
+            del model, opt, step
+        err = max(abs(g - e) / max(1.0, abs(e))
+                  for g, e in zip(runs[True], runs[False]))
+        check(err <= gate, f"ptb {dtype}: graphed {runs[True]} against "
+                           f"eager {runs[False]}, over the {gate} gate")
+        vs_eager[dtype] = {"graphed": runs[True], "eager": runs[False],
+                           "max_rel_err": err, "gate": gate,
+                           "forms": forms}
+    model, opt = ptb_build(dev)
+    step = TrainStep(model, loss_fn, opt)
+    for _ in range(3):
+        float(step(ids, labels))
+    opt.set_lr(0.0)
+    drops = [float(step(ids, labels)) for _ in range(3)]
+    check(len(set(drops)) == 3, f"ptb: dropout 0.65 replays at lr 0 gave "
+                                f"{drops}: the masks did not change")
+    del model, opt, step
+    cpu = torch.device("cpu")
+    grads = {}
+    for tag, d in (("card", dev), ("cpu", cpu)):
+        model, _ = ptb_build(d, dropout=0.0)
+        model.train()
+        x = torch.tensor(ids[:2].cpu().numpy(), device=d)
+        y = torch.tensor(labels[:2].cpu().numpy(), device=d)
+        zero_rnn_forms()
+        loss = ptb_loss(pt, 2)(model(pt.Tensor._wrap(x)), pt.Tensor._wrap(y))
+        loss.backward()
+        grads[tag] = ([np.asarray(float(loss), "f4").reshape(1)],
+                         [p.grad.numpy().copy() for p in model.parameters()],
+                         rnn_forms())
+    got, want = grads["card"], grads["cpu"]
+    return {"graphed_vs_eager_losses": vs_eager,
+            "dropout_replays_at_lr0": drops,
+            "cpu_batch2_first_step": {
+                "loss_card": float(got[0][0][0]),
+                "loss_cpu": float(want[0][0][0]),
+                "max_err_loss": held_f32("ptb cpu loss", got[0], want[0]),
+                "max_err_grad": held_f32("ptb cpu grads", got[1], want[1],
+                                         grads=True),
+                "forms_card": got[2], "forms_cpu": want[2]}}
+
+
+def ptb_fit(dev, steps=PTB_FIT_STEPS):
+    """The f32 PTB-large model through `Model(net).prepare(SGD,
+    loss).fit(loader)` on an io.TensorDataset of seeded ids (20 steps
+    an epoch): 3 warm-up steps, then in turns `fit` over the epoch and
+    the bare graphed TrainStep fed the same batches staged on the card,
+    twice each."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    model_net, opt = ptb_build(dev)
+    model = pt.Model(model_net)
+    model.prepare(opt, ptb_loss(pt, PTB_B))
+    ids, labels = ptb_ids(SEED + 80, PTB_B * steps)
+    with on_place(dev):
+        loader = DataLoader(TensorDataset([ids, labels]), batch_size=PTB_B)
+        zero_rnn_forms()
+        warm = model.fit(loader, epochs=1, num_iters=3, verbose=0)["loss"]
+        step = model._train_step
+        graph = graph_of(step, "ptb fit")
+        forms = rnn_forms()
+        staged = [batch for batch in loader]
+        fit_ms, bare_ms, losses = [], [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += model.fit(loader, epochs=1, verbose=0)["loss"]
+            fit_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x, y in staged:
+                loss = step(x, y)
+            losses.append(float(loss))
+            bare_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    check(graph.replays == 4 * steps + 2 and np.isfinite(warm + losses).all(),
+          f"ptb fit: {graph.replays} replays, losses {losses}")
+    return {"steps_an_epoch": steps, "fit_step_ms": fit_ms,
+            "bare_step_ms": bare_ms,
+            "fit_vs_bare_ms": float(np.mean(fit_ms) - np.mean(bare_ms)),
+            "forms_eager_and_capture": forms, "losses": warm + losses}
+
+
+def srl_card(dev):
+    """`examples/label_semantic_roles.py` on the card: the bidirectional
+    GRU + CRF tagger trained 160 steps at batch 64 in a graphed TrainStep
+    (Adam 2e-3, `linear_chain_crf`), the GRU given lengths (every row
+    full), so its passes take the plain form under capture; then
+    `crf_decoding`'s tag accuracy on the test split. The example's bar:
+    last loss < 0.2 x first, tag accuracy > 0.9. Returns its numbers and
+    the kernels launched in the run."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.legacy import crf_decoding, linear_chain_crf
+    train = pt.text.Conll05st(mode="train", vocab_size=512, seq_len=SRL_T,
+                              num_samples=4096)
+    test = pt.text.Conll05st(mode="test", vocab_size=512, seq_len=SRL_T,
+                             num_samples=512)
+    V, N = train.vocab_size, pt.text.Conll05st.NUM_LABELS
+    # the main path's run, from building the model to the last step:
+    # every count is 0 before it and read after
+    zero_counts()
+    zero_rnn_forms()
+    pt.seed(11)
+    with on_place(dev):
+        model = srl_tagger(pt, V, N, SRL_E, SRL_H, SRL_T)
+        lengths = torch.full((SRL_B,), SRL_T, dtype=torch.int64, device=dev)
+
+        def loss_fn(emission, labels):
+            return pt.mean(linear_chain_crf(emission, model.transition,
+                                            labels, lengths))
+        step = TrainStep(model, loss_fn, pt.optimizer.Adam(
+            learning_rate=2e-3, parameters=model.parameters()))
+        np.random.seed(11)
+        loader = DataLoader(train, batch_size=SRL_B, shuffle=True,
+                            drop_last=True)
+        losses = []
+        t0 = time.perf_counter()
+        while len(losses) < SRL_STEPS:
+            for words, pred, labels in loader:
+                if len(losses) == SRL_STEPS:
+                    break
+                losses.append(step((words, pred, lengths), labels))
+        losses = [float(v) for v in losses]
+        train_s = time.perf_counter() - t0
+        graph = graph_of(step, "srl")
+        launches = {k: n for k, n in kernels.launch_counts().items() if n}
+        forms = rnn_forms()
+        correct = total = 0
+        for words, pred, labels in DataLoader(test, batch_size=SRL_B,
+                                              drop_last=True):
+            path = crf_decoding(model(words, pred), model.transition,
+                                lengths)
+            correct += int((path._data == labels._data).sum())
+            total += path._data.numel()
+    acc = correct / total
+    per_step = dict(graph.launches)
+    check(per_step == {"optimizer.adam": 1},
+          f"srl: the graph holds the launches {per_step}, not 1 Adam")
+    check(launches == {"optimizer.adam": 2},
+          f"srl: the eager call and the capture called the wrappers "
+          f"{launches}, not Adam's twice")
+    check(graph.replays == SRL_STEPS - 1,
+          f"srl: {graph.replays} replays in {SRL_STEPS} steps")
+    check(losses[-1] < 0.2 * losses[0] and acc > 0.9,
+          f"srl: losses {losses[0]} -> {losses[-1]}, tag accuracy {acc}")
+    return {"steps": SRL_STEPS, "batch": SRL_B, "seq": SRL_T,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "tag_acc": acc, "train_s": train_s,
+            "step_ms_mean": train_s * 1e3 / SRL_STEPS,
+            "forms_eager_and_capture": forms,
+            "launches_per_step": per_step,
+            # the eager first call launched each once, then every replay
+            # (the capture's own and the rest) ran the graph's kernels
+            "launches": {k.split(".")[1]: n * (graph.replays + 1)
+                         for k, n in per_step.items()},
+            "wrapper_counts": launches}
+
+
+def rnn_phase(dev, smi, peaks):
+    """The recurrent stack on the card: every sequence op against its
+    plain version on the CPU (`rnn_op_checks`); the PTB-large step as one
+    graph in f32 (the published recipe) and bf16, each with the sequence
+    ops on auto (cuDNN) and on the captured plain loop, timed again in
+    turns (`ptb_graphed`, `ptb_turns`); graphed against eager, dropout's
+    fresh masks and the card against the CPU (`ptb_checks`); the model
+    through Model.fit (`ptb_fit`); the label-semantic-roles twin
+    (`srl_card`). Returns the kernels launched in the SRL run."""
+    import torch
+    ids, labels = (torch.tensor(a, device=dev) for a in ptb_ids(SEED))
+    ops = rnn_op_checks(dev)
+    runs, turns = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        steps = {}
+        for form in ("auto", "plain"):
+            r = ptb_graphed(dev, peaks, dtype, form, ids, labels)
+            runs[f"{dtype}/{form}"] = r["out"]
+            steps[form] = r["step"]
+        turns[dtype] = ptb_turns(steps, ids, labels)
+        del steps, r
+    checks = ptb_checks(dev, ids, labels)
+    fit = ptb_fit(dev)
+    srl = srl_card(dev)
+    emit("rnn", nvidia_smi=smi,
+         model="PTB LSTM LM, Zaremba et al. 2014 'large' (arXiv 1409.2329 "
+               "s.4): 2 x LSTM(1500), vocab 10000, 35 steps x batch 20, "
+               "U[-0.04, 0.04], dropout 0.65, SGD lr 1, clip 10",
+         seq_ops=ops, ptb=runs, ptb_turns_ms=turns, ptb_checks=checks,
+         ptb_fit=fit, srl=srl,
+         what="step_ms: host clock over 10 graph replays after 3 warm-up "
+              "calls, one sync at the end; ptb_turns_ms: the graphed steps "
+              "again in turns (auto, plain, plain, auto); mfu: 6 x the "
+              "products' parameters x 700 tokens over the step, against "
+              "the dtype's peak (f32 without TF32: the CUDA cores')")
+    return srl["launches"]
+
+
 def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
                   layers=LAYERS, routes_want=None, after_step=None,
                   groups=None):
@@ -6730,7 +7423,8 @@ def profile_steps(step, ids, step_ms, steps=2, categories=PROFILE_GROUPS,
     the busy time against the unprofiled step time `step_ms`. The
     profiler warms up on one step of its own (tracing on, events
     dropped) before the recorded window: on an H100 a window opened cold
-    once recorded 23 of the 24 flash_fwd_wgmma launches of two replays.
+    once recorded 23 of the 24 flash_fwd_wgmma launches of two replays;
+    the window then keeps PROFILE_MARGIN_S of idle time at each edge.
     Each step is `step(ids, labels)` (labels default to ids). Returns
     "not measured: ..." when the profiler records no device time."""
     import torch
@@ -6742,11 +7436,14 @@ def profile_steps(step, ids, step_ms, steps=2, categories=PROFILE_GROUPS,
         float(step(ids, labels))
         torch.cuda.synchronize()
         prof.step()                     # the warm-up ends: record
+        window_margin()
         t0 = time.perf_counter()
         for _ in range(steps):
             loss = step(ids, labels)
         float(loss)
         wall = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        window_margin()
         prof.step()                     # the recorded window ends
     rows = device_rows(prof, steps)
     if not rows:
@@ -6777,9 +7474,11 @@ def replay_rows(graph, calls=3):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        window_margin()
         for _ in range(calls):
             graph.replay()
         torch.cuda.synchronize()
+        window_margin()
     return device_rows(prof, calls)
 
 
@@ -6795,7 +7494,11 @@ def graph_profile(graph, calls=3, top=8, categories=PROFILE_GROUPS,
     """A replay's device ms in all and by kernel group (`by_group`), its
     kernel launches and its `top` kernels; "not measured" when the
     profiler records no device time."""
-    rows = replay_rows(graph, calls)
+    return rows_profile(replay_rows(graph, calls), top, categories, other)
+
+
+def rows_profile(rows, top=8, categories=PROFILE_GROUPS, other=OTHER_GROUP):
+    """`graph_profile` of a replay's `device_rows`."""
     if not rows:
         return "not measured: the profiler recorded no device time"
     return {"device_ms": sum(r[0] for r in rows),
@@ -6939,6 +7642,7 @@ def main():
     amp_launches = run("amp", amp_phase, dev, smi)
     hapi_launches = run("hapi", hapi_phase, dev, smi, peaks)
     run("resnet", resnet_phase, dev, smi, peaks)
+    rnn_launches = run("rnn", rnn_phase, dev, smi, peaks)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -7011,6 +7715,7 @@ def main():
                  "launches_bert": bert_launches["adam"],
                  "launches_amp": amp_launches["adam"],
                  "launches_hapi": hapi_launches["adam"],
+                 "launches_rnn": rnn_launches["adam"],
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

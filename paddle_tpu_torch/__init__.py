@@ -27,8 +27,12 @@ and K2, K3 and dd in `loss.backward()`, and the optimizers take
 names), `nn.functional` and the layers. `hapi.Model` fits a Layer
 through `jit.TrainStep` on batches of `io.DataLoader` (forked
 shared-memory workers with `num_workers`), with `metric`'s metrics and
-`vision`'s models, transforms and datasets. Importing the package builds
-and launches nothing.
+`vision`'s models, transforms and datasets. `nn`'s recurrent layers
+(`nn.rnn`: SimpleRNN, LSTM, GRU, their cells, RNN and BiRNN) run each
+(layer, direction) pass as one sequence op, in torch's cuDNN RNN or a
+plain loop over time; `text` holds the text datasets and Viterbi
+decoding, `distribution` the probability distributions. Importing the
+package builds and launches nothing.
 """
 __version__ = "0.1.0"
 
@@ -96,6 +100,8 @@ from . import nn  # noqa: F401,E402
 from . import nlp  # noqa: F401,E402
 from . import optimizer, jit, amp  # noqa: F401,E402
 from . import io, metric, reader, dataset, vision, hapi  # noqa: F401,E402
+# text registers viterbi_decode
+from . import text, distribution  # noqa: F401,E402
 from .hapi import Model, summary  # noqa: F401,E402
 
 

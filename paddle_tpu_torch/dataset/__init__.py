@@ -1,8 +1,7 @@
 """paddle.dataset legacy namespace (the port of
 `paddle_tpu/dataset/__init__.py`; ref python/paddle/dataset): reader-style
 wrappers over the dataset zoo, synthetic-backed as the vision datasets
-are (real files load when they are present). `imdb` needs `text/`,
-which is ROADMAP Queue 1 item 4's later work."""
+are (real files load when they are present); `imdb` reads `text.Imdb`."""
 
 
 def _reader_from(ds):
@@ -46,17 +45,13 @@ class uci_housing:
         return _housing_reader(2, 102)
 
 
-def _no_text():
-    raise NotImplementedError(
-        "dataset.imdb reads paddle.text's Imdb: text/ is not ported yet "
-        "(ROADMAP Queue 1 item 4)")
-
-
 class imdb:
     @staticmethod
     def train(word_idx=None):
-        _no_text()
+        from ..text import Imdb
+        return _reader_from(Imdb(mode="train"))
 
     @staticmethod
     def test(word_idx=None):
-        _no_text()
+        from ..text import Imdb
+        return _reader_from(Imdb(mode="test"))

@@ -2,9 +2,10 @@
 containers, `functional`, the initializers, `ParamAttr`, the layers
 (common, conv, norm, pooling, activation, loss), `utils`, gradient
 clipping (`clip`), the Transformer layers and the dense and paged
-KV-cache helpers (`transformer`), beam search and the sampling filters
-of generation (`decode`), and the fused paged-attention dispatch
-(`paged_attention`). `rnn` comes with ROADMAP Queue 1 item 4."""
+KV-cache helpers (`transformer`), the recurrent layers and their
+sequence ops (`rnn`), beam search and the sampling filters of generation
+(`decode`), and the fused paged-attention dispatch
+(`paged_attention`)."""
 from . import functional
 from . import initializer
 from .layer import (Layer, LayerList, Sequential, ParameterList,
@@ -40,6 +41,9 @@ from . import clip, decode, paged_attention, transformer
 from .transformer import (MultiHeadAttention, TransformerEncoderLayer,
                           TransformerEncoder, TransformerDecoderLayer,
                           TransformerDecoder, Transformer)
+from . import rnn
+from .rnn import (RNNCellBase, SimpleRNNCell, LSTMCell, GRUCell, RNN, BiRNN,
+                  SimpleRNN, LSTM, GRU, RNNBase)
 from .decode import (BeamSearchDecoder, dynamic_decode,
                      top_k_top_p_filtering, sampling_id, greedy_search)
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,

@@ -70,6 +70,7 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.nn.param_attr
         import paddle_tpu_torch.nn.pooling
         import paddle_tpu_torch.nn.transformer
+        import paddle_tpu_torch.nn.rnn
         import paddle_tpu_torch.nn.utils
         import paddle_tpu_torch.ops
         import paddle_tpu_torch.optimizer
@@ -92,6 +93,8 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.vision.datasets
         import paddle_tpu_torch.vision.models
         import paddle_tpu_torch.utils.resume
+        import paddle_tpu_torch.text
+        import paddle_tpu_torch.distribution
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         assert not bad, bad

@@ -2,12 +2,14 @@
 that the ported modules register (`ops/creation.py`, `math.py`,
 `manipulation.py`, `logic.py`, `linalg.py`, `sequence.py`, `legacy.py`,
 the registered `flash_attention`, `nn/functional.py`,
-`nn/layers_common.py`'s `bilinear` and `nlp/llama.py`'s `rms_norm` and
-`llama_attention`): the same seeded numpy inputs go through
+`nn/layers_common.py`'s `bilinear`, `nlp/llama.py`'s `rms_norm` and
+`llama_attention`, `nn/rnn.py`'s sequence and step ops and `text/`'s
+`viterbi_decode`): the same seeded numpy inputs go through
 both packages on the CPU, and the forward outputs and the gradients of a
 fixed random projection of them are compared. The `nn.functional`
 cases run from `tests/test_torch_nn_ops.py` and the `legacy.py` cases
 from `tests/test_torch_legacy_ops.py` and `tests/test_torch_legacy_ops_2.py`
+and the `nn/rnn.py` and `text/` cases from `tests/test_torch_rnn.py`
 (other files, so other test workers); the coverage check here counts
 them.
 
@@ -43,7 +45,8 @@ from paddle_tpu_torch.ops import logic as t_logic
 from paddle_tpu_torch.ops import manipulation as t_manip
 from paddle_tpu_torch.ops import math as t_math
 from paddle_tpu_torch.ops import sequence as t_seq
-from torch_op_cases import CASES, LEGACY_CASES, NN_CASES, NS, op_name, run
+from torch_op_cases import (CASES, LEGACY_CASES, NN_CASES, NS, RNN_CASES,
+                            op_name, run)
 
 # one intra-op thread: parallel test workers share the host's cores
 torch.set_num_threads(1)
@@ -53,7 +56,8 @@ GRAD_RTOL = 1e-4
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = ("creation", "math", "manipulation", "logic", "linalg",
            "sequence", "legacy")
-NN_SOURCES = ("nn/functional.py", "nn/layers_common.py", "nlp/llama.py")
+NN_SOURCES = ("nn/functional.py", "nn/layers_common.py", "nlp/llama.py",
+              "nn/rnn.py", "text/__init__.py")
 
 
 j_flash = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -88,7 +92,8 @@ def _close(got, want, rtol, what):
 
 
 @pytest.mark.parametrize("name", sorted(set(CASES) - set(NN_CASES)
-                                         - set(LEGACY_CASES)))
+                                         - set(LEGACY_CASES)
+                                         - set(RNN_CASES)))
 def test_op_matches_jax(name):
     check_case(name)
 
@@ -122,7 +127,8 @@ def check_case(name):
 
 def _jax_module_names():
     """The op names the seven JAX op modules, `nn/functional.py`,
-    `nn/layers_common.py` and `nlp/llama.py` register (their quoted names
+    `nn/layers_common.py`, `nlp/llama.py`, `nn/rnn.py` and
+    `text/__init__.py` register (their quoted names
     in the JAX registry), and flash_attention."""
     srcs = [(ROOT / "paddle_tpu" / "ops" / f"{m}.py").read_text()
             for m in MODULES]
@@ -144,4 +150,4 @@ def test_registry_covers_the_jax_modules_and_every_name_has_a_case():
     cased = {op_name(k) for k in CASES}
     assert not sorted(names - cased), sorted(names - cased)
     # reported in CHANGES.md
-    assert len(names) >= 367, len(names)
+    assert len(names) >= 374, len(names)

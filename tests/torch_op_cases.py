@@ -725,6 +725,70 @@ LEGACY_CASES = {
         [0, 1, 2, 3]),
 }
 
+# ------------------------------------------------ nn/rnn.py and text/ cases
+# (run from tests/test_torch_rnn.py). One (layer, direction) pass over a
+# time-major [T=5, B=3, I=4] sequence at H=3; lengths 5, 2, 1 with and
+# without reverse. On the card the length-free calls take the cudnn form.
+
+RNN_T, RNN_B, RNN_I, RNN_H = 5, 3, 4, 3
+RNN_LENS = I(5, 2, 1)
+
+
+def seq_inputs(gates, seed, p=None):
+    """x, h0, (c0,) w_ih, w_hh, b_ih, b_hh for a pass of `gates` gates."""
+    g, h = gates * RNN_H, RNN_H
+    return [uni((RNN_T, RNN_B, RNN_I), seed=seed),
+            uni((RNN_B, p or h), seed=seed + 1),
+            *([uni((RNN_B, h), seed=seed + 2)] if gates == 4 else []),
+            uni((g, RNN_I), seed=seed + 3), uni((g, p or h), seed=seed + 4),
+            uni((g,), seed=seed + 5), uni((g,), seed=seed + 6)]
+
+
+def rnn_pass(op, **kw):
+    """The op twice: forward without lengths, then reverse with them."""
+    def fn(n, *ts):
+        seq = getattr(n.P.nn.rnn, op)
+        *args, lens = ts
+        return (*seq(*args, None, **kw),
+                *seq(*args, lens, reverse=True, **kw))
+    return fn
+
+
+RNN_CASES = {
+    "simple_rnn_seq": case(lambda n, *ts: (
+        *rnn_pass("simple_rnn_seq")(n, *ts),
+        *rnn_pass("simple_rnn_seq", activation="relu")(n, *ts)),
+        [*seq_inputs(1, 50), RNN_LENS], range(6)),
+    "lstm_seq": case(rnn_pass("lstm_seq"),
+                     [*seq_inputs(4, 60), RNN_LENS], range(7)),
+    "gru_seq": case(rnn_pass("gru_seq"),
+                    [*seq_inputs(3, 70), RNN_LENS], range(6)),
+    "gru_unit": case(lambda n, x, h, w, b: (
+        *n.P.nn.rnn.gru_unit(x, h, w, b),
+        *n.P.nn.rnn.gru_unit(x, h, w, b, origin_mode=True,
+                             gate_activation="tanh",
+                             activation="sigmoid")),
+        [uni((RNN_B, 9), seed=80), uni((RNN_B, 3), seed=81),
+         uni((3, 9), seed=82), uni((1, 9), seed=83)], range(4)),
+    "lstm_unit": case(lambda n, x, c: (
+        *n.P.nn.rnn.lstm_unit(x, c), *n.P.nn.rnn.lstm_unit(
+            x, c, forget_bias=0.5)),
+        [uni((RNN_B, 12), seed=84), uni((RNN_B, 3), seed=85)], [0, 1]),
+    # P = 2 projected units fed back: w_hh [4H, P], w_proj [H, P]
+    "lstmp_seq": case(lambda n, *ts: (
+        *n.P.nn.rnn.lstmp_seq(*ts[:-1], None),
+        *n.P.nn.rnn.lstmp_seq(*ts, reverse=True)),
+        [*seq_inputs(4, 90, p=2), uni((RNN_H, 2), seed=97), RNN_LENS],
+        range(8)),
+    # integer-valued scores: ties, where the first index must win
+    "viterbi_decode": case(lambda n, pot, tr, pot2, lens: (
+        *n.P.text.viterbi_decode(pot, tr),
+        *n.P.text.viterbi_decode(pot, tr, lens),
+        *n.P.text.viterbi_decode(pot2, tr, lens)),
+        [uni((RNN_B, RNN_T, 4), seed=98), uni((4, 4), seed=99),
+         ints((RNN_B, RNN_T, 4), 0, 2, 100).astype("f4"), RNN_LENS]),
+}
+
 
 CASES = {
     # creation
@@ -1088,6 +1152,7 @@ CASES = {
         [arr("x", (1, 128, 2, 64), s) for s in (0, 1, 2)], [0, 1, 2]),
     **NN_CASES,
     **LEGACY_CASES,
+    **RNN_CASES,
 }
 
 
