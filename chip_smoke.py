@@ -285,7 +285,45 @@ its phases:
                 step at batch 2 against the CPU; the model through
                 `Model.fit`; the label-semantic-roles twin (bidirectional
                 GRU + CRF, lengths, Adam) trained 160 graphed steps to
-                the JAX example's bar.
+                the JAX example's bar;
+  quant         QAT and PTQ (`quantization`) on the resnet phase's
+                ResNet-50 (bf16, batch 128, Momentum(0.1, 0.9)):
+                `ImperativeQuantAware().quantize` wrapping its 53
+                convolutions and the fc (each weight still listed once),
+                trained as one TrainStep graph, timed in turns with the
+                unquantized twin from the same weights (step ms,
+                images/s, MFU, device time by group, peak memory), no
+                kernel of the port's own in the graph (the wrappers'
+                counts and the graph's captured launches); the graphed
+                QAT step against the eager one in f32 over 3 steps; then
+                `PostTrainingQuantization(algo="hist")` on the trained
+                float twin over 4 batches: every layer's scale, the fc to
+                int8 (`convert_to_int8`, its logits within 2% of the
+                float model's, tests/test_opt_wrappers_quant.py:166's
+                bound) and `convert()` of the convolutions, its logits
+                held to the same bound;
+  rec           DeepFM and Wide&Deep (`rec`) at the widths of PaddleRec's
+                models/rank/deepfm Criteo config (26 fields into a
+                vocabulary of 1,086,460 ids, embedding 9, 13 dense
+                features, MLP [400, 400, 400]), batch 512, Adam(1e-3),
+                f32, each as one TrainStep graph on Criteo-layout
+                batches: step ms, samples/s, peak memory, device time by
+                group, the fused Adam kernel's launches (the graph's one
+                a step times its replays, the wrappers' counts); DeepFM
+                graphed against eager bit for bit over 3 steps;
+  detect        YOLOv3 at COCO's 608 x 608 (batch 8, 80 classes, the
+                nine anchors, heads [8, 255, 19/38/76], 50 gt rows an
+                image): `yolov3_loss` over the three heads forward and
+                backward on the card against the CPU and captured in a
+                CUDA graph against the eager call (timed by replay);
+                `yolo_box` at conf 0.005 over 22,743 candidates an image
+                against the CPU; `multiclass_nms` (nms_top_k 1000,
+                keep_top_k 100, IoU 0.45) on the card's decode equal to
+                the CPU's on the same inputs, its host ms; `nms`'s keep
+                mask over one image's 256 best candidates captured in a
+                CUDA graph, equal to eager and the CPU; `roi_align`
+                at FPN P2 [1, 256, 200, 304], 512 RoIs, 7 x 7, forward
+                and backward against the CPU, timed; peak memory.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -344,7 +382,7 @@ PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
           "eager", "nn", "transformer", "bert", "amp", "hapi", "resnet",
-          "rnn")
+          "rnn", "quant", "rec", "detect")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -3926,7 +3964,10 @@ SWEEP_LOOSE = {
     "slogdet", "matrix_power", "svd", "qr", "eigh", "eigvalsh", "solve",
     "triangular_solve", "cholesky_solve", "lstsq", "bincount",
     # the recurrences' products (cuDNN's on the card)
-    "simple_rnn_seq", "lstm_seq", "gru_seq", "gru_unit", "lstmp_seq"}
+    "simple_rnn_seq", "lstm_seq", "gru_seq", "gru_unit", "lstmp_seq",
+    # the detection ops' means, sums, contractions and 8 x 8 solves
+    "roi_align", "psroi_pool", "prroi_pool", "deformable_psroi_pooling",
+    "roi_perspective_transform", "correlation", "yolov3_loss"}
 
 
 def tensor_gpt_loss(P, attention, params, ids, num_heads, num_layers):
@@ -6987,6 +7028,712 @@ def rnn_phase(dev, smi, peaks):
     return srl["launches"]
 
 
+# ---------------------------------------------------------------- quant
+
+# QAT and PTQ over the resnet phase's configuration (BASELINE.json
+# configs[1]: ResNet-50, 1000 classes, bf16, Momentum(0.1, 0.9), batch
+# 128): 53 convolutions and the fc wrapped; PTQ calibrated on QUANT_CAL
+# batches of QUANT_CAL_B images
+QUANT_STEPS, QUANT_CAL, QUANT_CAL_B = 16, 4, 16
+# tests/test_opt_wrappers_quant.py:166: int8 logits within 2% of the float
+# model's (max |out - ref| over max |ref|)
+INT8_REL_BOUND = 0.02
+
+
+def rn_batches(dev, k, b, seed, dtype="bfloat16"):
+    """`k` seeded batches of `b` N(0, 1) images [b, 3, 224, 224] in
+    `dtype` and int64 labels of RN_CLASSES classes, staged on `dev`."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework.dtype import convert_dtype
+    r = np.random.RandomState(seed)
+    return [(torch.tensor(r.randn(b, 3, 224, 224).astype("f4"), device=dev)
+             .to(convert_dtype(dtype)),
+             torch.tensor(r.randint(0, RN_CLASSES, (b,)).astype("int64"),
+                          device=dev)) for _ in range(k)]
+
+
+def quantized(net):
+    """`ImperativeQuantAware().quantize(net)`, checked: every Conv2D and
+    Linear wrapped (53 and 1 in ResNet-50), each weight still listed
+    once by parameters()."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.quantization import (FakeQuantWrapper,
+                                               ImperativeQuantAware)
+    before = [id(p._data) for p in net.parameters()]
+    convs = sum(isinstance(m, nn.Conv2D) for m in net.sublayers())
+    fcs = sum(isinstance(m, nn.Linear) for m in net.sublayers())
+    ImperativeQuantAware().quantize(net)
+    wrapped = [type(m.wrapped).__name__ for m in net.sublayers()
+               if isinstance(m, FakeQuantWrapper)]
+    after = [id(p._data) for p in net.parameters()]
+    check(wrapped.count("Conv2D") == convs == 53 and
+          wrapped.count("Linear") == fcs == 1,
+          f"quant: wrapped {len(wrapped)} layers of {convs} convs, {fcs} fc")
+    check(sorted(after) == sorted(before) and len(set(after)) == len(after),
+          "quant: parameters() changed by quantize()")
+    return {"conv2d": convs, "linear": fcs, "parameters": len(after)}
+
+
+def quant_graph_check(dev, b=8, steps=3):
+    """QAT ResNet-50 in f32 (`resnet_f32`, quantized) at batch `b`: a
+    graphed TrainStep against an eager one on a twin from the same
+    weights over `steps` Momentum(0.1, 0.9) steps, cuDNN held to
+    deterministic algorithms: each loss and every BatchNorm running
+    statistic within 1e-6 x max(1, |eager|)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    x, y = rn_batches(dev, 1, b, SEED + 70, "float32")[0]
+    nets = []
+    for _ in range(2):
+        net = resnet_f32()
+        quantized(net)
+        nets.append(net.to(device=place_name(dev)))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed, eager = (TrainStep(net, pt.nn.CrossEntropyLoss(),
+                                    pt.optimizer.Momentum(
+                                        learning_rate=0.1, momentum=0.9,
+                                        parameters=net.parameters()),
+                                    cuda_graph=g)
+                          for net, g in zip(nets, (True, False)))
+        pairs, worst = [], 0.0
+        for i in range(steps):
+            g, e = float(graphed(x, y)), float(eager(x, y))
+            pairs.append((g, e))
+            check(np.isfinite(g) and abs(g - e) <= 1e-6 * max(1.0, abs(e)),
+                  f"quant graphed: losses {pairs}")
+            ref = dict(nets[1].named_buffers())
+            for k, v in nets[0].named_buffers():
+                scale = max(1.0, float(ref[k]._data.abs().max()))
+                err = float((v._data - ref[k]._data).abs().max())
+                check(err <= 1e-6 * scale,
+                      f"quant graphed: step {i} {k} error {err}")
+                worst = max(worst, err / scale)
+        graph_of(graphed, "quant f32")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"batch": b, "steps": steps, "losses_graphed_eager": pairs,
+            "max_buffer_err_over_scale": worst}
+
+
+def quant_train(dev, peaks):
+    """The main path: bf16 ResNet-50 quantized, trained by a graphed
+    TrainStep at batch 128 (3 warm-up calls, then QUANT_STEPS timed
+    replays over 4 staged batches), in turns with the unquantized twin
+    from the same weights (qat, float, float, qat): step ms, images/s,
+    MFU, peak memory, device time by kernel group; the wrappers'
+    launches counted from 0 (ResNet-50 on Momentum launches no kernel
+    of the port's own: the graph must hold none). Returns the report and
+    the float twin, trained as many steps."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.models import resnet50
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = rn_batches(dev, 4, RN_BATCH, SEED + 71)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    nets = {}
+    for kind in ("qat", "float"):
+        pt.seed(SEED)
+        with on_place(dev):
+            net = resnet50(num_classes=RN_CLASSES)
+        nets[kind] = net.to(dtype="bfloat16")
+    macs = conv_linear_macs(nets["float"], pt.randn([1, 3, 224, 224])
+                            .astype("bfloat16"))
+    wrapped = quantized(nets["qat"])
+    steps = {kind: TrainStep(net, pt.nn.CrossEntropyLoss(),
+                             pt.optimizer.Momentum(
+                                 learning_rate=0.1, momentum=0.9,
+                                 parameters=net.parameters()))
+             for kind, net in nets.items()}
+    warm = {kind: [float(step(*batches[i])) for i in range(3)]
+            for kind, step in steps.items()}
+    ms = {"qat": [], "float": []}
+    losses = {"qat": [], "float": []}
+    for kind in ("qat", "float", "float", "qat"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(QUANT_STEPS):
+            loss = steps[kind](*batches[i % len(batches)])
+        losses[kind].append(float(loss))
+        ms[kind].append((time.perf_counter() - t0) * 1e3 / QUANT_STEPS)
+    peak_mem = torch.cuda.max_memory_allocated()
+    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    graphs = {kind: graph_of(step, f"quant {kind}")
+              for kind, step in steps.items()}
+    check(graphs["qat"].launches == {} and launches == {},
+          f"quant: the step launched kernels of the port's own: "
+          f"{graphs['qat'].launches}, {launches}")
+    check(graphs["qat"].replays == 2 * QUANT_STEPS + 2,
+          f"quant: {graphs['qat'].replays} replays")
+    check(all(np.isfinite(v).all() for v in (*warm.values(),
+                                             *losses.values())),
+          f"quant: losses {warm} {losses}")
+    flops = 2 * 3 * macs * RN_BATCH
+    out = {"model": "ResNet-50 (1000 classes), every Conv2D and Linear "
+                    "fake-quantized (8-bit weights and input "
+                    "activations, dynamic abs-max)",
+           "dtype": "bfloat16", "batch": RN_BATCH,
+           "optimizer": "Momentum(0.1, 0.9)", "wrapped": wrapped,
+           "warmup_losses": warm, "losses": losses,
+           "max_memory_allocated_both_models": peak_mem,
+           "flops_per_step": flops}
+    for kind in ("qat", "float"):
+        step_ms = float(np.mean(ms[kind]))
+        out[kind] = {"step_ms": ms[kind], "images_per_s": RN_BATCH * 1e3
+                     / step_ms, "mfu": flops * 1e3 / step_ms
+                     / peaks["bf16"],
+                     "profile": graph_profile(graphs[kind].graph, calls=2,
+                                              categories=RN_GROUPS,
+                                              other=RN_OTHER)}
+    out["qat_over_float"] = float(np.mean(ms["qat"]) /
+                                  np.mean(ms["float"]))
+    return out, nets["float"]
+
+
+def quant_ptq(dev, net):
+    """PTQ of the trained bf16 float ResNet-50 (eval mode): hist
+    calibration over QUANT_CAL batches of QUANT_CAL_B images, the
+    calibrated scale of each of the 54 layers; the fc to int8
+    (`convert_to_int8`: weight-only, the conversion
+    tests/test_opt_wrappers_quant.py:166 holds to INT8_REL_BOUND), then
+    `convert()` of the 53 convolutions to frozen-scale fake quant. The
+    logits of each stage against the float model's on a held-out batch,
+    each within INT8_REL_BOUND."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.quantization import (FakeQuantWrapper,
+                                               PostTrainingQuantization,
+                                               QuantizedLinear,
+                                               convert_to_int8)
+    net.eval()
+    cal = [pt.Tensor._wrap(x) for x, _ in
+           rn_batches(dev, QUANT_CAL, QUANT_CAL_B, SEED + 72)]
+    held = pt.Tensor._wrap(rn_batches(dev, 1, QUANT_CAL_B, SEED + 73)[0][0])
+
+    def logits():
+        with pt.no_grad():
+            return net(held)._data.float().cpu().numpy()
+
+    def rel(a, ref):
+        return float(np.abs(a - ref).max() / np.abs(ref).max())
+    ref = logits()
+    t0 = time.perf_counter()
+    ptq = PostTrainingQuantization(net, algo="hist")
+    with pt.no_grad():
+        scales = ptq.calibrate(cal, max_batches=QUANT_CAL)
+    cal_s = time.perf_counter() - t0
+    check(len(scales) == 54 and all(np.isfinite(s) and s > 0
+                                    for s in scales.values()),
+          f"quant ptq: scales {scales}")
+    net, n = convert_to_int8(net)
+    check(n == 1 and isinstance(net.fc, QuantizedLinear),
+          f"quant ptq: {n} layers to int8")
+    fc_int8 = logits()
+    ptq.convert()
+    wrapped = sum(isinstance(m, FakeQuantWrapper) for m in net.sublayers())
+    check(wrapped == 53, f"quant ptq: {wrapped} layers converted")
+    both = logits()
+    check(np.isfinite(both).all() and both.shape == ref.shape,
+          "quant ptq: converted logits")
+    err_fc, err_both = rel(fc_int8, ref), rel(both, ref)
+    check(err_fc < INT8_REL_BOUND and err_both < INT8_REL_BOUND,
+          f"quant ptq: logits {err_fc} (int8 fc), {err_both} (and the "
+          f"convolutions' frozen scales) from the float model's")
+    return {"algo": "hist", "batches": QUANT_CAL, "batch": QUANT_CAL_B,
+            "calibrate_s": cal_s, "scales": scales,
+            "fc_int8_w_scale_range": [
+                float(net.fc.w_scale._data.min()),
+                float(net.fc.w_scale._data.max())],
+            "logits_rel_err_fc_int8": err_fc,
+            "logits_rel_err_ptq_convs_and_fc_int8": err_both,
+            "rel_err": "max |out - ref| over max |ref|, the float model's "
+                       "bf16 eval logits on a held-out batch, each stage "
+                       f"held to {INT8_REL_BOUND}"}
+
+
+def quant_phase(dev, smi, peaks):
+    """QAT and PTQ on the card: the graphed QAT step against the eager
+    one in f32 (`quant_graph_check`); QAT ResNet-50 trained as one CUDA
+    graph at the resnet phase's recipe, timed beside the float model
+    (`quant_train`); PTQ, int8 conversion and the logits
+    (`quant_ptq`)."""
+    check_f32 = quant_graph_check(dev)
+    train, float_net = quant_train(dev, peaks)
+    ptq = quant_ptq(dev, float_net)
+    emit("quant", nvidia_smi=smi, graphed_vs_eager=check_f32, **train,
+         ptq=ptq,
+         what="step_ms: host clock over QUANT_STEPS graph replays after 3 "
+              "warm-up calls, one sync at the end, in turns (qat, float, "
+              "float, qat); profile: one replay's device ms by group")
+
+
+# ---------------------------------------------------------------- rec
+
+# DeepFM and Wide&Deep at the widths of PaddleRec's models/rank/deepfm
+# config (Criteo): 26 sparse fields into one vocabulary of 1,086,460 ids,
+# embedding dim 9, 13 dense features, MLP [400, 400, 400]; batch 512,
+# Adam(1e-3). The batches follow the Criteo layout: field f's ids in its
+# own contiguous slice of the vocabulary, drawn with a Zipf(1.2) skew
+# inside it; the 13 dense features log(1 + x) of exponential counts;
+# labels Bernoulli(0.256) (Criteo's click rate)
+CRITEO_VOCAB, CRITEO_FIELDS, CRITEO_DENSE, CRITEO_EMB = 1086460, 26, 13, 9
+REC_HIDDEN, REC_B, REC_LR, REC_STEPS = (400, 400, 400), 512, 1e-3, 20
+REC_GROUPS = (("embedding gather and scatter",
+               ("embedding", "index", "gather", "scatter", "sort",
+                "radix", "segment")),
+              ("gemms (MLP)", ("gemm", "nvjet", "cutlass", "xmma")),
+              ("fused Adam (optimizer.cu)", ("adam_kernel",)))
+REC_OTHER = "elementwise (FM, ReLU, loss, sums, copies)"
+
+
+def criteo_batches(dev, k, seed, b=REC_B):
+    """`k` seeded Criteo-layout batches (ids [b, 26] int64, dense [b, 13]
+    f32, labels [b] f32) staged on `dev`."""
+    import numpy as np
+    import torch
+    r = np.random.RandomState(seed)
+    size = CRITEO_VOCAB // CRITEO_FIELDS
+    offsets = np.arange(CRITEO_FIELDS) * size
+    out = []
+    for _ in range(k):
+        ids = offsets + (r.zipf(1.2, (b, CRITEO_FIELDS)) - 1) % size
+        dense = np.log1p(r.exponential(8.0, (b, CRITEO_DENSE)))
+        y = (r.rand(b) < 0.256).astype("f4")
+        out.append((torch.tensor(ids.astype("int64"), device=dev),
+                    torch.tensor(dense.astype("f4"), device=dev),
+                    torch.tensor(y, device=dev)))
+    return out
+
+
+def rec_model(dev, cls):
+    """`cls` ("DeepFM" or "WideDeep") at the Criteo widths, its weights
+    drawn on the CPU from SEED, moved to `dev`."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.state import host_init_ctx
+    import torch
+    with host_init_ctx(SEED + 80):
+        model = getattr(pt.rec, cls)(
+            vocab_size=CRITEO_VOCAB, emb_dim=CRITEO_EMB,
+            n_fields=CRITEO_FIELDS, n_dense=CRITEO_DENSE,
+            hidden=REC_HIDDEN)
+    # the tables as PaddleRec's deepfm draws them: N(0, 0.1 / sqrt(9))
+    # (its TruncatedNormal, untruncated); the models' own N(0, 1) puts
+    # the FM term of 26 fields at logits of |50|
+    gen = torch.Generator().manual_seed(SEED + 82)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if "emb" in k:
+                p._data.copy_(torch.randn(p._data.shape, generator=gen)
+                              * (0.1 / CRITEO_EMB ** 0.5))
+    return model.to(device=place_name(dev))
+
+
+def rec_train(dev, cls, batches):
+    """The main path of `cls`: built on the card, trained by a graphed
+    TrainStep (ctr_loss, Adam(1e-3)) for 3 warm-up calls and REC_STEPS
+    timed replays over the staged batches, every count 0 before it:
+    step ms, samples/s, peak memory, the device time by group, the fused
+    Adam kernel's launches (one captured a step; the wrappers called
+    twice, by the eager first call and the capture)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model = rec_model(dev, cls)
+    params = sum(p._data.numel() for p in model.parameters())
+    tables = sum(p._data.numel() for k, p in model.named_parameters()
+                 if "emb" in k)
+    step = TrainStep(model, pt.rec.ctr_loss, pt.optimizer.Adam(
+        learning_rate=REC_LR, parameters=model.parameters()))
+    warm = [float(step(batches[i][:2], batches[i][2:])) for i in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(REC_STEPS):
+        x = batches[i % len(batches)]
+        loss = step(x[:2], x[2:])
+    last = float(loss)
+    step_ms = (time.perf_counter() - t0) * 1e3 / REC_STEPS
+    peak_mem = torch.cuda.max_memory_allocated()
+    wrappers = {k: n for k, n in kernels.launch_counts().items() if n}
+    graph = graph_of(step, f"rec {cls}")
+    check(graph.launches == {"optimizer.adam": 1},
+          f"rec {cls}: the graph holds {graph.launches}, not 1 Adam")
+    check(wrappers == {"optimizer.adam": 2},
+          f"rec {cls}: the eager call and the capture called the "
+          f"wrappers {wrappers}, not Adam's twice")
+    check(graph.replays == REC_STEPS + 2,
+          f"rec {cls}: {graph.replays} replays")
+    check(np.isfinite(warm + [last]).all(), f"rec {cls}: losses {warm}")
+    return {"parameters": params, "table_parameters": tables,
+            "warmup_losses": warm, "last_loss": last, "step_ms": step_ms,
+            "samples_per_s": REC_B * 1e3 / step_ms,
+            "max_memory_allocated": peak_mem,
+            "adam_launches": graph.launches["optimizer.adam"]
+            * (graph.replays + 1),
+            "wrapper_counts": wrappers,
+            "profile": graph_profile(graph.graph, calls=3,
+                                     categories=REC_GROUPS,
+                                     other=REC_OTHER)}
+
+
+def rec_graph_check(dev, batches, steps=3):
+    """DeepFM twins from the same weights: a graphed TrainStep against an
+    eager one (cuda_graph=False) over `steps` Adam steps in f32: every
+    loss and every parameter after them equal bit for bit."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    models = [rec_model(dev, "DeepFM") for _ in range(2)]
+    graphed, eager = (TrainStep(m, pt.rec.ctr_loss, pt.optimizer.Adam(
+        learning_rate=REC_LR, parameters=m.parameters()), cuda_graph=g)
+        for m, g in zip(models, (True, False)))
+    pairs = []
+    for i in range(steps):
+        x = batches[i]
+        pairs.append((float(graphed(x[:2], x[2:])),
+                      float(eager(x[:2], x[2:]))))
+    check(all(a == b for a, b in pairs), f"rec graphed: losses {pairs}")
+    ref = dict(models[1].named_parameters())
+    differ = [k for k, p in models[0].named_parameters()
+              if not torch.equal(p._data, ref[k]._data)]
+    check(not differ, f"rec graphed: parameters differ: {differ}")
+    graph_of(graphed, "rec graphed")
+    return {"steps": steps, "losses_graphed_eager": pairs,
+            "parameters_equal": len(ref)}
+
+
+def rec_phase(dev, smi):
+    """DeepFM and Wide&Deep at the Criteo widths on the card
+    (`rec_train`), then DeepFM graphed against eager
+    (`rec_graph_check`). Returns the fused Adam launches of each main
+    path."""
+    batches = criteo_batches(dev, 8, SEED + 81)
+    runs = {cls: rec_train(dev, cls, batches)
+            for cls in ("DeepFM", "WideDeep")}
+    graphed = rec_graph_check(dev, batches)
+    emit("rec", nvidia_smi=smi,
+         config="PaddleRec models/rank/deepfm (Criteo): 26 sparse fields, "
+                "vocabulary 1086460, embedding dim 9, 13 dense features, "
+                "MLP [400, 400, 400]; batch 512, Adam(1e-3), f32",
+         runs=runs, graphed_vs_eager=graphed,
+         what="step_ms: host clock over REC_STEPS graph replays after 3 "
+              "warm-up calls, one sync at the end")
+    return {"deepfm": runs["DeepFM"]["adam_launches"],
+            "wide_deep": runs["WideDeep"]["adam_launches"]}
+
+
+# ---------------------------------------------------------------- detect
+
+# YOLOv3 on COCO at 608 x 608 (PaddleDetection's yolov3_darknet53
+# settings): 80 classes, the nine COCO anchors, masks [6, 7, 8] at stride
+# 32, [3, 4, 5] at 16, [0, 1, 2] at 8; batch 8, 50 padded gt rows an
+# image; ignore_thresh 0.7; decode at conf 0.005, then MultiClassNMS
+# (score 0.01, nms_top_k 1000, keep_top_k 100, IoU 0.45, no background)
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = (([6, 7, 8], 32), ([3, 4, 5], 16), ([0, 1, 2], 8))
+YOLO_B, YOLO_C, YOLO_GT, YOLO_SIZE = 8, 80, 50, 608
+# FPN level P2 of Mask R-CNN at 800 x 1216: [1, 256, 200, 304], 512 RoIs
+ROI_MAP, ROI_N, ROI_OUT, ROI_SCALE = (1, 256, 200, 304), 512, 7, 0.25
+DET_GROUPS = (("index, gather and scatter", ("index", "gather", "scatter")),
+              ("reductions", ("reduce", "sum", "amax", "max_")))
+DET_OTHER = "elementwise (sigmoid, exp, BCE, IoU, masks)"
+
+
+def yolo_inputs(seed):
+    """The three heads [8, 255, S, S] (S = 19, 38, 76) and the gt of a
+    seeded COCO-shaped batch, in numpy. Each anchor's 85 channels: the
+    box offsets tx, ty, tw, th ~ N(0, 1); the objectness logit ~ N(-8,
+    1.25), so that sigmoid(logit) > 0.005 (logit > -5.29) for about 1.5%
+    of the 22,743 candidates an image, as a trained head's confidences
+    spread; the 80 class logits ~ N(0, 2). Each image holds 2-20 real gt
+    boxes (COCO averages 7.3 an image): centres U(0.05, 0.95), sides
+    exp(N(log 0.1, 0.8)) clipped to [0.01, 0.9], labels U{0..79}; the
+    rest of the 50 rows padding (zeros)."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    heads = []
+    for _, stride in YOLO_HEADS:
+        s = YOLO_SIZE // stride
+        h = r.randn(YOLO_B, 3, 5 + YOLO_C, s, s).astype("f4")
+        h[:, :, 4] = r.normal(-8.0, 1.25, (YOLO_B, 3, s, s))
+        h[:, :, 5:] *= 2.0
+        heads.append(h.reshape(YOLO_B, 3 * (5 + YOLO_C), s, s))
+    box = np.zeros((YOLO_B, YOLO_GT, 4), "f4")
+    label = np.zeros((YOLO_B, YOLO_GT), "int32")
+    for i in range(YOLO_B):
+        n = r.randint(2, 21)
+        box[i, :n, :2] = r.uniform(0.05, 0.95, (n, 2))
+        box[i, :n, 2:] = np.clip(np.exp(r.normal(np.log(0.1), 0.8, (n, 2))),
+                                 0.01, 0.9)
+        label[i, :n] = r.randint(0, YOLO_C, n)
+    return heads, box, label
+
+
+def yolo_loss(xs, box, label):
+    """The summed [B] YOLOv3 loss of the three heads (torch tensors in,
+    torch tensor out) through the registered op."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import ops
+    total = None
+    for x, (mask, stride) in zip(xs, YOLO_HEADS):
+        loss = ops.yolov3_loss(pt.Tensor._wrap(x), pt.Tensor._wrap(box),
+                               pt.Tensor._wrap(label), YOLO_ANCHORS, mask,
+                               YOLO_C, 0.7, stride)._data
+        total = loss if total is None else total + loss
+    return total
+
+
+def yolo_loss_grads(xs, box, label):
+    """(loss [B], gradients of loss.sum() in each head)."""
+    import torch
+    leaves = [x.detach().requires_grad_(True) for x in xs]
+    loss = yolo_loss(leaves, box, label)
+    return loss.detach(), torch.autograd.grad(loss.sum(), leaves)
+
+
+def grads_held(name, got, want):
+    """Each gradient within 1e-4 x max(1, max|ref|); the worst ratio."""
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        scale = max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        check(err <= 1e-4 * scale, f"{name} {k}: error {err} > 1e-4 x "
+                                   f"{scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def yolo_loss_checks(dev, heads, box, label):
+    """YOLOv3's loss and gradients on the card against the CPU (loss
+    within 1e-5 relative, gradients within 1e-4 x max(1, max|g|)); the
+    forward and backward captured in one CUDA graph against the eager
+    call (within 1e-6 x max(1, |eager|)), timed by graph replay."""
+    import torch
+    cpu = yolo_loss_grads([torch.tensor(h) for h in heads],
+                          torch.tensor(box), torch.tensor(label))
+    xs = [torch.tensor(h, device=dev) for h in heads]
+    b, lab = torch.tensor(box, device=dev), torch.tensor(label, device=dev)
+    card = yolo_loss_grads(xs, b, lab)
+    rel = float(((card[0].cpu() - cpu[0]).abs() / cpu[0].abs()).max())
+    check(rel <= 1e-5 and bool(torch.isfinite(card[0]).all()),
+          f"detect: loss {card[0]} against the CPU's {cpu[0]}")
+    grad_err = grads_held("detect: yolov3_loss grad", card[1], cpu[1])
+    # forward and backward as one CUDA graph over static heads
+    static = [x.clone().requires_grad_(True) for x in xs]
+
+    def fwd_bwd():
+        loss = yolo_loss(static, b, lab)
+        return loss, torch.autograd.grad(loss.sum(), static)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd_bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_loss, g_grads = fwd_bwd()
+    graph.replay()
+    torch.cuda.synchronize()
+    gap = float(((g_loss.detach() - card[0]).abs()
+                 / card[0].abs().clamp(min=1.0)).max())
+    check(gap <= 1e-6, f"detect: graphed loss {g_loss} against eager "
+                       f"{card[0]}")
+    for k, (g, e) in enumerate(zip(g_grads, card[1])):
+        err = float((g - e).abs().max())
+        check(err <= 1e-6 * max(1.0, float(e.abs().max())),
+              f"detect: graphed grad {k} error {err}")
+    replay = replay_alone_ms(graph)
+    rows = replay_rows(graph)
+    return {"loss_per_image": card[0].tolist(),
+            "loss_rel_err_vs_cpu": rel, "grad_err_over_scale": grad_err,
+            "graphed_vs_eager_loss_rel": gap,
+            "fwd_bwd_ms_graph_replay": replay,
+            "profile": rows_profile(rows, categories=DET_GROUPS,
+                                    other=DET_OTHER)}
+
+
+def yolo_decode_checks(dev, heads):
+    """`yolo_box` at conf 0.005 over the three heads on the card against
+    the CPU (box corners within 1e-5 of the 608-pixel image, scores
+    within 1e-5 x max(1, |ref|)), then `multiclass_nms` on the
+    card's decode and on the same inputs copied to the CPU: outputs and
+    counts equal."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import ops
+    size = np.full((YOLO_B, 2), YOLO_SIZE, "int32")
+
+    def decode(xs, img):
+        outs = [ops.yolo_box(pt.Tensor._wrap(x), pt.Tensor._wrap(img),
+                             [YOLO_ANCHORS[2 * m + i] for m in mask
+                              for i in (0, 1)], YOLO_C, conf_thresh=0.005,
+                             downsample_ratio=stride)
+                for x, (mask, stride) in zip(xs, YOLO_HEADS)]
+        return (torch.cat([o[0]._data for o in outs], 1),
+                torch.cat([o[1]._data for o in outs], 1))
+    xs = [torch.tensor(h, device=dev) for h in heads]
+    img = torch.tensor(size, device=dev)
+    boxes, scores = decode(xs, img)
+    ref_boxes, ref_scores = decode([torch.tensor(h) for h in heads],
+                                   torch.tensor(size))
+    # box corners at the image's scale: a corner near 0 is a difference
+    # of two values near 0.5 times 608, so it carries 608 x their ulps
+    box_err = float((boxes.cpu() - ref_boxes).abs().max()) / YOLO_SIZE
+    score_err = float(((scores.cpu() - ref_scores).abs()
+                       / ref_scores.abs().clamp(min=1.0)).max())
+    check(box_err <= 1e-5 and score_err <= 1e-5,
+          f"detect: yolo_box errors {box_err} (boxes, over {YOLO_SIZE}), "
+          f"{score_err} (scores)")
+    candidates = boxes.shape[1]
+    check(candidates == 22743, f"detect: {candidates} candidates")
+    passing = float((scores.amax(-1) > 0).float().mean())
+    decode_ms = time_ms(lambda: decode(xs, img), 5)
+    nms_kw = dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+                  nms_threshold=0.45, normalized=False, background_label=-1)
+    sc = scores.transpose(1, 2).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, count = ops.multiclass_nms(pt.Tensor._wrap(boxes),
+                                    pt.Tensor._wrap(sc), **nms_kw)
+    torch.cuda.synchronize()
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    check(out._data.device.type == "cuda", "detect: nms left the card")
+    cpu_out, cpu_count = ops.multiclass_nms(
+        pt.Tensor._wrap(boxes.cpu()), pt.Tensor._wrap(sc.cpu()), **nms_kw)
+    check(torch.equal(out._data.cpu(), cpu_out._data) and
+          torch.equal(count._data.cpu(), cpu_count._data),
+          "detect: multiclass_nms on the card differs from the CPU's")
+    keep = nms_capture_check(boxes[0], scores[0].amax(-1))
+    return {"candidates_per_image": candidates,
+            "box_err_over_image": box_err, "score_err": score_err,
+            "nms_keep_mask": keep,
+            "share_over_conf_0.005": passing,
+            "yolo_box_ms_3_heads": decode_ms,
+            "nms_host_ms": nms_ms, "kept_per_image": count._data.tolist()}
+
+
+def nms_capture_check(boxes, scores, k=256):
+    """`nms`'s keep mask (the registered op: a device loop of vectorised
+    suppressions) over the `k` best-scoring candidates of one image,
+    captured in a CUDA graph: equal to the eager call and to the CPU's;
+    and the wrapper's kept indices (top_k=None, its one host read) equal
+    to the CPU's."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import ops
+    top = torch.topk(scores, k).indices
+    b, s = boxes[top].contiguous(), scores[top].contiguous()
+    eager = ops._nms_raw(b, s, iou_threshold=0.45)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops._nms_raw(b, s, iou_threshold=0.45)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed = ops._nms_raw(b, s, iou_threshold=0.45)
+    graph.replay()
+    torch.cuda.synchronize()
+    cpu = ops._nms_raw(b.cpu(), s.cpu(), iou_threshold=0.45)
+    check(torch.equal(graphed, eager) and torch.equal(eager.cpu(), cpu),
+          "detect: nms's keep mask graphed, eager and on the CPU differ")
+    idx = ops.nms(pt.Tensor._wrap(b), pt.Tensor._wrap(s), 0.45)._data
+    ref = ops.nms(pt.Tensor._wrap(b.cpu()), pt.Tensor._wrap(s.cpu()),
+                  0.45)._data
+    check(torch.equal(idx.cpu(), ref), "detect: nms's indices differ")
+    return {"boxes": k, "kept": int(eager.sum()),
+            "replay_ms": replay_alone_ms(graph)}
+
+
+def roi_align_checks(dev):
+    """`roi_align` at FPN P2 [1, 256, 200, 304]: 512 seeded RoIs in the
+    800 x 1216 image (corners U, sides U(16, 400), clipped), 7 x 7,
+    spatial_scale 0.25, sampling_ratio 2: forward and backward on the
+    card against the CPU (forward within 1e-5 x max(1, |ref|), the
+    input's gradient within 1e-4 x max(1, max|g|)); each timed by CUDA
+    events."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import ops
+    r = np.random.RandomState(SEED + 90)
+    x = r.randn(*ROI_MAP).astype("f4")
+    xy = r.uniform(0, [1150, 760], (ROI_N, 2))
+    wh = r.uniform(16, 400, (ROI_N, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [1215, 799])], 1) \
+        .astype("f4")
+    cot = r.uniform(-1, 1, (ROI_N, ROI_MAP[1], ROI_OUT, ROI_OUT)) \
+        .astype("f4")
+
+    def run(where):
+        leaf = torch.tensor(x, device=where, requires_grad=True)
+        out = ops.roi_align(pt.Tensor._wrap(leaf), pt.Tensor._wrap(
+            torch.tensor(boxes, device=where)), output_size=ROI_OUT,
+            spatial_scale=ROI_SCALE, sampling_ratio=2)._data
+        (g,) = torch.autograd.grad((out * torch.tensor(cot, device=where))
+                                   .sum(), leaf)
+        return out.detach(), g
+    card, ref = run(dev), run(torch.device("cpu"))
+    err = float(((card[0].cpu() - ref[0]).abs()
+                 / ref[0].abs().clamp(min=1.0)).max())
+    check(err <= 1e-5, f"detect: roi_align forward error {err}")
+    grad_err = grads_held("detect: roi_align grad", [card[1]], [ref[1]])
+    xt = torch.tensor(x, device=dev, requires_grad=True)
+    bt = torch.tensor(boxes, device=dev)
+    ct = torch.tensor(cot, device=dev)
+
+    def fwd():
+        return ops.roi_align(pt.Tensor._wrap(xt), pt.Tensor._wrap(bt),
+                             output_size=ROI_OUT, spatial_scale=ROI_SCALE,
+                             sampling_ratio=2)._data
+
+    def fwd_bwd():
+        torch.autograd.grad((fwd() * ct).sum(), xt)
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd, 5)
+    return {"map": list(ROI_MAP), "rois": ROI_N, "out": ROI_OUT,
+            "fwd_err_over_scale": err, "grad_err_over_scale": grad_err,
+            "fwd_ms": fwd_ms, "fwd_bwd_ms": time_ms(fwd_bwd, 5)}
+
+
+def detect_phase(dev, smi):
+    """YOLOv3 at COCO shapes on the card: the loss and its gradient
+    against the CPU and graphed against eager (`yolo_loss_checks`), the
+    decode and NMS (`yolo_decode_checks`), then roi_align at FPN P2
+    (`roi_align_checks`); peak memory over the phase."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    heads, box, label = yolo_inputs(SEED + 91)
+    loss = yolo_loss_checks(dev, heads, box, label)
+    decode = yolo_decode_checks(dev, heads)
+    roi = roi_align_checks(dev)
+    emit("detect", nvidia_smi=smi,
+         config="YOLOv3 COCO 608 x 608, batch 8, 80 classes, heads [8, "
+                "255, 19/38/76], 50 gt rows an image; roi_align at FPN P2 "
+                "[1, 256, 200, 304], 512 RoIs, 7 x 7",
+         yolov3_loss=loss, decode_nms=decode, roi_align=roi,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
 def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
                   layers=LAYERS, routes_want=None, after_step=None,
                   groups=None):
@@ -7643,6 +8390,9 @@ def main():
     hapi_launches = run("hapi", hapi_phase, dev, smi, peaks)
     run("resnet", resnet_phase, dev, smi, peaks)
     rnn_launches = run("rnn", rnn_phase, dev, smi, peaks)
+    run("quant", quant_phase, dev, smi, peaks)
+    rec_launches = run("rec", rec_phase, dev, smi)
+    run("detect", detect_phase, dev, smi)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -7716,6 +8466,7 @@ def main():
                  "launches_amp": amp_launches["adam"],
                  "launches_hapi": hapi_launches["adam"],
                  "launches_rnn": rnn_launches["adam"],
+                 "launches_rec": rec_launches,
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -31,8 +31,11 @@ shared-memory workers with `num_workers`), with `metric`'s metrics and
 (`nn.rnn`: SimpleRNN, LSTM, GRU, their cells, RNN and BiRNN) run each
 (layer, direction) pass as one sequence op, in torch's cuDNN RNN or a
 plain loop over time; `text` holds the text datasets and Viterbi
-decoding, `distribution` the probability distributions. Importing the
-package builds and launches nothing.
+decoding, `distribution` the probability distributions. `vision.ops`
+holds the detection ops (box geometry, NMS, the YOLOv3 loss and decode,
+the RoI family, the host-side target assigners), `quantization` QAT,
+PTQ and int8 conversion, and `rec` the Wide&Deep and DeepFM models.
+Importing the package builds and launches nothing.
 """
 __version__ = "0.1.0"
 
@@ -102,6 +105,9 @@ from . import optimizer, jit, amp  # noqa: F401,E402
 from . import io, metric, reader, dataset, vision, hapi  # noqa: F401,E402
 # text registers viterbi_decode
 from . import text, distribution  # noqa: F401,E402
+# vision.ops registers the detection ops, quantization
+# fake_quantize_dequantize
+from . import quantization, rec  # noqa: F401,E402
 from .hapi import Model, summary  # noqa: F401,E402
 
 

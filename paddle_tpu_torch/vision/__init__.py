@@ -1,6 +1,6 @@
 """paddle.vision (the port of `paddle_tpu/vision`; ref python/paddle/vision):
-the model zoo, transforms and datasets. The detection ops (`vision/ops.py`)
-are not ported yet (ROADMAP Queue 1 item 4)."""
+the model zoo, transforms, datasets and the detection ops (`ops`)."""
 from . import models
 from . import transforms
 from . import datasets
+from . import ops

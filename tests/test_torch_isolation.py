@@ -78,6 +78,10 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.optimizer.wrappers
         import paddle_tpu_torch.ops.chunked_ce
         import paddle_tpu_torch.regularizer
+        import paddle_tpu_torch.quantization
+        import paddle_tpu_torch.rec
+        import paddle_tpu_torch.rec.models
+        import paddle_tpu_torch.vision.ops
         import paddle_tpu_torch.graphs
         import paddle_tpu_torch.serving
         import paddle_tpu_torch.hapi

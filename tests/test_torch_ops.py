@@ -3,15 +3,18 @@ that the ported modules register (`ops/creation.py`, `math.py`,
 `manipulation.py`, `logic.py`, `linalg.py`, `sequence.py`, `legacy.py`,
 the registered `flash_attention`, `nn/functional.py`,
 `nn/layers_common.py`'s `bilinear`, `nlp/llama.py`'s `rms_norm` and
-`llama_attention`, `nn/rnn.py`'s sequence and step ops and `text/`'s
-`viterbi_decode`): the same seeded numpy inputs go through
+`llama_attention`, `nn/rnn.py`'s sequence and step ops, `text/`'s
+`viterbi_decode`, `vision/ops.py`'s detection ops and `quantization.py`'s
+`fake_quantize_dequantize`): the same seeded numpy inputs go through
 both packages on the CPU, and the forward outputs and the gradients of a
 fixed random projection of them are compared. The `nn.functional`
 cases run from `tests/test_torch_nn_ops.py` and the `legacy.py` cases
 from `tests/test_torch_legacy_ops.py` and `tests/test_torch_legacy_ops_2.py`
 and the `nn/rnn.py` and `text/` cases from `tests/test_torch_rnn.py`
-(other files, so other test workers); the coverage check here counts
-them.
+and the `vision/ops.py` and `quantization.py` cases from
+`tests/test_torch_vision_ops.py` and `tests/test_torch_vision_ops_2.py`
+(other files, so other test workers);
+the coverage check here counts them.
 
 Tolerances: f32 forward within 1e-5 x max(1, |ref|) elementwise;
 gradients within 1e-4 x max(1, max|g|); integer and bool outputs and all
@@ -46,7 +49,7 @@ from paddle_tpu_torch.ops import manipulation as t_manip
 from paddle_tpu_torch.ops import math as t_math
 from paddle_tpu_torch.ops import sequence as t_seq
 from torch_op_cases import (CASES, LEGACY_CASES, NN_CASES, NS, RNN_CASES,
-                            op_name, run)
+                            VISION_CASES, op_name, run)
 
 # one intra-op thread: parallel test workers share the host's cores
 torch.set_num_threads(1)
@@ -57,7 +60,8 @@ ROOT = Path(__file__).resolve().parent.parent
 MODULES = ("creation", "math", "manipulation", "logic", "linalg",
            "sequence", "legacy")
 NN_SOURCES = ("nn/functional.py", "nn/layers_common.py", "nlp/llama.py",
-              "nn/rnn.py", "text/__init__.py")
+              "nn/rnn.py", "text/__init__.py", "vision/ops.py",
+              "quantization.py")
 
 
 j_flash = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -93,7 +97,8 @@ def _close(got, want, rtol, what):
 
 @pytest.mark.parametrize("name", sorted(set(CASES) - set(NN_CASES)
                                          - set(LEGACY_CASES)
-                                         - set(RNN_CASES)))
+                                         - set(RNN_CASES)
+                                         - set(VISION_CASES)))
 def test_op_matches_jax(name):
     check_case(name)
 
@@ -127,9 +132,9 @@ def check_case(name):
 
 def _jax_module_names():
     """The op names the seven JAX op modules, `nn/functional.py`,
-    `nn/layers_common.py`, `nlp/llama.py`, `nn/rnn.py` and
-    `text/__init__.py` register (their quoted names
-    in the JAX registry), and flash_attention."""
+    `nn/layers_common.py`, `nlp/llama.py`, `nn/rnn.py`,
+    `text/__init__.py`, `vision/ops.py` and `quantization.py` register
+    (their quoted names in the JAX registry), and flash_attention."""
     srcs = [(ROOT / "paddle_tpu" / "ops" / f"{m}.py").read_text()
             for m in MODULES]
     srcs += [(ROOT / "paddle_tpu" / path).read_text() for path in NN_SOURCES]
@@ -150,4 +155,4 @@ def test_registry_covers_the_jax_modules_and_every_name_has_a_case():
     cased = {op_name(k) for k in CASES}
     assert not sorted(names - cased), sorted(names - cased)
     # reported in CHANGES.md
-    assert len(names) >= 374, len(names)
+    assert len(names) >= 412, len(names)

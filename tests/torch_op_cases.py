@@ -790,6 +790,257 @@ RNN_CASES = {
 }
 
 
+# --------------------------------------- vision/ops.py and quantization.py
+
+def V(n):
+    """The package's `vision.ops`."""
+    return n.P.vision.ops
+
+
+def corner_boxes(k, seed, lo=0.0, hi=10.0, wlo=1.0, whi=5.0):
+    """k seeded corner boxes (x1, y1, x2, y2): corners in [lo, hi], sides
+    in [wlo, whi]."""
+    r = rs(seed)
+    xy = r.uniform(lo, hi, (k, 2))
+    wh = r.uniform(wlo, whi, (k, 2))
+    return np.concatenate([xy, xy + wh], axis=1).astype("f4")
+
+
+# clustered boxes with distinct scores, so some suppress each other
+NMS_BOXES = np.concatenate([corner_boxes(4, 200, 0, 2, 4, 5),
+                            corner_boxes(4, 201, 6, 8, 4, 5)])
+NMS_SCORES = rs(202).permutation(8).astype("f4") / 8 + 0.05
+# YOLOv3 at two anchors of three, 3 classes, an 8-pixel stride: gt rows
+# (cx, cy, w, h) normalised, the last row of image 1 padding (w = 0)
+YOLO_GT = np.concatenate([uni((2, 4, 2), 0.05, 0.95, 210),
+                          uni((2, 4, 2), 0.15, 0.9, 211)], axis=2)
+YOLO_GT[1, 3] = 0.0
+# a binary tree of 7 nodes (0 the padding node): (item, layer, parent,
+# child, child)
+TDM_TREE = np.array([[0, 0, 0, 0, 0], [0, 0, 0, 3, 4], [0, 0, 0, 5, 6],
+                     [10, 2, 1, 0, 0], [11, 2, 1, 0, 0], [12, 2, 2, 0, 0],
+                     [13, 2, 2, 0, 0]], "int32")
+# quads with fractional corners: a corner maps to its output pixel exactly,
+# and at an integer coordinate the bilinear sample has a kink (the
+# packages' solves land on either side of it); the last row degenerate
+PERSPECTIVE_ROIS = np.array([[1.3, 1.1, 6.2, 2.4, 6.6, 6.3, 1.7, 5.6],
+                             [0.6, 2.2, 4.3, 1.2, 5.1, 6.8, 1.2, 6.3],
+                             [2.1, 2.2, 5.3, 2.1, 5.2, 5.3, 2.2, 5.4],
+                             [0, 0, 0, 0, 0, 0, 0, 0]], "f4")
+# anchors for the RPN assigners: a 6 x 5 grid of 16-pixel boxes
+RPN_ANCHORS = np.array([[x, y, x + 16, y + 16] for y in range(0, 60, 12)
+                        for x in range(0, 72, 12)], "f4")
+RPN_GT = np.array([[4, 4, 20, 22], [30, 26, 50, 44], [50, 5, 66, 18]], "f4")
+
+VISION_CASES = {
+    "box_iou": case(lambda n, a, b: V(n).box_iou(a, b),
+                    [corner_boxes(5, 203), corner_boxes(4, 204)], [0, 1]),
+    "nms": case(lambda n, b, s: (
+        V(n).nms(b, s, iou_threshold=0.3),
+        V(n).nms(b, s, iou_threshold=0.3, score_threshold=0.3, top_k=6),
+        run_op(n, "nms", [b, s], iou_threshold=0.5)),
+        [NMS_BOXES, NMS_SCORES]),
+    "box_coder": case(lambda n, p, v, t, o: (
+        V(n).box_coder(p, v, t),
+        V(n).box_coder(p, None, o, code_type="decode_center_size",
+                       box_normalized=False)),
+        [corner_boxes(6, 205), uni((4,), 0.1, 0.3, 206),
+         corner_boxes(6, 207), uni((6, 4), -0.5, 0.5, 208)], [0, 2, 3]),
+    "yolo_box": case(lambda n, x, size: (
+        *V(n).yolo_box(x, size, [10, 13, 16, 30], 3, conf_thresh=0.3,
+                       downsample_ratio=16),
+        *V(n).yolo_box(x, size, [10, 13, 16, 30], 3, conf_thresh=0.3,
+                       downsample_ratio=16, clip_bbox=False,
+                       scale_x_y=1.05)),
+        [uni((2, 16, 4, 4), -2, 2, 209), np.array([[64, 48], [32, 64]],
+                                                  "int32")], [0]),
+    "yolov3_loss": case(lambda n, x, box, lab, score: (
+        V(n).yolov3_loss(x, box, lab, [10, 13, 16, 30, 33, 23], [1, 2], 3,
+                         0.5, 8),
+        V(n).yolov3_loss(x, box, lab, [10, 13, 16, 30, 33, 23], [1, 2], 3,
+                         0.3, 8, gt_score=score, use_label_smooth=False)),
+        [uni((2, 16, 4, 4), -2, 2, 212), YOLO_GT,
+         ints((2, 4), 0, 3, 213), uni((2, 4), 0.5, 1.0, 214)], [0]),
+    "roi_align": case(lambda n, x, b: (
+        V(n).roi_align(x, b, output_size=2, spatial_scale=0.5,
+                       sampling_ratio=2),
+        V(n).roi_align(x, b, output_size=(3, 2), spatial_scale=0.5,
+                       aligned=False)),
+        [uni((1, 3, 8, 10), seed=215), corner_boxes(4, 216, 0, 12, 2, 8)],
+        [0, 1]),
+    "roi_pool": case(lambda n, x, b: (
+        V(n).roi_pool(x, b, output_size=2, spatial_scale=0.5),
+        V(n).roi_pool(x, b, output_size=(2, 3), spatial_scale=0.5)),
+        [uni((1, 3, 8, 10), seed=217), corner_boxes(4, 218, 0, 12, 2, 8)],
+        [0]),
+    "psroi_pool": case(lambda n, x, b: V(n).psroi_pool(
+        x, b, output_size=2, spatial_scale=0.5),
+        [uni((1, 8, 8, 8), seed=219), corner_boxes(3, 220, 0, 8, 3, 7)],
+        [0]),
+    "prroi_pool": case(lambda n, x, b: V(n).prroi_pool(
+        x, b, output_size=(2, 3), spatial_scale=0.5),
+        [uni((1, 3, 8, 8), seed=221), corner_boxes(3, 222, 0, 8, 2, 6)],
+        [0, 1]),
+    "affine_channel": case(lambda n, x, s, b, x2: (
+        V(n).affine_channel(x, s, b),
+        V(n).affine_channel(x2, s, b, data_layout="NHWC")),
+        [uni((2, 3, 4, 4), seed=223), uni((3,), seed=224),
+         uni((3,), seed=225), uni((2, 4, 4, 3), seed=226)], range(4)),
+    "channel_shuffle": case(lambda n, x, x2: (
+        V(n).channel_shuffle(x, 3),
+        V(n).channel_shuffle(x2, 2, data_format="NHWC")),
+        [uni((2, 6, 3, 3), seed=227), uni((2, 3, 3, 6), seed=228)],
+        [0, 1]),
+    "pixel_unshuffle": case(lambda n, x, x2: (
+        V(n).pixel_unshuffle(x, 2),
+        V(n).pixel_unshuffle(x2, 2, data_format="NHWC")),
+        [uni((2, 3, 4, 6), seed=229), uni((2, 4, 6, 3), seed=230)],
+        [0, 1]),
+    "space_to_depth": case(lambda n, x: V(n).space_to_depth(x, 2),
+                           [uni((2, 3, 4, 6), seed=231)], [0]),
+    "max_pool2d_with_index": case(lambda n, x: (
+        *V(n).max_pool2d_with_index(x, 3, stride=2, padding=1),
+        *V(n).max_pool2d_with_index(x, 2)),
+        [uni((2, 3, 7, 7), seed=232)], [0]),
+    # the pooled values are an input of their own: the JAX tape loses the
+    # gradient from max_unpool2d back through max_pool2d_with_index
+    # (tests/test_torch_vision_ops.py, ROADMAP Queue 3)
+    "max_unpool2d": case(lambda n, x, v: (
+        V(n).max_unpool2d(v, V(n).max_pool2d_with_index(x, 2)[1], 2),
+        V(n).max_unpool2d(v, V(n).max_pool2d_with_index(x, 2)[1], 2,
+                          output_size=(7, 9))),
+        [uni((2, 3, 6, 8), seed=233), uni((2, 3, 3, 4), seed=266)], [1]),
+    "correlation": case(lambda n, a, b: (
+        V(n).correlation(a, b, 2, 1, 2, 1, 2),
+        V(n).correlation(a, b, 1, 1, 1, 1, 1)),
+        [uni((1, 3, 5, 6), seed=234), uni((1, 3, 5, 6), seed=235)],
+        [0, 1]),
+    "max_pool3d_with_index": case(lambda n, x: (
+        *run_op(n, "max_pool3d_with_index", [x], kernel_size=(2, 2, 2)),
+        *run_op(n, "max_pool3d_with_index", [x], kernel_size=(3, 3, 3),
+                stride=(2, 2, 2), padding=(1, 1, 1))),
+        [uni((1, 2, 5, 4, 6), seed=236)], [0]),
+    "box_clip": case(lambda n, b, im: V(n).box_clip(b, im),
+                     [uni((2, 5, 4), -5, 40, 237),
+                      np.array([30.0, 20.0], "f4")], [0]),
+    "bipartite_match": case(lambda n, d: (
+        *V(n).bipartite_match(d),
+        *V(n).bipartite_match(d, match_type="per_prediction",
+                              dist_threshold=0.3)),
+        [np.where(uni((3, 6), 0, 1, 238) > 0.2, uni((3, 6), 0, 1, 238),
+                  0.0).astype("f4")]),
+    "target_assign": case(lambda n, x, m: V(n).target_assign(
+        x, m, mismatch_value=0.5),
+        [uni((2, 3, 4), seed=239), ints((2, 5), -1, 3, 240)]),
+    "multiclass_nms": case(lambda n, b, s, bb, ss: (
+        *V(n).multiclass_nms(b, s, score_threshold=0.2, nms_top_k=5,
+                             keep_top_k=6, nms_threshold=0.3),
+        *V(n).multiclass_nms(bb, ss, score_threshold=0.1, keep_top_k=5,
+                             nms_threshold=0.4, normalized=False,
+                             background_label=-1)),
+        [np.clip(corner_boxes(12, 241, 0, 0.7, 0.1, 0.3), 0, 1),
+         uni((3, 12), 0, 1, 242),
+         np.stack([corner_boxes(12, 243, 0, 20, 3, 9),
+                   corner_boxes(12, 244, 0, 20, 3, 9)]),
+         uni((2, 3, 12), 0, 1, 245)]),
+    "generate_proposals": case(lambda n, s, d, im, a, v: (
+        *V(n).generate_proposals(s, d, im, a, v, pre_nms_top_n=12,
+                                 post_nms_top_n=6, min_size=1.0),
+        *V(n).generate_proposals(s, d, im, a, v, pre_nms_top_n=20,
+                                 post_nms_top_n=10, nms_thresh=0.3)),
+        [uni((20,), 0, 1, 246), uni((20, 4), -0.3, 0.3, 247),
+         np.array([48.0, 56.0], "f4"), corner_boxes(20, 248, 0, 40, 6, 20),
+         np.ones((20, 4), "f4")]),
+    "distribute_fpn_proposals": case(
+        lambda n, r: V(n).distribute_fpn_proposals(r, 2, 5, 4, 224),
+        [corner_boxes(10, 249, 0, 100, 10, 900)]),
+    "polygon_box_transform": case(lambda n, x: V(n).polygon_box_transform(x),
+                                  [uni((2, 8, 3, 4), -3, 3, 250)]),
+    "collect_fpn_proposals": case(lambda n, r1, r2, s1, s2: (
+        *V(n).collect_fpn_proposals([r1, r2], [s1, s2], 2, 3, 6),
+        *V(n).collect_fpn_proposals([r1, r2], [s1, s2], 2, 3, 12)),
+        [corner_boxes(5, 251), corner_boxes(4, 252), uni((5,), 0, 1, 253),
+         uni((4,), 0, 1, 254)]),
+    "box_decoder_and_assign": case(lambda n, p, v, t, s: (
+        *run_op(n, "box_decoder_and_assign", [p, v, t, s]),
+        *run_op(n, "box_decoder_and_assign", [p, v, 8 * t, s],
+                box_clip=1.0)),
+        [corner_boxes(5, 255, 0, 30, 4, 12), uni((4,), 0.1, 0.3, 256),
+         uni((5, 12), -0.5, 0.5, 257), uni((5, 3), 0, 1, 258)], [0, 2]),
+    "mine_hard_examples": case(lambda n, loss, m: (
+        V(n).mine_hard_examples(loss, m, neg_pos_ratio=1.5),
+        V(n).mine_hard_examples(loss, m)),
+        [uni((2, 8), 0, 2, 259),
+         np.array([[0, -1, -1, 2, -1, -1, -1, -1],
+                   [1, 2, -1, -1, -1, -1, -1, -1]], "int32")]),
+    "tdm_child": case(lambda n, x, tree: (
+        *run_op(n, "tdm_child", [x, tree]),
+        *run_op(n, "tdm_child", [x, tree], child_nums=1)),
+        [np.array([[1, 2, 3], [0, 2, 6]], "int32"), TDM_TREE]),
+    "rpn_target_assign": case(lambda n, a, g: (
+        *run_op(n, "rpn_target_assign", [a, g], rpn_batch_size_per_im=8,
+                seed=3),
+        *run_op(n, "rpn_target_assign", [a, g], rpn_positive_overlap=0.5,
+                rpn_negative_overlap=0.2)),
+        [RPN_ANCHORS, RPN_GT]),
+    "retinanet_target_assign": case(lambda n, a, g: run_op(
+        n, "retinanet_target_assign", [a, g], positive_overlap=0.4,
+        negative_overlap=0.3), [RPN_ANCHORS, RPN_GT]),
+    "generate_proposal_labels": case(lambda n, r, g, c: (
+        *run_op(n, "generate_proposal_labels", [r, g, c],
+                batch_size_per_im=8, fg_fraction=0.5, seed=4),
+        *run_op(n, "generate_proposal_labels", [r, g, c],
+                batch_size_per_im=24, fg_thresh=0.3, bg_thresh_hi=0.3)),
+        [RPN_ANCHORS[:20], RPN_GT, np.array([3, 1, 2], "int32")]),
+    "detection_map": case(lambda n, d, k, g, lab: (
+        V(n).detection_map(d, k, g, lab, 3),
+        V(n).detection_map(d, k, g, lab, 3, overlap_threshold=0.3,
+                           ap_type="11point")),
+        [np.array([[0, 0.9, 10, 10, 30, 30], [0, 0.6, 12, 9, 31, 29],
+                   [1, 0.8, 40, 40, 60, 62], [2, 0.7, 0, 0, 9, 9],
+                   [1, 0.5, 41, 38, 58, 60], [2, 0.4, 5, 5, 9, 9]], "f4"),
+         np.int32(5), np.array([[10, 10, 30, 30], [40, 40, 60, 60],
+                                [1, 1, 8, 9], [0, 0, 0, 0]], "f4"),
+         np.array([0, 1, 2, -1], "int32")]),
+    "deformable_psroi_pooling": case(lambda n, x, b, t: run_op(
+        n, "deformable_psroi_pooling", [x, b, t], output_size=(2, 2),
+        trans_std=0.2, sample_per_part=3),
+        [uni((1, 8, 8, 8), seed=260), corner_boxes(3, 261, 0, 4, 2, 3),
+         uni((3, 2, 2, 2), -0.5, 0.5, 262)], [0, 1, 2]),
+    "roi_perspective_transform": case(lambda n, x, r: run_op(
+        n, "roi_perspective_transform", [x, r], transformed_height=3,
+        transformed_width=4), [uni((1, 2, 8, 8), seed=263),
+                               PERSPECTIVE_ROIS], [0, 1]),
+    "tdm_sampler": case(lambda n, ids, travel, layers: (
+        *run_op(n, "tdm_sampler", [ids, travel, layers],
+                neg_samples_list=(1, 2), seed=5),
+        *run_op(n, "tdm_sampler", [ids, travel, layers],
+                neg_samples_list=(1, 1), seed=6, output_positive=False)),
+        [np.array([0, 2, 3], "int32"),
+         np.array([[1, 3], [1, 4], [2, 5], [0, 6]], "int32"),
+         np.array([[1, 2, 0, 0], [3, 4, 5, 6]], "int32")]),
+    "similarity_focus": case(lambda n, x: (
+        V(n).similarity_focus(x, 1, [0, 2]),
+        V(n).similarity_focus(x, 3, [1])), [uni((2, 3, 4, 5), seed=264)]),
+    "generate_mask_labels": case(lambda n, r, lab, poly, plen, cls: run_op(
+        n, "generate_mask_labels", [r, lab, poly, plen, cls], resolution=6),
+        [np.array([[5, 5, 15, 15], [0, 0, 12, 10], [20, 20, 30, 28],
+                   [2, 3, 9, 9]], "f4"), np.array([1, 2, 1, 0], "int32"),
+         np.array([[[0, 0], [20, 0], [20, 20], [0, 20], [0, 0]],
+                   [[1, 1], [11, 2], [6, 9], [0, 0], [0, 0]]], "f4"),
+         np.array([4, 3], "int32"), np.array([1, 2], "int32")]),
+    # quantization.py: the straight-through fake quant (identity gradient)
+    "fake_quantize_dequantize": case(lambda n, x: (
+        n.P.quantization.fake_quantize_dequantize(x),
+        n.P.quantization.fake_quantize_dequantize(x, bits=4, scale=0.8),
+        n.P.quantization.fake_quantize_dequantize(x, symmetric=False),
+        n.P.quantization.fake_quantize_dequantize(x, bits=6,
+                                                  symmetric=False,
+                                                  scale=0.7)),
+        [uni((3, 5), seed=265)], [0]),
+}
+
+
 CASES = {
     # creation
     "tril": case(lambda n, x: n.creation.tril(x, diagonal=1), [X], [0]),
@@ -1153,6 +1404,7 @@ CASES = {
     **NN_CASES,
     **LEGACY_CASES,
     **RNN_CASES,
+    **VISION_CASES,
 }
 
 
