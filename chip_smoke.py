@@ -323,7 +323,37 @@ its phases:
                 mask over one image's 256 best candidates captured in a
                 CUDA graph, equal to eager and the CPU; `roi_align`
                 at FPN P2 [1, 256, 200, 304], 512 RoIs, 7 x 7, forward
-                and backward against the CPU, timed; peak memory.
+                and backward against the CPU, timed; peak memory;
+  moe           GPT-2 small widths (the train phase's config, batch 4 x
+                1024, bf16, AdamW) with 8 experts of 3072 in every block,
+                top-2 gating, capacity factor 1.25 (GShard, arXiv
+                2006.16668): `moe_dispatch` on the card against the CPU
+                (ties, overflow); one TrainStep graph a step (12
+                launches each of K1-K3 and dd, 1 Adam, by the wrappers'
+                counters and the graph), its warm-up losses against an
+                eager twin's and a recompute twin's graphed losses
+                against them, within 1e-6 x max(1, |eager|); step ms,
+                tokens/s, peak memory, device time by kernel group and
+                by MoE part (each timed alone), the aux loss and the
+                dropped slots;
+  long_ctx      GPT-2 small widths at 16384 tokens, window 4096
+                (Mistral 7B, arXiv 2310.06825), recompute, batch 1, bf16,
+                AdamW, on the lag-7 streams of
+                examples/long_context_window.py: K1-K3 and dd at [1,
+                16384, 12, 64] against their plain versions, timed
+                beside their bounds and SDPA with a boolean band mask;
+                one TrainStep graph a step (24 K1 launches, 12 each of
+                K2, K3 and dd, 1 Adam) against an eager twin; the full
+                causal step and the step without recompute timed in
+                turns with it, with peak memory and K1-K3's device ms;
+                then `train_epoch_range(3)` of 4 steps an epoch in a
+                child process that exits in the middle of epoch 2, a
+                second child that resumes from epoch 1's snapshot, and
+                their losses against an uninterrupted run.
+
+The eager phase also runs the segment ops, a `register_op` with a
+backward and a g++-built `host_op` on the card (a TrainStep capture over
+it must raise, naming the op).
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -382,7 +412,7 @@ PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
           "eager", "nn", "transformer", "bert", "amp", "hapi", "resnet",
-          "rnn", "quant", "rec", "detect")
+          "rnn", "quant", "rec", "detect", "moe", "long_ctx")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -4501,9 +4531,109 @@ def dispatch_overhead(calls=10_000):
     return out
 
 
+HOST_RELU_SRC = ('extern "C" void chip_smoke_relu(float* out, const float* in,'
+                 ' long long n) { for (long long i = 0; i < n; ++i)'
+                 ' out[i] = in[i] > 0.f ? in[i] : 0.f; }')
+
+
+def incubate_checks(dev):
+    """The incubate and cpp_extension surface on the card: the four
+    segment reductions (with and without num_segments) forward and
+    backward against the CPU (1e-6 x max(1, |ref|)); a `register_op` with
+    a backward (3 x^2, grad 6 x) on a CUDA Tensor; a g++-built `host_op`
+    on a CUDA tensor (its result back on the card, equal to ReLU), and a
+    jit.TrainStep whose model calls it, whose capture must raise naming
+    the op. The ops registered here are taken out of the registry
+    after."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import dispatch
+    from paddle_tpu_torch.utils import cpp_extension as cpp
+    rng = np.random.RandomState(SEED + 41)
+    data = rng.randn(8, 5).astype("f4")
+    ids = np.array([0, 0, 1, 1, 1, 3, 3, 4], "int32")
+    cot = rng.randn(6, 5).astype("f4")
+    worst = 0.0
+    for fn in (pt.incubate.segment_sum, pt.incubate.segment_mean,
+               pt.incubate.segment_max, pt.incubate.segment_min):
+        for num in (6, None):
+            res = {}
+            for place in ("cpu", "gpu:0"):
+                x = pt.to_tensor(data, place=place, stop_gradient=False)
+                y = fn(x, pt.to_tensor(ids, place=place), num_segments=num)
+                (y * pt.to_tensor(cot[:y.shape[0]], place=place)).sum() \
+                    .backward()
+                check(y._data.device.type == ("cpu" if place == "cpu"
+                                              else "cuda"),
+                      f"{fn.__name__}: output on {y._data.device}")
+                res[place] = (y.numpy(), x.grad.numpy())
+            for got, want in zip(res["gpu:0"], res["cpu"]):
+                err = float(np.abs(got - want).max())
+                check(err <= 1e-6 * max(1.0, float(np.abs(want).max())),
+                      f"{fn.__name__} num_segments={num}: card against CPU "
+                      f"error {err}")
+                worst = max(worst, err)
+    names = ("chip_smoke_triple_square", "chip_smoke_host_relu")
+    try:
+        op = cpp.register_op(names[0], lambda x: x * x * 3,
+                             backward=lambda res, g: g * 6 * res[0])
+        x = pt.to_tensor([2.0, -1.0], place="gpu:0", stop_gradient=False)
+        y = op(x)
+        y.sum().backward()
+        check(y._data.is_cuda and y.numpy().tolist() == [12.0, 3.0]
+              and x.grad.numpy().tolist() == [12.0, -6.0],
+              f"register_op: {y.numpy()} grad {x.grad.numpy()}")
+        build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "cpp_extension")
+        os.makedirs(build, exist_ok=True)
+        src = os.path.join(build, "chip_smoke_relu.cc")
+        with open(src, "w") as f:
+            f.write(HOST_RELU_SRC)
+        lib = cpp.load("chip_smoke_relu", src, build_directory=build)
+        relu = cpp.host_op(names[1], lib, "chip_smoke_relu")
+        xs = torch.randn(1000, device=dev)
+        got = relu(pt.to_tensor(xs))._data
+        check(got.is_cuda and torch.equal(got, torch.relu(xs)),
+              "host_op on a CUDA tensor: not ReLU or not on the card")
+
+        class HostNet(pt.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.fc = pt.nn.Linear(16, 16)
+
+            def forward(self, a):
+                h = self.fc(a)
+                return h + relu(h)
+
+        net = HostNet().to(device="gpu:0")
+        step = TrainStep(net, lambda out, lab: ((out - lab) ** 2).mean(),
+                         pt.optimizer.SGD(0.1, parameters=net.parameters()))
+        a = torch.randn(4, 16, device=dev)
+        first = float(step(a, a))               # call 1: eager
+        refused = None
+        try:
+            step(a, a)                          # call 2: the capture
+        except RuntimeError as exc:
+            refused = str(exc)
+        check(refused is not None and names[1] in refused,
+              f"host_op under a TrainStep capture: {refused!r}")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(torch.ones(4, device=dev).sum())),
+              "the card after the refused capture")
+    finally:
+        for name in names:
+            dispatch.OP_REGISTRY.pop(name, None)
+    return {"segment_max_abs_err": worst, "register_op_backward": "held",
+            "host_op_cuda": "held", "host_op_first_step_loss": first,
+            "host_op_capture_refused": refused[:300]}
+
+
 def eager_phase(dev, smi):
     """The Tensor surface on the card: the op sweep, the f32 GPT-2 small
-    parity, bf16 AdamW steps at bench.py's shape, the dispatch overhead.
+    parity, bf16 AdamW steps at bench.py's shape, the dispatch overhead,
+    the segment ops and the custom ops (`incubate_checks`).
     Returns the flash kernels' launches in the eager steps."""
     import torch
     import paddle_tpu_torch as pt
@@ -4515,10 +4645,11 @@ def eager_phase(dev, smi):
         torch.cuda.empty_cache()
         steps = gpt_steps(dev, "tensor")
         overhead = dispatch_overhead()
+        incubate = incubate_checks(dev)
     finally:
         pt.set_device(old)
     emit("eager", nvidia_smi=smi, op_sweep=sweep, gpt_f32_parity=parity,
-         steps=steps, dispatch_us=overhead)
+         steps=steps, dispatch_us=overhead, incubate=incubate)
     return steps["launches"]
 
 
@@ -7734,9 +7865,739 @@ def detect_phase(dev, smi):
          max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
+# ---------------------------------------------------------------------------
+# moe: a GPT-2-small MoE trained as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# GPT-2 small widths at the train phase's config (bench.py:126-145) with
+# every block's MLP replaced by 8 experts of width 3072: top-2 gating and
+# capacity factor 1.25 (the JAX package's defaults moe_k=2,
+# moe_capacity_factor=1.25, aux_weight=0.01; GShard's top-2 gating,
+# Lepikhin et al. 2020, arXiv 2006.16668); batch 4 x 1024, bf16, AdamW
+MOE_EXPERTS, MOE_K, MOE_CF, MOE_B = 8, 2, 1.25, 4
+# a graphed step against the eager one: each loss within
+# GRAPH_GATE x max(1, |eager|)
+GRAPH_GATE = 1e-6
+
+
+def moe_config(**over):
+    """The moe phase's model: `train_config` with MoE blocks."""
+    return train_config(moe_experts=MOE_EXPERTS, moe_k=MOE_K,
+                        moe_capacity_factor=MOE_CF, **over)
+
+
+def twin(model, **over):
+    """A copy of GPT `model`, weights and config, with the config fields
+    `over` changed (`attn_window` reaches every attention layer): a
+    deepcopy on the card, where drawing 0.5 B weights again on the host
+    takes seconds. Copy before training."""
+    import copy
+    t = copy.deepcopy(model)
+    for key, value in over.items():
+        setattr(t.cfg, key, value)
+        if key == "attn_window":
+            for blk in t.gpt.blocks:
+                blk.attn.attn_window = value
+    return t
+
+
+def losses_gated(name, got, want):
+    """Each loss of `got` within GRAPH_GATE x max(1, |want|) of `want`'s;
+    returns whether they are equal bit for bit."""
+    import numpy as np
+    check(len(got) == len(want) and all(
+        np.isfinite(g) and abs(g - w) <= GRAPH_GATE * max(1.0, abs(w))
+        for g, w in zip(got, want)),
+        f"{name}: losses {got} against {want} (gate {GRAPH_GATE} x "
+        f"max(1, |ref|))")
+    return list(got) == list(want)
+
+
+def moe_dispatch_check(dev):
+    """`moe_dispatch` on the card against the CPU on the same f32 logits:
+    one layer's shape (N = 4096 tokens, E = 8, C = 1280) with logits on a
+    grid of 0.5 (many exact ties: the lowest expert must win on both) and
+    an overflowing case (N = 64, C = 3). The plans (dispatch) equal bit
+    for bit, combine within 2.4e-7 (4 ulps of a weight below 1: the CPU's
+    and CUDA's softmax exp differ by up to 2 ulps there), aux within
+    1e-6."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.incubate.moe import capacity_of, moe_dispatch
+    rng = np.random.RandomState(SEED + 31)
+    out = {}
+    n_layer = MOE_B * TRAIN_S
+    for name, n, cap in (
+            ("layer", n_layer, capacity_of(n_layer, MOE_K, MOE_EXPERTS,
+                                           MOE_CF)),
+            ("overflow", 64, 3)):
+        lg = (np.round(rng.randn(n, MOE_EXPERTS) * 2) / 2).astype("f4")
+        cpu = moe_dispatch(torch.from_numpy(lg), MOE_K, cap)
+        gpu = [t.cpu() for t in moe_dispatch(torch.from_numpy(lg).to(dev),
+                                             MOE_K, cap)]
+        check(torch.equal(gpu[0], cpu[0]),
+              f"moe_dispatch {name}: the card's plan differs from the CPU's")
+        cerr = float((gpu[1] - cpu[1]).abs().max())
+        aerr = abs(float(gpu[2]) - float(cpu[2]))
+        check(cerr <= 2.4e-7 and aerr <= 1e-6,
+              f"moe_dispatch {name}: combine error {cerr}, aux error {aerr}")
+        out[name] = {"tokens": n, "capacity": cap,
+                     "combine_max_abs_err": cerr, "aux_abs_err": aerr,
+                     "dropped_share": 1 - float(cpu[0].sum())
+                     / (n * MOE_K)}
+    return out
+
+
+def moe_drop_stats(model, ids):
+    """One eager forward of `model` (no grad): the weighted aux loss it
+    carries, and each MoE layer's share of token slots (N x k) dropped
+    for capacity, from the plan of the layer's own input."""
+    import torch
+    from paddle_tpu_torch.framework.tensor import unwrap
+    from paddle_tpu_torch.incubate.moe import capacity_of, moe_dispatch
+    kept = []
+
+    def hook(layer, inputs):
+        x = unwrap(inputs[0])
+        n = x.shape[0] * x.shape[1]
+        lg = x.reshape(n, -1).float() @ layer.gate.weight._data.float()
+        cap = capacity_of(n, layer.k, layer.num_experts,
+                          layer.capacity_factor)
+        plan = moe_dispatch(lg, layer.k, cap)[0]
+        kept.append(plan.sum() / (n * layer.k))
+    handles = [blk.mlp.register_forward_pre_hook(hook)
+               for blk in model.gpt.blocks]
+    try:
+        with torch.no_grad():
+            aux = float(model(ids)._moe_aux_loss)
+    finally:
+        for h in handles:
+            h.remove()
+    dropped = [1 - float(k) for k in kept]
+    return {"aux_weighted_sum": aux, "dropped_share_by_layer": dropped,
+            "dropped_share": sum(dropped) / len(dropped)}
+
+
+def moe_parts_ms(dev, replays=10):
+    """Device ms of one MoE layer's parts at the phase's shapes (N 4096,
+    D 768, H 3072, E 8, C 1280, bf16), each forward + backward captured
+    in a CUDA graph and replayed: the gating (f32 gate product, softmax,
+    the argmax rounds, one-hots and counters; its gradient through the
+    combine weights), the dispatch product, the two expert products with
+    GELU and biases, and the combine product. Times 12 layers is the
+    step's share."""
+    import torch
+    from paddle_tpu_torch.incubate.moe import capacity_of, moe_dispatch
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    n, d, h, e = MOE_B * TRAIN_S, 768, 3072, MOE_EXPERTS
+    c = capacity_of(n, MOE_K, e, MOE_CF)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            dtype).requires_grad_(True)
+    x, gw = rnd(n, d), rnd(d, e, scale=0.02)
+    w1, b1 = rnd(e, d, h, scale=0.02), rnd(e, 1, h, scale=0.0)
+    w2, b2 = rnd(e, h, d, scale=0.02), rnd(e, 1, d, scale=0.0)
+    lg = (x.detach().float() @ gw.detach().float()).requires_grad_(True)
+    with torch.no_grad():
+        plan = moe_dispatch(lg, MOE_K, c)
+    disp = plan[0].to(bf)
+    comb = plan[1].to(bf).requires_grad_(True)
+    ein = rnd(e, c, d)
+    eout = rnd(e, c, d)
+    cot_c = torch.randn((n, e, c), generator=g, device=dev)
+    cot_y = torch.randn((n, d), generator=g, device=dev).to(bf)
+    cot_e = torch.randn((e, c, d), generator=g, device=dev).to(bf)
+
+    def gating():
+        logits = x.float() @ gw.float()
+        _, cw, aux = moe_dispatch(logits, MOE_K, c)
+        torch.autograd.grad((cw * cot_c).sum() + aux, (x, gw))
+
+    def dispatch():
+        out = torch.einsum("nec,nd->ecd", disp, x)
+        torch.autograd.grad(out, x, cot_e)
+
+    def experts():
+        hid = torch.nn.functional.gelu(
+            torch.einsum("ecd,edh->ech", ein, w1) + b1, approximate="tanh")
+        out = torch.einsum("ech,ehd->ecd", hid, w2) + b2
+        torch.autograd.grad(out, (ein, w1, b1, w2, b2), cot_e)
+
+    def combine():
+        y = torch.einsum("nec,ecd->nd", comb, eout)
+        torch.autograd.grad(y, (comb, eout), cot_y)
+    return {name: graph_ms(fn, 1, replays) for name, fn in (
+        ("gating and one-hots", gating), ("dispatch product", dispatch),
+        ("expert products", experts), ("combine product", combine))}
+
+
+def moe_flops():
+    """Operations of one MoE training step (forward and backward) by
+    group, counted from the shapes: the dispatch product (2 N E C D
+    forward, the same for dX), the combine product (2 N E C D forward,
+    twice that for the combine weights' and the experts' outputs'
+    grads), the expert products (4 E C D H forward, 2x backward), the
+    attention projections (8 N D^2 forward), K1-K3 (2, 4 and 3 products
+    of 2 D a kept pair), the gate product and the tied head."""
+    from paddle_tpu_torch.incubate.moe import capacity_of
+    n, d, h, e, v = MOE_B * TRAIN_S, 768, 3072, MOE_EXPERTS, TRAIN_VOCAB
+    c = capacity_of(n, MOE_K, e, MOE_CF)
+    pairs = flash_pairs(MOE_B, HEADS, TRAIN_S, TRAIN_S, True, None)
+    per_layer = {"dispatch product": 4 * n * e * c * d,
+                 "combine product": 6 * n * e * c * d,
+                 "expert products": 12 * e * c * d * h,
+                 "attention projections": 24 * n * d * d,
+                 "K1-K3": 9 * 2 * HEAD_DIM * pairs,
+                 "gate product": 6 * n * d * e}
+    out = {k: f * LAYERS for k, f in per_layer.items()}
+    out["tied head"] = 6 * n * d * v
+    out["total"] = sum(out.values())
+    return out
+
+
+def moe_phase(dev, smi, peaks):
+    """GPT-2 small widths with 8 experts in every block (`moe_config`),
+    bf16, batch 4 x 1024, AdamW: `moe_dispatch` on the card against the
+    CPU; the main path through `graphed_train` (one graph replay a step,
+    12 launches each of K1-K3 and dd and 1 Adam launch, counted by the
+    wrappers and the graph); its three warm-up losses against an eager
+    twin's, and a recompute twin's graphed losses against them, within
+    the gate; step ms, tokens/s, peak memory (the eager first call's),
+    the device time by kernel group (torch.profiler) and by MoE part
+    (timed alone), the aux loss and the dropped slots."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import GPTForPretraining, gpt_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    dispatch = moe_dispatch_check(dev)
+    ids = torch.tensor(np.random.RandomState(SEED + 33).randint(
+        0, TRAIN_VOCAB, (MOE_B, TRAIN_S)).astype("int64"), device=dev)
+
+    def adamw(m):
+        return AdamW(learning_rate=1e-4, parameters=m.parameters())
+
+    model = GPTForPretraining(moe_config(), device=dev,
+                              dtype=torch.bfloat16, seed=SEED)
+    eager_model, rmodel = twin(model), twin(model, use_recompute=True)
+    opt = adamw(model)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 10
+    run = graphed_train(model, gpt_pretrain_loss, opt, ids, "moe", steps,
+                        profiled_counts=False)
+    peak = run["warm_peak_mem"] - base
+    eager = TrainStep(eager_model, gpt_pretrain_loss, adamw(eager_model),
+                      cuda_graph=False)
+    eager_losses = [float(eager(ids, ids)) for _ in range(3)]
+    graphed_bitwise = losses_gated("moe graphed", run["warm_losses"],
+                                   eager_losses)
+    del eager_model, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    ropt = adamw(rmodel)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rstep = TrainStep(rmodel, gpt_pretrain_loss, ropt)
+    rlosses = [float(rstep(ids, ids)) for _ in range(3)]
+    rpeak = torch.cuda.max_memory_allocated() - base
+    recompute_bitwise = losses_gated("moe recompute", rlosses,
+                                     run["warm_losses"])
+    rlaunches = dict(graph_of(rstep, "moe recompute").launches)
+    want = {f"flash_attention.{k}": LAYERS for k in ("dkv", "dq", "dd")}
+    want.update({"flash_attention.fwd": 2 * LAYERS, "optimizer.adam": 1})
+    check(rlaunches == want, f"moe recompute: the graph holds {rlaunches}, "
+                             f"not {want}")
+    del rmodel, ropt, rstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = moe_drop_stats(model, ids)
+    parts = moe_parts_ms(dev)
+    flops = moe_flops()
+    n_params = sum(p.numel() for p in model.parameters())
+    dt = run["dt"]
+    emit("moe", nvidia_smi=smi, model="gpt2_small widths, 8 experts of "
+         "3072 in every block, top-2, capacity factor 1.25, aux weight "
+         "0.01", dtype="bfloat16", vocab=TRAIN_VOCAB, batch=MOE_B,
+         seq=TRAIN_S, steps=steps, params=n_params,
+         step="one CUDA graph replay per call", step_ms=dt * 1e3,
+         tokens_per_s=MOE_B * TRAIN_S / dt, loss=run["final"],
+         grad_norm=run["grad_norm"],
+         flops_per_step=flops,
+         achieved_tflops=flops["total"] / dt * 1e-12,
+         peak_tflops_bf16=peaks["bf16"] * 1e-12,
+         warm_peak_memory_allocated=peak,
+         warm_peak_memory_allocated_recompute=rpeak,
+         memory_note="peak of the eager first call and the capture above "
+                     "what was allocated before the step was built (the "
+                     "weights and the optimizer state are made in them)",
+         graphed_vs_eager_losses=list(zip(run["warm_losses"],
+                                           eager_losses)),
+         graphed_vs_eager_bitwise=graphed_bitwise,
+         recompute_losses=rlosses, recompute_bitwise=recompute_bitwise,
+         recompute_launches_per_step=rlaunches,
+         launches_per_step=run["per_step"], launches=run["launches"],
+         wrapper_counts={k: n for k, n in run["counts"].items() if n},
+         routes=run["routes"], profile=run["profile"],
+         layer_parts_device_ms=parts,
+         step_parts_device_ms={k: v * LAYERS for k, v in parts.items()},
+         dispatch_check=dispatch, **stats)
+    return run["launches"]
+
+
+# ---------------------------------------------------------------------------
+# long_ctx: GPT-2 small at 16384 tokens, sliding window, recompute, resume
+# ---------------------------------------------------------------------------
+
+# GPT-2 small widths at 16384 tokens (16x the train phase's 1024) with
+# Mistral 7B's sliding window of 4096 (Jiang et al. 2023, arXiv
+# 2310.06825) and recompute, batch 1, on the lag-7 streams of
+# examples/long_context_window.py:49-54 over vocab 32768
+LONG_S, LONG_WINDOW, LONG_LAG = 16384, 4096, 7
+# the resume check: train_epoch_range(3) of 4 steps an epoch; the first
+# child exits after global step 9, two steps into epoch 2 (counting
+# from 0), after epoch 1's snapshot
+RESUME_EPOCHS, RESUME_STEPS, RESUME_DIE, RESUME_EXIT = 3, 4, 9, 17
+RESUME_JOB = "chip_smoke_long_ctx"
+
+
+def lag_ids(seed, b, s, vocab, lag=LONG_LAG):
+    """examples/long_context_window.py's batch: ids[t] = ids[t - lag],
+    `b` rows of seeded tokens over `vocab`, as int64 numpy."""
+    import numpy as np
+    head = np.random.RandomState(seed).randint(0, vocab, (b, lag))
+    return np.tile(head, (1, s // lag + 1))[:, :s].astype("int64")
+
+
+def long_config(window=LONG_WINDOW, recompute=True):
+    """The long_ctx phase's model config (kwargs of GPTConfig)."""
+    return dict(vocab_size=TRAIN_VOCAB, hidden_size=768, num_layers=LAYERS,
+                num_heads=HEADS, max_seq_len=LONG_S, dropout=0.0,
+                attn_dropout=0.0, attn_window=window,
+                use_recompute=recompute)
+
+
+def resume_run(spec):
+    """Train a GPT (GPTConfig(**spec["config"]), the weights of seed
+    SEED, AdamW(spec["lr"])) in a jit.TrainStep for spec["epochs"]
+    epochs of spec["steps"] steps on `lag_ids` batches seeded by (epoch,
+    step): through `incubate.train_epoch_range` under spec["save_dir"]
+    (the job id from PADDLE_JOB_ID), or a plain range when it is None.
+    Writes {"restored_from", "losses": {"<epoch>.<step>": loss},
+    "seconds": {imports, model, restore}, "step_end_s": [s from the
+    start]} to spec["out"] after every step when given (the gap after an
+    epoch's last step holds its snapshot); exits the process with
+    RESUME_EXIT right after global step spec["die_after"]. Returns the
+    same dict."""
+    t0 = time.perf_counter()
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.incubate import train_epoch_range
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import (GPTConfig, GPTForPretraining,
+                                      gpt_pretrain_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+    dev = torch.device(spec["device"])
+    if dev.type == "cpu":
+        pt.set_device("cpu")
+        torch.set_num_threads(1)
+    cfg = GPTConfig(**spec["config"])
+    t1 = time.perf_counter()
+    model = GPTForPretraining(cfg, device=dev,
+                              dtype=getattr(torch, spec["dtype"]), seed=SEED)
+    opt = AdamW(learning_rate=spec["lr"], parameters=model.parameters())
+    t2 = time.perf_counter()
+    epochs = range(spec["epochs"]) if spec.get("save_dir") is None else \
+        train_epoch_range(spec["epochs"], spec["save_dir"], model=model,
+                          optimizer=opt)
+    step = TrainStep(model, gpt_pretrain_loss, opt)
+    out = {"restored_from": getattr(epochs, "restored_from", None),
+           "losses": {}, "seconds": {"imports": t1 - t0, "model": t2 - t1,
+                                     "restore": time.perf_counter() - t2},
+           "step_end_s": []}
+    for epoch in epochs:
+        for i in range(spec["steps"]):
+            ids = torch.tensor(lag_ids(SEED + 1000 * epoch + i,
+                                       spec["batch"], cfg.max_seq_len,
+                                       cfg.vocab_size), device=dev)
+            out["losses"][f"{epoch}.{i}"] = float(step(ids, ids))
+            out["step_end_s"].append(time.perf_counter() - t0)
+            if spec.get("out"):
+                with open(spec["out"] + ".tmp", "w") as f:
+                    json.dump(out, f)
+                os.replace(spec["out"] + ".tmp", spec["out"])
+            if epoch * spec["steps"] + i == spec.get("die_after", -1):
+                sys.stdout.flush()
+                os._exit(RESUME_EXIT)
+    return out
+
+
+def resume_child(spec_path):
+    """A child process's entry point: `resume_run` of the spec in the
+    JSON file `spec_path`."""
+    with open(spec_path) as f:
+        resume_run(json.load(f))
+
+
+RESUME_CHILD = ("import sys; sys.path.insert(0, sys.argv[2]); "
+                "import chip_smoke; chip_smoke.resume_child(sys.argv[1])")
+
+
+def resume_check(root, spec, base, timeout=600):
+    """Kill and resume: a child (`sys.executable`, importing this file
+    from the checkout `root`) runs `resume_run` of `spec` through
+    `train_epoch_range` under `base` (emptied first) and exits
+    right after global step RESUME_DIE; a second child with the same
+    PADDLE_JOB_ID resumes from the newest snapshot (its restored_from
+    must be RESUME_DIE // steps - 1) and finishes; an uninterrupted run
+    (`resume_run` in this process, a plain range) gives the reference.
+    Every loss of both children within the gate of the reference's, the
+    snapshot directory holding the last epoch only. Returns the losses
+    and whether they are equal bit for bit; `base` is removed after."""
+    import shutil
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    env = dict(os.environ, PADDLE_JOB_ID=RESUME_JOB)
+    env.pop("PADDLE_CKPT_DIR", None)
+    steps = spec["steps"]
+    try:
+        results = []
+        for n, die in ((1, RESUME_DIE), (2, -1)):
+            path = os.path.join(base, f"child{n}.json")
+            with open(path + ".spec", "w") as f:
+                json.dump(dict(spec, save_dir=os.path.join(base, "ckpt"),
+                               out=path, die_after=die), f)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", RESUME_CHILD, path + ".spec", root],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=timeout)
+            want = RESUME_EXIT if die >= 0 else 0
+            check(proc.returncode == want and os.path.exists(path),
+                  f"resume child {n}: exit {proc.returncode} (want {want}):"
+                  f" {proc.stderr[-2000:]}")
+            with open(path) as f:
+                results.append(json.load(f))
+            results[-1]["wall_s"] = time.perf_counter() - t0
+        first, second = results
+        died_in = RESUME_DIE // steps
+        check(first["restored_from"] is None
+              and len(first["losses"]) == RESUME_DIE + 1,
+              f"resume child 1: {first}")
+        check(second["restored_from"] == died_in - 1
+              and sorted(second["losses"]) == [
+                  f"{e}.{i}" for e in range(died_in, spec["epochs"])
+                  for i in range(steps)],
+              f"resume child 2: {second}")
+        root_dir = os.path.join(base, "ckpt", RESUME_JOB)
+        with open(os.path.join(root_dir, "range_meta.json")) as f:
+            meta = json.load(f)
+        kept = sorted(d for d in os.listdir(root_dir)
+                      if not d.endswith(".json"))
+        last = spec["epochs"] - 1
+        check(meta["last_completed_epoch"] == last
+              and kept == [f"epoch_{last}"],
+              f"resume: meta {meta}, snapshot directory {kept}")
+        t0 = time.perf_counter()
+        ref = resume_run(dict(spec, save_dir=None, out=None, die_after=-1))
+        ref_s = time.perf_counter() - t0
+        pairs = {}
+        for name, res in (("child 1", first), ("child 2", second)):
+            keys = sorted(res["losses"])
+            got = [res["losses"][k] for k in keys]
+            want = [ref["losses"][k] for k in keys]
+            pairs[name] = losses_gated(f"resume {name}", got, want)
+        return {"epochs": spec["epochs"], "steps_per_epoch": steps,
+                "died_after_global_step": RESUME_DIE,
+                "restored_from": second["restored_from"],
+                "losses_child1": first["losses"],
+                "losses_child2": second["losses"],
+                "losses_uninterrupted": ref["losses"],
+                "bitwise_equal": pairs,
+                "child_wall_s": [r["wall_s"] for r in results],
+                "child_seconds": [r["seconds"] for r in results],
+                "child_step_end_s": [r["step_end_s"] for r in results],
+                "uninterrupted_s": ref_s}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def flash_long_shape(fa, dev, peaks, sets=4):
+    """K1, dd, K2 and K3 at the long-context shape, [1, 16384, 12, 64]
+    bf16 BSHD views of one qkv projection, causal with window 4096
+    (`sets` input sets): each held once against its plain version
+    (2e-2 x max(1, |ref|) per element, the flash phase's bf16 gate),
+    timed by graph replay beside its bound (the pairs the band keeps),
+    its plain version's time (one call, CUDA events) and SDPA's with an
+    explicit boolean band mask: the forward, and forward plus backward,
+    by graph replay, with the backend SDPA took for the mask."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(SEED + 23)
+    scale = 1.0 / HEAD_DIM ** 0.5
+    w = LONG_WINDOW
+    inputs = [flash_inputs(1, LONG_S, LONG_S, torch.bfloat16, gen, dev)
+              for _ in range(sets)]
+    q, k, v, do = inputs[0]
+    out, lse = fa.cuda_fwd(q, k, v, True, scale, True, w)
+    dd = fa.cuda_row_dot(do, out, True)
+    dk, dv = fa.cuda_bwd_dkv(q, k, v, do, lse, dd, True, scale, True, w)
+    dq = fa.cuda_bwd_dq(q, k, v, do, lse, dd, True, scale, True, w)
+
+    def once(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return res, e0.elapsed_time(e1)
+    (pout, plse), fwd_plain = once(
+        lambda: fa.plain_fwd(q, k, v, True, scale, True, w))
+    pdd, dd_plain = once(lambda: fa.plain_row_dot(do, out, True))
+    (pdk, pdv), dkv_plain = once(
+        lambda: fa.plain_bwd_dkv(q, k, v, do, lse, dd, True, scale, True, w))
+    pdq, dq_plain = once(
+        lambda: fa.plain_bwd_dq(q, k, v, do, lse, dd, True, scale, True, w))
+    errs = {}
+    for kind, pairs in (("fwd", ((out, pout), (lse, plse))),
+                        ("dd", ((dd, pdd),)),
+                        ("dkv", ((dk, pdk), (dv, pdv))),
+                        ("dq", ((dq, pdq),))):
+        worst = 0.0
+        for got, ref in pairs:
+            ref = ref.float()
+            e = (got.float() - ref).abs()
+            check(bool(torch.isfinite(got).all())
+                  and bool((e <= 2e-2 * torch.clamp(ref.abs(), min=1.0))
+                           .all()),
+                  f"flash {kind} at [1, {LONG_S}, 12, 64] window {w}: max "
+                  f"abs err {e.max().item()} over 2e-2 x max(1, |ref|)")
+            worst = max(worst, e.max().item())
+        errs[kind] = worst
+    del pout, plse, pdd, pdk, pdv, pdq
+    saved = []
+    for q_, k_, v_, do_ in inputs:
+        o_, l_ = fa.cuda_fwd(q_, k_, v_, True, scale, True, w)
+        saved.append((o_, l_, fa.cuda_row_dot(do_, o_, True)))
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % sets
+        return inputs[it["i"]] + saved[it["i"]]
+
+    def kernel(kind):
+        def run():
+            q_, k_, v_, do_, o_, l_, dd_ = nxt()
+            if kind == "fwd":
+                fa.cuda_fwd(q_, k_, v_, True, scale, True, w)
+            elif kind == "dd":
+                fa.cuda_row_dot(do_, o_, True)
+            elif kind == "dkv":
+                fa.cuda_bwd_dkv(q_, k_, v_, do_, l_, dd_, True, scale, True,
+                                w)
+            else:
+                fa.cuda_bwd_dq(q_, k_, v_, do_, l_, dd_, True, scale, True,
+                               w)
+        return run
+
+    # SDPA on [B, H, S, D] views of the same tensors with the band as an
+    # explicit boolean mask (True = attend)
+    pos = torch.arange(LONG_S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
+    lib = [tuple(t.transpose(1, 2).detach().requires_grad_(True)
+                 for t in (q_, k_, v_)) + (do_.transpose(1, 2),)
+           for q_, k_, v_, do_ in inputs]
+    backend = SDPBackend(torch._fused_sdp_choice(
+        *lib[0][:3], attn_mask=mask)).name
+    lit = {"i": 0}
+
+    def lnxt():
+        lit["i"] = (lit["i"] + 1) % sets
+        return lib[lit["i"]]
+
+    def sdpa_fwd_no_grad():
+        q_, k_, v_, _ = lnxt()
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+
+    def sdpa_fwd():
+        q_, k_, v_, _ = lnxt()
+        F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+
+    def sdpa_fwd_bwd():
+        q_, k_, v_, do_ = lnxt()
+        o_ = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+        torch.autograd.grad(o_, (q_, k_, v_), do_)
+
+    library = {"backend": backend}
+    if backend == "MATH":
+        library["fwd_ms"] = library["fwd_bwd_ms"] = library["bwd_ms"] = \
+            "not measured: SDPA took the math backend ([1, 12, 16384, " \
+            "16384] f32 scores)"
+    else:
+        library["fwd_ms"] = graph_ms(sdpa_fwd_no_grad, sets)
+        try:
+            library["fwd_bwd_ms"] = graph_ms(sdpa_fwd_bwd, sets)
+            library["bwd_ms"] = library["fwd_bwd_ms"] - graph_ms(sdpa_fwd,
+                                                                 sets)
+        except RuntimeError as exc:
+            library["fwd_bwd_ms"] = library["bwd_ms"] = \
+                f"not measured: {type(exc).__name__}: {exc}"[:300]
+    lib_of = {"fwd": library["fwd_ms"], "dkv": library["bwd_ms"],
+              "dq": library["bwd_ms"], "dd": None}
+    plain_of = {"fwd": fwd_plain, "dd": dd_plain, "dkv": dkv_plain,
+                "dq": dq_plain}
+    rows = {}
+    for kind in ("fwd", "dkv", "dq", "dd"):
+        bound_ms, bound_by = flash_bound(kind, q, k, True, w, True, peaks)
+        kernel_ms = graph_ms(kernel(kind), sets)
+        rows[kind] = {"kernel_ms": kernel_ms, "max_abs_err": errs[kind],
+                      "plain_ms": plain_of[kind],
+                      "library_ms": lib_of[kind], "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        if kind != "dd":
+            rows[kind]["tflops"] = flash_flops(
+                kind, q, k, True, w, True) / kernel_ms * 1e-9
+    kept = flash_pairs(1, HEADS, LONG_S, LONG_S, True, w)
+    full = flash_pairs(1, HEADS, LONG_S, LONG_S, True, None)
+    return {"shape": [1, LONG_S, HEADS, HEAD_DIM], "dtype": "bfloat16",
+            "causal": True, "window": w, "layout": "bshd",
+            "kept_pairs": kept, "causal_pairs": full,
+            "kept_share": kept / full,
+            "tolerance": "2e-2 x max(1, |ref|) per element",
+            "library": library,
+            "library_what": "SDPA with an explicit boolean band mask "
+                            "[16384, 16384]: fwd_ms no grad; fwd_bwd_ms "
+                            "forward + dQ, dK, dV; bwd_ms the difference "
+                            "with the forward under grad; all by graph "
+                            "replay", **rows}
+
+
+def long_ctx_phase(dev, smi, peaks, root):
+    """GPT-2 small widths at 16384 tokens, window 4096, recompute, bf16,
+    batch 1, AdamW (`long_config`), on lag-7 streams: K1-K3 and dd at the
+    shape (`flash_long_shape`); the main path through `graphed_train`
+    (one replay a step: 24 K1 launches (12 and the recomputed 12), 12
+    each of K2, K3 and dd, 1 Adam) and its warm-up losses against an
+    eager twin's within the gate; the same length with full causal
+    attention and the window without recompute, each its own graph,
+    timed in turns with the main step (step ms, the eager first call's
+    peak memory, K1-K3's device ms by profiler); then the kill and
+    resume (`resume_check`)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import (GPTConfig, GPTForPretraining,
+                                      gpt_pretrain_loss)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = flash_long_shape(fa, dev, peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = torch.tensor(lag_ids(SEED + 7, 1, LONG_S, TRAIN_VOCAB),
+                       device=dev)
+
+    def adamw(m):
+        return AdamW(learning_rate=1e-4, parameters=m.parameters())
+
+    model = GPTForPretraining(GPTConfig(**long_config()), device=dev,
+                              dtype=torch.bfloat16, seed=SEED)
+    eager_model = twin(model)
+    others = {"full causal + recompute": twin(model, attn_window=None),
+              "window 4096, no recompute": twin(model, use_recompute=False)}
+    opt = adamw(model)
+    want = {f"flash_attention.{k}": LAYERS for k in ("dkv", "dq", "dd")}
+    want.update({"flash_attention.fwd": 2 * LAYERS, "optimizer.adam": 1})
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 5
+    run = graphed_train(model, gpt_pretrain_loss, opt, ids, "long_ctx",
+                        steps, want=want,
+                        routes_want={"kernel": 4 * LAYERS, "dense": 0},
+                        profiled_counts=False)
+    eager = TrainStep(eager_model, gpt_pretrain_loss, adamw(eager_model),
+                      cuda_graph=False)
+    eager_losses = [float(eager(ids, ids)) for _ in range(3)]
+    graphed_bitwise = losses_gated("long_ctx graphed", run["warm_losses"],
+                                   eager_losses)
+    del eager_model, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    main = "window 4096 + recompute"
+    runs = {main: run["step"]}
+    peak = {main: run["warm_peak_mem"] - base}
+    for name, m in others.items():
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st = TrainStep(m, gpt_pretrain_loss, adamw(m))
+        for _ in range(3):
+            loss = float(st(ids, ids))
+        check(np.isfinite(loss), f"long_ctx {name}: loss {loss}")
+        peak[name] = torch.cuda.max_memory_allocated() - base
+        graph_of(st, f"long_ctx {name}")
+        runs[name] = st
+    order = list(runs)
+    turns = {name: [] for name in order}
+    for names in (order, order[::-1]):
+        for name in names:
+            st = runs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss = st(ids, ids)
+            float(loss)
+            turns[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    flash_ms = {}
+    for name in order[:2]:
+        prof = graph_profile(graph_of(runs[name], f"long_ctx {name}").graph,
+                             2)
+        flash_ms[name] = prof["by_group"]["flash attention (K1-K3, dd)"] \
+            if isinstance(prof, dict) else prof
+    a, b = (flash_ms[n] for n in order[:2])
+    # the graphs and their pools go before the children take the card
+    del runs, others, model, opt, m, st, run["step"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = resume_check(root, {
+        "device": "cuda", "dtype": "bfloat16", "config": long_config(),
+        "lr": 1e-4, "epochs": RESUME_EPOCHS, "steps": RESUME_STEPS,
+        "batch": 1}, os.path.join(root, "build", "resume_check"))
+    emit("long_ctx", nvidia_smi=smi, model="gpt2_small widths, "
+         "max_seq_len 16384, attn_window 4096, use_recompute",
+         dtype="bfloat16", vocab=TRAIN_VOCAB, batch=1, seq=LONG_S,
+         data="lag-7 streams (examples/long_context_window.py:49-54)",
+         steps=steps, step="one CUDA graph replay per call",
+         step_ms=run["dt"] * 1e3, tokens_per_s=LONG_S / run["dt"],
+         loss=run["final"], grad_norm=run["grad_norm"],
+         graphed_vs_eager_losses=list(zip(run["warm_losses"],
+                                           eager_losses)),
+         graphed_vs_eager_bitwise=graphed_bitwise,
+         step_ms_in_turns=turns, warm_peak_memory_allocated=peak,
+         memory_note="peak of the eager first call and the capture above "
+                     "what was allocated before the step was built",
+         flash_device_ms_per_step=flash_ms,
+         flash_ms_ratio_window_over_full=(a / b if isinstance(a, float)
+                                          and isinstance(b, float)
+                                          else "not measured"),
+         kept_pairs_share=shape["kept_share"],
+         launches_per_step=run["per_step"], launches=run["launches"],
+         wrapper_counts={k: n for k, n in run["counts"].items() if n},
+         routes=run["routes"], profile=run["profile"], resume=resume,
+         kernels_at_shape=shape)
+    return {"launches": run["launches"], "shape": shape}
+
+
 def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
                   layers=LAYERS, routes_want=None, after_step=None,
-                  groups=None):
+                  groups=None, want=None, profiled_counts=True):
     """bench.py's GPU recipe on `model`: the counts set to 0, a
     TrainStep, 3 warm-up calls (eager, capture, replay), then `steps`
     timed graph replays of `step(ids, labels)` (labels default to ids).
@@ -7747,7 +8608,12 @@ def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
     Python, and the profiler must see the graph's kernels once each a
     replay. `after_step` runs on the host after every call (a schedule's
     step()); `groups` are the profile's kernel groups (default
-    PROFILE_GROUPS). Returns the step and its measurements."""
+    PROFILE_GROUPS). `want` replaces the graph's expected launches (a
+    recomputed forward launches K1 twice a layer); with
+    `profiled_counts=False` the profiler's kernel counts are reported and
+    not held (the wrappers' counters and the graph's captured launches
+    are). Returns the step, the three warm-up losses and the
+    measurements."""
     import numpy as np
     import torch
     from paddle_tpu_torch import kernels
@@ -7763,17 +8629,19 @@ def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
     step = TrainStep(model, loss_fn, opt, donate=True)
     # call 1 runs eagerly on a side stream, call 2 captures the step and
     # replays it, call 3 replays
+    warm_losses = []
     for _ in range(3):
-        float(step(ids, labels))
+        warm_losses.append(float(step(ids, labels)))
         after_step()
     graphs = list(step.graphs.values())
     check(len(graphs) == 1 and graphs[0] is not None,
           f"{name}: {len(graphs)} graphs after three calls")
     graph = graphs[0]
     per_step = dict(graph.launches)
-    want = {f"flash_attention.{k}": layers for k in ("fwd", "dkv", "dq",
-                                                     "dd")}
-    want["optimizer.adam"] = 1
+    if want is None:
+        want = {f"flash_attention.{k}": layers
+                for k in ("fwd", "dkv", "dq", "dd")}
+        want["optimizer.adam"] = 1
     check(per_step == want, f"{name}: the graph holds the launches "
                             f"{per_step}, not {want}")
     routes = dict(fa.routes)
@@ -7784,6 +8652,7 @@ def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
     warm = kernels.launch_counts()
     replays0 = graph.replays
     torch.cuda.synchronize()
+    warm_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -7808,13 +8677,17 @@ def graphed_train(model, loss_fn, opt, ids, name, steps=10, labels=None,
     profile = profile_steps(step, ids, dt * 1e3, labels=labels,
                             **({} if groups is None else
                                {"categories": groups, "other": STEP_OTHER}))
-    check(isinstance(profile, dict), f"{name}: profile {profile}")
+    check(isinstance(profile, dict) or not profiled_counts,
+          f"{name}: profile {profile}")
     for key, dev_name in DEVICE_NAMES.items():
+        if not profiled_counts:
+            break
         seen = profile["kernel_calls_per_step"][dev_name]
         check(seen == per_step[key],
               f"{name}: the profiler saw {dev_name} {seen} times a step, "
               f"the graph holds {per_step[key]} launches of it")
-    return {"step": step, "dt": dt, "final": final, "peak_mem": peak_mem,
+    return {"step": step, "warm_losses": warm_losses, "dt": dt,
+            "final": final, "peak_mem": peak_mem, "warm_peak_mem": warm_peak,
             "reserved": reserved, "counts": counts, "per_step": per_step,
             "launches": launches, "grad_norm": grad_norm,
             "profile": profile, "routes": routes}
@@ -8393,6 +9266,8 @@ def main():
     run("quant", quant_phase, dev, smi, peaks)
     rec_launches = run("rec", rec_phase, dev, smi)
     run("detect", detect_phase, dev, smi)
+    moe_launches = run("moe", moe_phase, dev, smi, peaks)
+    long_ctx = run("long_ctx", long_ctx_phase, dev, smi, peaks, root)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -8444,6 +9319,14 @@ def main():
                      "transformer_shapes": {
                          name: shape[kind] for name, shape in
                          fl["transformer_shapes"].items()},
+                     "launches_moe": moe_launches[kind],
+                     "launches_long_ctx": long_ctx["launches"][kind],
+                     "long_ctx_shape": {
+                         "shape": long_ctx["shape"]["shape"],
+                         "window": LONG_WINDOW,
+                         "ms": long_ctx["shape"][kind]["kernel_ms"],
+                         **{k: v for k, v in long_ctx["shape"][kind].items()
+                            if k != "kernel_ms"}},
                      "ms": row.pop("kernel_ms"), **row})
         if kind == "fwd":
             prefill = dict(fl["fwd_prefill"])
@@ -8467,6 +9350,8 @@ def main():
                  "launches_hapi": hapi_launches["adam"],
                  "launches_rnn": rnn_launches["adam"],
                  "launches_rec": rec_launches,
+                 "launches_moe": moe_launches["adam"],
+                 "launches_long_ctx": long_ctx["launches"]["adam"],
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

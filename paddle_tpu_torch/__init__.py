@@ -35,6 +35,11 @@ decoding, `distribution` the probability distributions. `vision.ops`
 holds the detection ops (box geometry, NMS, the YOLOv3 loss and decode,
 the RoI family, the host-side target assigners), `quantization` QAT,
 PTQ and int8 conversion, and `rec` the Wide&Deep and DeepFM models.
+`incubate` holds recompute (`incubate.recompute`), the epoch-range
+auto-checkpoint (`incubate.checkpoint`), the segment reductions and
+the MoE layer (`incubate.moe`, which `GPTConfig(moe_experts=)`
+puts in every block); `utils.cpp_extension` registers custom ops
+and builds C++ host kernels.
 Importing the package builds and launches nothing.
 """
 __version__ = "0.1.0"
@@ -109,6 +114,9 @@ from . import text, distribution  # noqa: F401,E402
 # fake_quantize_dequantize
 from . import quantization, rec  # noqa: F401,E402
 from .hapi import Model, summary  # noqa: F401,E402
+# incubate (recompute, auto-checkpoint, the segment ops; MoE on first
+# use), the py2/3 helpers and the package's directories
+from . import incubate, compat, sysconfig, utils  # noqa: F401,E402
 
 
 def _inplace(x, out):

@@ -57,13 +57,14 @@ import numpy as np
 import torch
 from torch.nn import functional as TF
 from torch.utils._pytree import tree_map
-from torch.utils.checkpoint import checkpoint
 
 from .. import nn
 from ..device import resolve_device
 from ..framework import state
 from ..framework.tensor import Tensor, unwrap
 from ..graphs import Program
+from ..incubate.moe import MoELayer
+from ..incubate.recompute import recompute
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.decode import gumbel_, top_k_top_p_filtering
@@ -83,16 +84,13 @@ class GPTConfig:
                  num_heads=12, ffn_hidden_size=None, max_seq_len=1024,
                  dropout=0.1, attn_dropout=0.1, initializer_range=0.02,
                  use_recompute=False, sequence_parallel=False,
-                 moe_experts=0, fused_head_loss=None, attn_layout=None,
-                 attn_window=None):
-        if moe_experts:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP Queue 1, "
-                "distributed slice: incubate/moe.py)")
+                 moe_experts=0, moe_k=2, moe_capacity_factor=1.25,
+                 fused_head_loss=None, attn_layout=None, attn_window=None):
         if sequence_parallel:
             raise NotImplementedError(
-                "sequence parallelism is not ported yet (ROADMAP Queue 1, "
-                "distributed slice: ring_attention.py / ulysses.py)")
+                "sequence parallelism is not ported yet (ROADMAP Queue 1 "
+                "item 5, the distributed slice: ring_attention.py / "
+                "ulysses.py)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -102,10 +100,15 @@ class GPTConfig:
         self.dropout = dropout
         self.attn_dropout = attn_dropout
         self.initializer_range = initializer_range
-        # torch.utils.checkpoint (non-reentrant) around every block
+        # incubate.recompute (non-reentrant checkpoint) around every block
         self.use_recompute = bool(use_recompute)
         self.sequence_parallel = False
-        self.moe_experts = 0
+        # MoE FFN: > 0 replaces every block's MLP with an
+        # incubate.moe.MoELayer of that many experts (top-k gating, one
+        # card: no expert sharding)
+        self.moe_experts = int(moe_experts)
+        self.moe_k = moe_k
+        self.moe_capacity_factor = moe_capacity_factor
         # vocab-chunked fused head + CE: None = auto by logits size (see
         # _use_fused_head)
         self.fused_head_loss = (None if fused_head_loss is None
@@ -301,14 +304,33 @@ class GPTBlock(nn.Layer):
         self.ln_1 = nn.LayerNorm(cfg.hidden_size, epsilon=1e-5)
         self.attn = GPTAttention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, epsilon=1e-5)
-        self.mlp = GPTMLP(cfg)
+        if cfg.moe_experts:
+            self.mlp = MoELayer(cfg.hidden_size, cfg.ffn_hidden_size,
+                                cfg.moe_experts, k=cfg.moe_k,
+                                capacity_factor=cfg.moe_capacity_factor,
+                                initializer_range=cfg.initializer_range)
+        else:
+            self.mlp = GPTMLP(cfg)
 
     def forward(self, x):
+        """x -> x' (an MoE block: (x', its weighted aux loss))."""
         x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        m = self.mlp(self.ln_2(x))
+        if isinstance(m, tuple):         # MoE FFN: (out, aux loss)
+            return x + m[0], m[1]
+        return x + m
 
-    def _mlp(self, x):
-        return x + self.mlp.infer(layer_norm_t(self.ln_2, x))
+    def _mlp(self, x, n=None):
+        """The MLP half of the block on the torch leaves (an MoE's aux
+        loss dropped: a training signal). With `n`, positions from n on
+        are a prompt's padding: the MoE routes only the first n, so that
+        the padding takes no expert capacity."""
+        h = layer_norm_t(self.ln_2, x)
+        if n is not None and n < x.shape[1] and \
+                isinstance(self.mlp, MoELayer):
+            return x + TF.pad(self.mlp.infer(h[:, :n]),
+                              (0, 0, 0, x.shape[1] - n))
+        return x + self.mlp.infer(h)
 
     def decode(self, x, cache, pos, block_tables=None):
         return self._mlp(x + self.attn.decode(layer_norm_t(self.ln_1, x),
@@ -316,7 +338,7 @@ class GPTBlock(nn.Layer):
 
     def prefill(self, x, cache, n):
         return self._mlp(x + self.attn.prefill(layer_norm_t(self.ln_1, x),
-                                               cache, n))
+                                               cache, n), n)
 
     def prefill_chunk(self, x, cache, block_tables, chunk_start, valid_len):
         return self._mlp(x + self.attn.prefill_chunk(
@@ -350,34 +372,6 @@ class GPTEmbeddings(nn.Layer):
                                self.position_embeddings.weight._data))
 
 
-def _recompute(blk, x, gen):
-    """blk(x) (a port Tensor) under torch.utils.checkpoint
-    (non-reentrant). checkpoint replays only torch's default generators;
-    dropout here draws from `gen` (the framework generator of x's device,
-    or None when nothing draws): the backward's recompute replays gen's
-    state from the first run, so it draws the same masks, and then puts
-    gen back."""
-    def call(t):
-        return blk(Tensor._wrap(t))._data
-
-    if gen is None:
-        return Tensor._wrap(checkpoint(call, x._data, use_reentrant=False))
-    start = gen.get_state()
-    ran = []
-
-    def run(t):
-        if not ran:                     # the forward
-            ran.append(True)
-            return call(t)
-        now = gen.get_state()           # the backward's recompute
-        gen.set_state(start)
-        try:
-            return call(t)
-        finally:
-            gen.set_state(now)
-    return Tensor._wrap(checkpoint(run, x._data, use_reentrant=False))
-
-
 class GPTModel(nn.Layer):
     def __init__(self, cfg):
         super().__init__()
@@ -396,21 +390,29 @@ class GPTModel(nn.Layer):
 
     def forward(self, input_ids, position_ids=None):
         """[B, S] ids -> hidden states [B, S, hidden] (after ln_f; torch
-        ids give a torch tensor, Tensors a Tensor). With
-        cfg.use_recompute every block is checkpointed (non-reentrant):
-        its activations are recomputed in the backward."""
+        ids give a torch tensor, Tensors a Tensor); with MoE blocks,
+        (hidden states, the blocks' aux losses summed, a Tensor). With
+        cfg.use_recompute every block is checkpointed
+        (`incubate.recompute`): its activations are recomputed in the
+        backward, with the forward's dropout masks."""
         ids, torch_in = as_tensor_in(input_ids)
         if isinstance(position_ids, torch.Tensor):
             position_ids = Tensor._wrap(position_ids)
         x = self.embeddings(ids, position_ids)
         remat = self.cfg.use_recompute and torch.is_grad_enabled()
-        gen = None
-        if remat and (self.cfg.dropout or self.cfg.attn_dropout):
-            gen = state.rng_generator(x._data.device)
+        draws = bool(self.cfg.dropout or self.cfg.attn_dropout)
+        aux_total = None
         for blk in self.blocks:
-            x = _recompute(blk, x, gen) if remat else blk(x)
+            out = recompute(blk, x, preserve_rng_state=draws) if remat \
+                else blk(x)
+            if isinstance(out, tuple):
+                x, aux = out
+                aux_total = aux if aux_total is None else aux_total + aux
+            else:
+                x = out
         h = self.ln_f(x)
-        return h._data if torch_in else h
+        h = h._data if torch_in else h
+        return h if aux_total is None else (h, aux_total)
 
     def _check_horizon(self, max_len):
         if max_len > self.cfg.max_seq_len:
@@ -462,7 +464,17 @@ class GPTModel(nn.Layer):
         """tok: [B, 1] ids; pos: [B] positions (or a scalar, a Python int
         or a device tensor). The caches are dense [B, heads, L, hd], or
         block pools named by block_tables; written in place. Returns
-        (h, caches)."""
+        (h, caches). An MoE model raises: see below."""
+        if self.cfg.moe_experts:
+            # the JAX package's GPTBlock.decode adds the MoE layer's
+            # (out, aux) tuple to x (paddle_tpu/nlp/gpt.py:351-356) and
+            # fails there: one-token MoE decoding is no feature of the
+            # reference
+            raise NotImplementedError(
+                "decode_step of an MoE GPT: the JAX package's one-token "
+                "decode fails on the MoE layer's (out, aux) tuple "
+                "(ROADMAP Queue 3, reference caveats); prefill, "
+                "prefill_chunk and decode_chunk run")
         pos = torch.as_tensor(pos, device=tok.device).reshape(-1)
         pos_ids = self._position_ids(pos.long()).expand(tok.shape[0])
         x = self.embeddings.embed(tok, pos_ids[:, None])
@@ -532,7 +544,8 @@ class GPTForPretraining(nn.Layer):
 
     def hidden_states(self, input_ids):
         """[B, S] torch ids -> hidden states after ln_f (torch)."""
-        return self.gpt(input_ids)
+        out = self.gpt(input_ids)
+        return out[0] if isinstance(out, tuple) else out
 
     def head(self, h):
         """Logits [..., vocab] of hidden states h (the tied head)."""
@@ -579,14 +592,19 @@ class GPTForPretraining(nn.Layer):
         `FusedHeadLogits` over the hidden states and the tied weight:
         `gpt_pretrain_loss` computes the vocab-chunked loss from those,
         and the dense head product runs only if something else reads the
-        logits."""
+        logits. An MoE model's weighted aux loss rides the logits' torch
+        tensor as `_moe_aux_loss` (a Tensor), which `gpt_pretrain_loss`
+        adds once, as the JAX package's logits carry it."""
         ids, torch_in = as_tensor_in(input_ids)
         h = self.gpt(ids, position_ids)
+        h, aux = h if isinstance(h, tuple) else (h, None)
         w = self.gpt.embeddings.word_embeddings.weight
         if _use_fused_head(self.cfg, (*h.shape[:-1], w.shape[0])):
             logits = Tensor._wrap(FusedHeadLogits(h._data, w._data))
         else:
             logits = matmul(h, w, transpose_y=True)
+        if aux is not None:
+            logits._data._moe_aux_loss = aux
         return logits._data if torch_in else logits
 
     def loss(self, logits, labels):
@@ -715,13 +733,17 @@ def gpt_pretrain_loss(logits, labels):
     (`chunked_lm_loss`); the dense logits are never computed. Either
     runs through the op dispatcher, as the JAX package's
     `cross_entropy` (so f32 under `auto_cast`) or `chunked_lm_loss`;
-    torch logits give a torch loss, Tensors a Tensor."""
+    torch logits give a torch loss, Tensors a Tensor. An MoE model's
+    aux loss (`_moe_aux_loss` on the logits) is added once."""
     arr, lab = unwrap(logits), unwrap(labels)
     if isinstance(arr, FusedHeadLogits):
         loss = apply(_fused_lm_loss_raw, (arr.hidden, arr.weight, lab),
                      name="chunked_lm_loss")
     else:
         loss = apply(_lm_loss_raw, (arr, lab), name="cross_entropy")
+    aux = getattr(arr, "_moe_aux_loss", None)
+    if aux is not None:
+        loss = loss + aux
     return loss if isinstance(logits, Tensor) else loss._data
 
 
@@ -737,8 +759,9 @@ def load_jax_state(model, state):
     """Copy a JAX model's weights into the port's model, by name, with no
     layout change (both hold Linear weights as [in, out]). `state` is
     {name: array}, as `{k: v.numpy() for k, v in
-    jax_model.state_dict().items()}` gives it. Unlike `set_state_dict`,
-    raises on a missing key, an extra key or a shape mismatch."""
+    jax_model.state_dict().items()}` gives it (an MoE model's gate and
+    stacked experts too). Unlike `set_state_dict`, raises on a missing
+    key, an extra key or a shape mismatch."""
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))

@@ -58,8 +58,9 @@ from ..nn.transformer import (cached_decode_attention, scatter_block_kv_at,
                               scatter_block_kv_chunk_batched, scatter_kv_at)
 from ..ops.dispatch import apply, register_op
 from ..ops.flash_attention import flash_attention, kernel_len
+from ..incubate.recompute import recompute
 from ..ops.math import matmul
-from .gpt import (FusedHeadLogits, _normal_attr, _out_std, _recompute,
+from .gpt import (FusedHeadLogits, _normal_attr, _out_std,
                   _use_fused_head, as_tensor_in, gpt_pretrain_loss, linear_t)
 
 
@@ -82,7 +83,7 @@ class LlamaConfig:
         self.rope_theta = rope_theta
         self.rms_eps = rms_eps
         self.initializer_range = initializer_range
-        # torch.utils.checkpoint (non-reentrant) around every block
+        # incubate.recompute (non-reentrant checkpoint) around every block
         self.use_recompute = bool(use_recompute)
         # attention layout: "bshd" (no transposes) or "bhsd";
         # PT_ATTN_LAYOUT overrides the default
@@ -446,7 +447,8 @@ class LlamaModel(nn.Layer):
         x = self.embed_tokens(ids)
         remat = self.cfg.use_recompute and torch.is_grad_enabled()
         for blk in self.layers:
-            x = _recompute(blk, x, None) if remat else blk(x)
+            x = recompute(blk, x, preserve_rng_state=False) if remat \
+                else blk(x)
         h = self.norm(x)
         return h._data if torch_in else h
 

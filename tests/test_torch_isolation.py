@@ -99,6 +99,13 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.utils.resume
         import paddle_tpu_torch.text
         import paddle_tpu_torch.distribution
+        import paddle_tpu_torch.incubate
+        import paddle_tpu_torch.incubate.checkpoint
+        import paddle_tpu_torch.incubate.moe
+        import paddle_tpu_torch.incubate.recompute
+        import paddle_tpu_torch.compat
+        import paddle_tpu_torch.sysconfig
+        import paddle_tpu_torch.utils.cpp_extension
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         assert not bad, bad

@@ -4,8 +4,10 @@
 `linear_chain_crf`, `crf_decoding` for tag accuracy, on `text.Conll05st`),
 `examples/machine_translation.py` (a GRU encoder, then a per-step
 `GRUCell` + dot-attention loop; greedy and `BeamSearchDecoder` /
-`dynamic_decode` decoding; on `text.WMT16`) and `examples/word2vec.py`
-(an n-gram model on `text.Imikolov`).
+`dynamic_decode` decoding; on `text.WMT16`), `examples/word2vec.py`
+(an n-gram model on `text.Imikolov`) and, beside the recurrent ones,
+`examples/long_context_window.py` (a sliding-window GPT with recompute
+on lag-7 streams, at seq 256 and window 32 here).
 
 Each twin builds the example's model and data in the port at the
 example's own sizes and arguments. The same model is built in the JAX
@@ -325,3 +327,47 @@ def test_word2vec_twin():
         res[P] = losses
     first_losses_held(res[pj], losses := res[pt])
     assert losses[-1] < 0.6 * math.log(V), (losses[-1], math.log(V))
+
+
+# ------------------------------------------------------ long_context_window
+
+def long_context_batches(n, batch, seq, lag, V):
+    """examples/long_context_window.py's stream: ids[t] = ids[t - lag]."""
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        head = rng.randint(0, V, (batch, lag))
+        out.append(np.tile(head, (1, seq // lag + 1))[:, :seq]
+                   .astype("int32"))
+    return out
+
+
+def test_long_context_window_twin():
+    """The sliding-window GPT with recompute at a CPU smoke size (seq 256,
+    window 32, 100 steps; the example's widths, batch and lr otherwise):
+    the JAX model's weights, the first 3 AdamW TrainStep losses against
+    the JAX example's, then the loss falls below 0.1 x the first, the
+    JAX example's bar (tests/test_examples.py:106-112)."""
+    from paddle_tpu.nlp import gpt as jgpt
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    steps, B, S, W, LAG, V = 100, 8, 256, 32, 7, 64
+    cfg = dict(vocab_size=V, hidden_size=128, num_layers=2, num_heads=2,
+               max_seq_len=S, dropout=0.0, attn_dropout=0.0, attn_window=W,
+               use_recompute=True)
+    batches = long_context_batches(steps, B, S, LAG, V)
+    pj.seed(5)
+    jm = jgpt.GPTForPretraining(jgpt.GPTConfig(**cfg))
+    tm = tgpt.GPTForPretraining(tgpt.GPTConfig(**cfg), device="cpu")
+    tgpt.load_jax_state(tm, {k: v.numpy() for k, v in
+                             jm.state_dict().items()})
+    jstep = JTrainStep(jm, jgpt.gpt_pretrain_loss, pj.optimizer.AdamW(
+        learning_rate=3e-3, parameters=jm.parameters()))
+    tstep = TrainStep(tm, tgpt.gpt_pretrain_loss, pt.optimizer.AdamW(
+        3e-3, parameters=tm.parameters()))
+    jl = [float(jstep(ids, ids).numpy()) for ids in batches[:3]]
+    losses = []
+    for ids in batches:
+        t = torch.from_numpy(ids).long()
+        losses.append(float(tstep(t, t)))
+    first_losses_held(jl, losses)
+    assert losses[-1] < losses[0] * 0.1, (losses[0], losses[-1])
