@@ -349,11 +349,32 @@ its phases:
                 then `train_epoch_range(3)` of 4 steps an epoch in a
                 child process that exits in the middle of epoch 2, a
                 second child that resumes from epoch 1's snapshot, and
-                their losses against an uninterrupted run.
+                their losses against an uninterrupted run;
+  dist          distributed/ and fleet, every rank a child process over
+                torch.distributed loading the kernels built above: world
+                1 (one NCCL rank, graphed) trains BERT-base bf16 at 16 x
+                512 through fleet (sharding stage 1) in a
+                ShardedTrainStep on {'dp': 1}, 5 losses against the
+                plain TrainStep's (bit for bit, else 1e-6 relative), both
+                timed in turns, and makes the f32 references; world 2
+                (two gloo ranks sharing the card, eager) holds gloo on
+                CUDA tensors op by op, trains BERT-base f32 dp=2 ZeRO-1
+                over the same global batch (3 losses within 2e-4 of world
+                1's, each rank holding half of every moment), runs GPT-2
+                small's widths at 16384 tokens over sp=2 with "ring" and
+                "ulysses": f32 at 2 layers, the loss and every gradient
+                within 1e-4 x max(1, max|g|) of world 1's dense causal
+                path, and bf16 at 12 layers, 3 AdamW steps whose losses
+                fall, each rank's flash launches against the schedule
+                (causal ring: rank r launches r + 1 K1 a layer); with
+                two cards or more, min(cards, 4) NCCL ranks (one card
+                each, graphed) train BERT bf16 dp (tokens/s per card)
+                and repeat the f32 sp checks over {'dp': n/2, 'sp': 2}.
 
 The eager phase also runs the segment ops, a `register_op` with a
-backward and a g++-built `host_op` on the card (a TrainStep capture over
-it must raise, naming the op).
+backward and a g++-built `host_op` on the card, and, in a child process
+with a timeout, a graphed TrainStep over a model that calls the host op
+(a host node in the graph) against its eager twin.
 
 Each phase prints one JSON line; a failed check raises and exits
 non-zero. `--only` runs a subset (for short checks); the full run, with
@@ -412,7 +433,7 @@ PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
           "eager", "nn", "transformer", "bert", "amp", "hapi", "resnet",
-          "rnn", "quant", "rec", "detect", "moe", "long_ctx")
+          "rnn", "quant", "rec", "detect", "moe", "long_ctx", "dist")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -4536,19 +4557,110 @@ HOST_RELU_SRC = ('extern "C" void chip_smoke_relu(float* out, const float* in,'
                  ' out[i] = in[i] > 0.f ? in[i] : 0.f; }')
 
 
+HOST_OP_NAME = "chip_smoke_host_relu"
+
+
+def host_relu(build):
+    """The g++-built host ReLU (`HOST_RELU_SRC`) registered as a host op,
+    built under `build`."""
+    from paddle_tpu_torch.utils import cpp_extension as cpp
+    os.makedirs(build, exist_ok=True)
+    src = os.path.join(build, "chip_smoke_relu.cc")
+    with open(src, "w") as f:
+        f.write(HOST_RELU_SRC)
+    lib = cpp.load("chip_smoke_relu", src, build_directory=build)
+    return cpp.host_op(HOST_OP_NAME, lib, "chip_smoke_relu")
+
+
+def host_op_child(out_path, steps=5):
+    """A child process's entry point (`HOST_OP_CHILD`): a jit.TrainStep
+    over a model that calls the host ReLU (`h + relu(h)`), graphed (call
+    1 eager, call 2 capture + replay, then replays) against an eager
+    twin from one seed, on fresh inputs each step. Writes the losses and
+    the graph's replays to `out_path`."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    pt.set_device("gpu:0")
+    dev = torch.device("cuda", 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    relu = host_relu(os.path.join(root, "build", "cpp_extension"))
+
+    class HostNet(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = pt.nn.Linear(16, 16)
+
+        def forward(self, a):
+            h = self.fc(a)
+            return h + relu(h)
+
+    def loss_fn(out, lab):
+        return ((out - lab) ** 2).mean()
+
+    steps_ = []
+    for graphed in (True, False):
+        pt.seed(SEED)
+        net = HostNet().to(device="gpu:0")
+        steps_.append(TrainStep(net, loss_fn, pt.optimizer.SGD(
+            0.1, parameters=net.parameters()), cuda_graph=graphed))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    pairs = []
+    for _ in range(steps):
+        a = torch.randn(4, 16, device=dev, generator=gen)
+        pairs.append([float(st(a, a)) for st in steps_])
+    torch.cuda.synchronize()
+    (graph,) = steps_[0].graphs.values()
+    with open(out_path, "w") as f:
+        json.dump({"losses": pairs, "replays": graph.replays}, f)
+
+
+HOST_OP_CHILD = ("import sys; sys.path.insert(0, sys.argv[2]); "
+                 "import chip_smoke; chip_smoke.host_op_child(sys.argv[1])")
+
+
+def host_op_graph_check(root, timeout=300):
+    """`host_op_child` in a child process (a deadlocked host node would
+    hang it: the timeout fails the phase): every graphed loss within
+    1e-6 x max(1, |eager|) of the eager twin's, and the graph replayed
+    for the steps after its capture."""
+    out = os.path.join(root, "build", "cpp_extension", "host_op_graph.json")
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", HOST_OP_CHILD, out,
+                               root], cwd=root, capture_output=True,
+                              text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"chip_smoke check failed: the graphed host-op "
+                           f"step did not finish in {timeout} s (a host "
+                           f"node waiting for the interpreter lock)")
+    check(proc.returncode == 0 and os.path.exists(out),
+          f"host-op graph child: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    for g, e in res["losses"]:
+        check(abs(g - e) <= 1e-6 * max(1.0, abs(e)),
+              f"host op: graphed losses {res['losses']} against eager")
+    check(res["replays"] == len(res["losses"]) - 1,
+          f"host op: the graph replayed {res['replays']} times")
+    return dict(res, child_wall_s=time.perf_counter() - t0)
+
+
 def incubate_checks(dev):
     """The incubate and cpp_extension surface on the card: the four
     segment reductions (with and without num_segments) forward and
     backward against the CPU (1e-6 x max(1, |ref|)); a `register_op` with
     a backward (3 x^2, grad 6 x) on a CUDA Tensor; a g++-built `host_op`
     on a CUDA tensor (its result back on the card, equal to ReLU), and a
-    jit.TrainStep whose model calls it, whose capture must raise naming
-    the op. The ops registered here are taken out of the registry
-    after."""
+    graphed jit.TrainStep whose model calls it, equal to the eager one
+    (`host_op_graph_check`, in a child process). The ops registered here
+    are taken out of the registry after."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.ops import dispatch
     from paddle_tpu_torch.utils import cpp_extension as cpp
     rng = np.random.RandomState(SEED + 41)
@@ -4575,7 +4687,8 @@ def incubate_checks(dev):
                       f"{fn.__name__} num_segments={num}: card against CPU "
                       f"error {err}")
                 worst = max(worst, err)
-    names = ("chip_smoke_triple_square", "chip_smoke_host_relu")
+    names = ("chip_smoke_triple_square", HOST_OP_NAME)
+    root = os.path.dirname(os.path.abspath(__file__))
     try:
         op = cpp.register_op(names[0], lambda x: x * x * 3,
                              backward=lambda res, g: g * 6 * res[0])
@@ -4585,49 +4698,17 @@ def incubate_checks(dev):
         check(y._data.is_cuda and y.numpy().tolist() == [12.0, 3.0]
               and x.grad.numpy().tolist() == [12.0, -6.0],
               f"register_op: {y.numpy()} grad {x.grad.numpy()}")
-        build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "build", "cpp_extension")
-        os.makedirs(build, exist_ok=True)
-        src = os.path.join(build, "chip_smoke_relu.cc")
-        with open(src, "w") as f:
-            f.write(HOST_RELU_SRC)
-        lib = cpp.load("chip_smoke_relu", src, build_directory=build)
-        relu = cpp.host_op(names[1], lib, "chip_smoke_relu")
+        relu = host_relu(os.path.join(root, "build", "cpp_extension"))
         xs = torch.randn(1000, device=dev)
         got = relu(pt.to_tensor(xs))._data
         check(got.is_cuda and torch.equal(got, torch.relu(xs)),
               "host_op on a CUDA tensor: not ReLU or not on the card")
-
-        class HostNet(pt.nn.Layer):
-            def __init__(self):
-                super().__init__()
-                self.fc = pt.nn.Linear(16, 16)
-
-            def forward(self, a):
-                h = self.fc(a)
-                return h + relu(h)
-
-        net = HostNet().to(device="gpu:0")
-        step = TrainStep(net, lambda out, lab: ((out - lab) ** 2).mean(),
-                         pt.optimizer.SGD(0.1, parameters=net.parameters()))
-        a = torch.randn(4, 16, device=dev)
-        first = float(step(a, a))               # call 1: eager
-        refused = None
-        try:
-            step(a, a)                          # call 2: the capture
-        except RuntimeError as exc:
-            refused = str(exc)
-        check(refused is not None and names[1] in refused,
-              f"host_op under a TrainStep capture: {refused!r}")
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(torch.ones(4, device=dev).sum())),
-              "the card after the refused capture")
     finally:
         for name in names:
             dispatch.OP_REGISTRY.pop(name, None)
+    graph = host_op_graph_check(root)
     return {"segment_max_abs_err": worst, "register_op_backward": "held",
-            "host_op_cuda": "held", "host_op_first_step_loss": first,
-            "host_op_capture_refused": refused[:300]}
+            "host_op_cuda": "held", "host_op_graph": graph}
 
 
 def eager_phase(dev, smi):
@@ -9128,6 +9209,542 @@ def rows_profile(rows, top=8, categories=PROFILE_GROUPS, other=OTHER_GROUP):
                             for ms, n, key in rows[:top]]}
 
 
+# ---------------------------------------------------------------------------
+# dist: distributed/ and fleet, every rank a process over torch.distributed
+# ---------------------------------------------------------------------------
+
+# GPT-2 small's widths at 16384 tokens (one sequence, cut over sp = 2),
+# the f32 checks at 2 layers; the dp/sp tolerances of the JAX tests
+# (tests/test_distributed.py:261 losses, tests/test_ring_attention.py
+# gradients)
+DIST_S, DIST_F32_LAYERS, DIST_LOSS_RTOL, DIST_GRAD_TOL = 16384, 2, 2e-4, 1e-4
+DIST_STEPS, DIST_SP_STEPS, DIST_TIMED = 5, 3, 10
+DIST_CHILD = ("import sys; sys.path.insert(0, sys.argv[2]); "
+              "import chip_smoke; chip_smoke.dist_rank(sys.argv[1])")
+FLASH_KEYS = ("fwd", "dkv", "dq", "dd")
+
+
+def dist_counts():
+    """The flash kernels' and the Adam kernel's launch counts, by the
+    final kernel line's names."""
+    from paddle_tpu_torch import kernels
+    c = kernels.launch_counts()
+    out = {k: c.get(f"flash_attention.{k}", 0) for k in FLASH_KEYS}
+    out["adam"] = c.get("optimizer.adam", 0)
+    return out
+
+
+def dist_executed(step):
+    """`dist_counts` plus what the step's graphs ran on their replays
+    after the capture (the counters hold the eager first call and the
+    capture)."""
+    counts = dist_counts()
+    for g in step.graphs.values():
+        if g is None:
+            continue
+        for k in counts:
+            key = "optimizer.adam" if k == "adam" else f"flash_attention.{k}"
+            counts[k] += g.launches.get(key, 0) * (g.replays - 1)
+    return counts
+
+
+def dist_gpt(dev, dtype, layers, mode, seed=SEED):
+    """GPT-2 small's widths at `layers` layers over DIST_S positions,
+    no dropout, the fused head, sequence_parallel=`mode`."""
+    import torch
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=layers,
+                    num_heads=12, max_seq_len=DIST_S, dropout=0.0,
+                    attn_dropout=0.0, fused_head_loss=True,
+                    sequence_parallel=mode)
+    return GPTForPretraining(cfg, device=dev, dtype=getattr(torch, dtype),
+                             seed=seed)
+
+
+def dist_bert(dev, dtype):
+    import torch
+    from paddle_tpu_torch.nlp import BertForPretraining, bert_base
+    cfg = bert_base(max_seq_len=BERT_S, dropout=0.0, attn_dropout=0.0)
+    return BertForPretraining(cfg, device=dev, dtype=getattr(torch, dtype),
+                              seed=SEED), cfg
+
+
+def replay_ms(step, args, calls=DIST_TIMED):
+    """Host ms a call of a warmed-up graphed step, over `calls` calls
+    ended by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        loss = step(*args)
+    float(loss)
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def dist_bert_graphed(spec, dev):
+    """World 1 (one NCCL rank, graphed): BERT-base bf16 at 16 x 512
+    through fleet (sharding stage 1) into a ShardedTrainStep over
+    {'dp': 1}, against a plain jit.TrainStep on a twin: DIST_STEPS
+    losses bit for bit (else within 1e-6 relative, reported), each
+    step's graph holding 12 launches of each flash kernel and 1 Adam
+    launch; then both timed in turns."""
+    import torch
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import bert_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    strategy = fleet.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    out = {}
+    runs = {}
+    for kind in ("sharded", "plain"):
+        model, cfg = dist_bert(dev, "bfloat16")
+        ids, mlm, nsp = bert_batch(cfg, BERT_B, BERT_S, SEED + 31, dev)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        zero_counts()
+        if kind == "sharded":
+            step = ShardedTrainStep(model, bert_pretrain_loss,
+                                    fleet.distributed_optimizer(opt))
+            check(step.zero_stage == 1 and step.program.graphed,
+                  f"world 1: ZeRO stage {step.zero_stage}, graphed "
+                  f"{step.program.graphed}")
+        else:
+            step = TrainStep(model, bert_pretrain_loss, opt)
+        losses = [float(step(ids, (mlm, nsp))) for _ in range(DIST_STEPS)]
+        (graph,) = step.graphs.values()
+        want = {f"flash_attention.{k}": LAYERS for k in FLASH_KEYS}
+        want["optimizer.adam"] = 1
+        check(graph.launches == want,
+              f"world 1 {kind}: the graph holds {graph.launches}")
+        counts = dist_executed(step)
+        check(counts == {k: DIST_STEPS * (1 if k == "adam" else LAYERS)
+                         for k in counts},
+              f"world 1 {kind}: {counts} launches over {DIST_STEPS} steps")
+        runs[kind] = (step, (ids, (mlm, nsp)), losses, counts)
+    (s_step, s_args, s_loss, s_counts), (p_step, p_args, p_loss, _) = \
+        runs["sharded"], runs["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s_loss, p_loss))
+    check(rel <= 1e-6, f"world 1: sharded losses {s_loss} against plain "
+                       f"{p_loss}")
+    turns = []
+    for _ in range(2):
+        turns.append((replay_ms(s_step, s_args), replay_ms(p_step, p_args)))
+    s_ms = [t[0] for t in turns]
+    p_ms = [t[1] for t in turns]
+    out.update(losses_sharded=s_loss, losses_plain=p_loss,
+               bitwise=s_loss == p_loss, max_rel=rel,
+               step_ms_sharded=s_ms, step_ms_plain=p_ms,
+               collective_ms=min(s_ms) - min(p_ms),
+               tokens_per_s=BERT_B * BERT_S / (min(s_ms) / 1e3),
+               shard_nbytes=s_step.shard_nbytes(), launches=s_counts)
+    del runs, s_step, p_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_bert_f32_ref(spec, dev):
+    """World 1: BERT-base f32 at 16 x 512 through a plain graphed
+    TrainStep (AdamW 1e-4), DIST_SP_STEPS losses: world 2's
+    reference."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import bert_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    model, cfg = dist_bert(dev, "float32")
+    ids, mlm, nsp = bert_batch(cfg, BERT_B, BERT_S, SEED + 31, dev)
+    step = TrainStep(model, bert_pretrain_loss,
+                     AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    losses = [float(step(ids, (mlm, nsp))) for _ in range(DIST_SP_STEPS)]
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses}
+
+
+def dist_gpt_f32_ref(spec, dev):
+    """World 1: the f32 GPT at DIST_F32_LAYERS layers over one sequence
+    of DIST_S lag-7 tokens on the dense causal K1 path: the loss, and
+    every gradient saved for the sequence-parallel checks."""
+    import torch
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    model = dist_gpt(dev, "float32", DIST_F32_LAYERS, False).train()
+    ids = torch.tensor(lag_ids(SEED + 50, 1, DIST_S, 50304), device=dev)
+    zero_counts()
+    loss = gpt_pretrain_loss(model(ids), ids)
+    loss.backward()
+    counts = dist_counts()
+    check(all(counts[k] == DIST_F32_LAYERS for k in FLASH_KEYS),
+          f"world 1 f32 GPT: launches {counts}")
+    grads = {k: g.detach().cpu() for k, g in leaf_grads(model).items()}
+    torch.save(grads, spec["gpt_grads"])
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "launches": counts}
+
+
+def dist_gloo_ops(spec, dev):
+    """World 2 (gloo, one card shared): each op of
+    `collective.GLOO_CUDA_OPS` on CUDA tensors against its expected
+    values, and send/recv (staged through the host) between the two
+    ranks."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    r, n = dist.get_rank(), dist.get_world_size()
+    pg = dist.mesh.default_mesh().group("dp")
+    got = {}
+    x = torch.arange(4, dtype=torch.float32, device=dev) + r
+    C.all_reduce_(x, C.ReduceOp.SUM, pg)
+    got["all_reduce"] = x.tolist() == [2 * i + 1.0 for i in range(4)]
+    b = torch.full((3,), float(r), device=dev)
+    C.broadcast_(b, 1, pg)
+    got["broadcast"] = b.tolist() == [1.0] * 3
+    g = torch.empty(n, 2, device=dev)
+    C.all_gather_into(g, torch.full((2,), float(r), device=dev), pg)
+    got["all_gather_into_tensor"] = g.tolist() == [[0.0, 0.0], [1.0, 1.0]]
+    rs = torch.empty(2, device=dev)
+    C.reduce_scatter_into(rs, torch.arange(4, dtype=torch.float32,
+                                           device=dev), pg)
+    got["reduce_scatter_tensor"] = rs.tolist() == (
+        [0.0, 2.0] if r == 0 else [4.0, 6.0])
+    a2a = torch.empty(n, 2, device=dev)
+    C.all_to_all_into(a2a, torch.stack([torch.full((2,), 10.0 * r + j,
+                                                   device=dev)
+                                        for j in range(n)]), pg)
+    got["all_to_all_single"] = a2a[:, 0].tolist() == [float(r), 10.0 + r]
+    sc = torch.empty(2, device=dev)
+    dist.scatter(sc, [torch.full((2,), float(j), device=dev)
+                      for j in range(n)] if r == 0 else None, src=0)
+    got["scatter"] = sc.tolist() == [float(r)] * 2
+    check(set(got) == set(C.GLOO_CUDA_OPS) and all(got.values()),
+          f"gloo on CUDA tensors: {got}")
+    before = C.stats["host_staged"]
+    t = torch.full((4,), 5.0, device=dev) if r == 0 else \
+        torch.zeros(4, device=dev)
+    if r == 0:
+        dist.send(t, dst=1)
+    else:
+        dist.recv(t, src=0)
+    check(t.tolist() == [5.0] * 4 and C.stats["host_staged"] == before + 1,
+          f"gloo send/recv staged through the host: {t.tolist()}")
+    return {"cuda_ops_held": sorted(got), "staged": ["send", "recv",
+                                                     "batch_isend_irecv"]}
+
+
+def dist_bert_dp(spec, dev):
+    """World 2 (gloo, eager) or a multi-card world (NCCL, graphed):
+    BERT-base over the same global 16 x 512 batch through fleet
+    (sharding stage 1, `build_train_step`) on {'dp': n}: f32 losses
+    within DIST_LOSS_RTOL of world 1's, or bf16 timed; every rank holds
+    1/n of every Adam moment."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.nlp import bert_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    n = dist.get_world_size()
+    dtype = spec["bert_dtype"]
+    strategy = fleet.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 1}
+    strategy.hybrid_configs = dict(strategy.hybrid_configs, dp_degree=n)
+    fleet.init(is_collective=True, strategy=strategy)
+    model, cfg = dist_bert(dev, dtype)
+    ids, mlm, nsp = bert_batch(cfg, BERT_B, BERT_S, SEED + 31, dev)
+    opt = fleet.distributed_optimizer(
+        AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    zero_counts()
+    step = fleet.build_train_step(model, bert_pretrain_loss, opt)
+    check(type(step).__name__ == "ShardedTrainStep" and step.dp == n
+          and step.zero_stage == 1, f"fleet.build_train_step gave {step}")
+    losses = [float(step(ids, (mlm, nsp))) for _ in range(DIST_SP_STEPS)]
+    counts = dist_executed(step)
+    want = {k: cfg.num_layers * DIST_SP_STEPS for k in FLASH_KEYS}
+    check(counts == dict(want, adam=DIST_SP_STEPS),
+          f"dp={n} BERT rank {dist.get_rank()}: launches {counts}, the "
+          f"schedule gives {want} and 1 Adam a step")
+    full = sum(p.numel() for p in model.parameters()) * 8
+    out = {"dtype": dtype, "losses": losses, "launches": counts,
+           "moment_bytes_rank": step.shard_nbytes(),
+           "moment_bytes_full": full, "graphed": step.program.graphed}
+    check(abs(out["moment_bytes_rank"] / full - 1 / n) < 0.01,
+          f"ZeRO-1: rank holds {out['moment_bytes_rank']} of {full} bytes")
+    if dtype == "float32":
+        want = spec["bert_f32_losses"]
+        check(all(abs(a - b) <= DIST_LOSS_RTOL * abs(b)
+                  for a, b in zip(losses, want)),
+              f"dp={n} BERT f32 losses {losses} against world 1 {want}")
+    else:
+        out["step_ms"] = replay_ms(step, (ids, (mlm, nsp)))
+        out["tokens_per_s_per_card"] = \
+            BERT_B * BERT_S / (out["step_ms"] / 1e3) / n
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_gpt_f32_sp(spec, dev):
+    """The f32 GPT's loss and every gradient over sp = 2 ("ring" and
+    "ulysses"), on a mesh of {'dp': n / 2, 'sp': 2} (the sequence
+    repeated over dp), within DIST_GRAD_TOL x max(1, max|g|) of world
+    1's dense causal K1 path."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C, mesh as M
+    from paddle_tpu_torch.distributed.sharded import loss_scope
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    n = dist.get_world_size()
+    mesh = M.make_mesh({"dp": n // 2, "sp": 2})
+    ref = torch.load(spec["gpt_grads"])
+    ids = torch.tensor(lag_ids(SEED + 50, 1, DIST_S, 50304), device=dev)
+    ids = ids.repeat(n // 2, 1)
+    half = DIST_S // 2
+    spi, dpi = mesh.axis_index("sp"), mesh.axis_index("dp")
+    local = ids[dpi:dpi + 1, spi * half:(spi + 1) * half]
+    out = {}
+    for mode in ("ring", "ulysses"):
+        model = dist_gpt(dev, "float32", DIST_F32_LAYERS, mode).train()
+        zero_counts()
+        with loss_scope(mesh):
+            share = gpt_pretrain_loss(model(local), local)
+        share.backward()
+        counts = dist_counts()
+        total = share.detach().clone()
+        for ax in ("dp", "sp"):
+            C.all_reduce_(total, C.ReduceOp.SUM, mesh.group(ax))
+        worst = 0.0
+        for name, g in leaf_grads(model).items():
+            g = g.detach()
+            for ax in ("dp", "sp"):
+                C.all_reduce_(g, C.ReduceOp.SUM, mesh.group(ax))
+            want = ref[name].to(dev)
+            scale = max(1.0, float(want.abs().max()))
+            err = float((g - want).abs().max())
+            check(err <= DIST_GRAD_TOL * scale,
+                  f"sp {mode}: {name} gradient error {err} > "
+                  f"{DIST_GRAD_TOL} x {scale}")
+            worst = max(worst, err / scale)
+        check(abs(float(total) - spec["gpt_f32_loss"])
+              <= 1e-5 * abs(spec["gpt_f32_loss"]),
+              f"sp {mode}: loss {float(total)} against world 1's "
+              f"{spec['gpt_f32_loss']}")
+        want = dist_schedule(mode, spi, DIST_F32_LAYERS, 1)
+        check(counts == dict(want, adam=0),
+              f"sp {mode} rank {dist.get_rank()}: launches {counts}, the "
+              f"schedule gives {want}")
+        out[mode] = {"loss": float(total), "max_grad_err_over_scale": worst,
+                     "launches": counts}
+        del model
+        gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_schedule(mode, sp_index, layers, steps, sp=2):
+    """The flash launches a rank makes: causal ring over sp ranks, rank
+    i launches i + 1 K1 (and K2, K3) a layer and one dd; Ulysses one of
+    each a layer."""
+    per = sp_index + 1 if mode == "ring" else 1
+    return {"fwd": per * layers * steps, "dkv": per * layers * steps,
+            "dq": per * layers * steps, "dd": layers * steps}
+
+
+def dist_gpt_bf16_sp(spec, dev):
+    """GPT-2 small (12 layers) bf16 over one sequence of DIST_S lag-7
+    tokens, sp = 2, "ring" then "ulysses": DIST_SP_STEPS AdamW steps
+    through a ShardedTrainStep whose losses fall; launches against the
+    schedule."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    mesh = M.make_mesh({"sp": 2})
+    ids = torch.tensor(lag_ids(SEED + 51, 1, DIST_S, 50304), device=dev)
+    out = {}
+    for mode in ("ring", "ulysses"):
+        model = dist_gpt(dev, "bfloat16", LAYERS, mode)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        zero_counts()
+        step = ShardedTrainStep(model, gpt_pretrain_loss, opt)
+        t0 = time.perf_counter()
+        losses = [float(step(ids, ids)) for _ in range(DIST_SP_STEPS)]
+        secs = time.perf_counter() - t0
+        counts = dist_counts()
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"sp {mode} bf16: losses {losses}")
+        want = dist_schedule(mode, mesh.axis_index("sp"), LAYERS,
+                             DIST_SP_STEPS)
+        check(counts == dict(want, adam=DIST_SP_STEPS),
+              f"sp {mode} bf16 rank {dist.get_rank()}: launches {counts}, "
+              f"the schedule gives {want}")
+        out[mode] = {"losses": losses, "seconds": secs, "launches": counts,
+                     "graphed": step.program.graphed}
+        del step, model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+DIST_JOBS = {"bert_graphed": dist_bert_graphed,
+             "bert_f32_ref": dist_bert_f32_ref,
+             "gpt_f32_ref": dist_gpt_f32_ref, "gloo_ops": dist_gloo_ops,
+             "bert_dp": dist_bert_dp, "gpt_f32_sp": dist_gpt_f32_sp,
+             "gpt_bf16_sp": dist_gpt_bf16_sp}
+
+
+def dist_rank(spec_path):
+    """A rank's entry point (`DIST_CHILD`): join the world of the
+    launcher's environment with the spec's backend (NCCL: this rank's
+    card; gloo: card 0, shared), run the spec's jobs, write each one's
+    results to <spec out>.<rank>."""
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend=spec["backend"], timeout=600)
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device()
+                       if spec["backend"] == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    pt.set_device(f"gpu:{dev.index}")
+    out = {"rank": rank, "device": str(dev), "jobs": {}}
+    C.stats["host_staged"] = 0
+    for job in spec["jobs"]:
+        t0 = time.perf_counter()
+        out["jobs"][job] = DIST_JOBS[job](spec, dev)
+        out["jobs"][job]["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+    out["host_staged"] = C.stats["host_staged"]
+    with open(f"{spec['out']}.{rank}", "w") as f:
+        json.dump(out, f)
+    dist.env.destroy()
+
+
+def run_world(root, base, name, n, backend, jobs, timeout, **extra):
+    """`n` rank processes (`sys.executable`, importing this file from the
+    checkout) running `jobs` over `backend`; a rank that fails or
+    outlives `timeout` stops the others and fails the phase. Returns
+    each rank's results, by rank."""
+    from paddle_tpu_torch.distributed.spawn import rank_env
+    from paddle_tpu_torch.distributed.utils import find_free_ports
+    spec_path = os.path.join(base, f"{name}.json")
+    spec = dict(extra, backend=backend, jobs=list(jobs),
+                out=os.path.join(base, name))
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    eps = [f"127.0.0.1:{p}" for p in sorted(find_free_ports(n))]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            env = dict(os.environ, **rank_env(r, n, eps))
+            if backend == "nccl":
+                env["FLAGS_selected_gpus"] = str(r)
+            log = open(os.path.join(base, f"{name}.{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DIST_CHILD, spec_path, root],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            bad = [p for p in procs if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.5)
+        codes = [p.poll() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if any(c != 0 for c in codes):
+        tails = []
+        for r in range(n):
+            with open(os.path.join(base, f"{name}.{r}.log")) as f:
+                tails.append(f"rank {r} (exit {codes[r]}):\n"
+                             + f.read()[-3000:])
+        raise RuntimeError(f"chip_smoke check failed: {name} ({backend}, "
+                           f"{n} ranks) ended with {codes} after "
+                           f"{time.perf_counter() - t0:.0f} s\n"
+                           + "\n".join(tails))
+    res = []
+    for r in range(n):
+        with open(f"{spec['out']}.{r}") as f:
+            res.append(json.load(f))
+    return res, time.perf_counter() - t0
+
+
+def dist_phase(dev, smi, root):
+    """distributed/ and fleet on ranks over torch.distributed, in three
+    worlds of rank processes: world 1, one NCCL rank graphed (BERT-base
+    through fleet and ZeRO-1 against the plain TrainStep, and the f32
+    references); world 2, two gloo ranks sharing the card, eager (gloo
+    on CUDA tensors, BERT-base dp=2 ZeRO-1, GPT sp=2 ring and Ulysses at
+    f32 against world 1 and bf16 over 12 layers); and min(cards, 4)
+    NCCL ranks, one card each, when the machine has two cards or more.
+    Returns every rank's launches, by world."""
+    import shutil
+    import torch
+    base = os.path.join(root, "build", "dist")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    grads = os.path.join(base, "gpt_f32_grads.pt")
+    try:
+        w1, w1_s = run_world(root, base, "world1", 1, "nccl",
+                             ("bert_graphed", "bert_f32_ref", "gpt_f32_ref"),
+                             timeout=600, gpt_grads=grads)
+        jobs1 = w1[0]["jobs"]
+        shared = dict(gpt_grads=grads, gpt_f32_loss=jobs1["gpt_f32_ref"]
+                      ["loss"], bert_f32_losses=jobs1["bert_f32_ref"]
+                      ["losses"])
+        w2, w2_s = run_world(root, base, "world2", 2, "gloo",
+                             ("gloo_ops", "bert_dp", "gpt_f32_sp",
+                              "gpt_bf16_sp"), timeout=900,
+                             bert_dtype="float32", **shared)
+        cards = torch.cuda.device_count()
+        multi = f"not run: {cards} card"
+        wn = []
+        if cards >= 2:
+            n = min(cards, 4)
+            wn, wn_s = run_world(root, base, f"world{n}_nccl", n, "nccl",
+                                 ("bert_dp", "gpt_f32_sp"), timeout=900,
+                                 bert_dtype="bfloat16", **shared)
+            multi = {"ranks": n, "seconds": wn_s,
+                     "ranks_results": [r["jobs"] for r in wn]}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    launches = {"world1": jobs1["bert_graphed"]["launches"]}
+    for world, ranks_ in (("world2", w2), (f"world{len(wn)}_nccl", wn)):
+        for r in ranks_:
+            per = {}
+            for res in r["jobs"].values():
+                items = [res] if "launches" in res else [
+                    v for v in res.values() if isinstance(v, dict)]
+                for item in items:
+                    for k, v in item.get("launches", {}).items():
+                        per[k] = per.get(k, 0) + v
+            launches[f"{world}_rank{r['rank']}"] = per
+    emit("dist", nvidia_smi=smi, world1=jobs1, world1_s=w1_s,
+         world2=[r["jobs"] for r in w2], world2_s=w2_s,
+         host_staged=[r["host_staged"] for r in w2],
+         multi_card=multi, launches=launches)
+    return launches
+
+
 def ptxas_entries(ptxas):
     """{entry function: {"registers", "spill_bytes"}} from a library's
     ptxas report (`kernels.build`'s "ptxas"); the split kernel's
@@ -9268,6 +9885,7 @@ def main():
     run("detect", detect_phase, dev, smi)
     moe_launches = run("moe", moe_phase, dev, smi, peaks)
     long_ctx = run("long_ctx", long_ctx_phase, dev, smi, peaks, root)
+    dist = run("dist", dist_phase, dev, smi, root)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -9321,6 +9939,7 @@ def main():
                          fl["transformer_shapes"].items()},
                      "launches_moe": moe_launches[kind],
                      "launches_long_ctx": long_ctx["launches"][kind],
+                     "launches_dist": {w: c[kind] for w, c in dist.items()},
                      "long_ctx_shape": {
                          "shape": long_ctx["shape"]["shape"],
                          "window": LONG_WINDOW,
@@ -9352,6 +9971,7 @@ def main():
                  "launches_rec": rec_launches,
                  "launches_moe": moe_launches["adam"],
                  "launches_long_ctx": long_ctx["launches"]["adam"],
+                 "launches_dist": {w: c["adam"] for w, c in dist.items()},
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -35,6 +35,10 @@ decoding, `distribution` the probability distributions. `vision.ops`
 holds the detection ops (box geometry, NMS, the YOLOv3 loss and decode,
 the RoI family, the host-side target assigners), `quantization` QAT,
 PTQ and int8 conversion, and `rec` the Wide&Deep and DeepFM models.
+`distributed` runs ranks as processes over `torch.distributed`: the
+launcher, meshes, the collectives, `DataParallel`, `ShardedTrainStep`
+(data and sequence parallel, ZeRO-1), ring and Ulysses attention and
+`fleet`.
 `incubate` holds recompute (`incubate.recompute`), the epoch-range
 auto-checkpoint (`incubate.checkpoint`), the segment reductions and
 the MoE layer (`incubate.moe`, which `GPTConfig(moe_experts=)`
@@ -117,6 +121,8 @@ from .hapi import Model, summary  # noqa: F401,E402
 # incubate (recompute, auto-checkpoint, the segment ops; MoE on first
 # use), the py2/3 helpers and the package's directories
 from . import incubate, compat, sysconfig, utils  # noqa: F401,E402
+# the collective half of paddle.distributed (ranks over torch.distributed)
+from . import distributed  # noqa: F401,E402
 
 
 def _inplace(x, out):

@@ -12,9 +12,10 @@ package's do. `_timed_iter` measures how long each batch kept the loop
 waiting; `fit` returns those waits in its history (`"data_wait_s"`)
 beside the losses.
 
-The JAX package builds its step through
-`distributed.fleet.base.build_train_step` (ROADMAP Queue 1 item 5);
-here `fit` builds the `jit.TrainStep` directly. The flight recorder,
+The step is built, as the JAX package builds it, through
+`distributed.fleet.base.build_train_step`: a `jit.TrainStep`, or a
+`ShardedTrainStep` when the current mesh holds more than one rank. The
+flight recorder,
 the training watchdog, the resume and reshard journal events and the
 data-load chaos hook are ROADMAP Queue 1 item 6: `flight_recorder=` and
 `watchdog=` raise. Full-state checkpoints (`save`, `load_latest`,
@@ -231,15 +232,16 @@ class Model:
             self._fit_cursor = {"epoch": int(epochs), "batch": 0,
                                 "epoch_numpy_rng": state.numpy_rng_state()}
         cb_list.on_end("train", logs)
+        self._sync_step()
         return history
 
     def train_batch_parts(self, batch):
         """One step on a loader batch: (loss, {metric name: value})."""
-        from ..jit import TrainStep
+        from ..distributed.fleet.base import build_train_step
         from ..optimizer.lr import LRScheduler
         inputs, labels = self._split_batch(batch)
         if self._train_step is None:
-            self._train_step = TrainStep(
+            self._train_step = build_train_step(
                 self.network, self._loss_fn, self._optimizer,
                 return_outputs=bool(self._metrics))
         result = self._train_step(inputs, labels)
@@ -261,13 +263,13 @@ class Model:
 
     def train_batch(self, inputs, labels=None):
         """Single train step (ref hapi/model.py train_batch)."""
-        from ..jit import TrainStep
+        from ..distributed.fleet.base import build_train_step
         inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
         labels = labels if isinstance(labels, (list, tuple)) else (
             [labels] if labels is not None else [])
         if self._train_step is None:
-            self._train_step = TrainStep(self.network, self._loss_fn,
-                                         self._optimizer)
+            self._train_step = build_train_step(self.network, self._loss_fn,
+                                                self._optimizer)
         result = self._train_step(tuple(_as_tensor(i) for i in inputs),
                                   tuple(_as_tensor(lab) for lab in labels))
         loss = result[0] if isinstance(result, tuple) else result
@@ -281,6 +283,7 @@ class Model:
             loader = DataLoader(eval_data, batch_size=batch_size)
         else:
             loader = eval_data
+        self._sync_step()
         self.network.eval()
         for m in self._metrics:
             m.reset()
@@ -315,6 +318,7 @@ class Model:
             loader = DataLoader(test_data, batch_size=batch_size)
         else:
             loader = test_data
+        self._sync_step()
         self.network.eval()
         outputs = []
         with state.no_grad_ctx():
@@ -363,7 +367,10 @@ class Model:
         streams, the numpy RNG, the data cursor, the GradScaler's state),
         everything `load_latest` + `fit(resume=True)` need to continue
         the run. A params-only save removes a stale `.pdopt`/`.pdtrain`
-        of the same prefix."""
+        of the same prefix. A sharded step's state is gathered first
+        (`sync`), and its placement record (`sharding_state`) goes into
+        `.pdtrain`."""
+        self._sync_step()
         step = None if self._optimizer is None else (
             self._optimizer._global_step or None)
         base = os.path.basename(path)
@@ -376,8 +383,10 @@ class Model:
         elif os.path.exists(path + ".pdopt"):
             os.unlink(path + ".pdopt")
         if training:
+            sharding_fn = getattr(self._train_step, "sharding_state", None)
             doc = resume_mod.capture_train_state(
-                cursor=self._fit_cursor, step=step, scaler=self._scaler)
+                cursor=self._fit_cursor, step=step, scaler=self._scaler,
+                sharding=None if sharding_fn is None else sharding_fn())
             files[base + ".pdtrain"] = serialization.save(
                 doc, path + ".pdtrain")
         elif os.path.exists(path + ".pdtrain"):
@@ -425,6 +434,13 @@ class Model:
         return self.network.parameters()
 
     # ------------------------------------------------------------- helpers
+    def _sync_step(self):
+        """The step's state into the network and the optimizer (a ZeRO-1
+        step gathers its moment chunks; collective: every rank calls it
+        at the same points)."""
+        if self._train_step is not None:
+            self._train_step.sync()
+
     def _split_batch(self, batch, allow_no_label=False):
         if isinstance(batch, dict):
             batch = list(batch.values())

@@ -53,6 +53,14 @@ every call, on the caller's tensors, and the grads are cleared after
 the update. `donate=True` is accepted: the updates are in place anyway.
 The flight-recorder instrumentation of the JAX TrainStep is not ported
 (ROADMAP Queue 1).
+
+A fleet meta-optimizer chain (`distributed.fleet.distributed_optimizer`)
+is taken as the JAX TrainStep takes it: the step runs the optimizer at
+the bottom of the chain, and the chain's transforms (`transforms.py`)
+change the step: `amp` and `recompute` wrap the forward and loss, and
+`gradient_merge` accumulates k calls' grads and updates on every k-th,
+as two programs (the accumulating one and the updating one), so a
+graph's replays never branch.
 """
 import torch
 
@@ -60,6 +68,7 @@ from ..framework import state
 from ..framework.tensor import Tensor, unwrap
 from ..graphs import Program
 from ..optimizer import Optimizer
+from . import transforms as tfm
 
 
 def grad_norm_sentinel(loss, grads):
@@ -108,6 +117,8 @@ class TrainStep:
 
     def __init__(self, model, loss_fn, optimizer, donate=True,
                  return_outputs=False, cuda_graph=True):
+        self.transforms = tfm.resolve(optimizer)
+        optimizer = tfm.base_optimizer(optimizer)
         if not isinstance(optimizer, Optimizer):
             raise TypeError(
                 f"TrainStep takes an optimizer.Optimizer, got "
@@ -118,6 +129,13 @@ class TrainStep:
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self._k_merge, self._merge_avg = tfm.merge_config(self.transforms)
+        self._acc = tfm.init_grad_acc(
+            [p.detach() for p in optimizer._parameters], self._k_merge)
+        self._micro = 0
+        # the optimizer whose step() the step runs (ShardedTrainStep's
+        # ZeRO-1 steps one over the rank's shards)
+        self._stepper = optimizer
         self.return_outputs = return_outputs
         self._layer = isinstance(model, Layer)
         self._last_grad_norm = None
@@ -141,40 +159,69 @@ class TrainStep:
     def graphs(self):
         return self.program.graphs
 
-    def _run(self, inputs, labels):
-        """Forward, loss, backward, sentinel and the optimizer's update
-        on torch tensors: device work only, no host reads. Returns the
-        loss and the outputs (detached, as the model's kind of tensor)."""
+    def _forward_loss(self, inputs, labels):
+        """The model over the inputs and `loss_fn` over its outputs and
+        the labels, as the transforms wrap them: (loss, outputs)."""
         if self._layer:
             inputs = tuple(Tensor._wrap(a) if isinstance(a, torch.Tensor)
                            else a for a in inputs)
             labels = tuple(Tensor._wrap(a) if isinstance(a, torch.Tensor)
                            else a for a in labels)
-        out = self.model(*inputs)
-        outs = out if isinstance(out, tuple) else (out,)
-        loss = self.loss_fn(*outs, *labels)
+        n_in = len(inputs)
+
+        def forward(*args):
+            out = self.model(*args[:n_in])
+            outs = out if isinstance(out, tuple) else (out,)
+            loss = self.loss_fn(*outs, *args[n_in:])
+            return (loss, *outs) if self.return_outputs else loss
+
+        res = tfm.wrap_forward(forward, self.transforms, self.model)(
+            *inputs, *labels)
+        return (res[0], res[1:]) if self.return_outputs else (res, ())
+
+    def _run(self, inputs, labels, apply=True):
+        """Forward, loss, backward, sentinel and the optimizer's update
+        on torch tensors: device work only, no host reads. Returns the
+        loss and the outputs (detached, as the model's kind of tensor)."""
+        loss, outs = self._forward_loss(inputs, labels)
         unwrap(loss).backward()
         grads = [p.grad for p in self.optimizer._parameters
                  if p.grad is not None]
         self._last_grad_norm, self._last_nonfinite = \
             grad_norm_sentinel(unwrap(loss), grads)
-        self.optimizer.step()
+        if self._k_merge == 1 or self._merge_grads(apply):
+            self.optimizer.step()
         # the outputs are read only when asked for: detaching the fused
         # head's logits would compute the dense head product
-        return loss.detach(), (tuple(o.detach() for o in outs)
-                               if self.return_outputs else ())
+        return loss.detach(), tuple(o.detach() for o in outs)
+
+    def _merge_grads(self, apply):
+        """gradient_merge: this call's grads into the accumulators. On an
+        updating call the parameters' grads become their sum (or mean)
+        and True is returned: the update follows."""
+        live = [(a, p) for a, p in zip(self._acc, self.optimizer._parameters)
+                if p.grad is not None]
+        merged = tfm.merged_update([a for a, _ in live],
+                                   [p.grad for _, p in live], self._k_merge,
+                                   self._merge_avg, apply)
+        if merged is None:
+            return False
+        for (_, p), g in zip(live, merged):
+            p.grad = g
+        return True
 
     def _program(self, key):
         """The step over the static buffers of signature `key`."""
         return self._step(*self._args[key])
 
-    def _step(self, args, n_in):
+    def _step(self, args, n_in, apply=True):
         """One step over `args` (the inputs, then the labels), every grad
         unset before and after. The grads the step wrote are returned
         with the loss, so a captured graph keeps them (the addresses its
-        backward writes and its optimizer reads)."""
+        backward writes and its optimizer reads). `apply`: whether a
+        gradient-merge step updates."""
         self.optimizer.clear_grad()
-        loss, outs = self._run(args[:n_in], args[n_in:])
+        loss, outs = self._run(args[:n_in], args[n_in:], apply)
         grads = [p.grad for p in self.optimizer._parameters]
         self.optimizer.clear_grad()
         return (loss, outs, self._last_grad_norm, self._last_nonfinite,
@@ -187,21 +234,26 @@ class TrainStep:
             else (labels,)
         args = tuple(unwrap(a) for a in inputs + labels)
         key = _signature(args)
+        self._micro += 1
+        apply = self._micro % self._k_merge == 0
+        if self._k_merge > 1:
+            key = (key, apply)
         if not self._graphed:
-            step = self._step(args, len(inputs))
+            step = self._step(args, len(inputs), apply)
         elif key not in self._args:
             # the static buffers of this signature: its graph replays on
             # their addresses
             self._args[key] = (tuple(
                 a.clone() if isinstance(a, torch.Tensor) else a
-                for a in args), len(inputs))
+                for a in args), len(inputs), apply)
         else:
             for dst, src in zip(self._args[key][0], args):
                 if isinstance(dst, torch.Tensor):
                     dst.copy_(src, non_blocking=True)
             # a capture's step() does not advance the optimizer: its
             # replays read [lr, step] from the device pair written here
-            self.optimizer._advance()
+            if apply:
+                self._stepper._advance()
         if self._graphed:
             step = self.program(key)
         loss, outs, norm, nonfinite, _ = step

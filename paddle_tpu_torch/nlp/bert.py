@@ -171,12 +171,20 @@ class BertForPretraining(nn.Layer):
 
 def bert_pretrain_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels):
     """The MLM loss over the positions whose label is not -100, plus the
-    NSP loss (torch logits give a torch loss, Tensors a Tensor)."""
+    NSP loss (torch logits give a torch loss, Tensors a Tensor). Inside
+    a `distributed.ShardedTrainStep` each term is this rank's share of
+    the global mean (`sharded.global_mean`): a rank's count of masked
+    positions is its own, so the mean of the ranks' means would not be
+    the global batch's loss."""
+    from ..distributed.sharded import global_mean
     torch_in = isinstance(mlm_logits, torch.Tensor)
     mlm_logits, nsp_logits = _wrap(mlm_logits), _wrap(nsp_logits)
     mlm_labels, nsp_labels = _wrap(mlm_labels), _wrap(nsp_labels)
     b, s, v = mlm_logits.shape
     mlm = F.cross_entropy(mlm_logits.reshape([b * s, v]),
                           mlm_labels.reshape([b * s]), ignore_index=-100)
-    loss = mlm + F.cross_entropy(nsp_logits, nsp_labels)
+    mlm = global_mean(mlm, (mlm_labels._data != -100).sum())
+    nsp = global_mean(F.cross_entropy(nsp_logits, nsp_labels),
+                      int(nsp_labels.shape[0]))
+    loss = mlm + nsp
     return unwrap(loss) if torch_in else loss

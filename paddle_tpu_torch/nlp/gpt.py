@@ -86,11 +86,6 @@ class GPTConfig:
                  use_recompute=False, sequence_parallel=False,
                  moe_experts=0, moe_k=2, moe_capacity_factor=1.25,
                  fused_head_loss=None, attn_layout=None, attn_window=None):
-        if sequence_parallel:
-            raise NotImplementedError(
-                "sequence parallelism is not ported yet (ROADMAP Queue 1 "
-                "item 5, the distributed slice: ring_attention.py / "
-                "ulysses.py)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -102,7 +97,10 @@ class GPTConfig:
         self.initializer_range = initializer_range
         # incubate.recompute (non-reentrant checkpoint) around every block
         self.use_recompute = bool(use_recompute)
-        self.sequence_parallel = False
+        # False, True / "ring" (distributed.ring_attention) or "ulysses"
+        # (distributed.ulysses): attention over the 'sp' mesh axis, each
+        # rank holding its shard of the sequence
+        self.sequence_parallel = sequence_parallel
         # MoE FFN: > 0 replaces every block's MLP with an
         # incubate.moe.MoELayer of that many experts (top-k gating, one
         # card: no expert sharding)
@@ -178,12 +176,43 @@ class GPTAttention(nn.Layer):
         self.attn_dropout_p = cfg.attn_dropout
         self.attn_layout = cfg.attn_layout
         self.attn_window = cfg.attn_window
+        self.sequence_parallel = cfg.sequence_parallel
+        if self.sequence_parallel not in (False, None, True, "ring",
+                                          "ulysses"):
+            raise ValueError(
+                f"unknown sequence_parallel={self.sequence_parallel!r}; "
+                "expected False, True/'ring', or 'ulysses'")
+        if self.attn_window is not None and cfg.sequence_parallel:
+            raise ValueError(
+                "attn_window with sequence_parallel is not implemented: "
+                "the ring/ulysses paths compute full causal attention "
+                "(a silent full-attention fallback would train a "
+                "different model than configured)")
+        if cfg.sequence_parallel and cfg.attn_dropout:
+            import warnings
+            warnings.warn(
+                "sequence_parallel ring attention does not apply "
+                "attention-prob dropout; attn_dropout is ignored "
+                "(residual dropout still applies)")
         self.resid_dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, x):
         b, s, h = x.shape
         qkv = self.qkv_proj(x).reshape([b, s, 3, self.num_heads,
                                         self.head_dim])
+        if self.sequence_parallel:
+            # the rank's sequence shard over 'sp': "ring" (default)
+            # streams K/V around the group, "ulysses" all-to-alls to
+            # head-sharded full-sequence attention; no attention dropout
+            from ..distributed.ring_attention import ring_flash_attention
+            from ..distributed.ulysses import ulysses_flash_attention
+            attend = ulysses_flash_attention \
+                if self.sequence_parallel == "ulysses" \
+                else ring_flash_attention
+            qkv = qkv.transpose([2, 0, 3, 1, 4])      # [3, B, H, S, D]
+            out = attend(qkv[0], qkv[1], qkv[2], causal=True)
+            out = out.transpose([0, 2, 1, 3]).reshape([b, s, h])
+            return self.resid_dropout(self.out_proj(out))
         if self.attn_layout == "bshd" and \
                 not (self.attn_dropout_p and self.training):
             # BSHD fast path: q/k/v are strided views of the projection
@@ -346,6 +375,16 @@ class GPTBlock(nn.Layer):
             valid_len))
 
 
+def _sp_offset(s):
+    """The first global position of this rank's `s`-token shard of the
+    'sp' axis of the current mesh (0 without one)."""
+    from ..distributed import mesh as mesh_mod
+    m = mesh_mod.get_mesh()
+    if m is None or m.axis_size(mesh_mod.SP_AXIS) == 1:
+        return 0
+    return m.axis_index(mesh_mod.SP_AXIS) * s
+
+
 class GPTEmbeddings(nn.Layer):
     def __init__(self, cfg):
         super().__init__()
@@ -356,11 +395,16 @@ class GPTEmbeddings(nn.Layer):
                                                 cfg.hidden_size,
                                                 weight_attr=attr)
         self.dropout = nn.Dropout(cfg.dropout)
+        self.sequence_parallel = cfg.sequence_parallel
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
+            s = input_ids.shape[-1]
+            # a sequence shard's positions are global: shard i of the
+            # 'sp' axis starts at i * s
+            off = _sp_offset(s) if self.sequence_parallel else 0
             position_ids = Tensor._wrap(torch.arange(
-                input_ids.shape[-1], dtype=torch.int32,
+                off, off + s, dtype=torch.int32,
                 device=input_ids._data.device)[None])
         return self.dropout(self.word_embeddings(input_ids)
                             + self.position_embeddings(position_ids))
@@ -693,30 +737,33 @@ class FusedHeadLogits(torch.Tensor):
 
 
 def _shifted_labels(labels, b, s):
-    """labels[:, 1:] with -1 appended (the ignored last position),
-    flattened to [B * S] int64."""
-    return torch.cat([labels[:, 1:].long(),
-                      torch.full((b, 1), -1, dtype=torch.long,
-                                 device=labels.device)], dim=1).reshape(b * s)
+    """labels[:, 1:] with the label after the last position appended,
+    flattened to [B * S] int64: -1 (ignored), or on a sequence shard of
+    a sharded step the next shard's first label."""
+    from ..distributed.sharded import sp_next_first
+    last = sp_next_first(labels)
+    if last is None:
+        last = torch.full((b, 1), -1, dtype=torch.long,
+                          device=labels.device)
+    return torch.cat([labels[:, 1:].long(), last.long()],
+                     dim=1).reshape(b * s)
 
 
-def _fused_lm_loss_raw(h, w, labels):
+def _fused_lm_loss_raw(h, w, shifted):
     """The vocab-chunked fused head + loss over the flattened hidden
-    states and the tied weight, in chunks of min(4096, V rounded up to
-    128) vocab rows, as the JAX package does."""
-    b, s = labels.shape
+    states and the tied weight, against the shifted labels, in chunks of
+    min(4096, V rounded up to 128) vocab rows, as the JAX package does."""
     v = w.shape[0]
     chunk = min(4096, (v + 127) // 128 * 128)
-    return chunked_lm_loss(h.reshape(b * s, h.shape[-1]), w,
-                           _shifted_labels(labels, b, s), -1, chunk)
+    return chunked_lm_loss(h.reshape(-1, h.shape[-1]), w, shifted, -1,
+                           chunk)
 
 
-def _lm_loss_raw(logits, labels):
+def _lm_loss_raw(logits, shifted):
     """Cross entropy of logits [B, S, V] against the shifted labels, a
     mean over the valid rows (at least one)."""
-    b, s, v = logits.shape
-    shifted = _shifted_labels(labels, b, s)
-    total = TF.cross_entropy(logits.reshape(b * s, v), shifted,
+    v = logits.shape[-1]
+    total = TF.cross_entropy(logits.reshape(-1, v), shifted,
                              ignore_index=-1, reduction="sum")
     valid = (shifted != -1).sum().clamp(min=1)
     return total / valid.to(total.dtype)
@@ -734,15 +781,30 @@ def gpt_pretrain_loss(logits, labels):
     runs through the op dispatcher, as the JAX package's
     `cross_entropy` (so f32 under `auto_cast`) or `chunked_lm_loss`;
     torch logits give a torch loss, Tensors a Tensor. An MoE model's
-    aux loss (`_moe_aux_loss` on the logits) is added once."""
+    aux loss (`_moe_aux_loss` on the logits) is added once.
+
+    Inside a `distributed.ShardedTrainStep` the loss is this rank's share
+    of the global one (`sharded.global_mean` over the valid rows), and on
+    a sequence shard the last position is scored against the next
+    shard's first label (`sharded.sp_next_first`)."""
+    from ..distributed.sharded import global_mean, sharded_parts
     arr, lab = unwrap(logits), unwrap(labels)
+    b, s = lab.shape[0], lab.shape[1]
+    shifted = _shifted_labels(lab, b, s)
     if isinstance(arr, FusedHeadLogits):
-        loss = apply(_fused_lm_loss_raw, (arr.hidden, arr.weight, lab),
+        loss = apply(_fused_lm_loss_raw, (arr.hidden, arr.weight, shifted),
                      name="chunked_lm_loss")
     else:
-        loss = apply(_lm_loss_raw, (arr, lab), name="cross_entropy")
+        loss = apply(_lm_loss_raw, (arr, shifted), name="cross_entropy")
+    # inside a ShardedTrainStep: this rank's share of the global mean
+    loss = global_mean(loss, (shifted != -1).sum())
     aux = getattr(arr, "_moe_aux_loss", None)
     if aux is not None:
+        if sharded_parts() > 1:
+            raise NotImplementedError(
+                "an MoE GPT in a ShardedTrainStep over more than one rank: "
+                "the aux loss is a function of the whole batch's routing "
+                "(expert parallelism is ROADMAP Queue 1 item 5c)")
         loss = loss + aux
     return loss if isinstance(logits, Tensor) else loss._data
 

@@ -199,6 +199,12 @@ class Optimizer:
             self._state[i] = self._init_state(self._parameters[i])
         return self._state[i]
 
+    def _tensor_norms(self, xs):
+        """Each tensor's L2 norm (the per-tensor rules: Lamb, Lars,
+        Dpsgd). A ZeRO-1 step's optimizer over parameter chunks replaces
+        it with the norms of the whole tensors."""
+        return _norms(xs)
+
     def _regularizer_of(self, p):
         """The parameter's own regularizer, else the optimizer's."""
         reg = getattr(p, "regularizer", None)
@@ -661,7 +667,7 @@ class Lamb(Optimizer):
         torch._foreach_add_(den, _f32(self._epsilon))
         torch._foreach_div_(r, den)
         torch._foreach_add_(r, torch._foreach_mul(p32, _f32(self._lamb_wd)))
-        w_norm, r_norm = _norms(p32), _norms(r)
+        w_norm, r_norm = self._tensor_norms(p32), self._tensor_norms(r)
         scale = lr * _trust_ratio(w_norm, r_norm, w_norm, r_norm)
         torch._foreach_mul_(r, list(scale.unbind()))
         _sub_cast(bases, r)
@@ -690,7 +696,7 @@ class Lars(Momentum):
                          _f32(self._lars_wd))
         v = [st["velocity"] for st in states]
         g32, p32 = _floats(grads), _floats(bases)
-        w_norm, g_norm = _norms(p32), _norms(g32)
+        w_norm, g_norm = self._tensor_norms(p32), self._tensor_norms(g32)
         local = _trust_ratio(coeff * w_norm, g_norm + wd * w_norm + 1e-12,
                              w_norm, g_norm)
         upd = torch._foreach_add(g32, torch._foreach_mul(p32, wd))
@@ -764,7 +770,7 @@ class Dpsgd(Optimizer):
         clip = np.float32(self._clip)
         std = float(clip * np.float32(self._sigma)
                     / np.float32(self._batch_size))
-        norms = _norms(_floats(grads))
+        norms = self._tensor_norms(_floats(grads))
         factor = torch.clamp(float(clip) / torch.clamp(norms, min=1e-12),
                              max=1.0)
         # out of place: an f32 grad's `.float()` is the grad itself

@@ -22,7 +22,8 @@ resets. `capture_train_state` / `apply_train_state` close that gap: the
 The payload is the port's own (its RNG records are torch generator
 states, not JAX keys). The watchdog, `record_resume`, the reshard
 checks and the telemetry counters of the JAX module are ROADMAP Queue 1
-item 6 (and the sharding record item 5: the port writes None there).
+item 6. A sharded step's placement record (`ShardedTrainStep.
+sharding_state`) is written as the JAX package writes it.
 """
 import time
 
@@ -34,12 +35,13 @@ from ..framework import state
 STATE_VERSION = 2
 
 
-def capture_train_state(cursor=None, step=None, scaler=None):
+def capture_train_state(cursor=None, step=None, scaler=None, sharding=None):
     """The training state beyond parameters and optimizer as one
     picklable dict. `cursor` is Model.fit's data cursor ({"epoch",
     "batch", "epoch_numpy_rng"}), `scaler` an optional
-    `amp.GradScaler`. The JAX payload's `run_id` (the flight recorder's)
-    and `sharding` (a sharded step's placements) are written as None."""
+    `amp.GradScaler`, `sharding` a `ShardedTrainStep.sharding_state()`
+    record when the writing step was sharded. The JAX payload's `run_id`
+    (the flight recorder's) is written as None."""
     return {
         "version": STATE_VERSION,
         "time_unix": round(time.time(), 3),
@@ -49,7 +51,7 @@ def capture_train_state(cursor=None, step=None, scaler=None):
         "step": None if step is None else int(step),
         "scaler": None if scaler is None else dict(scaler.state_dict()),
         "run_id": None,
-        "sharding": None,
+        "sharding": None if sharding is None else dict(sharding),
     }
 
 

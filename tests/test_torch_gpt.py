@@ -193,13 +193,19 @@ def test_unported_entry_points_name_the_roadmap(pair):
                                 torch.tensor([4]))
     assert logits.shape == (1, 4, SMALL["vocab_size"])
     assert bool(torch.isfinite(logits).all())
-    # MoE blocks are ported (tests/test_torch_moe.py); sequence
-    # parallelism still raises and names the ROADMAP
+    # MoE blocks are ported (tests/test_torch_moe.py); so is sequence
+    # parallelism (tests/test_torch_sequence_parallel.py), with the JAX
+    # package's refusals: a window, and an unknown mode
     moe = tgpt.GPTForPretraining(tgpt.GPTConfig(**dict(SMALL, moe_experts=4)),
                                  device="cpu")
     assert moe(ids).shape == (1, 4, SMALL["vocab_size"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        tgpt.GPTConfig(sequence_parallel=True)
+    assert tgpt.GPTConfig(sequence_parallel=True).sequence_parallel is True
+    with pytest.raises(ValueError, match="attn_window with sequence_para"):
+        tgpt.GPTForPretraining(tgpt.GPTConfig(**dict(
+            SMALL, sequence_parallel="ring", attn_window=2)), device="cpu")
+    with pytest.raises(ValueError, match="unknown sequence_parallel"):
+        tgpt.GPTForPretraining(tgpt.GPTConfig(**dict(
+            SMALL, sequence_parallel="zigzag")), device="cpu")
 
 
 def test_paged_cache_horizon_is_checked(pair):

@@ -106,6 +106,22 @@ def test_imports_without_jax_and_without_the_jax_package():
         import paddle_tpu_torch.compat
         import paddle_tpu_torch.sysconfig
         import paddle_tpu_torch.utils.cpp_extension
+        import paddle_tpu_torch.jit.transforms
+        import paddle_tpu_torch.distributed
+        import paddle_tpu_torch.distributed.collective
+        import paddle_tpu_torch.distributed.env
+        import paddle_tpu_torch.distributed.fleet
+        import paddle_tpu_torch.distributed.fleet.base
+        import paddle_tpu_torch.distributed.fleet.meta_optimizers
+        import paddle_tpu_torch.distributed.gloo
+        import paddle_tpu_torch.distributed.launch
+        import paddle_tpu_torch.distributed.mesh
+        import paddle_tpu_torch.distributed.parallel
+        import paddle_tpu_torch.distributed.ring_attention
+        import paddle_tpu_torch.distributed.sharded
+        import paddle_tpu_torch.distributed.spawn
+        import paddle_tpu_torch.distributed.ulysses
+        import paddle_tpu_torch.distributed.utils
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         assert not bad, bad
@@ -113,6 +129,9 @@ def test_imports_without_jax_and_without_the_jax_package():
         assert callable(paddle_tpu_torch.to_tensor)
         assert not paddle_tpu_torch.kernels._loaded
         assert paddle_tpu_torch.framework.state._current_device is None
+        # and no process group was joined
+        import torch.distributed
+        assert not torch.distributed.is_initialized()
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -136,8 +155,10 @@ def test_source_scan_finds_no_jax_or_jax_package_import():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
-    # the op cases chip_smoke.py's eager phase loads on the card
+    # the op cases chip_smoke.py's eager phase loads on the card, and
+    # the rank processes of the distributed tests
     files.append(os.path.join(ROOT, "tests", "torch_op_cases.py"))
+    files.append(os.path.join(ROOT, "tests", "torch_dist_ranks.py"))
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

@@ -168,8 +168,11 @@ def test_trained_weights_and_adam_state_carry_across():
 
 def test_fused_head_loss_raises_and_names_the_roadmap():
     """The fused head is ported (tests/test_torch_chunked_ce.py): its
-    loss equals the dense head's; what is still unported raises and
-    names the ROADMAP."""
+    loss equals the dense head's. Sequence parallelism, once refused
+    here, is ported (tests/test_torch_sequence_parallel.py): without an
+    'sp' mesh axis a sequence-parallel GPT is the plain one, loss for
+    loss, and attention dropout is warned about, as in the JAX
+    package."""
     _, tm = _pair(fused_head_loss=True)
     logits = tm(_ids())
     assert isinstance(logits, tgpt.FusedHeadLogits)
@@ -178,8 +181,13 @@ def test_fused_head_loss_raises_and_names_the_roadmap():
     assert fused == pytest.approx(dense, rel=1e-5)
     assert not tgpt._use_fused_head(tm.cfg.__class__(**SMALL), (8, 1024,
                                                                32768))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.GPTConfig(**dict(SMALL, sequence_parallel=True))
+    plain = float(tgpt.gpt_pretrain_loss(tm(_ids()), _ids()).detach())
+    _, sp = _pair(fused_head_loss=True, sequence_parallel=True)
+    assert float(tgpt.gpt_pretrain_loss(sp(_ids()), _ids()).detach()) == \
+        pytest.approx(plain, rel=1e-6)
+    with pytest.warns(UserWarning, match="attn_dropout is ignored"):
+        tgpt.GPTForPretraining(tgpt.GPTConfig(**dict(
+            SMALL, sequence_parallel=True, attn_dropout=0.1)), device="cpu")
 
 
 def test_recompute_replays_the_dropout_masks():

@@ -1,0 +1,561 @@
+"""Rank processes of the port's distributed tests.
+
+`World` starts one world of gloo ranks on the CPU through the port's
+launcher (`python -m paddle_tpu_torch.distributed.launch
+--nproc_per_node n tests/torch_dist_ranks.py <spec>`), in the
+background, so the test process computes the JAX package's side while
+the ranks run. Each rank runs `main`: it joins the world
+(`init_parallel_env(backend="gloo")`), runs the spec's jobs (`JOBS`, the
+rank bodies below) on the inputs the test wrote (numpy, seeded; JAX
+weights carried as arrays) and saves its results as
+`<out>.<rank>.npz`. A rank imports torch, numpy and the port only, and
+runs one intra-op thread.
+
+Each test file starts one world (a module-scoped fixture) and reads the
+results of its jobs by name.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_pair():
+    """A port p with p + 1 free too (the launcher's coordinator and its
+    host-collective store)."""
+    for _ in range(50):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+            with socket.socket() as b:
+                try:
+                    b.bind(("127.0.0.1", p + 1))
+                except OSError:
+                    continue
+        return p
+    raise RuntimeError("no free pair of ports")
+
+
+def rank_env():
+    """The environment of a rank process (and of the launcher)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ENDPOINTS", "COORDINATOR_ADDRESS"):
+        env.pop(k, None)
+    return env
+
+
+class World:
+    """`n` gloo ranks running `jobs` on `inputs` (name -> array), started
+    at once; `results()` waits for them."""
+
+    def __init__(self, tmp, n, jobs, inputs, timeout=240):
+        self.tmp = str(tmp)
+        self.n = n
+        self.timeout = timeout
+        os.makedirs(self.tmp, exist_ok=True)
+        np.savez(os.path.join(self.tmp, "inputs.npz"), **inputs)
+        self.spec = {"jobs": list(jobs), "inputs": os.path.join(
+            self.tmp, "inputs.npz"), "out": os.path.join(self.tmp, "out")}
+        spec_path = os.path.join(self.tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(self.spec, f)
+        port = _port_pair()
+        self.log_dir = os.path.join(self.tmp, "logs")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", str(n), "--start_port", str(port + 1),
+             "--log_dir", self.log_dir, os.path.abspath(__file__),
+             spec_path],
+            cwd=REPO, env=rank_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self._res = None
+
+    def results(self):
+        """Every rank's results: [{"job/key": array}], by rank."""
+        if self._res is None:
+            try:
+                out, _ = self.proc.communicate(timeout=self.timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                out, _ = self.proc.communicate()
+            if self.proc.returncode != 0:
+                logs = []
+                for r in range(self.n):
+                    path = os.path.join(self.log_dir, f"workerlog.{r}")
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            logs.append(f"rank {r}:\n{f.read()[-4000:]}")
+                raise RuntimeError(
+                    f"world of {self.n} ranks ended with "
+                    f"{self.proc.returncode}:\n{out[-2000:]}\n"
+                    + "\n".join(logs))
+            self.seconds = time.perf_counter() - self.t0
+            self._res = [dict(np.load(f"{self.spec['out']}.{r}.npz",
+                                      allow_pickle=False))
+                         for r in range(self.n)]
+        return self._res
+
+    def job(self, name):
+        """One job's results, by rank: [{key: array}]."""
+        pre = name + "/"
+        return [{k[len(pre):]: v for k, v in res.items()
+                 if k.startswith(pre)} for res in self.results()]
+
+
+# ------------------------------------------------------------ rank bodies
+# each takes (inputs, rank, world size) and returns {key: array-like}
+
+def _t(a):
+    import torch
+    return torch.tensor(np.asarray(a))
+
+
+def job_collectives(inp, r, n):
+    """Every collective of the Paddle surface on rank-dependent inputs
+    (x_r = base + r)."""
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    base = inp["coll_base"]
+    out = {}
+    for name, op in (("sum", C.ReduceOp.SUM), ("max", C.ReduceOp.MAX),
+                     ("min", C.ReduceOp.MIN), ("prod", C.ReduceOp.PROD),
+                     ("avg", C.ReduceOp.AVG)):
+        x = _t(base + r)
+        dist.all_reduce(x, op=op)
+        out[f"all_reduce_{name}"] = x.numpy()
+    t = pt.to_tensor(base + r, place="cpu")
+    same = dist.all_reduce(t)
+    out["all_reduce_tensor_in_place"] = np.array(
+        [same is t, np.array_equal(t.numpy(), n * base + sum(range(n)))])
+    lst = []
+    got = dist.all_gather(lst, _t(base + r))
+    out["all_gather"] = np.stack([g.numpy() for g in got])
+    out["all_gather_list_filled"] = np.array(len(lst) == n)
+    rows = inp["coll_rows"] + 10 * r                     # [2n, 3]
+    dst = torch.zeros(2, 3)
+    dist.reduce_scatter(dst, _t(rows))
+    out["reduce_scatter"] = dst.numpy()
+    halves = [_t(rows[2 * j:2 * j + 2]) for j in range(n)]
+    out["reduce_scatter_list"] = dist.reduce_scatter(None, halves).numpy()
+    b = _t(base + r)
+    dist.broadcast(b, src=1)
+    out["broadcast"] = b.numpy()
+    red = _t(base + r)
+    dist.reduce(red, dst=0)
+    out["reduce"] = red.numpy()
+    sc = torch.zeros(base.shape)
+    dist.scatter(sc, [_t(base * (j + 1)) for j in range(n)]
+                 if r == 0 else None, src=0)
+    out["scatter"] = sc.numpy()
+    a2a = dist.alltoall([_t(base + 10 * r + j) for j in range(n)])
+    out["alltoall"] = np.stack([a.numpy() for a in a2a])
+    p2p = _t(base * 0)
+    if r == 0:
+        dist.send(_t(base * 7), dst=1)
+    elif r == 1:
+        dist.recv(p2p, src=0)
+    out["send_recv"] = p2p.numpy()
+    g = dist.new_group(ranks=list(range(n)))
+    x = _t(base + r)
+    dist.all_reduce(x, group=g)
+    out["new_group_all_reduce"] = x.numpy()
+    dist.barrier()
+    out["wait_returns_its_tensor"] = np.array(dist.wait(x) is x)
+    out["host_staged"] = np.array(C.stats["host_staged"])
+    # the host collectives over the launcher's store
+    from paddle_tpu_torch.distributed import gloo
+    hc = gloo.collective_from_env()
+    hc.barrier()
+    out["host_all_gather"] = np.array(hc.all_gather(f"r{r}".encode()))
+    out["host_all_reduce"] = hc.all_reduce(np.array([r, r + 1]))
+    return out
+
+
+def job_data_parallel(inp, r, n):
+    """DataParallel.apply_collective_grads after each rank's backward
+    over its half of the batch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import DataParallel
+    pt.seed(3)
+    net = DataParallel(nn.Linear(8, 4))
+    x, y = inp["dp_x"], inp["dp_y"]
+    m = x.shape[0] // n
+    sl = slice(r * m, (r + 1) * m)
+    loss = nn.functional.mse_loss(net(pt.to_tensor(x[sl])),
+                                  pt.to_tensor(y[sl]))
+    loss.backward()
+    net.apply_collective_grads()
+    return {k: p.grad.numpy() for k, p in net._layers.named_parameters()}
+
+
+#: the optimizers of the sharded-Linear cases (the same class and
+#: arguments in both packages): Lamb's and Lars's trust ratios and
+#: Dpsgd's clip (bound here: the grads' norms are above 0.05) take
+#: per-tensor norms, which ZeRO-1 sums over the ranks' chunks
+LINEAR_OPTS = {"sgd": ("SGD", {"learning_rate": 0.1}),
+               "adamw": ("AdamW", {"learning_rate": 0.01}),
+               "lamb": ("Lamb", {"learning_rate": 0.01}),
+               "lars": ("Lars", {"learning_rate": 0.1, "lars_coeff": 0.01}),
+               "dpsgd": ("Dpsgd", {"learning_rate": 0.1, "clip": 0.05,
+                                   "sigma": 0.0})}
+#: (case, ZeRO stage): "adamw_merge" is AdamW under fleet's
+#: gradient_merge (k_steps 2, avg) with sharding stage 1
+LINEAR_CASES = (("sgd", 0), ("sgd", 1), ("adamw", 1), ("lamb", 1),
+                ("lars", 1), ("dpsgd", 1), ("adamw_merge", 1))
+
+
+def merge_strategy(fleet):
+    """The gradient_merge + sharding strategy of "adamw_merge"."""
+    s = fleet.DistributedStrategy()
+    s.gradient_merge = True
+    s.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    s.sharding = True
+    s.sharding_configs = {"stage": 1}
+    return s
+
+
+def _linear(inp, opt_name):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    net = nn.Linear(8, 4)
+    net.set_state_dict({"weight": inp["lin_w"], "bias": inp["lin_b"]})
+    cls, kw = LINEAR_OPTS[opt_name]
+    return net, getattr(pt.optimizer, cls)(parameters=net.parameters(),
+                                           **kw)
+
+
+def job_sharded_linear(inp, r, n):
+    """A Linear under MSE through ShardedTrainStep over {'dp': n}, each
+    of LINEAR_CASES: 3 steps (4 calls, 2 updates, under gradient merge);
+    the losses, the weights and (stateful rules) the moments after
+    sync()."""
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    mesh.make_mesh({"dp": n})
+    out = {}
+    x, y = inp["lin_x"], inp["lin_y"]
+    for case, zero in LINEAR_CASES:
+        merge = case == "adamw_merge"
+        net, opt = _linear(inp, "adamw" if merge else case)
+        step = ShardedTrainStep(
+            net, nn.functional.mse_loss,
+            fleet.distributed_optimizer(opt, merge_strategy(fleet))
+            if merge else opt, zero_stage=zero)
+        key = f"{case}_zero{zero}"
+        out[key + "_losses"] = [float(step(_t(x), _t(y)))
+                                for _ in range(4 if merge else 3)]
+        step.sync()
+        out[key + "_weight"] = net.weight.numpy()
+        out[key + "_step"] = opt._global_step
+        for slot, t in opt._state.get(0, {}).items():
+            out[f"{key}_{slot}"] = t.numpy()
+        if case == "adamw":
+            out[key + "_moment_bytes"] = [step.shard_nbytes(),
+                                          sum(p.numel() for p in
+                                              net.parameters()) * 8]
+    return out
+
+
+def job_hapi_zero1(inp, r, n):
+    """hapi.Model over the Linear, AdamW under fleet's sharding stage 1
+    on {'dp': n}: fit an epoch, set_lr, fit another, save (each rank
+    into its own directory); a new Model load_latest's it and fits a
+    third epoch. The losses, the restored moments and step count, the
+    .pdtrain's sharding record and the final weight."""
+    import os
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.framework import serialization
+    mesh.make_mesh({"dp": n})
+    ds = pt.io.TensorDataset([inp["lin_x"], inp["lin_y"]])
+    s = fleet.DistributedStrategy()
+    s.sharding = True
+    s.sharding_configs = {"stage": 1}
+
+    def model():
+        net, opt = _linear(inp, "adamw")
+        m = pt.Model(net)
+        m.prepare(fleet.distributed_optimizer(opt, s), nn.MSELoss())
+        return m, net, opt
+
+    def fit(m):
+        return m.fit(ds, batch_size=8, epochs=1, shuffle=False,
+                     verbose=0)["loss"]
+
+    m, _, opt = model()
+    losses = fit(m)
+    opt.set_lr(0.003)
+    losses += fit(m)
+    ckpt = os.path.join(str(inp["ckpt_dir"]), f"rank{r}")
+    m.save(os.path.join(ckpt, "ckpt"))
+    m2, net2, opt2 = model()
+    prefix = m2.load_latest(ckpt)
+    # copies: the third epoch's sync() writes into the same tensors
+    out = {"moment1": opt2._state[0]["moment1"].numpy().copy(),
+           "moment2": opt2._state[0]["moment2"].numpy().copy(),
+           "step": opt2._global_step,
+           "zero_stage": serialization.load(
+               prefix + ".pdtrain")["sharding"]["zero_stage"]}
+    out["losses"] = losses + fit(m2)
+    out["weight"] = net2.weight.numpy()
+    return out
+
+
+def job_sharded_models(inp, r, n):
+    """The tiny GPT and BERT of the test from the JAX weights, AdamW at
+    ZeRO-1 over {'dp': n}, 3 steps each."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.nlp import bert as tbert, gpt as tgpt
+    mesh.make_mesh({"dp": n})
+    out = {}
+    gcfg = json.loads(str(inp["gpt_cfg"]))
+    gm = tgpt.GPTForPretraining(tgpt.GPTConfig(**gcfg), device="cpu")
+    tgpt.load_jax_state(gm, {k[4:]: v for k, v in inp.items()
+                             if k.startswith("gpt:")})
+    step = ShardedTrainStep(gm, tgpt.gpt_pretrain_loss, pt.optimizer.AdamW(
+        learning_rate=1e-3, parameters=gm.parameters()), zero_stage=1)
+    ids = _t(inp["gpt_ids"])
+    out["gpt_losses"] = [float(step(ids, ids)) for _ in range(3)]
+    bcfg = json.loads(str(inp["bert_cfg"]))
+    bm = tbert.BertForPretraining(tbert.BertConfig(**bcfg), device="cpu")
+    bm.set_state_dict({k[5:]: v for k, v in inp.items()
+                       if k.startswith("bert:")})
+    step = ShardedTrainStep(bm, tbert.bert_pretrain_loss, pt.optimizer.AdamW(
+        learning_rate=1e-3, parameters=bm.parameters()), zero_stage=1)
+    ids, mlm, nsp = (_t(inp[k]) for k in ("bert_ids", "bert_mlm",
+                                         "bert_nsp"))
+    out["bert_losses"] = [float(step(ids, (mlm, nsp))) for _ in range(3)]
+    return out
+
+
+def job_refusals(inp, r, n):
+    """ZeRO-3, exact_reshard and 'mp' / 'pp' meshes refused by name;
+    Dpsgd's noise under ZeRO-1."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    out = {}
+    for name, shape, kw in (("zero3", {"dp": n}, {"zero_stage": 3}),
+                            ("exact", {"dp": n}, {"exact_reshard": True}),
+                            ("mp", {"mp": n}, {}), ("pp", {"pp": n}, {})):
+        mesh.make_mesh(shape)
+        net = nn.Linear(4, 4)
+        try:
+            ShardedTrainStep(net, nn.functional.mse_loss, pt.optimizer.SGD(
+                0.1, parameters=net.parameters()), **kw)
+            out[name] = "accepted"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    mesh.make_mesh({"dp": n})
+    net = nn.Linear(4, 4)
+    try:
+        ShardedTrainStep(net, nn.functional.mse_loss, pt.optimizer.Dpsgd(
+            0.1, sigma=1.0, parameters=net.parameters()), zero_stage=1)
+        out["dpsgd_noise"] = "accepted"
+    except NotImplementedError as e:
+        out["dpsgd_noise"] = str(e)
+    return out
+
+
+def job_attention(inp, r, n):
+    """Ring and Ulysses attention over {'dp': 2, 'sp': n / 2} and
+    {'sp': n}, causal and not, on the rank's shard of the global q, k,
+    v: the output and the gradients of sum(out ** 2)."""
+    import torch
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.ring_attention import ring_attention
+    from paddle_tpu_torch.distributed.ulysses import ulysses_attention
+    q, k, v = (inp[x] for x in ("q", "k", "v"))
+    out = {}
+    for mname, shape in (("dp2sp", {"dp": 2, "sp": n // 2}),
+                         ("sp", {"sp": n})):
+        m = mesh.make_mesh(shape)
+        dp = m.axis_size("dp")
+        sp = m.axis_size("sp")
+        bi = m.axis_index("dp") if dp > 1 else 0
+        bn = q.shape[0] // dp
+        sn = q.shape[2] // sp
+        si = m.axis_index("sp")
+        sl = (slice(bi * bn, (bi + 1) * bn), slice(None),
+              slice(si * sn, (si + 1) * sn))
+        out[f"{mname}_slice"] = [bi * bn, bn, si * sn, sn]
+        for causal in (False, True):
+            for fname, fn in (("ring", ring_attention),
+                              ("ulysses", ulysses_attention)):
+                a = [torch.tensor(x[sl]).requires_grad_() for x in (q, k, v)]
+                o = fn(*a, causal=causal)
+                (o ** 2).sum().backward()
+                key = f"{mname}_{fname}_{int(causal)}"
+                out[key + "_out"] = o.detach().numpy()
+                for name, t in zip("qkv", a):
+                    out[f"{key}_d{name}"] = t.grad.numpy()
+    return out
+
+
+def job_gpt_sp(inp, r, n):
+    """The tiny sequence-parallel GPT ("ring", "ulysses") from the JAX
+    weights through ShardedTrainStep over {'dp': 2, 'sp': n / 2}, AdamW,
+    3 steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    mesh.make_mesh({"dp": 2, "sp": n // 2})
+    cfg = json.loads(str(inp["sp_cfg"]))
+    ids = _t(inp["sp_ids"])
+    out = {}
+    for mode in ("ring", "ulysses"):
+        m = tgpt.GPTForPretraining(tgpt.GPTConfig(
+            sequence_parallel=mode, **cfg), device="cpu")
+        tgpt.load_jax_state(m, {k[3:]: v for k, v in inp.items()
+                                if k.startswith("sp:")})
+        step = ShardedTrainStep(m, tgpt.gpt_pretrain_loss,
+                                pt.optimizer.AdamW(
+                                    learning_rate=1e-3,
+                                    parameters=m.parameters()))
+        out[mode] = [float(step(ids, ids)) for _ in range(3)]
+    return out
+
+
+def job_fleet_meshes(inp, r, n):
+    """The mesh fleet.init makes from each hybrid config of the test."""
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.distributed import mesh
+    out = {}
+    for i, hc in enumerate(json.loads(str(inp["hybrid"]))):
+        mesh.reset()
+        s = fleet.DistributedStrategy()
+        if hc.pop("tensor_parallel", None):
+            s.tensor_parallel = True
+            s.tensor_parallel_configs = {"tensor_parallel_degree":
+                                         hc.pop("tp")}
+        s.hybrid_configs = dict(s.hybrid_configs, **hc)
+        fleet.init(is_collective=True, strategy=s)
+        m = mesh.get_mesh()
+        out[str(i)] = json.dumps(None if m is None else m.shape)
+    return out
+
+
+def job_build_step(inp, r, n):
+    """The step `fleet.build_train_step` builds (or its refusal) for
+    each strategy of the test, on {'dp': n} (a pipeline on {'pp': n})."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import nn
+    out = {}
+    for name, flags in json.loads(str(inp["strategies"])).items():
+        s = fleet.DistributedStrategy()
+        for k, v in flags.items():
+            setattr(s, k, v)
+        axis = "pp_degree" if flags.get("pipeline") else "dp_degree"
+        s.hybrid_configs = dict(s.hybrid_configs, **{axis: n})
+        fleet.init(is_collective=True, strategy=s)
+        net = nn.Linear(4, 4)
+        opt = fleet.distributed_optimizer(
+            pt.optimizer.SGD(0.1, parameters=net.parameters()), s)
+        try:
+            out[name] = type(fleet.build_train_step(
+                net, nn.functional.mse_loss, opt)).__name__
+        except NotImplementedError as e:
+            out[name] = f"refused: {e}"
+    return out
+
+
+def job_dist_mnist(inp, r, n):
+    """The twin of examples/dist_mnist.py: its CNN (two conv-pool blocks
+    and an fc head, Momentum 0.01) on the port's synthetic MNIST through
+    fleet.init / distributed_optimizer / build_train_step over {'dp':
+    n}, every rank reading the same shuffled global batches of 64; 40
+    steps."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import nn
+    strategy = fleet.DistributedStrategy()
+    fleet.init(is_collective=True, strategy=strategy)
+    pt.seed(1)
+    model = nn.Sequential(
+        nn.Conv2D(1, 20, 5), nn.ReLU(), nn.MaxPool2D(2, 2),
+        nn.Conv2D(20, 50, 5), nn.ReLU(), nn.MaxPool2D(2, 2),
+        nn.Flatten(), nn.Linear(50 * 4 * 4, 10))
+    opt = fleet.distributed_optimizer(
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                              parameters=model.parameters()), strategy)
+    step = fleet.build_train_step(model, nn.functional.cross_entropy, opt)
+    np.random.seed(0)
+    loader = pt.io.DataLoader(pt.vision.datasets.MNIST(mode="train"),
+                              batch_size=64, shuffle=True, drop_last=True)
+    losses, it = [], iter(loader)
+    for _ in range(40):
+        img, label = next(it)
+        losses.append(float(step(img, label.reshape([-1]))))
+    return {"losses": losses, "step": type(step).__name__}
+
+
+JOBS = {"collectives": job_collectives,
+        "data_parallel": job_data_parallel,
+        "sharded_linear": job_sharded_linear,
+        "sharded_models": job_sharded_models, "hapi_zero1": job_hapi_zero1,
+        "refusals": job_refusals, "attention": job_attention,
+        "gpt_sp": job_gpt_sp, "fleet_meshes": job_fleet_meshes,
+        "build_step": job_build_step, "dist_mnist": job_dist_mnist}
+
+
+def spawn_target(out):
+    """`distributed.spawn`'s test body: join the world, all-reduce the
+    rank and write it."""
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    torch.set_num_threads(1)
+    pt.set_device("cpu")
+    dist.init_parallel_env(backend="gloo", timeout=60)
+    x = torch.tensor([float(dist.get_rank())])
+    dist.all_reduce(x)
+    with open(f"{out}.{dist.get_rank()}", "w") as f:
+        json.dump({"rank": dist.get_rank(), "world": dist.get_world_size(),
+                   "sum": float(x)}, f)
+    dist.env.destroy()
+
+
+def main(spec_path):
+    import torch
+    torch.set_num_threads(1)
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    with open(spec_path) as f:
+        spec = json.load(f)
+    inp = dict(np.load(spec["inputs"], allow_pickle=False))
+    pt.set_device("cpu")
+    dist.init_parallel_env(backend="gloo", timeout=120)
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for job in spec["jobs"]:
+        for k, v in JOBS[job](inp, r, n).items():
+            out[f"{job}/{k}"] = np.asarray(v)
+        dist.barrier()
+    np.savez(f"{spec['out']}.{r}.npz", **out)
+    dist.env.destroy()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
