@@ -369,7 +369,25 @@ its phases:
                 (causal ring: rank r launches r + 1 K1 a layer); with
                 two cards or more, min(cards, 4) NCCL ranks (one card
                 each, graphed) train BERT bf16 dp (tokens/s per card)
-                and repeat the f32 sp checks over {'dp': n/2, 'sp': 2}.
+                and repeat the f32 sp checks over {'dp': n/2, 'sp': 2};
+  hybrid        tensor and pipeline parallelism at GPT-2 medium's
+                widths (BASELINE configs[3]: 24 layers, 1024 wide, 16
+                heads, vocab 32768, 8 x 1024, bf16, recompute): K1-K3
+                and dd held against their plain versions at the mp-local
+                shape [2, 1024, 8, 64] and timed beside bound, plain and
+                SDPA, the library's row dot beside dd; world 1 (one NCCL
+                rank, graphed) runs the plain TrainStep, GPipe and 1F1B
+                at pp = 1 with 4 microbatches, each graph's launches on
+                the schedule, timed in turns (step ms, tokens/s, MFU,
+                memory), and makes f32 references at 2 layers; world 2
+                (two gloo ranks sharing the card, eager) runs {'pp': 2}
+                GPipe and 1F1B and {'mp': 2}: the f32 loss within 2e-4
+                and every gradient within 1e-4 x max(1, max|g|) of world
+                1's, then 3 bf16 steps each at 24 layers, losses
+                falling, launches on the schedule, host-staged calls;
+                with four cards, world 4 (NCCL, graphed) runs {'pp': 2,
+                'mp': 2} 1F1B and GPipe (tokens/s a card, memory a rank)
+                and the f32 parity.
 
 The eager phase also runs the segment ops, a `register_op` with a
 backward and a g++-built `host_op` on the card, and, in a child process
@@ -433,7 +451,8 @@ PHASES = ("kernels", "flash", "optimizer", "parity", "train_parity",
           "serve", "serve_dense", "serve_spec", "serve_disagg",
           "serve_llama", "train", "train_llama", "train_fused_head",
           "eager", "nn", "transformer", "bert", "amp", "hapi", "resnet",
-          "rnn", "quant", "rec", "detect", "moe", "long_ctx", "dist")
+          "rnn", "quant", "rec", "detect", "moe", "long_ctx", "dist",
+          "hybrid")
 # main-path shapes: GPT-2 small (12 heads of 64), 16-token blocks, a
 # 1024-token horizon (64 blocks per lane), 8 lanes, 64-token chunks
 HEADS, HEAD_DIM, BLOCK, NBLK, LANES, CHUNK = 12, 64, 16, 64, 8, 64
@@ -9234,11 +9253,11 @@ def dist_counts():
     return out
 
 
-def dist_executed(step):
-    """`dist_counts` plus what the step's graphs ran on their replays
-    after the capture (the counters hold the eager first call and the
-    capture)."""
-    counts = dist_counts()
+def dist_executed(step, counts=None):
+    """`counts` (`dist_counts` by default: the counters must hold the
+    step's eager first call and its capture, and no other step's) plus
+    what the step's graphs ran on their replays after the capture."""
+    counts = dict(dist_counts() if counts is None else counts)
     for g in step.graphs.values():
         if g is None:
             continue
@@ -9745,6 +9764,488 @@ def dist_phase(dev, smi, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# hybrid: tensor and pipeline parallelism, BASELINE configs[3]
+# ---------------------------------------------------------------------------
+
+# GPT-2 medium at scripts/bench_sweep.py:95-97's widths: 24 layers, 1024
+# wide, 16 heads of 64, vocab 32768, sequence 1024, bf16, AdamW 1e-4,
+# recompute, random weights; a global batch of 8 x 1024 in 4
+# microbatches. The f32 checks run at full width and 2 layers over 4 x
+# 1024; the tolerances are the dist phase's
+HY_LAYERS, HY_HIDDEN, HY_HEADS, HY_VOCAB = 24, 1024, 16, 32768
+HY_S, HY_B, HY_MICRO, HY_F32_LAYERS, HY_F32_B = 1024, 8, 4, 2, 4
+HY_BF16_STEPS, HY_TIMED = 3, 10
+HY_CONFIGS = (("gpipe", {"pp": 2}), ("1f1b", {"pp": 2}), ("mp", {"mp": 2}))
+
+
+_HY_MODELS = {}
+
+
+def hybrid_gpt(dev, dtype, layers):
+    """GPT-2 medium's widths at `layers` layers, recompute on, no
+    dropout, the dense head (the fused head is not split over 'mp'): a
+    copy of the process's first model of this dtype and depth (its
+    weights drawn once on the host, ~4.5 s at 24 layers)."""
+    import copy
+    import torch
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
+    key = (str(dev), dtype, layers)
+    if key not in _HY_MODELS:
+        cfg = GPTConfig(vocab_size=HY_VOCAB, hidden_size=HY_HIDDEN,
+                        num_layers=layers, num_heads=HY_HEADS,
+                        max_seq_len=HY_S, dropout=0.0, attn_dropout=0.0,
+                        use_recompute=True, fused_head_loss=False)
+        _HY_MODELS[key] = GPTForPretraining(
+            cfg, device=dev, dtype=getattr(torch, dtype), seed=SEED)
+    return copy.deepcopy(_HY_MODELS[key])
+
+
+def hybrid_ids(dev, b, seed=SEED + 61):
+    """b seeded lag-7 streams of HY_S tokens (`lag_ids`: learnable, so
+    three steps lower the loss)."""
+    import torch
+    return torch.tensor(lag_ids(seed, b, HY_S, HY_VOCAB), device=dev)
+
+
+def hybrid_step(kind, model, opt, mesh_shape=None):
+    """The step of a configuration: the plain TrainStep, GPipe, 1F1B
+    (4 microbatches) or ShardedTrainStep ('mp'), over `mesh_shape`."""
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.pipeline import PipelineTrainStep
+    from paddle_tpu_torch.distributed.pipeline_1f1b import OneF1BTrainStep
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    if kind == "plain":
+        return TrainStep(model, gpt_pretrain_loss, opt)
+    M.make_mesh(mesh_shape)
+    if kind == "mp":
+        return ShardedTrainStep(model, gpt_pretrain_loss, opt)
+    cls = PipelineTrainStep if kind == "gpipe" else OneF1BTrainStep
+    return cls(model, gpt_pretrain_loss, opt, num_micro=HY_MICRO)
+
+
+def hybrid_schedule(kind, layers, stage=0, stages=1, micro=HY_MICRO):
+    """The flash launches of one step on a rank: K1 twice a layer a
+    microbatch under recompute (GPipe's blocks, the plain model's and the
+    'mp' model's, once for the whole batch), 1F1B once on its last stage
+    and twice on the others (the forward tick and the recompute); K2,
+    K3 and dd once a layer a microbatch."""
+    lps = layers // stages
+    if kind in ("plain", "mp"):
+        return {"fwd": 2 * layers, "dkv": layers, "dq": layers,
+                "dd": layers}
+    k1 = lps * micro * (1 if kind == "1f1b" and stage == stages - 1 else 2)
+    return {"fwd": k1, "dkv": lps * micro, "dq": lps * micro,
+            "dd": lps * micro}
+
+
+def hybrid_memory(model, step, base):
+    """The bytes a rank holds: the peak allocated since the last reset
+    (everything the process holds, the draw cache of `hybrid_gpt`
+    included), what the step added over `base` (the model's full
+    weights, its shards, the moments, activations), the full model's
+    weights (every rank keeps them: the rank's shards are extra leaves)
+    and the leaves the rank trains."""
+    import torch
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_memory_allocated": peak, "peak_memory_added": peak - base,
+            "full_model_bytes": nbytes(p._data for p in model.parameters()),
+            "trained_leaf_bytes": nbytes(step._params)
+            if hasattr(step, "_params") else None}
+
+
+def hybrid_counts_check(label, step, counts, per_step):
+    """The flash launches the step ran (`counts`, `dist_executed`): its
+    schedule's per step (`per_step`) times the steps it ran (the eager
+    first call and one a replay)."""
+    (graph,) = step.graphs.values()
+    n = 1 + graph.replays
+    want = {k: v * n for k, v in per_step.items()}
+    check({k: counts[k] for k in want} == want,
+          f"{label}: {counts} launches over {n} steps, the schedule "
+          f"gives {want}")
+
+
+def hybrid_profile(step, ids, step_ms):
+    """`profile_steps` of two more steps: device ms by kernel group and
+    the idle share (every rank of a world profiles its own steps, which
+    it must run with the others)."""
+    prof = profile_steps(step, ids, step_ms)
+    if isinstance(prof, dict):
+        prof.pop("top_kernels")
+    return prof
+
+
+def hybrid_w1(spec, dev):
+    """World 1 (one NCCL rank, graphed): GPT-2 medium bf16 through the
+    plain TrainStep, PipelineTrainStep and OneF1BTrainStep at pp = 1 (4
+    microbatches) over a global batch of 8 x 1024: 3 warm-up calls
+    (eager, capture, replay), each graph's launches against the
+    schedule, then HY_TIMED replays of each, in turns, twice. Step ms,
+    tokens/s, MFU, the peak memory each adds; a profile of plain and
+    GPipe. Each step's launches are read from the counters after its
+    own warm-up (eager and capture), before the next step's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    peak_bf16 = PEAKS["pcie" if "pcie" in nvidia_smi().lower()
+                      else "sxm"]["bf16"]
+    ids = hybrid_ids(dev, HY_B)
+    runs, out, warm = {}, {}, {}
+    hybrid_gpt(dev, "bfloat16", HY_LAYERS)     # the weights, drawn once
+    for kind in ("plain", "gpipe", "1f1b"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = hybrid_gpt(dev, "bfloat16", HY_LAYERS)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        zero_counts()
+        step = hybrid_step(kind, model, opt, {"pp": 1})
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        check(all(np.isfinite(losses)), f"world 1 {kind}: losses {losses}")
+        (graph,) = step.graphs.values()
+        check(graph is not None, f"world 1 {kind}: no graph captured")
+        want = {f"flash_attention.{k}": n for k, n in
+                hybrid_schedule(kind, HY_LAYERS).items()}
+        got = {k: n for k, n in graph.launches.items()
+               if k.startswith("flash_attention")}
+        check(got == want, f"world 1 {kind}: the graph holds {got}, the "
+                           f"schedule {want}")
+        check(graph.launches.get("optimizer.adam", 0) >= 1,
+              f"world 1 {kind}: no Adam launch in {graph.launches}")
+        torch.cuda.synchronize()
+        warm[kind] = dist_counts()
+        runs[kind] = (step, losses)
+        out[kind] = {"losses_warm": losses,
+                     "launches_per_step": dict(graph.launches),
+                     "params": sum(p.numel() for p in model.parameters()),
+                     **hybrid_memory(model, step, base)}
+    # the same weights and batch: the step-1 losses agree
+    first = {k: v[1][0] for k, v in runs.items()}
+    for kind in ("gpipe", "1f1b"):
+        rel = abs(first[kind] - first["plain"]) / abs(first["plain"])
+        check(rel <= 1e-2, f"world 1: {kind}'s first loss {first[kind]} "
+                           f"against plain's {first['plain']}")
+    turns = {k: [] for k in runs}
+    for _ in range(2):
+        for kind, (step, _) in runs.items():
+            turns[kind].append(replay_ms(step, (ids, ids), HY_TIMED))
+    for kind, (step, _) in runs.items():
+        ms = min(turns[kind])
+        tps = HY_B * HY_S / (ms / 1e3)
+        launches = dist_executed(step, warm[kind])
+        hybrid_counts_check(f"world 1 {kind}", step, launches,
+                            hybrid_schedule(kind, HY_LAYERS))
+        out[kind].update(
+            step_ms=turns[kind], tokens_per_s=tps,
+            mfu=6 * out[kind]["params"] * tps / peak_bf16,
+            launches=launches, graphed=step.program.graphed)
+        if kind != "1f1b":      # where GPipe's cost over plain goes
+            out[kind]["profile"] = hybrid_profile(step, ids, ms)
+    del runs
+    _HY_MODELS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_f32_ref(spec, dev):
+    """World 1: the f32 GPT at full width and 2 layers over 4 x 1024:
+    one eager forward and backward of the plain model, the loss and
+    every gradient saved for worlds 2 and 4."""
+    import torch
+    from paddle_tpu_torch.nlp import gpt_pretrain_loss
+    model = hybrid_gpt(dev, "float32", HY_F32_LAYERS).train()
+    ids = hybrid_ids(dev, HY_F32_B, SEED + 62)
+    loss = gpt_pretrain_loss(model(ids), ids)
+    loss.backward()
+    grads = {k: g.detach().cpu() for k, g in leaf_grads(model).items()}
+    torch.save(grads, spec["hy_grads"])
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": float(loss)}
+
+
+def hybrid_parity(spec, dev, configs, rank_label):
+    """Each configuration's first step on the f32 2-layer model against
+    world 1's: the loss within 2e-4 relative, every gradient
+    (`last_grads`: gathered full tensors) within 1e-4 x max(1, max|g|)."""
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    ref = torch.load(spec["hy_grads"])
+    ids = hybrid_ids(dev, HY_F32_B, SEED + 62)
+    out = {}
+    for kind, shape in configs:
+        model = hybrid_gpt(dev, "float32", HY_F32_LAYERS)
+        step = hybrid_step(kind, model, AdamW(
+            learning_rate=1e-4, parameters=model.parameters()), shape)
+        loss = float(step(ids, ids))
+        check(abs(loss - spec["hy_f32_loss"]) <= DIST_LOSS_RTOL
+              * abs(spec["hy_f32_loss"]),
+              f"{rank_label} {kind}: f32 loss {loss} against world 1's "
+              f"{spec['hy_f32_loss']}")
+        worst = 0.0
+        for name, g in step.last_grads().items():
+            want = ref[name].to(dev)
+            scale = max(1.0, float(want.abs().max()))
+            err = float((g.float() - want).abs().max())
+            check(err <= DIST_GRAD_TOL * scale,
+                  f"{rank_label} {kind}: {name} gradient error {err} > "
+                  f"{DIST_GRAD_TOL} x {scale}")
+            worst = max(worst, err / scale)
+        out[kind] = {"loss": loss, "max_grad_err_over_scale": worst,
+                     "graphed": step.program.graphed}
+        del step, model
+        gc.collect()
+    _HY_MODELS.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_w2_f32(spec, dev):
+    """World 2 (two gloo ranks sharing the card, eager): {'pp': 2}
+    GPipe and 1F1B and {'mp': 2}, f32 at 2 layers, against world 1."""
+    return hybrid_parity(spec, dev, HY_CONFIGS, "world 2")
+
+
+def hybrid_w2_bf16(spec, dev):
+    """World 2: GPT-2 medium bf16, HY_BF16_STEPS AdamW steps of each of
+    HY_CONFIGS over 8 x 1024 (eager over gloo: CUDA activations cross
+    the ranks through the host): losses finite and falling, seconds a
+    step, staged host calls, and the flash and Adam launches against the
+    schedule."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = hybrid_ids(dev, HY_B)
+    out = {}
+    for kind, shape in HY_CONFIGS:
+        model = hybrid_gpt(dev, "bfloat16", HY_LAYERS)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        staged0 = C.stats["host_staged"]
+        zero_counts()
+        step = hybrid_step(kind, model, opt, shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(step(ids, ids)) for _ in range(HY_BF16_STEPS)]
+        secs = (time.perf_counter() - t0) / HY_BF16_STEPS
+        counts = dist_counts()
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"world 2 {kind} bf16: losses {losses}")
+        mesh = M.get_mesh()
+        stage = mesh.axis_index("pp") if kind != "mp" else 0
+        want = {k: n * HY_BF16_STEPS for k, n in hybrid_schedule(
+            kind, HY_LAYERS, stage, 2 if kind != "mp" else 1).items()}
+        check({k: counts[k] for k in want} == want,
+              f"world 2 {kind} rank {dist.get_rank()}: launches {counts}, "
+              f"the schedule gives {want}")
+        check(counts["adam"] >= HY_BF16_STEPS and
+              counts["adam"] % HY_BF16_STEPS == 0,
+              f"world 2 {kind}: {counts['adam']} Adam launches in "
+              f"{HY_BF16_STEPS} steps")
+        out[kind] = {"losses": losses, "seconds_per_step": secs,
+                     "launches": counts, "graphed": step.program.graphed,
+                     "host_staged": C.stats["host_staged"] - staged0}
+        del step, model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    _HY_MODELS.clear()
+    return out
+
+
+def hybrid_w4(spec, dev):
+    """World 4 (NCCL, one card a rank): BASELINE configs[3], GPT-2
+    medium bf16 over {'pp': 2, 'mp': 2}, 1F1B then GPipe, 4
+    microbatches of a global 8 x 1024, as CUDA graphs (3 warm-up calls,
+    then HY_TIMED replays, twice); a capture that fails fails the
+    phase. Step ms, tokens/s a card, the memory a rank holds, launches,
+    a profile; then the f32 2-layer parity against world 1."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = hybrid_ids(dev, HY_B)
+    out = {}
+    shape = {"pp": 2, "mp": 2}
+    hybrid_gpt(dev, "bfloat16", HY_LAYERS)     # the weights, drawn once
+    for kind in ("1f1b", "gpipe"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = hybrid_gpt(dev, "bfloat16", HY_LAYERS)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        zero_counts()
+        step = hybrid_step(kind, model, opt, shape)
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        check(all(np.isfinite(losses)), f"world 4 {kind}: losses {losses}")
+        label = f"world 4 {kind} rank {dist.get_rank()}"
+        check(step.program.graphed, f"{label}: not graphed")
+        stage = M.get_mesh().axis_index("pp")
+        want = hybrid_schedule(kind, HY_LAYERS, stage, 2)
+        (graph,) = step.graphs.values()
+        got = {k.split(".")[1]: n for k, n in graph.launches.items()
+               if k.startswith("flash_attention")}
+        check(got == want, f"{label}: the graph holds {got}, the schedule "
+                           f"{want}")
+        ms = [replay_ms(step, (ids, ids), HY_TIMED) for _ in range(2)]
+        launches = dist_executed(step)
+        hybrid_counts_check(label, step, launches, want)
+        out[kind] = {"losses_warm": losses,
+                     "profile": hybrid_profile(step, ids, min(ms)),
+                     "graphed": step.program.graphed, "step_ms": ms,
+                     "tokens_per_s_per_card": HY_B * HY_S
+                     / (min(ms) / 1e3) / dist.get_world_size(),
+                     **hybrid_memory(model, step, base),
+                     "launches": launches,
+                     "launches_per_step_schedule": want}
+        del step, model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    _HY_MODELS.clear()
+    out["f32"] = hybrid_parity(spec, dev, (("1f1b", shape),
+                                           ("gpipe", shape)), "world 4")
+    return out
+
+
+DIST_JOBS.update({"hybrid_w1": hybrid_w1, "hybrid_f32_ref": hybrid_f32_ref,
+                  "hybrid_w2_f32": hybrid_w2_f32,
+                  "hybrid_w2_bf16": hybrid_w2_bf16, "hybrid_w4": hybrid_w4})
+
+
+def dd_library(fa, sets):
+    """`torch.linalg.vecdot(dO, O)` (one call, the library's row dot,
+    bf16 out where dd's is f32) against the dd kernel, by graph replay,
+    over `sets` of (dO, O)."""
+    import torch
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(sets)
+        return sets[it["i"]]
+
+    def lib():
+        do, out = nxt()
+        torch.linalg.vecdot(do, out, dim=-1)
+
+    def dd():
+        do, out = nxt()
+        fa.cuda_row_dot(do, out, True)
+    return {"library_ms": graph_ms(lib, len(sets)),
+            "kernel_ms": graph_ms(dd, len(sets)),
+            "shape": list(sets[0][0].shape)}
+
+
+def hybrid_kernels(dev, peaks):
+    """K1, dd, K2 and K3 at the mp-local shape of world 4 ([2, 1024, 8,
+    64] bf16 causal BSHD views of one qkv projection: a microbatch of
+    the global 8 x 1024, 16 heads over mp = 2), held against their plain
+    versions and timed beside bound, plain and SDPA (`flash_at_shape`);
+    and the library's row dot beside dd at this shape and at the long
+    context's ([1, 16384, 12, 64])."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(SEED + 63)
+    heads = HY_HEADS // 2
+    q, k, v, do = flash_inputs(2, HY_S, HY_S, torch.bfloat16, gen, dev,
+                               heads=heads)
+    got = flash_run(fa, "cuda", q, k, v, do, True, None, True)
+    ref = flash_run(fa, "plain", q, k, v, do, True, None, True)
+    torch.cuda.synchronize()
+    which = {"out": "fwd", "lse": "fwd", "dk": "dkv", "dv": "dkv",
+             "dq": "dq"}
+    errs = {}
+    for key, g in got.items():
+        r = ref[key].float()
+        err = (g.float() - r).abs()
+        check(torch.isfinite(g).all().item() and bool(
+            (err <= 2e-2 * torch.clamp(r.abs(), min=1.0)).all()),
+            f"mp-local {key}: max abs err {err.max().item()} over 2e-2")
+        errs[which[key]] = max(errs.get(which[key], 0.0), err.max().item())
+    _, errs["dd"] = dd_held(fa, "mp-local", do, got["out"], True)
+    sets = [flash_inputs(2, HY_S, HY_S, torch.bfloat16, gen, dev,
+                         heads=heads) for _ in range(HY_LAYERS // 2)]
+    timed = flash_at_shape(fa, peaks, sets, True)
+    for kind in ("fwd", "dkv", "dq", "dd"):
+        timed[kind]["max_abs_err"] = errs[kind]
+    dd_sets = []
+    for _ in range(4):
+        o, _, _, d = flash_inputs(1, LONG_S, LONG_S, torch.bfloat16, gen,
+                                  dev)
+        dd_sets.append((d, o.contiguous()))
+    timed["dd_library_long_ctx"] = dd_library(fa, dd_sets)
+    local = [flash_inputs(2, HY_S, HY_S, torch.bfloat16, gen, dev,
+                          heads=heads) for _ in range(4)]
+    timed["dd_library_mp_local"] = dd_library(
+        fa, [(d, o.contiguous()) for o, _, _, d in local])
+    del dd_sets, local
+    torch.cuda.empty_cache()
+    return timed
+
+
+def hybrid_phase(dev, smi, peaks, root):
+    """Tensor and pipeline parallelism on ranks over torch.distributed:
+    K1-K3 at the mp-local shape in this process, then world 1 (one NCCL
+    rank, graphed: GPT-2 medium through the plain step, GPipe and 1F1B
+    at pp = 1, and the f32 references), world 2 (two gloo ranks sharing
+    the card, eager: {'pp': 2} GPipe and 1F1B and {'mp': 2}, f32 parity
+    and three bf16 steps at 24 layers) and, with four cards, world 4
+    (NCCL, graphed: {'pp': 2, 'mp': 2}, BASELINE configs[3]). Returns
+    every rank's launches, by world."""
+    import shutil
+    import torch
+    kern = hybrid_kernels(dev, peaks)
+    base = os.path.join(root, "build", "hybrid")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    grads = os.path.join(base, "hy_f32_grads.pt")
+    cards = torch.cuda.device_count()
+    try:
+        w1, w1_s = run_world(root, base, "world1", 1, "nccl",
+                             ("hybrid_w1", "hybrid_f32_ref"), timeout=600,
+                             hy_grads=grads)
+        jobs1 = w1[0]["jobs"]
+        shared = dict(hy_grads=grads,
+                      hy_f32_loss=jobs1["hybrid_f32_ref"]["loss"])
+        w2, w2_s = run_world(root, base, "world2", 2, "gloo",
+                             ("hybrid_w2_f32", "hybrid_w2_bf16"),
+                             timeout=900, **shared)
+        w4 = f"not run: {cards} card(s); world 4 needs 4"
+        w4_ranks = []
+        if cards >= 4:
+            w4_ranks, w4_s = run_world(root, base, "world4", 4, "nccl",
+                                       ("hybrid_w4",), timeout=420,
+                                       **shared)
+            w4 = {"seconds": w4_s,
+                  "ranks": [r["jobs"]["hybrid_w4"] for r in w4_ranks]}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    launches = {f"world1_{k}": jobs1["hybrid_w1"][k]["launches"]
+                for k in ("plain", "gpipe", "1f1b")}
+    for r in w2:
+        for kind, _ in HY_CONFIGS:
+            launches[f"world2_{kind}_rank{r['rank']}"] = \
+                r["jobs"]["hybrid_w2_bf16"][kind]["launches"]
+    for r in w4_ranks:
+        for kind in ("1f1b", "gpipe"):
+            launches[f"world4_{kind}_rank{r['rank']}"] = \
+                r["jobs"]["hybrid_w4"][kind]["launches"]
+    emit("hybrid", nvidia_smi=smi, mp_local_kernels=kern, world1=jobs1,
+         world1_s=w1_s, world2=[r["jobs"] for r in w2], world2_s=w2_s,
+         host_staged=[r["host_staged"] for r in w2], world4=w4,
+         launches=launches)
+    return {"launches": launches, "kernels": kern}
+
+
 def ptxas_entries(ptxas):
     """{entry function: {"registers", "spill_bytes"}} from a library's
     ptxas report (`kernels.build`'s "ptxas"); the split kernel's
@@ -9886,6 +10387,7 @@ def main():
     moe_launches = run("moe", moe_phase, dev, smi, peaks)
     long_ctx = run("long_ctx", long_ctx_phase, dev, smi, peaks, root)
     dist = run("dist", dist_phase, dev, smi, root)
+    hybrid = run("hybrid", hybrid_phase, dev, smi, peaks, root)
     emit("phase_seconds", **timings)
     if only != PHASES:
         return 0
@@ -9940,8 +10442,18 @@ def main():
                      "launches_moe": moe_launches[kind],
                      "launches_long_ctx": long_ctx["launches"][kind],
                      "launches_dist": {w: c[kind] for w, c in dist.items()},
+                     "launches_hybrid": {w: c[kind] for w, c in
+                                         hybrid["launches"].items()},
+                     "mp_local_shape": {
+                         "shape": hybrid["kernels"]["q"],
+                         "ms": hybrid["kernels"][kind]["kernel_ms"],
+                         **{k: v for k, v in hybrid["kernels"][kind].items()
+                            if k != "kernel_ms"}},
                      "long_ctx_shape": {
                          "shape": long_ctx["shape"]["shape"],
+                         **({"dd_library": hybrid["kernels"]
+                             ["dd_library_long_ctx"]} if kind == "dd"
+                            else {}),
                          "window": LONG_WINDOW,
                          "ms": long_ctx["shape"][kind]["kernel_ms"],
                          **{k: v for k, v in long_ctx["shape"][kind].items()
@@ -9972,6 +10484,8 @@ def main():
                  "launches_moe": moe_launches["adam"],
                  "launches_long_ctx": long_ctx["launches"]["adam"],
                  "launches_dist": {w: c["adam"] for w, c in dist.items()},
+                 "launches_hybrid": {w: c["adam"] for w, c in
+                                     hybrid["launches"].items()},
                  "ms": op["kernel_ms"], **row})
     print(json.dumps({"kernels": rows}))
     print(smi)

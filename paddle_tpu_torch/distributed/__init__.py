@@ -1,17 +1,22 @@
 """paddle_tpu_torch.distributed (the port of `paddle_tpu/distributed`;
-ref python/paddle/distributed): the collective half.
+ref python/paddle/distributed): collectives, data, sequence, tensor and
+pipeline parallelism.
 
 Every rank is a process over `torch.distributed` (NCCL with one card a
 rank, gloo when asked for: CPU ranks or ranks sharing a card). `env`
 joins a job from the launcher's environment (`launch`, `spawn`); `mesh`
 names the axes of a grid of ranks, with one process group per axis
 slice; `collective` holds the Paddle collectives over those groups;
-`DataParallel` (`parallel`) and `ShardedTrainStep` (`sharded`: dp, sp
-and ZeRO-1) train over them; `ring_attention` and `ulysses` are the two
-sequence-parallel attentions on the flash kernels; `fleet` is the
-strategy front door; `gloo` holds the host-side stores and collectives.
-Tensor and pipeline parallelism, ZeRO-3 and the parameter server are
-ROADMAP Queue 1 items 5b and 5c.
+`DataParallel` (`parallel`) and `ShardedTrainStep` (`sharded`: dp, sp,
+mp and ZeRO-1) train over them; `parallel_layers` holds the Megatron
+layers and their conjugate collectives over the 'mp' slice;
+`PipelineTrainStep` (`pipeline`, GPipe) and `OneF1BTrainStep`
+(`pipeline_1f1b`) run one stage a process over 'pp', composed with 'dp'
+and 'mp'; `ring_attention` and `ulysses` are the two sequence-parallel
+attentions on the flash kernels; `fleet` is the strategy front door;
+`gloo` holds the host-side stores and collectives. ZeRO-3 and
+`exact_reshard` are ROADMAP Queue 1 item 5b(ii); the parameter server
+and cross-card BatchNorm item 5c.
 """
 from .env import (init_parallel_env, get_rank, get_world_size, ParallelEnv,
                   is_initialized)
@@ -20,6 +25,12 @@ from .collective import (all_reduce, all_gather, broadcast, reduce, scatter,
                          barrier, send, recv, split, ReduceOp, new_group,
                          wait, reduce_scatter, alltoall)
 from .parallel import DataParallel
+from .parallel_layers import (ColumnParallelLinear, RowParallelLinear,
+                              VocabParallelEmbedding, ParallelCrossEntropy)
+from .pipeline import (PipelineTrainStep, PipelineParts, device_guard,
+                       pipeline_apply)
+from .pipeline_1f1b import OneF1BTrainStep, simulate_1f1b
+from .sharded import ShardedTrainStep
 from .ring_attention import ring_attention, ring_flash_attention
 from . import fleet
 from .spawn import spawn

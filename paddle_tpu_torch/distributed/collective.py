@@ -269,6 +269,30 @@ def ring_exchange(send, recv, pg=None):
     return recv
 
 
+def p2p_exchange(sends, recvs, pg=None):
+    """One batch of point-to-point ops over the group: each (tensor,
+    group rank) of `sends` sent there, each (tensor, group rank) of
+    `recvs` received into, all posted together (`batch_isend_irecv`) and
+    waited for, so neighbours exchanging both ways never deadlock. gloo
+    with CUDA tensors goes through host copies (counted)."""
+    if not sends and not recvs:
+        return
+    if pg is None:
+        raise ValueError("p2p_exchange between ranks needs a group")
+    s_peers = [global_rank(pg, i) for _, i in sends]
+    r_peers = [global_rank(pg, i) for _, i in recvs]
+
+    def run(outs, ins):
+        ops = [dist.P2POp(dist.isend, t.contiguous(), p, group=pg)
+               for t, p in zip(ins, s_peers)]
+        ops += [dist.P2POp(dist.irecv, t, p, group=pg)
+                for t, p in zip(outs, r_peers)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    _on_host(pg, "batch_isend_irecv", [t for t, _ in recvs],
+             [t for t, _ in sends], run)
+
+
 # ----------------------------------------------------------- public API
 
 def _pg(group):
@@ -468,8 +492,34 @@ def get_group(gid=0):
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           weight_attr=None, bias_attr=None, name=None):
     """ref collective.py:492 paddle.distributed.split, Megatron-style
-    parallel linear/embedding: the JAX package builds it from
-    `parallel_layers.py`, which ROADMAP Queue 1 item 5b ports."""
-    raise NotImplementedError(
-        "distributed.split builds the tensor-parallel layers of "
-        "parallel_layers.py: not ported yet (ROADMAP Queue 1 item 5b)")
+    parallel linear/embedding, built from `parallel_layers.py` as the
+    JAX package builds it: a new layer of the full logical `size`, drawn
+    from the framework generator (the same on every rank), run on this
+    rank's shard of it over the current mesh's 'mp' slice (the whole
+    layer without one). `operation` "linear" with axis 0 is row-parallel
+    (the input cut by the rank), axis 1 column-parallel (`gather_out`
+    concatenates the outputs); "embedding" is vocab-parallel."""
+    from .parallel_layers import (ColumnParallelLinear, LocalShards,
+                                  RowParallelLinear, VocabParallelEmbedding,
+                                  mp_group)
+    if operation == "linear":
+        if axis == 0:
+            layer = RowParallelLinear(size[0], size[1],
+                                      weight_attr=weight_attr,
+                                      has_bias=bias_attr is not False,
+                                      input_is_parallel=False)
+        else:
+            layer = ColumnParallelLinear(size[0], size[1],
+                                         weight_attr=weight_attr,
+                                         has_bias=bias_attr is not False,
+                                         gather_output=gather_out)
+    elif operation == "embedding":
+        layer = VocabParallelEmbedding(size[0], size[1],
+                                       weight_attr=weight_attr)
+    else:
+        raise ValueError(f"unknown split operation {operation!r}")
+    group = mp_group()
+    if group is None:
+        return layer(x)
+    with LocalShards(layer, group).scope():
+        return layer(x)

@@ -17,8 +17,8 @@ the latest distributed optimizer.
 Not ported here: the parameter-server lifecycle (`init_server`,
 `run_server`, `init_worker`, `stop_worker`, `shrink`,
 `save_persistables`: ROADMAP Queue 1 item 5c), the static-graph
-`save_inference_model` (item 7), and the steps of pipeline (item 5b),
-DGC and LocalSGD (item 5c), which `build_train_step` refuses by name.
+`save_inference_model` (item 7), and the steps of DGC and LocalSGD
+(item 5c), which `build_train_step` refuses by name.
 """
 import os
 
@@ -326,10 +326,12 @@ def _not_ported(feature, item):
 def build_train_step(model, loss_fn, optimizer, **kwargs):
     """The train step the chain's transforms imply (ref fleet_base.py:
     1070 minimize -> strategy_compiler -> the meta-optimizers): a
-    `ShardedTrainStep` over a mesh of more than one rank, else a
-    `jit.TrainStep`, both reading amp, recompute, sharding,
-    gradient_merge and fp16_allreduce. A pipeline (on a mesh with 'pp'),
-    DGC or LocalSGD transform raises (over more than one rank)."""
+    `pipeline.PipelineTrainStep` for the pipeline transform on a mesh
+    with 'pp' (its microbatches `accumulate_steps`), a `ShardedTrainStep`
+    over a mesh of more than one rank, else a `jit.TrainStep`, the last
+    two reading amp, recompute, sharding, gradient_merge and
+    fp16_allreduce. A DGC or LocalSGD transform raises (over more than
+    one rank)."""
     from ...jit import TrainStep, transforms as tfm
     from ..parallel import DataParallel
     if isinstance(model, DataParallel):
@@ -340,7 +342,12 @@ def build_train_step(model, loss_fn, optimizer, **kwargs):
     ro = bool(kwargs.pop("return_outputs", False))
     if tf.get("pipeline") is not None and mesh is not None and \
             mesh_mod.PP_AXIS in mesh.axis_names:
-        _not_ported("pipeline (PipelineTrainStep)", "5b")
+        from ..pipeline import PipelineTrainStep
+        cfg = tf["pipeline"]
+        return PipelineTrainStep(
+            model, loss_fn, optimizer,
+            num_micro=max(1, int(cfg.get("accumulate_steps", 1) or 1)),
+            **kwargs)
     if tf.get("dgc") is not None and ndev > 1:
         _not_ported("DGC (DGCTrainStep)", "5c")
     if tf.get("localsgd") is not None and ndev > 1:

@@ -205,7 +205,7 @@ class ShardingOptimizer(MetaOptimizerBase):
 
 class PipelineOptimizer(MetaOptimizerBase):
     """ref meta_optimizers/pipeline_optimizer.py: micro-batches over the
-    'pp' axis (the step is ROADMAP item 5b)."""
+    'pp' axis (`fleet.build_train_step` builds the pipeline step)."""
 
     def __init__(self, inner_opt, configs=None):
         super().__init__(inner_opt)

@@ -38,6 +38,10 @@ class PartitionSpec(tuple):
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
 
+    def __reduce__(self):
+        # copies and pickles rebuild it from its parts, not one tuple
+        return (type(self), tuple(self))
+
     def __repr__(self):
         return f"PartitionSpec{tuple(self)!r}"
 

@@ -1,5 +1,5 @@
-"""ShardedTrainStep, the data- and sequence-parallel train step (the
-port of `paddle_tpu/distributed/sharded.py`).
+"""ShardedTrainStep, the data-, sequence- and tensor-parallel train step
+(the port of `paddle_tpu/distributed/sharded.py`).
 
 The JAX package compiles one SPMD program over the mesh and lets XLA
 insert the collectives. Here every rank is a process running the same
@@ -56,17 +56,36 @@ and every k-th call packs their sum (or mean) into the bucket, reduces
 and updates (two programs). `recompute` and `amp` wrap the forward as in
 `jit.TrainStep`.
 
+Tensor parallelism ('mp' > 1, `parallel_layers`): the batch is
+replicated over 'mp' and the rank holds its shard of every split
+parameter (`parallel_layers.LocalShards`: a leaf each, the model keeping
+its full weights); the forward and backward run with the shards swapped
+into the model and an mp scope installed, so GPT's and LLaMA's
+Megatron layers compute on them. The optimizer steps a shallow copy
+over the rank's leaves (its shards and the replicated parameters); with
+ZeRO-1 the chunks over 'dp' are cut from those. Gradients are summed
+over 'dp' and 'sp' only: a replicated parameter's gradient is the same
+on every rank of the slice (the conjugate collectives see to it). A
+whole tensor's norm (the clips, the grad-norm sentinel, Lamb's and
+Lars's trust ratios) sums a split parameter's squares over 'mp' and
+counts a replicated one once. `sync()` gathers every shard's full
+tensor (and its moments) back into the model and the optimizer, so
+`save` writes the JAX layout.
+
 On a card whose groups are NCCL, the step is one CUDA graph per input
 signature (`graphs.Program`, as `jit.TrainStep`), collectives included;
 with a gloo group it runs eagerly. Each rank's model is built from the
 same seed; the step broadcasts rank 0's parameters over the mesh at
 construction all the same. Buffers (BatchNorm's statistics) stay the
-rank's own: cross-card BatchNorm is ROADMAP Queue 1 item 5c.
+rank's own: cross-card BatchNorm is ROADMAP Queue 1 item 5c. An axis
+other than 'dp', 'sp' and 'mp' ('pp', ...) is the batch axis when the
+mesh has no 'dp' (the JAX rule), else the step is replicated over it:
+pipelines are `pipeline.PipelineTrainStep` and
+`pipeline_1f1b.OneF1BTrainStep`.
 
-Refused, naming ROADMAP Queue 1 item 5b: zero_stage 3, exact_reshard,
-and a mesh with 'mp' or 'pp' (or any axis but 'dp' and 'sp') above 1.
-The flight-recorder instrumentation and the chaos points wait for item
-6.
+Refused, naming ROADMAP Queue 1 item 5b(ii): zero_stage 3 and
+exact_reshard. The flight-recorder instrumentation and the chaos points
+wait for item 6.
 """
 import contextlib
 import copy
@@ -82,6 +101,7 @@ from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from ..optimizer import Dpsgd
 from . import collective
 from . import mesh as mesh_mod
+from . import parallel_layers as tp
 from .collective import ReduceOp, all_reduce_
 
 #: elements a ZeRO chunk and a bucket slot are rounded up to (64 bytes
@@ -189,7 +209,36 @@ def _roundup(n, m):
 def _refuse(what):
     raise NotImplementedError(
         f"ShardedTrainStep: {what} is not ported yet (ROADMAP Queue 1 "
-        f"item 5b)")
+        f"item 5b(ii))")
+
+
+class _Masks:
+    """Device masks of split flags, made at a step's first (eager) call
+    and reused, so a capture makes none."""
+
+    def __init__(self):
+        self._made = {}
+
+    def __call__(self, flags, device):
+        key = (flags, str(device))
+        m = self._made.get(key)
+        if m is None:
+            m = self._made[key] = torch.tensor(flags, device=device)
+        return m
+
+
+def _whole_sq(sq, flags, chunks_pg, mp_pg, masks):
+    """Per tensor, the squares of the whole logical tensor from this
+    rank's part: summed over 'dp' when the parts are ZeRO chunks
+    (`chunks_pg`), then, for the tensors split over 'mp' (`flags`), over
+    the mp slice."""
+    all_reduce_(sq, ReduceOp.SUM, chunks_pg)
+    if mp_pg is None or not any(flags):
+        return sq
+    m = masks(flags, sq.device)
+    part = torch.where(m, sq, torch.zeros_like(sq))
+    all_reduce_(part, ReduceOp.SUM, mp_pg)
+    return torch.where(m, part, sq)
 
 
 class _Bucket:
@@ -246,29 +295,67 @@ class _Bucket:
                 for off, c in zip(self.offsets, self.chunks)]
 
 
+class _Parts:
+    """How the stepper's leaves make whole tensors: ZeRO chunks over
+    'dp' (`chunks_pg`, else None) and which leaves are split over 'mp'
+    (`split`, their ids; `mp_pg`); and, in a pipeline, how the stages'
+    tensors make the whole model: summed over the 'pp' slice (`pp_pg`),
+    a leaf whose tensor another stage also holds (`dup`, ids: the last
+    stage's copy of a tied weight) left out of the sum."""
+
+    def __init__(self, chunks_pg, mp_pg, split, pp_pg=None, dup=()):
+        self.chunks_pg = chunks_pg
+        self.mp_pg = mp_pg
+        self.split = split
+        self.pp_pg = pp_pg
+        self.dup = set(dup)
+        self.masks = _Masks()
+
+    def whole_sq(self, sq, leaves):
+        flags = tuple(id(p) in self.split for p in leaves)
+        return _whole_sq(sq, flags, self.chunks_pg, self.mp_pg, self.masks)
+
+    def global_sq(self, sq, leaves):
+        """The squares of the model's whole tensors summed (a torch
+        scalar): `leaves`' (`whole_sq`), then every stage's, each tensor
+        counted once."""
+        sq = self.whole_sq(sq, leaves)
+        if self.dup:
+            keep = self.masks(tuple(id(p) not in self.dup for p in leaves),
+                              sq.device)
+            sq = torch.where(keep, sq, torch.zeros_like(sq))
+        return all_reduce_(sq.sum(), ReduceOp.SUM, self.pp_pg)
+
+
 class _ShardedGlobalNorm(ClipGradByGlobalNorm):
-    """Global-norm clipping over ZeRO chunks: the squares summed over
-    the rank's chunks, then over 'dp'."""
+    """Global-norm clipping over the rank's parts of the tensors (ZeRO
+    chunks, mp shards, pipeline stages): each tensor's squares made
+    whole, then summed over the model (`_Parts.global_sq`)."""
 
-    def __init__(self, clip, pg):
+    def __init__(self, clip, parts):
         super().__init__(clip.clip_norm, clip.group_name)
-        self._pg = pg
+        self._parts = parts
 
-    def _scale(self, grads):
+    def __call__(self, params_grads):
+        live = [(p, g) for p, g in params_grads if g is not None]
+        if not live:
+            return params_grads
         sq = torch.stack([torch.sum(torch.square(g.float()))
-                          for g in grads]).sum()
-        all_reduce_(sq, ReduceOp.SUM, self._pg)
-        return self.clip_norm / torch.clamp(torch.sqrt(sq),
-                                            min=self.clip_norm)
+                          for _, g in live])
+        sq = self._parts.global_sq(sq, [p for p, _ in live])
+        scale = self.clip_norm / torch.clamp(torch.sqrt(sq),
+                                             min=self.clip_norm)
+        return [(p, g if g is None else g * scale.to(g.dtype))
+                for p, g in params_grads]
 
 
 class _ShardedNorm(ClipGradByNorm):
-    """Per-tensor clipping over ZeRO chunks: each chunk's squares summed
-    over 'dp' (one all-reduce of the vector)."""
+    """Per-tensor clipping over the rank's parts of the tensors: each
+    tensor's squares made whole (one all-reduce of the vector a group)."""
 
-    def __init__(self, clip, pg):
+    def __init__(self, clip, parts):
         super().__init__(clip.clip_norm)
-        self._pg = pg
+        self._parts = parts
 
     def __call__(self, params_grads):
         live = [i for i, (_, g) in enumerate(params_grads) if g is not None]
@@ -276,7 +363,7 @@ class _ShardedNorm(ClipGradByNorm):
             return params_grads
         sq = torch.stack([torch.sum(torch.square(params_grads[i][1].float()))
                           for i in live])
-        all_reduce_(sq, ReduceOp.SUM, self._pg)
+        sq = self._parts.whole_sq(sq, [params_grads[i][0] for i in live])
         scale = torch.clamp(self.clip_norm / torch.clamp(torch.sqrt(sq),
                                                          min=1e-12), max=1.0)
         out = list(params_grads)
@@ -286,28 +373,60 @@ class _ShardedNorm(ClipGradByNorm):
         return out
 
 
-def _sharded_clip(clip, pg):
+def grad_sentinel(parts, loss, grads, leaves):
+    """(the global grad norm, non-finite) of the reduced grads of
+    `leaves`: each tensor's squares made whole over its ZeRO chunks and
+    mp shards, summed over the model (`_Parts.global_sq`)."""
+    if grads:
+        sq = torch.stack(torch._foreach_norm(
+            grads, 2, dtype=torch.float32)).square()
+        gsq = parts.global_sq(sq, leaves)
+    else:
+        gsq = all_reduce_(torch.zeros((), device=loss.device),
+                          ReduceOp.SUM, parts.pp_pg)
+    return torch.sqrt(gsq), torch.logical_not(
+        torch.isfinite(loss) & torch.isfinite(gsq))
+
+
+def _sharded_clip(clip, parts):
     if clip is None or isinstance(clip, ClipGradByValue):
         return clip
     if isinstance(clip, ClipGradByGlobalNorm):
-        return _ShardedGlobalNorm(clip, pg)
+        return _ShardedGlobalNorm(clip, parts)
     if isinstance(clip, ClipGradByNorm):
-        return _ShardedNorm(clip, pg)
-    raise NotImplementedError(f"ZeRO-1 with grad_clip "
+        return _ShardedNorm(clip, parts)
+    raise NotImplementedError(f"a sharded step with grad_clip "
                               f"{type(clip).__name__}")
 
 
-def _dp_norms(pg, xs):
-    """Per tensor, the L2 norm of the whole tensor from this rank's
-    chunks of it: the chunks' squares summed over 'dp' (one all-reduce
-    of the vector), in f64 on the CPU as `optimizer._norms` sums."""
+def _whole_norms(opt, parts, xs):
+    """Per tensor, the L2 norm of the whole tensor from this rank's part
+    of it (the stepper's `_tensor_norms`; `opt._norm_flags` says which
+    of `xs` are split over 'mp'), in f64 on the CPU as `optimizer._norms`
+    sums."""
     if xs[0].is_cuda:
         sq = torch.stack(torch._foreach_norm(xs)).square()
     else:
         sq = torch.stack(torch._foreach_norm(
             xs, 2, dtype=torch.float64)).square()
-    all_reduce_(sq, ReduceOp.SUM, pg)
+    sq = _whole_sq(sq, opt._norm_flags, parts.chunks_pg, parts.mp_pg,
+                   parts.masks)
     return torch.sqrt(sq).float()
+
+
+def _flag_updates(opt, split):
+    """Wrap the stepper's `_update` so `_tensor_norms` knows which of a
+    group's tensors are split: by their state dicts, which belong to the
+    stepper's parameters."""
+    update = opt._update
+
+    def _update(bases, grads, states, lr, step):
+        by_state = {id(st): id(opt._parameters[i]) in split
+                    for i, st in opt._state.items()}
+        opt._norm_flags = tuple(by_state.get(id(st), False)
+                                for st in states)
+        return update(bases, grads, states, lr, step)
+    opt._update = _update
 
 
 def _zero_spec(shape, dp, dp_axis, base_spec):
@@ -323,14 +442,34 @@ def _zero_spec(shape, dp, dp_axis, base_spec):
     return base_spec
 
 
+def make_stepper(base, leaves, parts):
+    """A shallow copy of the optimizer `base` over `leaves` (a rank's
+    ZeRO chunks or mp shards), its state empty, reading `base`'s lr; its
+    clip and per-tensor norms take whole tensors (`parts`, a `_Parts`)."""
+    opt = copy.copy(base)
+    opt._parameters = list(leaves)
+    opt._state = {}
+    opt._scalars = None
+    opt._grad_clip = _sharded_clip(base._grad_clip, parts)
+    # one learning rate: set_lr, a schedule or fleet.set_lr on the
+    # optimizer reach the copy
+    opt.get_lr, opt.set_lr = base.get_lr, base.set_lr
+    if parts.chunks_pg is not None or parts.mp_pg is not None:
+        opt._tensor_norms = functools.partial(_whole_norms, opt, parts)
+        opt._norm_flags = ()
+        _flag_updates(opt, parts.split)
+    return opt
+
+
 def _spec_doc(spec):
     return [list(e) if isinstance(e, (tuple, list)) else e for e in spec]
 
 
 class ShardedTrainStep(TrainStep):
-    """Data- (and sequence-) parallel train step over the current mesh:
+    """Data-, sequence- and tensor-parallel train step over the current
+    mesh:
 
-        make_mesh({'dp': 2})
+        make_mesh({'dp': 2, 'mp': 2})
         step = ShardedTrainStep(model, loss_fn, opt, zero_stage=1)
         loss = step(batch_inputs, batch_labels)   # the global batch
 
@@ -352,15 +491,13 @@ class ShardedTrainStep(TrainStep):
             _refuse("exact_reshard")
         self.mesh = mesh or mesh_mod.get_mesh() or mesh_mod.default_mesh()
         m = self.mesh
-        for ax, size in m.shape.items():
-            if size > 1 and ax not in (mesh_mod.DP_AXIS, mesh_mod.SP_AXIS):
-                _refuse(f"a mesh with {ax!r} = {size} (tensor, pipeline "
-                        f"or other model parallelism)")
-        # the batch axis: 'dp', else the mesh's first axis that is not
-        # 'sp' (a mesh of 'sp' alone has no data parallelism)
+        # the batch axis: 'dp', else the mesh's first axis that is
+        # neither 'sp' nor 'mp' (a mesh of 'sp' or 'mp' alone has no
+        # data parallelism)
         self.dp_axis = dp_axis or next(
             (a for a in (mesh_mod.DP_AXIS,) + m.axis_names
-             if a in m.axis_names and a != mesh_mod.SP_AXIS), None)
+             if a in m.axis_names
+             and a not in (mesh_mod.SP_AXIS, mesh_mod.MP_AXIS)), None)
         if remat and transforms.get("recompute") is None:
             transforms["recompute"] = {}
         self.dp = m.axis_size(self.dp_axis) if self.dp_axis else 1
@@ -369,15 +506,25 @@ class ShardedTrainStep(TrainStep):
         self._dp_group = m.group(self.dp_axis) if self.dp_axis else None
         self.sp = m.axis_size(mesh_mod.SP_AXIS)
         self._sp_group = m.group(mesh_mod.SP_AXIS) if self.sp > 1 else None
+        # the groups the batch is cut over (the loss and grads are
+        # summed over them), and the mp slice
         self._groups = [g for g in (self._dp_group, self._sp_group)
                         if g is not None]
+        self._mp = tp.mp_group(m)
+        self.mp = self._mp.size if self._mp is not None else 1
+        every = self._groups + ([self._mp.pg] if self._mp is not None
+                                and self._mp.pg is not None else [])
         # one CUDA graph a signature when every group is NCCL; a gloo
         # collective cannot be captured
         nccl = all(torch.distributed.get_backend(g) == "nccl"
-                   for g in self._groups)
+                   for g in every)
         super().__init__(model, loss_fn, optimizer, donate=donate,
                          return_outputs=return_outputs,
                          cuda_graph=cuda_graph and nccl)
+        if self._mp is not None and self.program.graphed:
+            # the sharded regions' masks draw afresh on every replay
+            self.program._generators.append(
+                self._mp.generator.generator(self._device))
         self.transforms = transforms
         self.zero_stage = zero_stage
         self.exact_reshard = False
@@ -402,13 +549,24 @@ class ShardedTrainStep(TrainStep):
             if fp16 else None
 
         params = [p for p in self.optimizer._parameters if p.requires_grad]
-        self._params = params
-        self._broadcast_state(params)
+        self._broadcast_state(params, every)
+        # the leaves this rank trains: its shard of each split parameter
+        # (over 'mp'), the model's own leaf of every other
+        self._shards_mp = tp.LocalShards(model, self._mp) \
+            if self._mp is not None else None
+        work = [self._shards_mp.working(p) for p in params] \
+            if self._shards_mp is not None else params
+        self._base_of = {id(w): p for w, p in zip(work, params)}
+        self._split = {id(w) for w, p in zip(work, params) if w is not p}
+        self._params = work
+        self._acc = tfm.init_grad_acc([p.detach() for p in work],
+                                      self._k_merge)
         lay_dp = self.dp if zero_stage >= 1 else 1
         by_dtype = {}
-        for p in params:
+        for p in work:
             by_dtype.setdefault(p.dtype, []).append(p)
         self._buckets = [_Bucket(ps, lay_dp) for ps in by_dtype.values()]
+        mp_pg = self._mp.pg if self._mp is not None else None
         if zero_stage >= 1:
             self._build_shards()
         else:
@@ -417,15 +575,20 @@ class ShardedTrainStep(TrainStep):
             for b in self._buckets:
                 for p, v in zip(b.params, b.views(b.flat[0])):
                     self._grad_views[id(p)] = v[:p.numel()].view(p.shape)
+            self._parts = _Parts(None, mp_pg, self._split)
+            if self._shards_mp is not None:
+                self._stepper = make_stepper(self.optimizer, work,
+                                             self._parts)
+                self._seed_state()
         self._record_specs(model)
 
     # ---------------------------------------------------------- set-up
     @torch.no_grad()
-    def _broadcast_state(self, params):
+    def _broadcast_state(self, params, groups):
         """Rank 0's parameters and buffers on every rank of the mesh."""
         bufs = [unwrap(b) for _, b in self.model.named_buffers()] \
             if hasattr(self.model, "named_buffers") else []
-        for pg in self._groups:
+        for pg in groups:
             for t in list(params) + [b for b in bufs if b is not None]:
                 collective.broadcast_(t.data, 0, pg)
 
@@ -435,6 +598,7 @@ class ShardedTrainStep(TrainStep):
         base = self.optimizer
         r = self._dp_index()
         self._shards, leaves, grads = [], [], []
+        split = set()
         for b in self._buckets:
             shard = b.flat.new_zeros(b.width)
             full = b.flat.new_zeros((b.dp, b.width))
@@ -450,6 +614,8 @@ class ShardedTrainStep(TrainStep):
                     if hasattr(p, attr):
                         setattr(leaf, attr, getattr(p, attr))
                 leaf.grad = g
+                if id(p) in self._split:
+                    split.add(id(leaf))
                 leaves.append(leaf)
                 grads.append(g)
         self._shard_grads = grads
@@ -457,37 +623,49 @@ class ShardedTrainStep(TrainStep):
             raise NotImplementedError(
                 "ZeRO-1 over dp > 1 with Dpsgd(sigma > 0): every rank "
                 "would draw the same noise for its chunks")
-        opt = copy.copy(base)
-        opt._parameters = leaves
-        opt._state = {}
-        opt._scalars = None
-        opt._grad_clip = _sharded_clip(base._grad_clip, self._dp_group)
-        # one learning rate: set_lr, a schedule or fleet.set_lr on the
-        # optimizer reach the copy
-        opt.get_lr, opt.set_lr = base.get_lr, base.set_lr
-        if self.dp > 1:
-            opt._tensor_norms = functools.partial(_dp_norms, self._dp_group)
-        self._stepper = opt
+        self._parts = _Parts(self._dp_group if self.dp > 1 else None,
+                             self._mp.pg if self._mp is not None else None,
+                             split)
+        self._stepper = make_stepper(self.optimizer, leaves, self._parts)
         self._seed_state()
+
+    def _local(self, w, full_t):
+        """The rank's part over 'mp' of a full tensor laid out as the
+        working leaf `w`'s parameter."""
+        if id(w) not in self._split:
+            return full_t
+        name = self._shards_mp.name_of(self._base_of[id(w)])
+        return tp.shard_tensor(full_t, self._shards_mp.wrapper(name),
+                               self._mp.rank, self._mp.size)
 
     @torch.no_grad()
     def _seed_state(self):
-        """The rank's chunk of every state slot the optimizer already
-        holds (a resumed run)."""
+        """The rank's part (its mp shard; its ZeRO chunk of that) of
+        every state slot the optimizer already holds (a resumed run)."""
         base, opt = self.optimizer, self._stepper
         index = {id(p): i for i, p in enumerate(base._parameters)}
+        if self.zero_stage < 1:
+            for j, w in enumerate(self._params):
+                st = base._state.get(index[id(self._base_of[id(w)])])
+                if st:
+                    mine = opt._ensure_state(j)
+                    for name, full_t in st.items():
+                        mine[name].copy_(self._local(w, full_t))
+            opt._global_step = base._global_step
+            return
         r = self._dp_index()
         j = 0
         for b in self._buckets:
             for k, p in enumerate(b.params):
-                st = base._state.get(index[id(p)])
+                st = base._state.get(index[id(self._base_of[id(p)])])
                 if st:
                     mine = opt._ensure_state(j)
                     for name, full_t in st.items():
+                        part = self._local(p, full_t)
                         tmp = b.flat.new_zeros((b.dp, b.width),
-                                               dtype=full_t.dtype)
+                                               dtype=part.dtype)
                         for dst, src, shape in b.regions(k, tmp):
-                            dst.copy_(full_t.reshape(-1)[src].view(shape))
+                            dst.copy_(part.reshape(-1)[src].view(shape))
                         off = b.offsets[k]
                         mine[name].copy_(tmp[r, off:off + b.chunks[k]])
                 j += 1
@@ -573,13 +751,43 @@ class ShardedTrainStep(TrainStep):
             if low is not None:
                 t.copy_(work)
 
+    def _scope(self):
+        """The model on the rank's mp shards (nothing without 'mp')."""
+        if self._shards_mp is None:
+            return contextlib.nullcontext()
+        return self._shards_mp.scope()
+
+    def _step(self, args, n_in, apply=True):
+        # the rank's shards hold grads the optimizer's own leaves do not
+        for p in self._params:
+            p.grad = None
+        out = super()._step(args, n_in, apply)
+        for p in self._params:
+            p.grad = None
+        return out
+
+    def _merge_grads(self, apply):
+        live = [(a, p) for a, p in zip(self._acc, self._params)
+                if p.grad is not None]
+        merged = tfm.merged_update([a for a, _ in live],
+                                   [p.grad for _, p in live], self._k_merge,
+                                   self._merge_avg, apply)
+        if merged is None:
+            return False
+        for (_, p), g in zip(live, merged):
+            p.grad = g
+        return True
+
     def _run(self, inputs, labels, apply=True):
-        with loss_scope(self.mesh) as scope:
-            loss, outs = self._forward_loss(inputs, labels)
-            share = unwrap(loss)
-            if not scope.declared:
-                share = share / (self.dp * self.sp)
-        share.backward()
+        # the backward runs in the scope too: a recomputed block reads
+        # the shards again
+        with self._scope():
+            with loss_scope(self.mesh) as scope:
+                loss, outs = self._forward_loss(inputs, labels)
+                share = unwrap(loss)
+                if not scope.declared:
+                    share = share / (self.dp * self.sp)
+            share.backward()
         total = share.detach().clone()
         for pg in self._groups:
             all_reduce_(total, ReduceOp.SUM, pg)
@@ -591,7 +799,8 @@ class ShardedTrainStep(TrainStep):
         if self.zero_stage >= 1:
             for b, (_, _, gshard) in zip(self._buckets, self._shards):
                 self._reduce(b, gshard)
-            self._sentinel(total, self._shard_grads, self._dp_group)
+            self._sentinel(total, self._shard_grads,
+                           self._stepper._parameters)
             self._stepper.step()
             for b, (shard, full, gshard) in zip(self._buckets, self._shards):
                 collective.all_gather_into(full, shard, self._dp_group)
@@ -602,44 +811,45 @@ class ShardedTrainStep(TrainStep):
                 self._reduce(b)
             for p in self._params:
                 p.grad = self._grad_views[id(p)]
-            self._sentinel(total, [p.grad for p in self._params])
-            self.optimizer.step()
+            self._sentinel(total, [p.grad for p in self._params],
+                           self._params)
+            self._stepper.step()
         return self._kind(loss, total), tuple(o.detach() for o in outs)
 
     @staticmethod
     def _kind(loss, total):
         return Tensor._wrap(total) if isinstance(loss, Tensor) else total
 
-    def _sentinel(self, loss, grads=None, pg=None):
-        """(grad norm, non-finite) of the reduced grads (of the shards,
-        summed over 'dp', under ZeRO-1)."""
-        if grads:
-            gsq = torch.stack(torch._foreach_norm(
-                grads, 2, dtype=torch.float32)).square().sum()
-            all_reduce_(gsq, ReduceOp.SUM, pg)
-        else:
-            gsq = torch.zeros((), device=loss.device)
-        self._last_grad_norm = torch.sqrt(gsq)
-        self._last_nonfinite = torch.logical_not(
-            torch.isfinite(loss) & torch.isfinite(gsq))
+    def _sentinel(self, loss, grads=None, leaves=None):
+        self._last_grad_norm, self._last_nonfinite = grad_sentinel(
+            self._parts, loss, grads, leaves)
 
     # -------------------------------------------------------- state
-    @torch.no_grad()
-    def sync(self):
-        """Write the state back into the optimizer: under ZeRO-1 every
-        moment (and master) gathered from the ranks' chunks into the
-        optimizer's own state, and its step count (collective: every
-        rank calls it). The parameters are the model's own already."""
+    def _full(self, w, t):
+        """A working leaf's tensor `t` as the full logical tensor (every
+        mp shard gathered; collective over the slice)."""
+        if id(w) not in self._split:
+            return t
+        name = self._shards_mp.name_of(self._base_of[id(w)])
+        return tp.gather_tensor(t, self._shards_mp.wrapper(name), self._mp)
+
+    def _working_states(self):
+        """id(working leaf) -> {slot: its state, the working leaf's
+        shape} (under ZeRO-1 gathered from the ranks' chunks over
+        'dp')."""
+        opt = self._stepper
         if self.zero_stage < 1:
-            return
-        base, opt = self.optimizer, self._stepper
-        index = {id(p): i for i, p in enumerate(base._parameters)}
+            return {id(w): dict(opt._state.get(j, {}))
+                    for j, w in enumerate(self._params)}
+        out = {}
         j = 0
         for b, (shard, _, _) in zip(self._buckets, self._shards):
             slots = {}
             for k in range(len(b.params)):
                 for name, t in opt._state.get(j + k, {}).items():
                     slots.setdefault(name, t.dtype)
+            for k, p in enumerate(b.params):
+                out.setdefault(id(p), {})
             for name, dtype in slots.items():
                 row = torch.zeros(b.width, dtype=dtype, device=shard.device)
                 for k, v in enumerate(b.views(row)):
@@ -649,21 +859,63 @@ class ShardedTrainStep(TrainStep):
                 every = row.new_zeros((b.dp, b.width))
                 collective.all_gather_into(every, row, self._dp_group)
                 for k, p in enumerate(b.params):
-                    dst = base._ensure_state(index[id(p)])
                     t = torch.empty(p.shape, dtype=dtype, device=p.device)
                     flat = t.view(-1)
                     for src, sl, shape in b.regions(k, every):
                         flat[sl].view(shape).copy_(src)
-                    if name in dst and dst[name].shape == t.shape:
-                        dst[name].copy_(t)      # a captured graph holds it
-                    else:
-                        dst[name] = t
+                    out[id(p)][name] = t
             j += len(b.params)
-        base._global_step = opt._global_step
+        return out
+
+    @torch.no_grad()
+    def sync(self):
+        """Write the state back into the model and the optimizer: every
+        mp shard's full tensor into the model's parameter, and every
+        moment (and master) of the rank's chunks and shards, gathered,
+        into the optimizer's own state, with its step count (collective:
+        every rank calls it). Without 'mp' and ZeRO the model and the
+        optimizer hold the state already."""
+        if self._shards_mp is not None:
+            self._shards_mp.gather()
+        base = self.optimizer
+        if self._stepper is base:
+            return
+        index = {id(p): i for i, p in enumerate(base._parameters)}
+        states = self._working_states()
+        for w in self._params:
+            dst = base._ensure_state(index[id(self._base_of[id(w)])])
+            for name, t in states[id(w)].items():
+                t = self._full(w, t)
+                if name in dst and dst[name].shape == t.shape:
+                    dst[name].copy_(t)      # a captured graph holds it
+                else:
+                    dst[name] = t.clone()
+        base._global_step = self._stepper._global_step
+
+    @torch.no_grad()
+    def last_grads(self):
+        """name -> the full logical gradient of the latest update, summed
+        over the batch's groups (before any clip): gathered from the
+        ranks' ZeRO chunks and mp shards (collective: every rank calls
+        it)."""
+        names = {id(unwrap(w)): n for n, w in self.model.named_parameters()}
+        out = {}
+        for i, b in enumerate(self._buckets):
+            if self.zero_stage >= 1:
+                full = b.flat.new_zeros((b.dp, b.width))
+                collective.all_gather_into(full, self._shards[i][2],
+                                           self._dp_group)
+            else:
+                full = b.flat
+            parts = [torch.empty_like(p) for p in b.params]
+            b.unpack(full, parts)
+            for w, t in zip(b.params, parts):
+                out[names[id(self._base_of[id(w)])]] = self._full(w, t)
+        return out
 
     def shard_nbytes(self):
         """Bytes of optimizer state this rank holds (its chunks under
-        ZeRO-1; all of it under ZeRO-0)."""
+        ZeRO-1, its mp shards; all of it under ZeRO-0 without 'mp')."""
         return int(sum(t.numel() * t.element_size()
                        for st in self._stepper._state.values()
                        for t in st.values()))
@@ -672,7 +924,8 @@ class ShardedTrainStep(TrainStep):
         """The placement record (`Model.save`'s .pdtrain provenance): the
         mesh, the dp axis, the ZeRO stage and the per-leaf specs (the
         JAX package's placements; the port's ZeRO-1 layout is the flat
-        rank-major chunks)."""
+        rank-major chunks, its 'mp' shards each rank's part of the
+        split parameters; `save` after `sync()` writes full tensors)."""
         return {
             "mesh": dict(self.mesh.shape),
             "dp_axis": self.dp_axis,
@@ -680,6 +933,8 @@ class ShardedTrainStep(TrainStep):
             "exact_reshard": False,
             "layout": "flat rank-major chunks" if self.zero_stage >= 1
             else "replicated",
+            "mp_split": sorted(self._shards_mp.local)
+            if self._shards_mp is not None else [],
             "param_specs": {n: _spec_doc(s)
                             for n, s in self.param_specs.items()},
             "opt_specs": {n: {sn: _spec_doc(s) for sn, s in slots.items()}

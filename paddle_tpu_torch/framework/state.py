@@ -240,6 +240,21 @@ def rng_generator(device):
 
 
 @contextlib.contextmanager
+def use_generator(gen):
+    """Random ops inside the block draw from the framework generator
+    `gen` (a `Generator`); the default one is put back on exit. The
+    tensor-parallel layers draw a sharded region's masks so, and a
+    pipeline stage its own stream."""
+    global _default_generator
+    saved = _default_generator
+    _default_generator = gen
+    try:
+        yield gen
+    finally:
+        _default_generator = saved
+
+
+@contextlib.contextmanager
 def host_init_ctx(seed):
     """Parameters made inside the block are drawn on the CPU from a
     framework generator seeded with `seed`, so one seed gives the same

@@ -364,9 +364,15 @@ class DataLoader:
             # forked workers + shared-memory transport + watchdog
             # (ref dataloader_iter.py:469 _DataLoaderIterMultiProcess)
             from .multiprocess import MultiprocessLoaderIter
-            for batch in MultiprocessLoaderIter(
-                    self, pin=self.device.type == "cuda"):
-                yield self._wrap(batch)
+            epoch = MultiprocessLoaderIter(self, pin=self.device.type
+                                           == "cuda")
+            try:
+                for batch in epoch:
+                    yield self._wrap(batch)
+            finally:
+                # the epoch's workers and segments go with this
+                # generator, not with its inner one's collection
+                epoch.close()
             return
         yield from self._worker_iter()
 

@@ -284,9 +284,9 @@ class MultiprocessLoaderIter:
             self.close()
 
     def close(self):
-        """Stop the workers and unlink every segment of the epoch that
-        was not read (an early-exiting consumer must not leak
-        /dev/shm)."""
+        """Stop the workers (every one dead before the sweep) and unlink
+        every segment of the epoch that was not read (an early-exiting
+        consumer must not leak /dev/shm). Closing twice is harmless."""
         for iq in self._index_queues:
             if iq is not None:
                 try:
@@ -299,6 +299,11 @@ class MultiprocessLoaderIter:
                 p.terminate()
         for p in self._workers:
             p.join(timeout=5)
+            if p.is_alive():
+                # not yet dead (a loaded host): it could still write a
+                # segment after the sweep below, so it is killed first
+                p.kill()
+                p.join()
         try:
             self._out.cancel_join_thread()
             self._out.close()

@@ -20,9 +20,11 @@ the program (ref fleet/base/fleet_base.py:1070, strategy_compiler.py:89):
                     counting applied updates
   sharding       -> the ZeRO stage of ShardedTrainStep
   fp16_allreduce -> ShardedTrainStep's gradient reduction in f16/bf16
-  localsgd, dgc, pipeline
-                 -> recorded; the steps that consume them are ROADMAP
-                    Queue 1 items 5b and 5c, and `fleet.build_train_step`
+  pipeline       -> `fleet.build_train_step` builds
+                    `distributed.pipeline.PipelineTrainStep` on a mesh
+                    with 'pp' (its microbatches `accumulate_steps`)
+  localsgd, dgc  -> recorded; the steps that consume them are ROADMAP
+                    Queue 1 item 5c, and `fleet.build_train_step`
                     refuses them until then
 
 The port's optimizers update in place (`optimizer.Optimizer.step`), so

@@ -12,6 +12,13 @@ the JAX model's: the tied weight is listed once, under
 `bert.embeddings.word_embeddings.weight`, so a JAX model's
 `state_dict()` loads with `set_state_dict` as it is.
 
+The word embedding carries the JAX model's vocab-parallel hint
+(`sharding` = PartitionSpec('mp', None)) but no split layout: it feeds
+the tied MLM head, which has no sharded form here, so a step over a mesh
+with 'mp' keeps it (and all of BERT) replicated over 'mp'. Under GSPMD a
+hint only changes where the table is stored, so the results are the
+same.
+
 Attention is `MultiHeadAttention`'s: with no `attention_mask` and no
 attention dropout it feeds the registered `flash_attention` op [B, S,
 H, D] views, non-causal (K1 forward, dd, K2 and K3 backward on the card
@@ -28,6 +35,7 @@ import torch
 
 from .. import nn
 from ..device import resolve_device
+from ..distributed.mesh import MP_AXIS, PartitionSpec
 from ..framework import state
 from ..framework.tensor import Tensor, unwrap
 from ..nn import functional as F
@@ -73,6 +81,7 @@ class BertEmbeddings(nn.Layer):
         attr = _normal_attr(cfg.initializer_range)
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                             weight_attr=attr)
+        self.word_embeddings.weight.sharding = PartitionSpec(MP_AXIS, None)
         self.position_embeddings = nn.Embedding(cfg.max_seq_len,
                                                 cfg.hidden_size,
                                                 weight_attr=attr)

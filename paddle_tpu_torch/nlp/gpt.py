@@ -27,6 +27,17 @@ from the framework generator of the device. When the fused head is on
 (`ops.chunked_ce.chunked_lm_loss`) from them, and the dense [B, S, V]
 head product is computed only if something else reads the logits.
 
+Tensor parallelism: the layers carry the JAX model's Megatron hints
+(`distributed.parallel_layers.shard_hint`). Inside an mp scope (a train
+step over a mesh with 'mp' > 1) each rank holds its shards and computes
+its heads: QKV column-parallel, cut by heads in each of q, k and v; the
+attention output row-parallel; MLP in column-, out row-parallel; the
+word embedding vocab-parallel; the tied head gives the rank's vocab
+shard of the logits, which `gpt_pretrain_loss` takes through the
+parallel cross entropy (the [B, S, V] logits are never gathered). The
+fused head over a split vocabulary raises (ROADMAP Queue 1 item
+5b(ii)). A pipeline stage runs the blocks (`distributed.pipeline`).
+
 Serving runs on the layers' torch leaves (torch tensors in and out, no
 dispatcher): dense, `init_cache` ([B, heads, L, head_dim] x2),
 `prefill` (with `frontier=`) and `decode_step` with a scalar or [B]
@@ -60,6 +71,8 @@ from torch.utils._pytree import tree_map
 
 from .. import nn
 from ..device import resolve_device
+from ..distributed import parallel_layers as tp
+from ..distributed.mesh import MP_AXIS, PartitionSpec
 from ..framework import state
 from ..framework.tensor import Tensor, unwrap
 from ..graphs import Program
@@ -195,11 +208,28 @@ class GPTAttention(nn.Layer):
                 "attention-prob dropout; attn_dropout is ignored "
                 "(residual dropout still applies)")
         self.resid_dropout = nn.Dropout(cfg.dropout)
+        # Megatron 'mp' split: QKV column-parallel by heads (each of q, k
+        # and v cut into whole heads), the output row-parallel
+        heads = (self.num_heads,) * 3
+        tp.shard_hint(self.qkv_proj.weight, PartitionSpec(None, MP_AXIS),
+                      heads, self.head_dim, strict=True)
+        tp.shard_hint(self.qkv_proj.bias, PartitionSpec(MP_AXIS), heads,
+                      self.head_dim, strict=True)
+        tp.shard_hint(self.out_proj.weight, PartitionSpec(MP_AXIS, None),
+                      (self.num_heads,), self.head_dim, strict=True)
 
     def forward(self, x):
-        b, s, h = x.shape
-        qkv = self.qkv_proj(x).reshape([b, s, 3, self.num_heads,
-                                        self.head_dim])
+        """x [B, S, hidden] -> [B, S, hidden]. Inside an mp scope the
+        rank computes its heads (the QKV and output shards) and the
+        output is summed over the slice."""
+        b, s, _ = x.shape
+        mp = tp.current_mp()
+        if not tp.is_split(self.qkv_proj.weight, mp):
+            mp = None
+        nh = self.num_heads // (mp.size if mp else 1)
+        h = nh * self.head_dim
+        qkv = self.qkv_proj(tp.copy_to_mp(x, mp)).reshape(
+            [b, s, 3, nh, self.head_dim])
         if self.sequence_parallel:
             # the rank's sequence shard over 'sp': "ring" (default)
             # streams K/V around the group, "ulysses" all-to-alls to
@@ -212,7 +242,7 @@ class GPTAttention(nn.Layer):
             qkv = qkv.transpose([2, 0, 3, 1, 4])      # [3, B, H, S, D]
             out = attend(qkv[0], qkv[1], qkv[2], causal=True)
             out = out.transpose([0, 2, 1, 3]).reshape([b, s, h])
-            return self.resid_dropout(self.out_proj(out))
+            return self.resid_dropout(self._out(out, mp))
         if self.attn_layout == "bshd" and \
                 not (self.attn_dropout_p and self.training):
             # BSHD fast path: q/k/v are strided views of the projection
@@ -220,13 +250,21 @@ class GPTAttention(nn.Layer):
             out = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                                   causal=True, layout="bshd",
                                   window=self.attn_window)
-            return self.resid_dropout(self.out_proj(out.reshape([b, s, h])))
+            return self.resid_dropout(self._out(out.reshape([b, s, h]), mp))
         qkv = qkv.transpose([2, 0, 3, 1, 4])          # [3, B, H, S, D]
-        out = flash_attention(
-            qkv[0], qkv[1], qkv[2], causal=True, window=self.attn_window,
-            dropout_p=self.attn_dropout_p if self.training else 0.0)
+        # the rank's heads draw their own masks
+        with tp.sharded_rng(mp):
+            out = flash_attention(
+                qkv[0], qkv[1], qkv[2], causal=True, window=self.attn_window,
+                dropout_p=self.attn_dropout_p if self.training else 0.0)
         out = out.transpose([0, 2, 1, 3]).reshape([b, s, h])
-        return self.resid_dropout(self.out_proj(out))
+        return self.resid_dropout(self._out(out, mp))
+
+    def _out(self, out, mp):
+        """The output projection: row-parallel over the slice."""
+        if mp is None:
+            return self.out_proj(out)
+        return tp.row_linear(self.out_proj, out, mp)
 
     def _split_heads(self, x):
         """[B, S, 3H] -> q, k, v each [B, heads, S, head_dim]."""
@@ -316,10 +354,18 @@ class GPTMLP(nn.Layer):
         self.fc_out = nn.Linear(cfg.ffn_hidden_size, cfg.hidden_size,
                                 weight_attr=_normal_attr(_out_std(cfg)))
         self.dropout = nn.Dropout(cfg.dropout)
+        # Megatron 'mp' split: in column-parallel, out row-parallel
+        tp.shard_hint(self.fc_in.weight, PartitionSpec(None, MP_AXIS))
+        tp.shard_hint(self.fc_in.bias, PartitionSpec(MP_AXIS))
+        tp.shard_hint(self.fc_out.weight, PartitionSpec(MP_AXIS, None))
 
     def forward(self, x):
-        return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
-                                               approximate=True)))
+        mp = tp.current_mp()
+        if not tp.is_split(self.fc_in.weight, mp):
+            return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
+                                                   approximate=True)))
+        h = F.gelu(self.fc_in(tp.copy_to_mp(x, mp)), approximate=True)
+        return self.dropout(tp.row_linear(self.fc_out, h, mp))
 
     def infer(self, x):
         """The MLP on the torch leaves (eval: no dropout)."""
@@ -396,6 +442,10 @@ class GPTEmbeddings(nn.Layer):
                                                 weight_attr=attr)
         self.dropout = nn.Dropout(cfg.dropout)
         self.sequence_parallel = cfg.sequence_parallel
+        # vocab-parallel over 'mp' (the tied head then gives the rank's
+        # vocab shard of the logits)
+        tp.shard_hint(self.word_embeddings.weight,
+                      PartitionSpec(MP_AXIS, None))
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
@@ -406,8 +456,13 @@ class GPTEmbeddings(nn.Layer):
             position_ids = Tensor._wrap(torch.arange(
                 off, off + s, dtype=torch.int32,
                 device=input_ids._data.device)[None])
-        return self.dropout(self.word_embeddings(input_ids)
-                            + self.position_embeddings(position_ids))
+        mp = tp.current_mp()
+        if tp.is_split(self.word_embeddings.weight, mp):
+            words = tp.vocab_parallel_embedding(
+                input_ids, self.word_embeddings.weight, mp)
+        else:
+            words = self.word_embeddings(input_ids)
+        return self.dropout(words + self.position_embeddings(position_ids))
 
     def embed(self, input_ids, position_ids):
         """The embeddings on the torch leaves (eval: no dropout)."""
@@ -643,10 +698,7 @@ class GPTForPretraining(nn.Layer):
         h = self.gpt(ids, position_ids)
         h, aux = h if isinstance(h, tuple) else (h, None)
         w = self.gpt.embeddings.word_embeddings.weight
-        if _use_fused_head(self.cfg, (*h.shape[:-1], w.shape[0])):
-            logits = Tensor._wrap(FusedHeadLogits(h._data, w._data))
-        else:
-            logits = matmul(h, w, transpose_y=True)
+        logits = tied_head(self.cfg, h, w)
         if aux is not None:
             logits._data._moe_aux_loss = aux
         return logits._data if torch_in else logits
@@ -680,6 +732,28 @@ class GPTForPretraining(nn.Layer):
 # auto threshold for fused_head_loss=None: the fused head would be used
 # once the f32 logits exceed this (the JAX package's constant)
 CHUNKED_CE_AUTO_BYTES = 2 << 30
+
+
+def tied_head(cfg, h, w):
+    """The logits h @ w.T of the tied head (a Tensor): a
+    `FusedHeadLogits` when the config asks for the fused head. Inside an
+    mp scope with the table split by vocabulary, the rank's vocab shard
+    of the logits, tagged for the parallel cross entropy (the fused head
+    is not split yet: ROADMAP Queue 1 item 5b(ii))."""
+    mp = tp.current_mp()
+    split = tp.is_split(w, mp)
+    vocab = w.shape[0] * (mp.size if split else 1)
+    if _use_fused_head(cfg, (*h.shape[:-1], vocab)):
+        if split:
+            raise NotImplementedError(
+                "the fused vocab-chunked head over a vocab split on 'mp' "
+                "is not ported yet (ROADMAP Queue 1 item 5b(ii)): set "
+                "fused_head_loss=False")
+        return Tensor._wrap(FusedHeadLogits(h._data, w._data))
+    if not split:
+        return matmul(h, w, transpose_y=True)
+    return tp.mark_vocab_parallel(
+        matmul(tp.copy_to_mp(h, mp), w, transpose_y=True), mp)
 
 
 def _use_fused_head(cfg, logits_shape):
@@ -786,14 +860,22 @@ def gpt_pretrain_loss(logits, labels):
     Inside a `distributed.ShardedTrainStep` the loss is this rank's share
     of the global one (`sharded.global_mean` over the valid rows), and on
     a sequence shard the last position is scored against the next
-    shard's first label (`sharded.sp_next_first`)."""
+    shard's first label (`sharded.sp_next_first`). Logits split by
+    vocabulary over 'mp' (`parallel_layers.mark_vocab_parallel`) take
+    the vocab-parallel cross entropy."""
     from ..distributed.sharded import global_mean, sharded_parts
     arr, lab = unwrap(logits), unwrap(labels)
     b, s = lab.shape[0], lab.shape[1]
     shifted = _shifted_labels(lab, b, s)
+    vocab_mp = tp.vocab_parallel_of(arr)
     if isinstance(arr, FusedHeadLogits):
         loss = apply(_fused_lm_loss_raw, (arr.hidden, arr.weight, shifted),
                      name="chunked_lm_loss")
+    elif vocab_mp is not None:
+        # the rank's vocab shard of the logits: ParallelCrossEntropy's
+        # arithmetic, the [B, S, V] logits never gathered
+        loss = apply(tp.parallel_lm_loss_raw, (arr, shifted),
+                     {"group": vocab_mp}, name="parallel_cross_entropy")
     else:
         loss = apply(_lm_loss_raw, (arr, shifted), name="cross_entropy")
     # inside a ShardedTrainStep: this rank's share of the global mean

@@ -31,6 +31,14 @@ rep) and runs
 `ops.flash_attention` causal, K1 on the card, K2, K3 and dd in its
 backward; autograd sums dK/dV over each group through the repeat.
 
+Tensor parallelism: inside an mp scope (a train step over a mesh with
+'mp' > 1, `distributed.parallel_layers`) each rank computes
+`heads / mp` query heads over `kv_heads / mp` KV heads (the QKV
+projection cut by heads in each of q, k and v; `kv_heads % mp != 0`
+raises ValueError), o_proj and down_proj are row-parallel, gate and up
+column-parallel, the token embedding vocab-parallel and the untied
+`lm_head` column-parallel, its logits the rank's vocab shard.
+
 Serving runs on the layers' torch leaves. Dense: `init_cache` ([B,
 kv_heads, L, hd] x2), `prefill` (with `frontier=`; the bucket padded to
 a multiple of 128 on the "k1" route,
@@ -49,8 +57,9 @@ from torch.nn import functional as TF
 
 from .. import nn
 from ..device import resolve_device
+from ..distributed import parallel_layers as tp
+from ..distributed.mesh import MP_AXIS, PartitionSpec
 from ..framework import state
-from ..framework.tensor import Tensor
 from ..nn import functional as F
 from ..nn.paged_attention import (paged_chunk_attention,
                                   paged_decode_attention)
@@ -59,9 +68,8 @@ from ..nn.transformer import (cached_decode_attention, scatter_block_kv_at,
 from ..ops.dispatch import apply, register_op
 from ..ops.flash_attention import flash_attention, kernel_len
 from ..incubate.recompute import recompute
-from ..ops.math import matmul
-from .gpt import (FusedHeadLogits, _normal_attr, _out_std,
-                  _use_fused_head, as_tensor_in, gpt_pretrain_loss, linear_t)
+from .gpt import (_normal_attr, _out_std, as_tensor_in, gpt_pretrain_loss,
+                  linear_t, tied_head)
 
 
 class LlamaConfig:
@@ -268,6 +276,13 @@ class LlamaAttention(nn.Layer):
                                 weight_attr=_normal_attr(_out_std(cfg)))
         # the model's one table, not a sublayer of every layer
         self.__dict__["rope"] = rope
+        # Megatron 'mp' split by heads: q, k and v each cut into whole
+        # heads (GQA: kv_heads % mp == 0), o_proj row-parallel
+        tp.shard_hint(self.qkv_proj.weight, PartitionSpec(None, MP_AXIS),
+                      (self.num_heads, self.num_kv_heads, self.num_kv_heads),
+                      self.head_dim, strict=True)
+        tp.shard_hint(self.o_proj.weight, PartitionSpec(MP_AXIS, None),
+                      (self.num_heads,), self.head_dim, strict=True)
 
     def _split(self, x):
         """x [B, S, hidden] -> q [B, S, H, D], k and v [B, S, Hkv, D]:
@@ -295,16 +310,24 @@ class LlamaAttention(nn.Layer):
 
     def forward(self, x):
         """x [B, S, hidden] (a Tensor) through the registered
-        `llama_attention` op, then o_proj."""
+        `llama_attention` op, then o_proj. Inside an mp scope, the
+        rank's heads, the output summed over the slice."""
+        mp = tp.current_mp()
+        if not tp.is_split(self.qkv_proj.weight, mp):
+            mp = None
+        n = mp.size if mp else 1
         out = apply(_llama_attention_raw,
-                    (x, self.qkv_proj.weight, self.rope.cos, self.rope.sin),
-                    {"num_heads": self.num_heads,
-                     "num_kv_heads": self.num_kv_heads,
+                    (tp.copy_to_mp(x, mp), self.qkv_proj.weight,
+                     self.rope.cos, self.rope.sin),
+                    {"num_heads": self.num_heads // n,
+                     "num_kv_heads": self.num_kv_heads // n,
                      "head_dim": self.head_dim,
                      "attn_layout": self.attn_layout,
                      "window": self.attn_window},
                     name="llama_attention")
-        return self.o_proj(out)
+        if mp is None:
+            return self.o_proj(out)
+        return tp.row_linear(self.o_proj, out, mp)
 
     def init_cache(self, batch, max_len, dtype, device):
         """Dense KV cache [B, kv_heads, L, head_dim] x2 (GQA caches the
@@ -387,9 +410,18 @@ class LlamaMLP(nn.Layer):
         self.up_proj = nn.Linear(h, m, bias_attr=False, weight_attr=attr)
         self.down_proj = nn.Linear(m, h, bias_attr=False,
                                    weight_attr=_normal_attr(_out_std(cfg)))
+        tp.shard_hint(self.gate_proj.weight, PartitionSpec(None, MP_AXIS))
+        tp.shard_hint(self.up_proj.weight, PartitionSpec(None, MP_AXIS))
+        tp.shard_hint(self.down_proj.weight, PartitionSpec(MP_AXIS, None))
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        mp = tp.current_mp()
+        if not tp.is_split(self.gate_proj.weight, mp):
+            return self.down_proj(F.silu(self.gate_proj(x))
+                                  * self.up_proj(x))
+        x = tp.copy_to_mp(x, mp)
+        return tp.row_linear(self.down_proj,
+                             F.silu(self.gate_proj(x)) * self.up_proj(x), mp)
 
     def infer(self, x):
         """SwiGLU on the torch leaves."""
@@ -433,6 +465,7 @@ class LlamaModel(nn.Layer):
         self.embed_tokens = nn.Embedding(
             cfg.vocab_size, cfg.hidden_size,
             weight_attr=_normal_attr(cfg.initializer_range))
+        tp.shard_hint(self.embed_tokens.weight, PartitionSpec(MP_AXIS, None))
         self.rope = RoPE(cfg.max_seq_len, cfg.hidden_size // cfg.num_heads,
                          cfg.rope_theta)
         self.layers = nn.LayerList([LlamaBlock(cfg, self.rope)
@@ -444,7 +477,12 @@ class LlamaModel(nn.Layer):
         norm; torch ids give a torch tensor, Tensors a Tensor). With
         cfg.use_recompute every block is checkpointed."""
         ids, torch_in = as_tensor_in(input_ids)
-        x = self.embed_tokens(ids)
+        mp = tp.current_mp()
+        if tp.is_split(self.embed_tokens.weight, mp):
+            x = tp.vocab_parallel_embedding(ids, self.embed_tokens.weight,
+                                            mp)
+        else:
+            x = self.embed_tokens(ids)
         remat = self.cfg.use_recompute and torch.is_grad_enabled()
         for blk in self.layers:
             x = recompute(blk, x, preserve_rng_state=False) if remat \
@@ -538,6 +576,9 @@ class LlamaForCausalLM(nn.Layer):
                 self.lm_head = nn.Linear(
                     cfg.hidden_size, cfg.vocab_size, bias_attr=False,
                     weight_attr=_normal_attr(cfg.initializer_range))
+                # column-parallel: the rank's vocab shard of the logits
+                tp.shard_hint(self.lm_head.weight,
+                              PartitionSpec(None, MP_AXIS))
         self.cfg = cfg
         self.to(device=dev, dtype=dtype)
         self.eval()
@@ -570,14 +611,15 @@ class LlamaForCausalLM(nn.Layer):
         tied and the config asks for the fused head."""
         ids, torch_in = as_tensor_in(input_ids)
         h = self.model(ids)
-        if not self.cfg.tie_embeddings:
-            logits = self.lm_head(h)
+        if self.cfg.tie_embeddings:
+            logits = tied_head(self.cfg, h, self.model.embed_tokens.weight)
         else:
-            w = self.model.embed_tokens.weight
-            if _use_fused_head(self.cfg, (*h.shape[:-1], w.shape[0])):
-                logits = Tensor._wrap(FusedHeadLogits(h._data, w._data))
+            mp = tp.current_mp()
+            if tp.is_split(self.lm_head.weight, mp):
+                logits = tp.mark_vocab_parallel(
+                    self.lm_head(tp.copy_to_mp(h, mp)), mp)
             else:
-                logits = matmul(h, w, transpose_y=True)
+                logits = self.lm_head(h)
         return logits._data if torch_in else logits
 
     def loss(self, logits, labels):

@@ -11,8 +11,9 @@ AMP tolerance of tests/test_torch_amp.py under bf16, 2e-2 x max(1,
 tolerance of tests/test_torch_incubate.py). In one world of 2 gloo
 ranks started through the port's launcher (`tests/torch_dist_ranks.py`):
 the meshes `fleet.init` builds from `hybrid_configs`, the step
-`build_train_step` picks (the refusals of the pipeline, DGC and
-LocalSGD steps name ROADMAP items 5b and 5c), and the port twin of
+`build_train_step` picks (a PipelineTrainStep for the pipeline
+strategy, as the JAX one; the refusals of the DGC and LocalSGD steps
+name ROADMAP item 5c), and the port twin of
 examples/dist_mnist.py, converging at the JAX test's bar
 (tests/test_examples.py:30-34: the last losses under half the first).
 """
@@ -204,8 +205,7 @@ def test_build_train_step_picks_the_jax_step(world, monkeypatch):
             pj.optimizer.SGD(0.1, parameters=net.parameters()), s)
         want[name] = jfleet.build_train_step(net, pj.nn.functional.mse_loss,
                                              opt)
-    item = {"PipelineTrainStep": "5b", "DGCTrainStep": "5c",
-            "LocalSGDTrainStep": "5c"}
+    item = {"DGCTrainStep": "5c", "LocalSGDTrainStep": "5c"}
     for res in world.job("build_step"):
         for name, jax_step in want.items():
             got = str(res[name])

@@ -458,7 +458,8 @@ def job_fleet_meshes(inp, r, n):
 
 def job_build_step(inp, r, n):
     """The step `fleet.build_train_step` builds (or its refusal) for
-    each strategy of the test, on {'dp': n} (a pipeline on {'pp': n})."""
+    each strategy of the test, on {'dp': n} (a pipeline on {'pp': n},
+    over the non-GPT PipelineParts model)."""
     import paddle_tpu_torch as pt
     import paddle_tpu_torch.distributed.fleet as fleet
     from paddle_tpu_torch import nn
@@ -470,7 +471,9 @@ def job_build_step(inp, r, n):
         axis = "pp_degree" if flags.get("pipeline") else "dp_degree"
         s.hybrid_configs = dict(s.hybrid_configs, **{axis: n})
         fleet.init(is_collective=True, strategy=s)
-        net = nn.Linear(4, 4)
+        # a pipeline needs stages: the non-GPT PipelineParts model
+        net = _mlp_regressor(pt, d_in=4) if flags.get("pipeline") \
+            else nn.Linear(4, 4)
         opt = fleet.distributed_optimizer(
             pt.optimizer.SGD(0.1, parameters=net.parameters()), s)
         try:
@@ -511,13 +514,504 @@ def job_dist_mnist(inp, r, n):
     return {"losses": losses, "step": type(step).__name__}
 
 
+# ------------------------------------------------ tensor and pipeline
+# parallelism: the model's state after steps, the step-1 gradients (full
+# logical tensors, gathered), losses and the step count
+
+def _tiny_model(inp, kind, **over):
+    """The test's tiny GPT or LLaMA (config and JAX weights from the
+    inputs), f32 on the CPU."""
+    from paddle_tpu_torch.nlp import gpt as tgpt, llama as tllama
+    cfg = dict(json.loads(str(inp[f"{kind}_cfg"])), **over)
+    if kind == "gpt":
+        m = tgpt.GPTForPretraining(tgpt.GPTConfig(**cfg), device="cpu")
+    else:
+        m = tllama.LlamaForCausalLM(tllama.LlamaConfig(**cfg), device="cpu")
+    tgpt.load_jax_state(m, {k[len(kind) + 1:]: v for k, v in inp.items()
+                            if k.startswith(kind + ":")})
+    return m
+
+
+def _adamw(model, clip=None):
+    import paddle_tpu_torch as pt
+    kw = {} if clip is None else {
+        "grad_clip": pt.nn.ClipGradByGlobalNorm(clip)}
+    return pt.optimizer.AdamW(learning_rate=1e-3,
+                              parameters=model.parameters(), **kw)
+
+
+def _trajectory(step, model, x, y, steps=2, r=0, report=True):
+    """`steps` calls: the losses, the global grad norms, the first call's
+    gradients, the synced parameters and the step count (rank 0 reports
+    the tensors)."""
+    losses, grads, norms = [], {}, []
+    for i in range(steps):
+        losses.append(float(step(x, y)))
+        norms.append(step.last_grad_norm())
+        if i == 0:
+            grads = {k: v.numpy().copy() for k, v in
+                     step.last_grads().items()}
+    step.sync()
+    out = {"losses": losses, "grad_norms": norms,
+           "step": step.optimizer._global_step}
+    if report and r == 0:
+        out.update({f"g:{k}": v for k, v in grads.items()})
+        out.update({f"p:{n}": p.numpy().copy()
+                    for n, p in model.named_parameters()})
+    return out
+
+
+def _cases(out, case, res):
+    out.update({f"{case}/{k}": v for k, v in res.items()})
+
+
+TP_MESHES = {"mp2": {"mp": 2}, "dp2mp2": {"dp": 2, "mp": 2}}
+
+
+def job_tp_layers(inp, r, n):
+    """The four parallel layers and `split` over {'mp': n} from the JAX
+    layers' weights: outputs (a column layer without gather_output: the
+    rank's columns) and, for sum(out * cot), the input's gradient and
+    every weight's (gathered to its full logical tensor)."""
+    import paddle_tpu_torch as pt
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh, parallel_layers as tp
+    m = mesh.make_mesh({"mp": n})
+    group = tp.mp_group(m)
+    x = inp["tpl_x"]
+    out = {}
+    layers = {
+        "col_gather": lambda: tp.ColumnParallelLinear(16, 32),
+        "col_local": lambda: tp.ColumnParallelLinear(16, 32,
+                                                     gather_output=False),
+        "row": lambda: tp.RowParallelLinear(32, 16),
+        "row_parallel_in": lambda: tp.RowParallelLinear(
+            32, 16, input_is_parallel=True),
+        "emb": lambda: tp.VocabParallelEmbedding(64, 16)}
+    for name, make in layers.items():
+        layer = make()
+        layer.set_state_dict({k[len(name) + 5:]: v for k, v in inp.items()
+                              if k.startswith(f"tpl:{name}.")})
+        shards = tp.LocalShards(layer, group)
+        if name == "emb":
+            xin = _t(inp["tpl_ids"])
+        elif name == "row_parallel_in":
+            xin = _t(inp["tpl_x32"]).chunk(n, -1)[r].contiguous() \
+                .requires_grad_(True)
+        else:
+            xin = _t(x if name.startswith("col") else inp["tpl_x32"]) \
+                .requires_grad_(True)
+        with shards.scope():
+            y = layer(pt.Tensor._wrap(xin))._data
+        cot = _t(inp[f"tpl_cot_{name}"])
+        if name == "col_local":
+            cot = cot.chunk(n, -1)[r]
+        (y * cot).sum().backward()
+        out[f"{name}_out"] = y.detach().numpy()
+        if xin.requires_grad:
+            out[f"{name}_dx"] = xin.grad.numpy()
+        for pn, w in layer.named_parameters():
+            leaf = shards.local.get(pn, w._data)
+            g = leaf.grad
+            if pn in shards.local:
+                g = tp.gather_tensor(g, w, group)
+            out[f"{name}_d:{pn}"] = g.numpy()
+    # ParallelCrossEntropy over the rank's vocab shard of the logits
+    z = _t(inp["tpl_logits"]).chunk(n, -1)[r].contiguous()
+    z.requires_grad_(True)
+    with tp.mp_scope(group):
+        ce = tp.ParallelCrossEntropy()(pt.Tensor._wrap(z),
+                                       pt.Tensor._wrap(_t(inp["tpl_lab"])))
+    ce._data.backward()
+    out["pce_loss"] = float(ce)
+    grad = torch.empty((n,) + tuple(z.shape))
+    C.all_gather_into(grad, z.grad.contiguous(), group.pg)
+    out["pce_dz"] = torch.cat(grad.unbind(0), -1).numpy()
+    # split: a column-parallel linear (gathered) and a vocab-parallel
+    # embedding, drawn from the framework generator
+    import paddle_tpu_torch.distributed as dist
+    pt.seed(5)
+    out["split_linear"] = dist.split(pt.to_tensor(x), (16, 32), "linear",
+                                     axis=1).numpy()
+    pt.seed(5)
+    out["split_linear_ref"] = tp.ColumnParallelLinear(16, 32)(
+        pt.to_tensor(x)).numpy()
+    pt.seed(6)
+    out["split_emb"] = dist.split(pt.to_tensor(inp["tpl_ids"]), (64, 16),
+                                  "embedding").numpy()
+    pt.seed(6)
+    out["split_emb_ref"] = tp.VocabParallelEmbedding(64, 16)(
+        pt.to_tensor(inp["tpl_ids"])).numpy()
+    return out
+
+
+def job_tp_steps(inp, r, n):
+    """GPT and LLaMA through ShardedTrainStep over {'mp': 2} (ZeRO-0) and
+    {'dp': 2, 'mp': 2} (ZeRO-1), AdamW with a global-norm clip at 1.0, 2
+    steps; LLaMA over {'mp': 4} (2 KV heads) refused."""
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    ids = _t(inp["tp_ids"])
+    out = {}
+    for kind in ("gpt", "llama"):
+        for mname, shape in TP_MESHES.items():
+            m = mesh.make_mesh(shape)
+            if m.coords is None:
+                continue
+            model = _tiny_model(inp, kind)
+            step = ShardedTrainStep(model, tgpt.gpt_pretrain_loss,
+                                    _adamw(model, 1.0),
+                                    zero_stage=int(mname == "dp2mp2"))
+            _cases(out, f"{kind}_{mname}", _trajectory(step, model, ids,
+                                                       ids, r=r))
+    # whole-tensor norms over {'mp': 2} against the plain TrainStep on
+    # one rank: Lamb's trust ratios, and per-tensor clipping (SGD)
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    opts = {"lamb": lambda ps: pt.optimizer.Lamb(learning_rate=1e-2,
+                                                 parameters=ps),
+            "clipnorm": lambda ps: pt.optimizer.SGD(
+                learning_rate=0.5, parameters=ps,
+                grad_clip=pt.nn.ClipGradByNorm(0.05))}
+    for name, make in opts.items():
+        for kind in ("sharded", "plain"):
+            m = mesh.make_mesh({"mp": 2})
+            if m.coords is None:
+                continue
+            model = _tiny_model(inp, "gpt")
+            opt = make(model.parameters())
+            step = ShardedTrainStep(model, tgpt.gpt_pretrain_loss, opt) \
+                if kind == "sharded" else TrainStep(
+                    model, tgpt.gpt_pretrain_loss, opt)
+            case = f"{name}_{kind}"
+            out[f"{case}/losses"] = [float(step(ids, ids))
+                                     for _ in range(2)]
+            step.sync()
+            out.update({f"{case}/p:{k}": p.numpy().copy()
+                        for k, p in model.named_parameters()})
+    mesh.make_mesh({"mp": n})
+    model = _tiny_model(inp, "llama")
+    try:
+        ShardedTrainStep(model, tgpt.gpt_pretrain_loss, _adamw(model))
+        out["llama_mp4"] = "accepted"
+    except ValueError as e:
+        out["llama_mp4"] = str(e)
+    return out
+
+
+def job_tp_dropout(inp, r, n):
+    """The GPT with dropout 0.1 and attention dropout 0.1 (the BHSD
+    path: the rank's heads draw their own masks) over {'dp': 2, 'mp':
+    2}, 3 steps: the losses, the replicated parameters as the rank holds
+    them (every rank of an mp slice must hold the same), a sharded
+    attention mask's draw on each rank."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import mesh, parallel_layers as tp
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    m = mesh.make_mesh({"dp": 2, "mp": 2})
+    pt.seed(11)
+    model = _tiny_model(inp, "gpt", dropout=0.1, attn_dropout=0.1,
+                        attn_layout="bhsd")
+    step = ShardedTrainStep(model, tgpt.gpt_pretrain_loss, _adamw(model))
+    ids = _t(inp["tp_ids"])
+    losses = [float(step(ids, ids)) for _ in range(3)]
+    rep = {n_: p._data.detach().numpy().copy()
+           for n_, p in model.named_parameters()
+           if n_ not in step._shards_mp.local}
+    draw = step._mp.generator.generator("cpu").initial_seed()
+    return {"losses": losses, "mp_rank": m.axis_index("mp"),
+            "sharded_seed": draw,
+            **{f"rep:{k}": v for k, v in rep.items()}}
+
+
+PP_MESHES = {"pp2": {"pp": 2}, "pp4": {"pp": 4},
+             "dp2pp2": {"dp": 2, "pp": 2}, "pp2mp2": {"pp": 2, "mp": 2}}
+
+
+def job_pp_steps(inp, r, n):
+    """The tiny GPT through PipelineTrainStep (GPipe, recompute) and
+    OneF1BTrainStep over each of PP_MESHES, 4 microbatches, AdamW, 2
+    steps; and over {'pp': 2} and {'pp': 2, 'mp': 2} with a global-norm
+    clip at `pp_clip`."""
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.pipeline import PipelineTrainStep
+    from paddle_tpu_torch.distributed.pipeline_1f1b import OneF1BTrainStep
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    ids = _t(inp["tp_ids"])
+    out = {}
+    for mname, shape in PP_MESHES.items():
+        for sched, cls in (("gpipe", PipelineTrainStep),
+                           ("1f1b", OneF1BTrainStep)):
+            m = mesh.make_mesh(shape)
+            if m.coords is None:
+                continue
+            model = _tiny_model(inp, "gpt")
+            step = cls(model, tgpt.gpt_pretrain_loss, _adamw(model),
+                       num_micro=4)
+            _cases(out, f"{sched}_{mname}",
+                   _trajectory(step, model, ids, ids, r=r))
+    for mname in ("pp2", "pp2mp2"):
+        for sched, cls in (("gpipe", PipelineTrainStep),
+                           ("1f1b", OneF1BTrainStep)):
+            m = mesh.make_mesh(PP_MESHES[mname])
+            if m.coords is None:
+                continue
+            model = _tiny_model(inp, "gpt")
+            step = cls(model, tgpt.gpt_pretrain_loss,
+                       _adamw(model, float(inp["pp_clip"])), num_micro=4)
+            _cases(out, f"{sched}_{mname}_clip",
+                   _trajectory(step, model, ids, ids, r=r))
+    return out
+
+
+def _mlp_regressor(pt, d_in=8, h=16, depth=4):
+    """The non-GPT model of tests/test_pipeline_1f1b.py:103-153 (a linear
+    embedding, a tanh trunk, a linear head), pipelined through its
+    pipeline_parts()."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.pipeline import PipelineParts
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(h, h)
+
+        def forward(self, x):
+            return nn.functional.tanh(self.fc(x))
+
+    class Fc(nn.Layer):
+        def __init__(self, a, b):
+            super().__init__()
+            self.fc = nn.Linear(a, b)
+
+        def forward(self, x):
+            return self.fc(x)
+
+    class Regressor(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = Fc(d_in, h)
+            self.trunk = nn.LayerList([Block() for _ in range(depth)])
+            self.head = Fc(h, 1)
+
+        def pipeline_parts(self, loss_fn):
+            head = self.head
+
+            def head_call(post_p, pre_p, x, labels):
+                out, _ = head.functional_call(post_p, {}, x)
+                return loss_fn(out, labels)
+
+            return PipelineParts(self.embed, list(self.trunk), self.head,
+                                 head_call, tied=())
+
+    return Regressor()
+
+
+def job_pp_parts(inp, r, n):
+    """The non-GPT PipelineParts model from the JAX weights through both
+    schedules over {'pp': 2} and {'pp': 4}, SGD 0.05 on MSE, 8
+    microbatches of 4, 3 steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.pipeline import PipelineTrainStep
+    from paddle_tpu_torch.distributed.pipeline_1f1b import OneF1BTrainStep
+    x, y = _t(inp["mlp_x"]), _t(inp["mlp_y"])
+    out = {}
+    for mname in ("pp2", "pp4"):
+        for sched, cls in (("gpipe", PipelineTrainStep),
+                           ("1f1b", OneF1BTrainStep)):
+            m = mesh.make_mesh(PP_MESHES[mname])
+            if m.coords is None:
+                continue
+            model = _mlp_regressor(pt)
+            model.set_state_dict({k[4:]: v for k, v in inp.items()
+                                  if k.startswith("mlp:")})
+            step = cls(model, pt.nn.MSELoss(), pt.optimizer.SGD(
+                learning_rate=0.05, parameters=model.parameters()),
+                num_micro=8)
+            _cases(out, f"{sched}_{mname}",
+                   _trajectory(step, model, x, y, steps=3, r=r))
+    return out
+
+
+def job_pp_hapi(inp, r, n):
+    """hapi.Model over fleet's pipeline step: the non-GPT parts model on
+    {'dp': 2, 'pp': 2} (4 microbatches), SGD on MSE, 2 epochs of 2
+    batches of 16, then `save` (each rank into its own directory): the
+    losses, the saved parameters, the model's and its initial ones."""
+    import os
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.framework import serialization
+    s = fleet.DistributedStrategy()
+    s.pipeline = True
+    s.pipeline_configs = {"accumulate_steps": 4}
+    s.hybrid_configs = dict(s.hybrid_configs, dp_degree=2, pp_degree=2)
+    fleet.init(is_collective=True, strategy=s)
+    model = _mlp_regressor(pt)
+    model.set_state_dict({k[4:]: v for k, v in inp.items()
+                          if k.startswith("mlp:")})
+    m = pt.Model(model)
+    m.prepare(fleet.distributed_optimizer(pt.optimizer.SGD(
+        learning_rate=0.05, parameters=model.parameters()), s),
+        pt.nn.MSELoss())
+    ds = pt.io.TensorDataset([inp["mlp_x"], inp["mlp_y"]])
+    losses = m.fit(ds, batch_size=16, epochs=2, shuffle=False,
+                   verbose=0)["loss"]
+    path = os.path.join(str(inp["ckpt_dir"]), f"rank{r}", "ckpt")
+    m.save(path)
+    saved = serialization.load(path + ".pdparams")
+    return {"losses": losses, "step": type(m._train_step).__name__,
+            "global_step": m._optimizer._global_step,
+            **{f"saved:{k}": np.asarray(v.numpy() if hasattr(v, "numpy")
+                                        else v) for k, v in saved.items()},
+            **{f"model:{k}": p.numpy().copy()
+               for k, p in model.named_parameters()}}
+
+
+def job_pp_apply(inp, r, n):
+    """pipeline_apply and pipeline_1f1b over {'pp': n}: a toy tanh block
+    a stage."""
+    import torch
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.pipeline import pipeline_apply
+    mesh.make_mesh({"pp": n})
+    w = _t(inp["ppa_w"])                       # [S, 1, h, h]
+
+    def block(p, a, key):
+        return torch.tanh(a @ p["w"])
+    got = pipeline_apply(block, {"w": w}, _t(inp["ppa_x"]), n, remat=False)
+    out = {"out": got.numpy()}
+    # pipeline_1f1b on the JAX test's toy (tests/test_pipeline_1f1b.py:
+    # 60-100): a tanh stage a rank, a linear head and MSE on the last;
+    # against torch autograd of the serial composition on every rank
+    from paddle_tpu_torch.distributed.pipeline_1f1b import pipeline_1f1b
+    W, head = _t(inp["f1_w"]), _t(inp["f1_head"])
+    x, lab = _t(inp["f1_x"]), _t(inp["f1_lab"])
+    r = mesh.get_mesh().axis_index("pp")
+
+    def stage_fn(p, a):
+        return torch.tanh(a @ p["w"])
+
+    def last_loss_fn(p, post, a, labm):
+        return ((stage_fn(p, a) @ post["w"] - labm) ** 2).mean()
+
+    loss, gb, gpost, dx = pipeline_1f1b(stage_fn, last_loss_fn,
+                                        {"w": W[r]}, {"w": head}, x, lab)
+    Wr, hr, xr = (t.clone().requires_grad_(True) for t in (W, head, x))
+    total = 0.0
+    for m in range(x.shape[0]):
+        h = xr[m]
+        for s in range(n - 1):
+            h = torch.tanh(h @ Wr[s])
+        total = total + last_loss_fn({"w": Wr[n - 1]}, {"w": hr}, h, lab[m])
+    ref = total / x.shape[0]
+    ref.backward()
+    out.update(f1_loss=[float(loss), float(ref)],
+               f1_gw=[gb["w"].numpy(), Wr.grad[r].numpy()],
+               f1_ghead=[gpost["w"].numpy(),
+                         hr.grad.numpy() if r == n - 1
+                         else np.zeros_like(hr.grad.numpy())],
+               f1_dx=[dx.numpy(), xr.grad.numpy() if r == 0
+                      else np.zeros_like(xr.grad.numpy())])
+    return out
+
+
+def job_pp_mnist(inp, r, n):
+    """The twin of examples/pipeline_mnist.py: its MLP (a 784 -> 128
+    stem, four 128 blocks, a 10-way head) from the JAX example's initial
+    weights (paddle_tpu.seed(1)) on the port's synthetic MNIST through
+    fleet's pipeline strategy (accumulate_steps 4) over {'dp': 2, 'pp':
+    2}, Momentum 0.05, global batches of 64, 30 steps."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.pipeline import PipelineParts
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline = True
+    strategy.pipeline_configs = {"accumulate_steps": 4}
+    strategy.hybrid_configs = {"dp_degree": 2, "pp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+
+    class Stem(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(784, 128)
+
+        def forward(self, x):
+            return nn.functional.relu(self.fc(x.reshape([x.shape[0], -1])))
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(128, 128)
+
+        def forward(self, x):
+            return nn.functional.relu(self.fc(x))
+
+    class Head(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(128, 10)
+
+        def forward(self, x):
+            return self.fc(x)
+
+    class PipelinedMLP(nn.Layer):
+        def __init__(self, depth=4):
+            super().__init__()
+            self.stem = Stem()
+            self.trunk = nn.LayerList([Block() for _ in range(depth)])
+            self.head = Head()
+
+        def forward(self, x):
+            x = self.stem(x)
+            for blk in self.trunk:
+                x = blk(x)
+            return self.head(x)
+
+        def pipeline_parts(self, loss_fn):
+            head = self.head
+
+            def head_call(post_p, pre_p, h, labels):
+                out, _ = head.functional_call(post_p, {}, h)
+                return loss_fn(out, labels)
+
+            return PipelineParts(self.stem, list(self.trunk), self.head,
+                                 head_call, tied=())
+
+    model = PipelinedMLP()
+    model.set_state_dict({k[6:]: v for k, v in inp.items()
+                          if k.startswith("mnist:")})
+    opt = fleet.distributed_optimizer(
+        pt.optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                              parameters=model.parameters()), strategy)
+    step = fleet.build_train_step(model, nn.functional.cross_entropy, opt)
+    np.random.seed(0)
+    loader = pt.io.DataLoader(pt.vision.datasets.MNIST(mode="train"),
+                              batch_size=64, shuffle=True, drop_last=True)
+    losses, it = [], iter(loader)
+    for _ in range(30):
+        img, label = next(it)
+        losses.append(float(step(img, label.reshape([-1]))))
+    return {"losses": losses, "step": type(step).__name__,
+            "mesh": json.dumps(step.mesh.shape)}
+
 JOBS = {"collectives": job_collectives,
         "data_parallel": job_data_parallel,
         "sharded_linear": job_sharded_linear,
         "sharded_models": job_sharded_models, "hapi_zero1": job_hapi_zero1,
         "refusals": job_refusals, "attention": job_attention,
         "gpt_sp": job_gpt_sp, "fleet_meshes": job_fleet_meshes,
-        "build_step": job_build_step, "dist_mnist": job_dist_mnist}
+        "build_step": job_build_step, "dist_mnist": job_dist_mnist,
+        "tp_layers": job_tp_layers, "tp_steps": job_tp_steps,
+        "tp_dropout": job_tp_dropout, "pp_steps": job_pp_steps,
+        "pp_parts": job_pp_parts, "pp_apply": job_pp_apply,
+        "pp_hapi": job_pp_hapi,
+        "pp_mnist": job_pp_mnist}
 
 
 def spawn_target(out):
