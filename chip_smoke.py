@@ -9777,16 +9777,27 @@ HY_LAYERS, HY_HIDDEN, HY_HEADS, HY_VOCAB = 24, 1024, 16, 32768
 HY_S, HY_B, HY_MICRO, HY_F32_LAYERS, HY_F32_B = 1024, 8, 4, 2, 4
 HY_BF16_STEPS, HY_TIMED = 3, 10
 HY_CONFIGS = (("gpipe", {"pp": 2}), ("1f1b", {"pp": 2}), ("mp", {"mp": 2}))
+# world 2's bf16 steps of the configurations above run at 12 layers (the
+# script's time limit); ZeRO-3's at 24
+HY_W2_LAYERS = 12
+# exact_reshard's batch: 3 sequences, which dp = 2 cannot divide
+HY_EXACT_B = 3
+# ZeRO-3: the units whose gathered parameters may be alive at once (the
+# root, the block running, the one whose backward is ending)
+HY_Z3_UNITS = 3
+# a rank's parameter bytes under ZeRO-3 over dp = 2, over one rank's
+HY_Z3_SHARE = 0.55
 
 
 _HY_MODELS = {}
 
 
-def hybrid_gpt(dev, dtype, layers):
+def hybrid_gpt(dev, dtype, layers, fused=False):
     """GPT-2 medium's widths at `layers` layers, recompute on, no
-    dropout, the dense head (the fused head is not split over 'mp'): a
-    copy of the process's first model of this dtype and depth (its
-    weights drawn once on the host, ~4.5 s at 24 layers)."""
+    dropout, the dense head (the fused one with `fused`): a copy of the
+    process's first model of this dtype and depth (its weights drawn
+    once on the host, ~4.5 s at 24 layers; the head changes no
+    weight)."""
     import copy
     import torch
     from paddle_tpu_torch.nlp import GPTConfig, GPTForPretraining
@@ -9798,7 +9809,9 @@ def hybrid_gpt(dev, dtype, layers):
                         use_recompute=True, fused_head_loss=False)
         _HY_MODELS[key] = GPTForPretraining(
             cfg, device=dev, dtype=getattr(torch, dtype), seed=SEED)
-    return copy.deepcopy(_HY_MODELS[key])
+    model = copy.deepcopy(_HY_MODELS[key])      # its own config too
+    model.cfg.fused_head_loss = bool(fused)
+    return model
 
 
 def hybrid_ids(dev, b, seed=SEED + 61):
@@ -9808,9 +9821,11 @@ def hybrid_ids(dev, b, seed=SEED + 61):
     return torch.tensor(lag_ids(seed, b, HY_S, HY_VOCAB), device=dev)
 
 
-def hybrid_step(kind, model, opt, mesh_shape=None):
+def hybrid_step(kind, model, opt, mesh_shape=None, **kw):
     """The step of a configuration: the plain TrainStep, GPipe, 1F1B
-    (4 microbatches) or ShardedTrainStep ('mp'), over `mesh_shape`."""
+    (4 microbatches) or ShardedTrainStep ('mp' and "mp_fused" at ZeRO-0,
+    "zero1", "zero3", "exact3": ZeRO-3 with exact_reshard), over
+    `mesh_shape`."""
     from paddle_tpu_torch.distributed import mesh as M
     from paddle_tpu_torch.distributed.pipeline import PipelineTrainStep
     from paddle_tpu_torch.distributed.pipeline_1f1b import OneF1BTrainStep
@@ -9820,8 +9835,14 @@ def hybrid_step(kind, model, opt, mesh_shape=None):
     if kind == "plain":
         return TrainStep(model, gpt_pretrain_loss, opt)
     M.make_mesh(mesh_shape)
-    if kind == "mp":
-        return ShardedTrainStep(model, gpt_pretrain_loss, opt)
+    if kind == "exact3":
+        kw = dict(kw, exact_reshard=True)
+    if kind in ("mp", "mp_fused", "zero1", "zero3", "zero3_fused",
+                "exact3"):
+        zero = 3 if kind in ("zero3", "zero3_fused", "exact3") \
+            else 1 if kind == "zero1" else 0
+        return ShardedTrainStep(model, gpt_pretrain_loss, opt,
+                                zero_stage=zero, **kw)
     cls = PipelineTrainStep if kind == "gpipe" else OneF1BTrainStep
     return cls(model, gpt_pretrain_loss, opt, num_micro=HY_MICRO)
 
@@ -9833,7 +9854,8 @@ def hybrid_schedule(kind, layers, stage=0, stages=1, micro=HY_MICRO):
     and twice on the others (the forward tick and the recompute); K2,
     K3 and dd once a layer a microbatch."""
     lps = layers // stages
-    if kind in ("plain", "mp"):
+    if kind in ("plain", "mp", "mp_fused", "zero1", "zero3", "zero3_fused",
+                "exact3"):
         return {"fwd": 2 * layers, "dkv": layers, "dq": layers,
                 "dd": layers}
     k1 = lps * micro * (1 if kind == "1f1b" and stage == stages - 1 else 2)
@@ -9844,19 +9866,21 @@ def hybrid_schedule(kind, layers, stage=0, stages=1, micro=HY_MICRO):
 def hybrid_memory(model, step, base):
     """The bytes a rank holds: the peak allocated since the last reset
     (everything the process holds, the draw cache of `hybrid_gpt`
-    included), what the step added over `base` (the model's full
-    weights, its shards, the moments, activations), the full model's
-    weights (every rank keeps them: the rank's shards are extra leaves)
-    and the leaves the rank trains."""
+    included), what the step added over `base` (its weights, shards,
+    chunks, moments, activations), the model's weights this rank keeps
+    whole (a sharded or pipelined step releases the rest) and the
+    parameter bytes it holds in all (`param_nbytes`: those, its mp
+    shards and ZeRO chunks), and the moment bytes of a sharded step."""
     import torch
-
-    def nbytes(ts):
-        return sum(t.numel() * t.element_size() for t in ts)
     peak = torch.cuda.max_memory_allocated()
+    whole = sum(p._data.numel() * p._data.element_size()
+                for p in model.parameters())
     return {"peak_memory_allocated": peak, "peak_memory_added": peak - base,
-            "full_model_bytes": nbytes(p._data for p in model.parameters()),
-            "trained_leaf_bytes": nbytes(step._params)
-            if hasattr(step, "_params") else None}
+            "resident_model_bytes": whole,
+            "param_bytes": step.param_nbytes()
+            if hasattr(step, "param_nbytes") else whole,
+            "moment_bytes": step.shard_nbytes()
+            if hasattr(step, "shard_nbytes") else None}
 
 
 def hybrid_counts_check(label, step, counts, per_step):
@@ -9982,7 +10006,8 @@ def hybrid_parity(spec, dev, configs, rank_label):
     ids = hybrid_ids(dev, HY_F32_B, SEED + 62)
     out = {}
     for kind, shape in configs:
-        model = hybrid_gpt(dev, "float32", HY_F32_LAYERS)
+        model = hybrid_gpt(dev, "float32", HY_F32_LAYERS,
+                           fused=kind.endswith("_fused"))
         step = hybrid_step(kind, model, AdamW(
             learning_rate=1e-4, parameters=model.parameters()), shape)
         loss = float(step(ids, ids))
@@ -10010,16 +10035,18 @@ def hybrid_parity(spec, dev, configs, rank_label):
 
 def hybrid_w2_f32(spec, dev):
     """World 2 (two gloo ranks sharing the card, eager): {'pp': 2}
-    GPipe and 1F1B and {'mp': 2}, f32 at 2 layers, against world 1."""
-    return hybrid_parity(spec, dev, HY_CONFIGS, "world 2")
+    GPipe and 1F1B, {'mp': 2} with the dense and the fused head, and
+    ZeRO-3 over {'dp': 2}, f32 at 2 layers, against world 1."""
+    return hybrid_parity(spec, dev, HY_CONFIGS + (
+        ("mp_fused", {"mp": 2}), ("zero3", {"dp": 2})), "world 2")
 
 
 def hybrid_w2_bf16(spec, dev):
-    """World 2: GPT-2 medium bf16, HY_BF16_STEPS AdamW steps of each of
-    HY_CONFIGS over 8 x 1024 (eager over gloo: CUDA activations cross
-    the ranks through the host): losses finite and falling, seconds a
-    step, staged host calls, and the flash and Adam launches against the
-    schedule."""
+    """World 2: GPT-2 medium's widths at HY_W2_LAYERS layers, bf16,
+    HY_BF16_STEPS AdamW steps of each of HY_CONFIGS over 8 x 1024 (eager
+    over gloo: CUDA activations cross the ranks through the host):
+    losses finite and falling, seconds a step, staged host calls, and
+    the flash and Adam launches against the schedule."""
     import numpy as np
     import torch
     import paddle_tpu_torch.distributed as dist
@@ -10029,7 +10056,7 @@ def hybrid_w2_bf16(spec, dev):
     ids = hybrid_ids(dev, HY_B)
     out = {}
     for kind, shape in HY_CONFIGS:
-        model = hybrid_gpt(dev, "bfloat16", HY_LAYERS)
+        model = hybrid_gpt(dev, "bfloat16", HY_W2_LAYERS)
         opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
         staged0 = C.stats["host_staged"]
         zero_counts()
@@ -10044,7 +10071,7 @@ def hybrid_w2_bf16(spec, dev):
         mesh = M.get_mesh()
         stage = mesh.axis_index("pp") if kind != "mp" else 0
         want = {k: n * HY_BF16_STEPS for k, n in hybrid_schedule(
-            kind, HY_LAYERS, stage, 2 if kind != "mp" else 1).items()}
+            kind, HY_W2_LAYERS, stage, 2 if kind != "mp" else 1).items()}
         check({k: counts[k] for k in want} == want,
               f"world 2 {kind} rank {dist.get_rank()}: launches {counts}, "
               f"the schedule gives {want}")
@@ -10054,7 +10081,9 @@ def hybrid_w2_bf16(spec, dev):
               f"{HY_BF16_STEPS} steps")
         out[kind] = {"losses": losses, "seconds_per_step": secs,
                      "launches": counts, "graphed": step.program.graphed,
-                     "host_staged": C.stats["host_staged"] - staged0}
+                     "host_staged": C.stats["host_staged"] - staged0,
+                     "layers": HY_W2_LAYERS,
+                     "param_bytes": step.param_nbytes()}
         del step, model, opt
         gc.collect()
         torch.cuda.empty_cache()
@@ -10062,13 +10091,332 @@ def hybrid_w2_bf16(spec, dev):
     return out
 
 
+def hybrid_digest(tensors):
+    """sha256 of the tensors' bytes, in order: bit-for-bit comparisons
+    across ranks and worlds."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def hybrid_trajectory(step, model, opt, ids, steps):
+    """`steps` calls of a step: its losses and global grad norms, then
+    `sync()` and the digests of the parameters and the moments."""
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(float(step(ids, ids)))
+        norms.append(step.last_grad_norm())
+    step.sync()
+    moments = [t for i in sorted(opt._state)
+               for _, t in sorted(opt._state[i].items())]
+    return {"losses": losses, "grad_norms": norms,
+            "params_sha256": hybrid_digest(
+                p._data for p in model.parameters()),
+            "moments_sha256": hybrid_digest(moments),
+            "moment_tensors": len(moments)}
+
+
+def hybrid_w1_zero(spec, dev):
+    """World 1 (one NCCL rank, graphed): GPT-2 medium bf16 through the
+    plain TrainStep and ShardedTrainStep at ZeRO-1, ZeRO-3 and ZeRO-3
+    with exact_reshard over {'dp': 1}, the same weights and batch: what each holds after construction
+    (`memory_allocated`, the parameter bytes), its moments after the
+    warm-up, the peak the warm-up calls (eager, capture, replay) add,
+    its graph's launches against the schedule, ZeRO-3's units alive at
+    once; then HY_TIMED replays of each, in turns, twice."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = hybrid_ids(dev, HY_B)
+    runs, out, warm = {}, {}, {}
+    hybrid_gpt(dev, "bfloat16", HY_LAYERS)     # the weights, drawn once
+    for kind in ("plain", "zero1", "zero3", "exact3"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = hybrid_gpt(dev, "bfloat16", HY_LAYERS)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        zero_counts()
+        step = hybrid_step(kind, model, opt, {"dp": 1})
+        torch.cuda.synchronize()
+        built = torch.cuda.memory_allocated() - base
+        held = hybrid_memory(model, step, base)
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        check(all(np.isfinite(losses)), f"world 1 {kind}: losses {losses}")
+        (graph,) = step.graphs.values()
+        check(graph is not None, f"world 1 {kind}: no graph captured")
+        want = {f"flash_attention.{k}": n for k, n in
+                hybrid_schedule(kind, HY_LAYERS).items()}
+        got = {k: n for k, n in graph.launches.items()
+               if k.startswith("flash_attention")}
+        check(got == want, f"world 1 {kind}: the graph holds {got}, the "
+                           f"schedule {want}")
+        check(graph.launches.get("optimizer.adam", 0) >= 1,
+              f"world 1 {kind}: no Adam launch in {graph.launches}")
+        torch.cuda.synchronize()
+        warm[kind] = dist_counts()
+        moments = step.shard_nbytes() if kind != "plain" else sum(
+            t.numel() * t.element_size() for st in opt._state.values()
+            for t in st.values())
+        runs[kind] = (step, losses)
+        out[kind] = {"losses_warm": losses,
+                     "held_after_construction": built,
+                     "param_bytes": held["param_bytes"],
+                     "resident_model_bytes": held["resident_model_bytes"],
+                     "moment_bytes": moments,
+                     "peak_added_by_warmup":
+                         torch.cuda.max_memory_allocated() - base - built,
+                     "launches_per_step": dict(graph.launches)}
+        if kind in ("zero3", "exact3"):
+            out[kind]["units"] = len(step._units)
+            out[kind]["peak_units_alive"] = step.z3_peak_units
+            check(step.z3_peak_units <= HY_Z3_UNITS,
+                  f"world 1 {kind}: {step.z3_peak_units} units' gathered "
+                  f"parameters alive at once")
+            check(held["resident_model_bytes"] == 0,
+                  f"world 1 {kind}: the model keeps full weights")
+    for kind in ("zero1", "zero3", "exact3"):
+        rel = abs(runs[kind][1][0] - runs["plain"][1][0]) \
+            / abs(runs["plain"][1][0])
+        check(rel <= 1e-2, f"world 1: {kind}'s first loss "
+                           f"{runs[kind][1][0]} against plain's")
+    out["zero3_losses_equal_zero1"] = runs["zero3"][1] == runs["zero1"][1]
+    # at dp = 1 exact_reshard changes only how whole norms are read
+    # (none here: no clip), so its updates are ZeRO-3's
+    check(runs["exact3"][1] == runs["zero3"][1],
+          f"world 1: exact_reshard's losses {runs['exact3'][1]} against "
+          f"ZeRO-3's {runs['zero3'][1]}")
+    turns = {k: [] for k in runs}
+    for _ in range(2):
+        for kind, (step, _) in runs.items():
+            turns[kind].append(replay_ms(step, (ids, ids), HY_TIMED))
+    for kind, (step, _) in runs.items():
+        ms = min(turns[kind])
+        launches = dist_executed(step, warm[kind])
+        hybrid_counts_check(f"world 1 {kind}", step, launches,
+                            hybrid_schedule(kind, HY_LAYERS))
+        out[kind].update(step_ms=turns[kind],
+                         tokens_per_s=HY_B * HY_S / (ms / 1e3),
+                         launches=launches, graphed=step.program.graphed)
+    del runs
+    _HY_MODELS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_exact(dev, ranks_label):
+    """exact_reshard on the f32 2-layer model, ZeRO-3 over the world's
+    'dp' (eager), HY_EXACT_B sequences: its trajectory
+    (`hybrid_trajectory`, 3 steps, AdamW under a global-norm clip)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.optimizer import AdamW
+    import paddle_tpu_torch.distributed as dist
+    model = hybrid_gpt(dev, "float32", HY_F32_LAYERS)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    step = hybrid_step("zero3", model, opt, {"dp": dist.get_world_size()},
+                       exact_reshard=True, cuda_graph=False)
+    ids = hybrid_ids(dev, HY_EXACT_B, SEED + 64)
+    res = hybrid_trajectory(step, model, opt, ids, 3)
+    check(all(abs(x) < 1e9 for x in res["losses"]),
+          f"{ranks_label} exact: losses {res['losses']}")
+    del step, model
+    gc.collect()
+    return res
+
+
+def hybrid_exact_ref(spec, dev):
+    """World 1: exact_reshard's trajectory over {'dp': 1}, written for
+    world 2 to hold its own against, bit for bit."""
+    import torch
+    res = hybrid_exact(dev, "world 1")
+    with open(spec["hy_exact"], "w") as f:
+        json.dump(res, f)
+    _HY_MODELS.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_head_alone(dev, group, ms_calls=5):
+    """The head and loss alone at a rank's share of the hybrid batch
+    over a vocabulary split on 'mp' = 2: h [8 x 1024, 1024] bf16 against
+    [32768 / 2, 1024] rows of the table (over `group`, an MPGroup of 2
+    ranks or, without a peer, of 1), forward and backward: the fused vocab-parallel head
+    (`vocab_parallel_chunked_lm_loss`) and the dense split head (the
+    rank's [8, 1024, V / size] logits, the parallel cross entropy). Each
+    one's ms (CUDA events over `ms_calls` calls after one) and the peak
+    memory a call adds."""
+    import torch
+    from paddle_tpu_torch.distributed import parallel_layers as tp
+    from paddle_tpu_torch.ops.chunked_ce import \
+        vocab_parallel_chunked_lm_loss
+    gen = torch.Generator().manual_seed(SEED + 65)
+    n, v = HY_B * HY_S, HY_VOCAB // 2
+    h = (torch.randn(n, HY_HIDDEN, generator=gen) * 0.5).to(
+        dev, torch.bfloat16).requires_grad_(True)
+    w = (torch.randn(v, HY_HIDDEN, generator=gen) * 0.02).to(
+        dev, torch.bfloat16).requires_grad_(True)
+    lab = torch.randint(0, HY_VOCAB, (n,), generator=gen).to(dev)
+
+    def fused():
+        vocab_parallel_chunked_lm_loss(h, w, lab, group, -1, 4096).backward()
+
+    def dense():
+        z = tp.copy_to_mp(h, group) @ w.t()
+        tp.parallel_lm_loss_raw(z, lab, group).backward()
+    out = {"shape": {"h": [n, HY_HIDDEN], "w_rows": v, "mp": group.size}}
+    for name, fn in (("fused", fused), ("dense", dense)):
+        fn()
+        torch.cuda.synchronize()
+        h.grad = w.grad = None
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(ms_calls):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out[name] = {"ms": t0.elapsed_time(t1) / ms_calls,
+                     "peak_added": torch.cuda.max_memory_allocated() - base}
+        h.grad = w.grad = None
+    return out
+
+
+def hybrid_fused_w1(spec, dev):
+    """World 1: the fused head at mp = 1 against the dense head, on the
+    f32 2-layer model over 4 x 1024: the loss of
+    `vocab_parallel_chunked_lm_loss` over a one-rank slice within 2e-4
+    relative of the dense head's, every gradient within 1e-4 x max(1,
+    max|g|); then the head alone at a rank's share at mp = 2
+    (`hybrid_head_alone`, here without a peer)."""
+    import torch
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed import parallel_layers as tp
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    from paddle_tpu_torch.ops.chunked_ce import \
+        vocab_parallel_chunked_lm_loss
+    model = hybrid_gpt(dev, "float32", HY_F32_LAYERS).train()
+    ids = hybrid_ids(dev, HY_F32_B, SEED + 62)
+    dense = tgpt.gpt_pretrain_loss(model(ids), ids)
+    dense.backward()
+    want = {k: g.detach().clone() for k, g in leaf_grads(model).items()}
+    for p in model.parameters():
+        p._data.grad = None
+    one = tp.MPGroup(tdist.group.WORLD, 0, 1)
+    h = model.gpt(ids)
+    b, s = ids.shape
+    loss = vocab_parallel_chunked_lm_loss(
+        h.reshape(b * s, -1), model.gpt.embeddings.word_embeddings.weight
+        ._data, tgpt._shifted_labels(ids, b, s), one, -1, 4096)
+    loss.backward()
+    check(abs(float(loss) - float(dense)) <= DIST_LOSS_RTOL
+          * abs(float(dense)), f"world 1 fused head: loss {float(loss)} "
+                               f"against the dense head's {float(dense)}")
+    worst = 0.0
+    for name, g in leaf_grads(model).items():
+        scale = max(1.0, float(want[name].abs().max()))
+        err = float((g - want[name]).abs().max())
+        check(err <= DIST_GRAD_TOL * scale,
+              f"world 1 fused head: {name} gradient error {err}")
+        worst = max(worst, err / scale)
+    del model, h, want
+    _HY_MODELS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "dense_loss": float(dense),
+            "max_grad_err_over_scale": worst,
+            "head_alone_mp2_share": hybrid_head_alone(dev, one)}
+
+
+def hybrid_w2_zero(spec, dev):
+    """World 2 (two gloo ranks sharing the card, eager): ZeRO-3 over
+    {'dp': 2} on the f32 2-layer model, 3 steps, bit for bit ZeRO-1's
+    (losses, grad norms, parameters, moments); exact_reshard over {'dp':
+    2} on HY_EXACT_B sequences, bit for bit world 1's over {'dp': 1};
+    the head alone over {'mp': 2} (`hybrid_head_alone`); then
+    HY_BF16_STEPS bf16 steps of GPT-2 medium at ZeRO-3 over {'dp': 2}:
+    losses falling, the rank's parameter bytes at most HY_Z3_SHARE of
+    the model's, launches against the schedule."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as tp
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {}
+    ids = hybrid_ids(dev, HY_F32_B, SEED + 62)
+    for kind in ("zero1", "zero3"):
+        model = hybrid_gpt(dev, "float32", HY_F32_LAYERS)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        step = hybrid_step(kind, model, opt, {"dp": 2})
+        out[kind] = hybrid_trajectory(step, model, opt, ids, 3)
+        del step, model, opt
+        gc.collect()
+    check(out["zero3"] == out["zero1"],
+          f"world 2: ZeRO-3 {out['zero3']} against ZeRO-1 {out['zero1']}")
+    with open(spec["hy_exact"]) as f:
+        ref = json.load(f)
+    out["exact"] = hybrid_exact(dev, "world 2")
+    check(out["exact"] == ref, f"world 2 exact_reshard: {out['exact']} "
+                               f"against world 1's {ref}")
+    M.make_mesh({"mp": 2})
+    out["head_alone"] = hybrid_head_alone(dev, tp.mp_group())
+    _HY_MODELS.clear()
+    torch.cuda.empty_cache()
+    ids = hybrid_ids(dev, HY_B)
+    model = hybrid_gpt(dev, "bfloat16", HY_LAYERS)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    zero_counts()
+    step = hybrid_step("zero3", model, opt, {"dp": 2})
+    _HY_MODELS.clear()          # the draw cache: not the rank's to hold
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(ids, ids)) for _ in range(HY_BF16_STEPS)]
+    secs = (time.perf_counter() - t0) / HY_BF16_STEPS
+    counts = dist_counts()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"world 2 zero3 bf16: losses {losses}")
+    held = step.param_nbytes()
+    check(held <= HY_Z3_SHARE * spec["hy_model_bytes"],
+          f"world 2 zero3 rank {dist.get_rank()}: {held} parameter bytes "
+          f"against one rank's {spec['hy_model_bytes']}")
+    want = {k: n * HY_BF16_STEPS
+            for k, n in hybrid_schedule("zero3", HY_LAYERS).items()}
+    check({k: counts[k] for k in want} == want,
+          f"world 2 zero3 rank {dist.get_rank()}: launches {counts}, the "
+          f"schedule gives {want}")
+    check(counts["adam"] >= HY_BF16_STEPS,
+          f"world 2 zero3: {counts['adam']} Adam launches")
+    out["bf16"] = {"losses": losses, "seconds_per_step": secs,
+                   "launches": counts, "param_bytes": held,
+                   "moment_bytes": step.shard_nbytes(),
+                   "peak_units_alive": step.z3_peak_units,
+                   "memory_allocated": torch.cuda.memory_allocated()}
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def hybrid_w4(spec, dev):
     """World 4 (NCCL, one card a rank): BASELINE configs[3], GPT-2
-    medium bf16 over {'pp': 2, 'mp': 2}, 1F1B then GPipe, 4
-    microbatches of a global 8 x 1024, as CUDA graphs (3 warm-up calls,
-    then HY_TIMED replays, twice); a capture that fails fails the
-    phase. Step ms, tokens/s a card, the memory a rank holds, launches,
-    a profile; then the f32 2-layer parity against world 1."""
+    medium bf16 over {'pp': 2, 'mp': 2} (1F1B, then GPipe, 4
+    microbatches of a global 8 x 1024; each rank holding its stage's
+    shards alone), and ZeRO-3 over {'dp': 4} and over {'dp': 2, 'mp': 2}
+    with the fused head over the vocab split on 'mp', as CUDA graphs (3
+    warm-up calls, then HY_TIMED replays, twice); a capture that fails
+    fails the phase. Step ms, tokens/s a card, the memory and parameter
+    bytes a rank holds, launches, a profile of the pipelines; then the
+    f32 2-layer parity against world 1."""
     import numpy as np
     import torch
     import paddle_tpu_torch.distributed as dist
@@ -10076,49 +10424,66 @@ def hybrid_w4(spec, dev):
     from paddle_tpu_torch.optimizer import AdamW
     ids = hybrid_ids(dev, HY_B)
     out = {}
-    shape = {"pp": 2, "mp": 2}
+    pp_mp = {"pp": 2, "mp": 2}
     hybrid_gpt(dev, "bfloat16", HY_LAYERS)     # the weights, drawn once
-    for kind in ("1f1b", "gpipe"):
+    for label, kind, shape in (("1f1b", "1f1b", pp_mp),
+                               ("gpipe", "gpipe", pp_mp),
+                               ("zero3_dp4", "zero3", {"dp": 4}),
+                               ("zero3_fused_dp2mp2", "zero3_fused",
+                                {"dp": 2, "mp": 2})):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        model = hybrid_gpt(dev, "bfloat16", HY_LAYERS)
+        model = hybrid_gpt(dev, "bfloat16", HY_LAYERS,
+                           fused=kind.endswith("_fused"))
         opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
         zero_counts()
         step = hybrid_step(kind, model, opt, shape)
         losses = [float(step(ids, ids)) for _ in range(3)]
-        check(all(np.isfinite(losses)), f"world 4 {kind}: losses {losses}")
-        label = f"world 4 {kind} rank {dist.get_rank()}"
-        check(step.program.graphed, f"{label}: not graphed")
-        stage = M.get_mesh().axis_index("pp")
-        want = hybrid_schedule(kind, HY_LAYERS, stage, 2)
+        check(all(np.isfinite(losses)), f"world 4 {label}: losses {losses}")
+        lab = f"world 4 {label} rank {dist.get_rank()}"
+        check(step.program.graphed, f"{lab}: not graphed")
+        stage = M.get_mesh().axis_index("pp") if "pp" in shape else 0
+        want = hybrid_schedule(kind, HY_LAYERS, stage,
+                               2 if "pp" in shape else 1)
         (graph,) = step.graphs.values()
         got = {k.split(".")[1]: n for k, n in graph.launches.items()
                if k.startswith("flash_attention")}
-        check(got == want, f"{label}: the graph holds {got}, the schedule "
+        check(got == want, f"{lab}: the graph holds {got}, the schedule "
                            f"{want}")
         ms = [replay_ms(step, (ids, ids), HY_TIMED) for _ in range(2)]
         launches = dist_executed(step)
-        hybrid_counts_check(label, step, launches, want)
-        out[kind] = {"losses_warm": losses,
-                     "profile": hybrid_profile(step, ids, min(ms)),
-                     "graphed": step.program.graphed, "step_ms": ms,
-                     "tokens_per_s_per_card": HY_B * HY_S
-                     / (min(ms) / 1e3) / dist.get_world_size(),
-                     **hybrid_memory(model, step, base),
-                     "launches": launches,
-                     "launches_per_step_schedule": want}
+        hybrid_counts_check(lab, step, launches, want)
+        out[label] = {"losses_warm": losses,
+                      "graphed": step.program.graphed, "step_ms": ms,
+                      "tokens_per_s_per_card": HY_B * HY_S
+                      / (min(ms) / 1e3) / dist.get_world_size(),
+                      **hybrid_memory(model, step, base),
+                      "launches": launches,
+                      "launches_per_step_schedule": want}
+        if kind in ("1f1b", "gpipe"):
+            out[label]["profile"] = hybrid_profile(step, ids, min(ms))
+        else:
+            out[label]["peak_units_alive"] = step.z3_peak_units
         del step, model, opt
         gc.collect()
         torch.cuda.empty_cache()
     _HY_MODELS.clear()
-    out["f32"] = hybrid_parity(spec, dev, (("1f1b", shape),
-                                           ("gpipe", shape)), "world 4")
+    out["f32"] = hybrid_parity(spec, dev, (("1f1b", pp_mp),
+                                           ("gpipe", pp_mp),
+                                           ("zero3", {"dp": 4}),
+                                           ("zero3_fused",
+                                            {"dp": 2, "mp": 2})),
+                               "world 4")
     return out
 
 
 DIST_JOBS.update({"hybrid_w1": hybrid_w1, "hybrid_f32_ref": hybrid_f32_ref,
+                  "hybrid_w1_zero": hybrid_w1_zero,
+                  "hybrid_exact_ref": hybrid_exact_ref,
+                  "hybrid_fused_w1": hybrid_fused_w1,
                   "hybrid_w2_f32": hybrid_w2_f32,
+                  "hybrid_w2_zero": hybrid_w2_zero,
                   "hybrid_w2_bf16": hybrid_w2_bf16, "hybrid_w4": hybrid_w4})
 
 
@@ -10145,18 +10510,14 @@ def dd_library(fa, sets):
             "shape": list(sets[0][0].shape)}
 
 
-def hybrid_kernels(dev, peaks):
-    """K1, dd, K2 and K3 at the mp-local shape of world 4 ([2, 1024, 8,
-    64] bf16 causal BSHD views of one qkv projection: a microbatch of
-    the global 8 x 1024, 16 heads over mp = 2), held against their plain
-    versions and timed beside bound, plain and SDPA (`flash_at_shape`);
-    and the library's row dot beside dd at this shape and at the long
-    context's ([1, 16384, 12, 64])."""
+def hybrid_kernels_at(fa, peaks, gen, dev, b, heads, label):
+    """K1, dd, K2 and K3 at a [b, 1024, heads, 64] bf16 causal BSHD
+    shape (views of one qkv projection), held against their plain
+    versions (2e-2 x max(1, |ref|)) and timed beside bound, plain and
+    SDPA (`flash_at_shape`, over one input set a layer); dd beside the
+    library's row dot on the same sets (`dd_library`)."""
     import torch
-    from paddle_tpu_torch.ops import flash_attention as fa
-    gen = torch.Generator().manual_seed(SEED + 63)
-    heads = HY_HEADS // 2
-    q, k, v, do = flash_inputs(2, HY_S, HY_S, torch.bfloat16, gen, dev,
+    q, k, v, do = flash_inputs(b, HY_S, HY_S, torch.bfloat16, gen, dev,
                                heads=heads)
     got = flash_run(fa, "cuda", q, k, v, do, True, None, True)
     ref = flash_run(fa, "plain", q, k, v, do, True, None, True)
@@ -10169,38 +10530,59 @@ def hybrid_kernels(dev, peaks):
         err = (g.float() - r).abs()
         check(torch.isfinite(g).all().item() and bool(
             (err <= 2e-2 * torch.clamp(r.abs(), min=1.0)).all()),
-            f"mp-local {key}: max abs err {err.max().item()} over 2e-2")
+            f"{label} {key}: max abs err {err.max().item()} over 2e-2")
         errs[which[key]] = max(errs.get(which[key], 0.0), err.max().item())
-    _, errs["dd"] = dd_held(fa, "mp-local", do, got["out"], True)
-    sets = [flash_inputs(2, HY_S, HY_S, torch.bfloat16, gen, dev,
+    _, errs["dd"] = dd_held(fa, label, do, got["out"], True)
+    sets = [flash_inputs(b, HY_S, HY_S, torch.bfloat16, gen, dev,
                          heads=heads) for _ in range(HY_LAYERS // 2)]
-    timed = flash_at_shape(fa, peaks, sets, True)
+    lib = dd_library(fa, [(d, o.contiguous()) for o, _, _, d in sets])
+    timed = flash_at_shape(fa, peaks, sets, True)      # consumes `sets`
     for kind in ("fwd", "dkv", "dq", "dd"):
         timed[kind]["max_abs_err"] = errs[kind]
+    timed["dd"]["library_ms"] = lib["library_ms"]
+    timed["dd"]["library_what"] = ("torch.linalg.vecdot(dO, O) over "
+                                   "the same sets, by graph replay")
+    return timed, heads
+
+
+def hybrid_kernels(dev, peaks):
+    """K1, dd, K2 and K3 at the mp-local shape of world 4 ([2, 1024, 8,
+    64]: a microbatch of the global 8 x 1024, 16 heads over mp = 2) and
+    at the dp-local shape of ZeRO-3 over {'dp': 4} ([2, 1024, 16, 64]: a
+    rank's quarter of the batch), held against their plain versions and
+    timed beside bound, plain, SDPA and, for dd, the library's row dot
+    (`hybrid_kernels_at`); and the library's row dot beside dd at the
+    long context's shape ([1, 16384, 12, 64])."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(SEED + 63)
+    heads = HY_HEADS // 2
+    timed, _ = hybrid_kernels_at(fa, peaks, gen, dev, 2, heads, "mp-local")
+    timed["dp_local"], _ = hybrid_kernels_at(fa, peaks, gen, dev, 2,
+                                             HY_HEADS, "dp-local")
     dd_sets = []
     for _ in range(4):
         o, _, _, d = flash_inputs(1, LONG_S, LONG_S, torch.bfloat16, gen,
                                   dev)
         dd_sets.append((d, o.contiguous()))
     timed["dd_library_long_ctx"] = dd_library(fa, dd_sets)
-    local = [flash_inputs(2, HY_S, HY_S, torch.bfloat16, gen, dev,
-                          heads=heads) for _ in range(4)]
-    timed["dd_library_mp_local"] = dd_library(
-        fa, [(d, o.contiguous()) for o, _, _, d in local])
-    del dd_sets, local
+    del dd_sets
     torch.cuda.empty_cache()
     return timed
 
 
 def hybrid_phase(dev, smi, peaks, root):
-    """Tensor and pipeline parallelism on ranks over torch.distributed:
-    K1-K3 at the mp-local shape in this process, then world 1 (one NCCL
-    rank, graphed: GPT-2 medium through the plain step, GPipe and 1F1B
-    at pp = 1, and the f32 references), world 2 (two gloo ranks sharing
-    the card, eager: {'pp': 2} GPipe and 1F1B and {'mp': 2}, f32 parity
-    and three bf16 steps at 24 layers) and, with four cards, world 4
-    (NCCL, graphed: {'pp': 2, 'mp': 2}, BASELINE configs[3]). Returns
-    every rank's launches, by world."""
+    """Tensor and pipeline parallelism and ZeRO-3 on ranks over
+    torch.distributed: K1-K3 at the mp-local shape in this process, then
+    world 1 (one NCCL rank, graphed: GPT-2 medium through the plain
+    step, GPipe and 1F1B at pp = 1, and the plain step, ZeRO-1 and
+    ZeRO-3 over {'dp': 1}; the f32 references, exact_reshard's and the
+    fused head's), world 2 (two gloo ranks sharing the card, eager:
+    {'pp': 2} GPipe and 1F1B, {'mp': 2} with the dense and the fused
+    head, ZeRO-1 and ZeRO-3 and exact_reshard over {'dp': 2}, f32 parity
+    and bf16 steps) and, with four cards, world 4 (NCCL, graphed: {'pp':
+    2, 'mp': 2}, BASELINE configs[3], and ZeRO-3 over {'dp': 4} and
+    {'dp': 2, 'mp': 2}). Returns every rank's launches, by world."""
     import shutil
     import torch
     kern = hybrid_kernels(dev, peaks)
@@ -10208,22 +10590,27 @@ def hybrid_phase(dev, smi, peaks, root):
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     grads = os.path.join(base, "hy_f32_grads.pt")
+    exact = os.path.join(base, "hy_exact.json")
     cards = torch.cuda.device_count()
     try:
         w1, w1_s = run_world(root, base, "world1", 1, "nccl",
-                             ("hybrid_w1", "hybrid_f32_ref"), timeout=600,
-                             hy_grads=grads)
+                             ("hybrid_w1", "hybrid_w1_zero",
+                              "hybrid_f32_ref", "hybrid_exact_ref",
+                              "hybrid_fused_w1"), timeout=900,
+                             hy_grads=grads, hy_exact=exact)
         jobs1 = w1[0]["jobs"]
-        shared = dict(hy_grads=grads,
-                      hy_f32_loss=jobs1["hybrid_f32_ref"]["loss"])
+        shared = dict(hy_grads=grads, hy_exact=exact,
+                      hy_f32_loss=jobs1["hybrid_f32_ref"]["loss"],
+                      hy_model_bytes=jobs1["hybrid_w1_zero"]["plain"]
+                      ["param_bytes"])
         w2, w2_s = run_world(root, base, "world2", 2, "gloo",
-                             ("hybrid_w2_f32", "hybrid_w2_bf16"),
-                             timeout=900, **shared)
+                             ("hybrid_w2_f32", "hybrid_w2_zero",
+                              "hybrid_w2_bf16"), timeout=900, **shared)
         w4 = f"not run: {cards} card(s); world 4 needs 4"
         w4_ranks = []
         if cards >= 4:
             w4_ranks, w4_s = run_world(root, base, "world4", 4, "nccl",
-                                       ("hybrid_w4",), timeout=420,
+                                       ("hybrid_w4",), timeout=600,
                                        **shared)
             w4 = {"seconds": w4_s,
                   "ranks": [r["jobs"]["hybrid_w4"] for r in w4_ranks]}
@@ -10231,12 +10618,17 @@ def hybrid_phase(dev, smi, peaks, root):
         shutil.rmtree(base, ignore_errors=True)
     launches = {f"world1_{k}": jobs1["hybrid_w1"][k]["launches"]
                 for k in ("plain", "gpipe", "1f1b")}
+    launches.update({f"world1_{k}_dp1": jobs1["hybrid_w1_zero"][k]
+                     ["launches"] for k in ("plain", "zero1", "zero3",
+                                            "exact3")})
     for r in w2:
         for kind, _ in HY_CONFIGS:
             launches[f"world2_{kind}_rank{r['rank']}"] = \
                 r["jobs"]["hybrid_w2_bf16"][kind]["launches"]
+        launches[f"world2_zero3_rank{r['rank']}"] = \
+            r["jobs"]["hybrid_w2_zero"]["bf16"]["launches"]
     for r in w4_ranks:
-        for kind in ("1f1b", "gpipe"):
+        for kind in ("1f1b", "gpipe", "zero3_dp4", "zero3_fused_dp2mp2"):
             launches[f"world4_{kind}_rank{r['rank']}"] = \
                 r["jobs"]["hybrid_w4"][kind]["launches"]
     emit("hybrid", nvidia_smi=smi, mp_local_kernels=kern, world1=jobs1,
@@ -10449,6 +10841,12 @@ def main():
                          "ms": hybrid["kernels"][kind]["kernel_ms"],
                          **{k: v for k, v in hybrid["kernels"][kind].items()
                             if k != "kernel_ms"}},
+                     "dp_local_shape": {
+                         "shape": hybrid["kernels"]["dp_local"]["q"],
+                         "ms": hybrid["kernels"]["dp_local"][kind]
+                         ["kernel_ms"],
+                         **{k: v for k, v in hybrid["kernels"]["dp_local"]
+                            [kind].items() if k != "kernel_ms"}},
                      "long_ctx_shape": {
                          "shape": long_ctx["shape"]["shape"],
                          **({"dd_library": hybrid["kernels"]

@@ -8,15 +8,16 @@ joins a job from the launcher's environment (`launch`, `spawn`); `mesh`
 names the axes of a grid of ranks, with one process group per axis
 slice; `collective` holds the Paddle collectives over those groups;
 `DataParallel` (`parallel`) and `ShardedTrainStep` (`sharded`: dp, sp,
-mp and ZeRO-1) train over them; `parallel_layers` holds the Megatron
-layers and their conjugate collectives over the 'mp' slice;
-`PipelineTrainStep` (`pipeline`, GPipe) and `OneF1BTrainStep`
-(`pipeline_1f1b`) run one stage a process over 'pp', composed with 'dp'
-and 'mp'; `ring_attention` and `ulysses` are the two sequence-parallel
-attentions on the flash kernels; `fleet` is the strategy front door;
-`gloo` holds the host-side stores and collectives. ZeRO-3 and
-`exact_reshard` are ROADMAP Queue 1 item 5b(ii); the parameter server
-and cross-card BatchNorm item 5c.
+mp, ZeRO-1 and ZeRO-3, `exact_reshard`) train over them;
+`parallel_layers` holds the Megatron layers, their conjugate
+collectives over the 'mp' slice and the release of the weights a rank
+holds only a part of; `PipelineTrainStep` (`pipeline`, GPipe) and
+`OneF1BTrainStep` (`pipeline_1f1b`) run one stage a process over 'pp',
+composed with 'dp' and 'mp', each rank holding its stage alone;
+`ring_attention` and `ulysses` are the two sequence-parallel attentions
+on the flash kernels; `fleet` is the strategy front door; `gloo` holds
+the host-side stores and collectives. The parameter server and
+cross-card BatchNorm are ROADMAP Queue 1 item 5c.
 """
 from .env import (init_parallel_env, get_rank, get_world_size, ParallelEnv,
                   is_initialized)

@@ -331,7 +331,12 @@ def build_train_step(model, loss_fn, optimizer, **kwargs):
     over a mesh of more than one rank, else a `jit.TrainStep`, the last
     two reading amp, recompute, sharding, gradient_merge and
     fp16_allreduce. A DGC or LocalSGD transform raises (over more than
-    one rank)."""
+    one rank).
+
+    One departure from the JAX package: on a mesh of one rank, sharding
+    with `exact_reshard` still builds a `ShardedTrainStep` (the JAX one
+    builds a TrainStep), so a checkpoint an exact_reshard run wrote over
+    more ranks resumes on one under the same contract, bit for bit."""
     from ...jit import TrainStep, transforms as tfm
     from ..parallel import DataParallel
     if isinstance(model, DataParallel):
@@ -352,7 +357,8 @@ def build_train_step(model, loss_fn, optimizer, **kwargs):
         _not_ported("DGC (DGCTrainStep)", "5c")
     if tf.get("localsgd") is not None and ndev > 1:
         _not_ported("LocalSGD (LocalSGDTrainStep)", "5c")
-    if ndev > 1:
+    exact = (tf.get("sharding") or {}).get("exact_reshard")
+    if ndev > 1 or (mesh is not None and exact):
         from ..sharded import ShardedTrainStep
         return ShardedTrainStep(model, loss_fn, optimizer,
                                 return_outputs=ro, **kwargs)

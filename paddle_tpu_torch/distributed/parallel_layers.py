@@ -18,13 +18,19 @@ process group (the conjugate pairs of Megatron-LM, arXiv 1909.08053):
   scatter_to_mp    the rank's slice of the last dim forward, all-gather
                    backward                                 (c_split)
 
-The model keeps the full logical weights (its Layer tree is the JAX
-layout, and `save` writes it); a train step over a mesh with 'mp' > 1
-holds the rank's shards (`LocalShards`) and runs the model with them
-swapped in and an mp scope installed (`mp_scope`), the counterpart of the
-JAX package's bound axis: inside it the layers below, GPT's and LLaMA's
-attention, MLP, vocab-parallel embedding and head compute on the shards.
-Outside one they compute on the full weights, as a single rank would.
+The model's Layer tree is the JAX layout (`save` writes it). A train
+step over a mesh with 'mp' > 1 holds the rank's shards (`LocalShards`)
+and runs the model with them swapped in and an mp scope installed
+(`mp_scope`), the counterpart of the JAX package's bound axis: inside it
+the layers below, GPT's and LLaMA's attention, MLP, vocab-parallel
+embedding and head compute on the shards. The full weight of a split
+parameter is released once its shard exists (`release`: the torch leaf
+keeps its identity, dtype and device, its data an empty tensor), as the
+JAX step's placement puts only a device's shard on the device; the
+step's `sync()` gathers it back (`LocalShards.gather`, collective), and
+outside a scope the model then computes on the full weights, as a single
+rank would. A model holding a released weight refuses `state_dict()`
+(so `save`), naming `sync()`.
 
 A parameter is split when its `sharding` hint names 'mp' on a dim and it
 carries the split's layout (`shard_hint`): the dim is cut into sections
@@ -194,12 +200,53 @@ def gather_tensor(local, param, group):
                       for r in range(group.size)], dim=d)
 
 
+# ------------------------------------------------ residency
+
+def release(leaf):
+    """Free the data of torch leaf `leaf` (a weight this rank keeps only
+    a part of): it becomes an empty tensor of the leaf's dtype and
+    device, the leaf object and its full shape (`full_shape`) kept, so
+    optimizers, wrappers and hooks that hold the leaf still do. Reading
+    it fails on its shape; `restore` gives it its data back. Idempotent."""
+    if getattr(leaf, "_full_shape", None) is None:
+        leaf._full_shape = tuple(leaf.shape)
+        leaf.data = leaf.data.new_empty(0)
+
+
+def is_released(leaf):
+    return getattr(leaf, "_full_shape", None) is not None
+
+
+def full_shape(leaf):
+    """A leaf's logical shape, released or not."""
+    s = getattr(leaf, "_full_shape", None)
+    return tuple(leaf.shape) if s is None else s
+
+
+@torch.no_grad()
+def restore(leaf, full):
+    """`full` (the whole logical tensor) into `leaf`, in place; a released
+    leaf gets new storage first."""
+    if is_released(leaf):
+        leaf.data = torch.empty(leaf._full_shape, dtype=leaf.dtype,
+                                device=leaf.device)
+        leaf._full_shape = None
+    leaf.copy_(full)
+
+
+def resident_nbytes(leaves):
+    """Bytes of the data the torch tensors `leaves` hold (a released
+    leaf holds none; a view counts its own elements)."""
+    return int(sum(t.numel() * t.element_size() for t in leaves))
+
+
 class LocalShards:
     """The rank's shards of a model's split parameters over `group`: one
-    new torch leaf each, drawn from the model's full weight (which stays
-    as it is). `names` restricts them to some parameters (a pipeline
-    stage's). `scope()` runs the model on them; `gather()` writes every
-    shard's full logical tensor back into the model (collective)."""
+    new torch leaf each, drawn from the model's full weight, which is
+    then released (`release`). `names` restricts them to some parameters
+    (a pipeline stage's). `scope()` runs the model on them; `gather()`
+    writes every shard's full logical tensor back into the model
+    (collective); `release()` frees those full weights again."""
 
     def __init__(self, model, group, names=None):
         self.model = model
@@ -220,6 +267,7 @@ class LocalShards:
                     setattr(leaf, attr, getattr(full, attr))
             self.local[n] = leaf
         self._by_full = {id(self.named[n]._data): n for n in self.local}
+        self.release()
 
     def working(self, leaf):
         """The leaf the rank trains for the model's torch leaf `leaf`:
@@ -242,10 +290,20 @@ class LocalShards:
             yield
 
     @torch.no_grad()
-    def gather(self):
+    def gather(self, shards=None):
+        """Every shard's full logical tensor into the model's weight
+        (collective over the slice). `shards`: name -> the rank's shard
+        to gather instead of the leaf's data (ZeRO-3's, whose leaves are
+        released too)."""
         for n, leaf in self.local.items():
             w = self.named[n]
-            w._data.copy_(gather_tensor(leaf.detach(), w, self.group))
+            part = leaf.detach() if shards is None else shards[n]
+            restore(w._data, gather_tensor(part, w, self.group))
+
+    def release(self):
+        """Free the model's full weight of every split parameter."""
+        for n in self.local:
+            release(self.named[n]._data)
 
 
 # ------------------------------------------------ the conjugate pairs

@@ -23,6 +23,14 @@ losses (each the rank's share of the global microbatch's, as
 `sharded.loss_scope` gives it), as the JAX step's; the last stage
 broadcasts it over the slice, so every rank returns it.
 
+Residency: a stage's rank keeps only what it trains. The step releases
+(`parallel_layers.release`) the weights of every other stage's blocks,
+of `pre` off the first stage (the last keeps the tied ones its head
+reads) and of `post` off the last, and over 'mp' the full weight of
+each split parameter it holds a shard of. `sync()` gathers the whole
+model back onto every rank (so `save` writes the JAX layout), and the
+next call releases it again.
+
 Composition: over 'dp' the global batch is cut as the JAX step cuts it
 (microbatch m, then the rank's rows of it) and after the last backward
 each stage's gradients are summed over the 'dp' slice (one flat bucket
@@ -402,6 +410,11 @@ class PipelineTrainStep(TrainStep):
             if self._mp is not None else None
         named = dict(model.named_parameters())
         self._named = named
+        # every other stage's parameters leave this rank
+        own = set(self._own)
+        self._away = [n for n, w in named.items()
+                      if n not in own and w._data.requires_grad]
+        self._release()
         work = []
         for n in self._own:
             leaf = named[n]._data
@@ -494,6 +507,22 @@ class PipelineTrainStep(TrainStep):
                 mine[slot].copy_(t)
         opt._global_step = base._global_step
 
+    def _release(self):
+        """Free the weights this rank does not train (again after a
+        `sync()`)."""
+        for n in self._away:
+            tp.release(self._named[n]._data)
+        if self._shards_mp is not None:
+            self._shards_mp.release()
+
+    def param_nbytes(self):
+        """Bytes of parameter data this rank holds: the model's resident
+        weights and its mp shards."""
+        leaves = [p._data for p in self._named.values()]
+        if self._shards_mp is not None:
+            leaves += list(self._shards_mp.local.values())
+        return tp.resident_nbytes(leaves)
+
     # ------------------------------------------------------------- step
     def __call__(self, inputs, labels):
         inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
@@ -503,6 +532,7 @@ class PipelineTrainStep(TrainStep):
         if len(inputs) != 1 or len(labels) != 1:
             raise ValueError("a pipeline step takes one input tensor and "
                              "one label tensor")
+        self._release()
         loss = super().__call__(inputs, labels)
         self.optimizer._global_step = self._stepper._global_step
         return Tensor._wrap(unwrap(loss))
@@ -535,7 +565,7 @@ class PipelineTrainStep(TrainStep):
                 pre = self.parts.pre
                 was = pre.training
                 pre.eval()
-                with torch.no_grad():
+                with torch.no_grad(), self._scope():
                     a = unwrap(pre(Tensor._wrap(ids[0])))
                 pre.train(was)
                 meta[0], meta[1] = a.dim(), _DTYPES.index(a.dtype)
@@ -704,7 +734,8 @@ class PipelineTrainStep(TrainStep):
                     t = tp.gather_tensor(t, w, self._mp)
                 t = t.contiguous()
             else:
-                t = torch.empty_like(w._data)
+                t = torch.empty(tp.full_shape(w._data), dtype=w._data.dtype,
+                                device=w._data.device)
             collective.broadcast_(t, owner, self._pp)
             out[n] = t
         return out
@@ -713,12 +744,14 @@ class PipelineTrainStep(TrainStep):
     def sync(self):
         """Rebuild the whole model on every rank: each block's parameters
         from the stage that owns it (`pre`'s from the first, `post`'s
-        from the last), gathered over 'mp' first; the step count into the
-        optimizer (collective: every rank calls it). The moments stay in
-        the step, as the JAX step keeps them."""
+        from the last), gathered over 'mp' first, into the model's
+        weights (a released one gets its storage back until the next
+        call); the step count into the optimizer (collective: every rank
+        calls it). The moments stay in the step, as the JAX step keeps
+        them."""
         full = self._broadcast_model(lambda n, leaf: leaf.detach())
         for n, t in full.items():
-            self._named[n]._data.copy_(t)
+            tp.restore(self._named[n]._data, t)
         self.optimizer._global_step = self._stepper._global_step
 
     def last_grads(self):

@@ -34,9 +34,11 @@ its heads: QKV column-parallel, cut by heads in each of q, k and v; the
 attention output row-parallel; MLP in column-, out row-parallel; the
 word embedding vocab-parallel; the tied head gives the rank's vocab
 shard of the logits, which `gpt_pretrain_loss` takes through the
-parallel cross entropy (the [B, S, V] logits are never gathered). The
-fused head over a split vocabulary raises (ROADMAP Queue 1 item
-5b(ii)). A pipeline stage runs the blocks (`distributed.pipeline`).
+parallel cross entropy (the [B, S, V] logits are never gathered); the
+fused head over the split vocabulary streams the rank's rows of the
+table (`ops.chunked_ce.vocab_parallel_chunked_lm_loss`), so not even
+the logits' V / mp shard exists. A pipeline stage runs the blocks
+(`distributed.pipeline`).
 
 Serving runs on the layers' torch leaves (torch tensors in and out, no
 dispatcher): dense, `init_cache` ([B, heads, L, head_dim] x2),
@@ -86,7 +88,8 @@ from ..nn.paged_attention import (paged_chunk_attention,
 from ..nn.transformer import (cached_decode_attention, infer_cache_dtype,
                               scatter_block_kv_at,
                               scatter_block_kv_chunk_batched, scatter_kv_at)
-from ..ops.chunked_ce import chunked_lm_loss
+from ..ops.chunked_ce import (chunked_lm_loss,
+                              vocab_parallel_chunked_lm_loss)
 from ..ops.dispatch import apply
 from ..ops.flash_attention import flash_attention, kernel_len
 from ..ops.math import matmul
@@ -738,18 +741,16 @@ def tied_head(cfg, h, w):
     """The logits h @ w.T of the tied head (a Tensor): a
     `FusedHeadLogits` when the config asks for the fused head. Inside an
     mp scope with the table split by vocabulary, the rank's vocab shard
-    of the logits, tagged for the parallel cross entropy (the fused head
-    is not split yet: ROADMAP Queue 1 item 5b(ii))."""
+    of the logits, tagged for the parallel cross entropy; or, fused, a
+    `FusedHeadLogits` over the rank's rows of the table and the slice,
+    which `gpt_pretrain_loss` takes through the vocab-parallel chunked
+    loss."""
     mp = tp.current_mp()
     split = tp.is_split(w, mp)
     vocab = w.shape[0] * (mp.size if split else 1)
     if _use_fused_head(cfg, (*h.shape[:-1], vocab)):
-        if split:
-            raise NotImplementedError(
-                "the fused vocab-chunked head over a vocab split on 'mp' "
-                "is not ported yet (ROADMAP Queue 1 item 5b(ii)): set "
-                "fused_head_loss=False")
-        return Tensor._wrap(FusedHeadLogits(h._data, w._data))
+        return Tensor._wrap(FusedHeadLogits(h._data, w._data,
+                                            mp if split else None))
     if not split:
         return matmul(h, w, transpose_y=True)
     return tp.mark_vocab_parallel(
@@ -773,7 +774,10 @@ class FusedHeadLogits(torch.Tensor):
     dense product once (with autograd, so its gradient reaches the
     hidden states and the tied weight) and works on that. `weight` is
     the tensor the forward read, so a `functional_call`'s weight stays
-    the one the product and the loss use after the call returns."""
+    the one the product and the loss use after the call returns. With
+    `group` (an 'mp' slice whose ranks each hold rows of the table),
+    the logits are the rank's vocab shard [B, S, V / mp], and the dense
+    product is the tied head's vocab-parallel one."""
 
     _METADATA = {torch.Tensor.shape.__get__, torch.Tensor.dtype.__get__,
                  torch.Tensor.device.__get__, torch.Tensor.ndim.__get__,
@@ -781,17 +785,22 @@ class FusedHeadLogits(torch.Tensor):
                  torch.Tensor.dim}
 
     @staticmethod
-    def __new__(cls, hidden, weight):
+    def __new__(cls, hidden, weight, group=None):
         t = torch.Tensor._make_wrapper_subclass(
             cls, (*hidden.shape[:-1], weight.shape[0]), dtype=hidden.dtype,
             device=hidden.device, requires_grad=False)
-        t.hidden, t.weight, t._dense = hidden, weight, None
+        t.hidden, t.weight, t.group, t._dense = hidden, weight, group, None
         return t
 
     def dense(self):
         """The dense logits, computed at the first call."""
         if self._dense is None:
-            self._dense = self.hidden @ self.weight.t()
+            if self.group is None:
+                self._dense = self.hidden @ self.weight.t()
+            else:
+                self._dense = tp.mark_vocab_parallel(
+                    tp.copy_to_mp(self.hidden, self.group)
+                    @ self.weight.t(), self.group)
         return self._dense
 
     @classmethod
@@ -823,14 +832,18 @@ def _shifted_labels(labels, b, s):
                      dim=1).reshape(b * s)
 
 
-def _fused_lm_loss_raw(h, w, shifted):
+def _fused_lm_loss_raw(h, w, shifted, group=None):
     """The vocab-chunked fused head + loss over the flattened hidden
-    states and the tied weight, against the shifted labels, in chunks of
-    min(4096, V rounded up to 128) vocab rows, as the JAX package does."""
+    states and the tied weight (with `group`, an 'mp' slice: the rank's
+    rows of it, `vocab_parallel_chunked_lm_loss`), against the shifted
+    labels, in chunks of min(4096, the rows rounded up to 128), as the
+    JAX package does."""
     v = w.shape[0]
     chunk = min(4096, (v + 127) // 128 * 128)
-    return chunked_lm_loss(h.reshape(-1, h.shape[-1]), w, shifted, -1,
-                           chunk)
+    h = h.reshape(-1, h.shape[-1])
+    if group is None:
+        return chunked_lm_loss(h, w, shifted, -1, chunk)
+    return vocab_parallel_chunked_lm_loss(h, w, shifted, group, -1, chunk)
 
 
 def _lm_loss_raw(logits, shifted):
@@ -870,7 +883,7 @@ def gpt_pretrain_loss(logits, labels):
     vocab_mp = tp.vocab_parallel_of(arr)
     if isinstance(arr, FusedHeadLogits):
         loss = apply(_fused_lm_loss_raw, (arr.hidden, arr.weight, shifted),
-                     name="chunked_lm_loss")
+                     {"group": arr.group}, name="chunked_lm_loss")
     elif vocab_mp is not None:
         # the rank's vocab shard of the logits: ParallelCrossEntropy's
         # arithmetic, the [B, S, V] logits never gathered

@@ -337,12 +337,20 @@ class Layer(torch.nn.Module):
     def state_dict(self, destination=None, include_sublayers=True,
                    structured_name_prefix=""):
         """name -> the Parameters, then the persistable buffers (the JAX
-        package's keys and order)."""
+        package's keys and order). Raises for a parameter whose full
+        weight a sharded or pipelined step released on this rank (it
+        holds only its part): the step's `sync()` gathers it back."""
         dest = destination if destination is not None else \
             collections.OrderedDict()
         prefix = structured_name_prefix.rstrip(".")
         for n, p in self.named_parameters(
                 prefix=prefix, include_sublayers=include_sublayers):
+            # distributed.parallel_layers.release marks the leaf
+            if getattr(p._data, "_full_shape", None) is not None:
+                raise RuntimeError(
+                    f"state_dict: parameter {n!r} holds only this rank's "
+                    f"part (a sharded or pipelined train step released its "
+                    f"full weight): call the step's sync() first")
             dest[n] = p
         if include_sublayers:
             bufs = self._persistent_buffers(prefix)

@@ -42,10 +42,21 @@ few [N, C] f32 chunk buffers (268 MB each at N = 16384 and C = 4096).
 Nothing is read back to the host (the denominator stays a device
 tensor), so a CUDA graph captures the loss with its forward and
 backward.
+
+Over a vocabulary split on 'mp' (`vocab_parallel_chunked_lm_loss`: the
+JAX package computes `chunked_lm_loss` on the tied table carrying its
+Megatron vocab hint and GSPMD partitions it), each rank streams the
+rows of its own vocab shard. Its running max is all-reduced (MAX over
+the slice), then its sum of exponentials, rescaled to that max, and its
+label logits (a label's logit is taken on the rank whose rows hold it,
+zero elsewhere) in one SUM. The backward writes (softmax - onehot) x
+scale for the rank's own columns and all-reduces dh over the slice: the
+conjugate of `copy_to_mp`, so h comes in replicated. Neither the [N, V]
+logits nor their V / mp shard ever exists.
 """
 import torch
 
-__all__ = ["chunked_lm_loss"]
+__all__ = ["chunked_lm_loss", "vocab_parallel_chunked_lm_loss"]
 
 
 def _product(a, b):
@@ -63,22 +74,8 @@ class _ChunkedLMLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, labels, ignore_index, chunk):
-        n = h.shape[0]
         labels = labels.long()
-        m = torch.full((n,), float("-inf"), dtype=torch.float32,
-                       device=h.device)
-        s = torch.zeros(n, dtype=torch.float32, device=h.device)
-        lab_logit = torch.zeros(n, dtype=torch.float32, device=h.device)
-        for lo, hi in _chunks(w.shape[0], chunk):
-            logits = _product(h, w[lo:hi].t())              # [N, C] f32
-            loc = labels - lo
-            in_c = (loc >= 0) & (loc < hi - lo)
-            got = logits.gather(1, loc.clamp(0, hi - lo - 1)[:, None])[:, 0]
-            lab_logit = torch.where(in_c, got, lab_logit)
-            m_new = torch.maximum(m, logits.amax(dim=1))
-            s = s * torch.exp(m - m_new) + \
-                logits.sub_(m_new[:, None]).exp_().sum(dim=1)
-            m = m_new
+        m, s, lab_logit, _ = _local_pass(h, w, labels, chunk, 0)
         lse = m + torch.log(torch.clamp(s, min=1e-30))
         valid = labels != ignore_index
         per = torch.where(valid, lse - lab_logit, 0.0)
@@ -92,25 +89,110 @@ class _ChunkedLMLoss(torch.autograd.Function):
         h, w, labels, lse, denom = ctx.saved_tensors
         valid = labels != ctx.ignore_index
         scale = (g / denom) * valid.to(torch.float32)           # [N]
-        dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
-        dw = torch.empty_like(w)
-        for lo, hi in _chunks(w.shape[0], ctx.chunk):
-            wc = w[lo:hi]
-            dl = _product(h, wc.t()).sub_(lse[:, None]).exp_()  # softmax
-            # (p - onehot) * scale: p * scale everywhere, and (p - 1) *
-            # scale written over the label's column of the rows whose
-            # label lies in this chunk
-            loc = labels - lo
-            in_c = (loc >= 0) & (loc < hi - lo)
-            col = loc.clamp(0, hi - lo - 1)[:, None]
-            at = dl.gather(1, col)
-            dl.mul_(scale[:, None])
-            dl.scatter_(1, col, torch.where(in_c[:, None], at - 1.0, at)
-                        * scale[:, None])
-            dl = dl.to(h.dtype)
-            dh += _product(dl, wc)
-            dw[lo:hi] = _product(dl.t(), h)
+        dh, dw = _local_grads(h, w, labels, lse, scale, ctx.chunk, 0)
         return dh.to(h.dtype), dw, None, None, None
+
+
+def _local_pass(h, w, labels, chunk, start):
+    """The chunked pass over vocab rows [start, start + V) held in `w`:
+    (running max, sum of exp relative to it, each label's logit where
+    the label lies in these rows (0 elsewhere), whether it does)."""
+    n = h.shape[0]
+    m = torch.full((n,), float("-inf"), dtype=torch.float32,
+                   device=h.device)
+    s = torch.zeros(n, dtype=torch.float32, device=h.device)
+    lab_logit = torch.zeros(n, dtype=torch.float32, device=h.device)
+    for lo, hi in _chunks(w.shape[0], chunk):
+        logits = _product(h, w[lo:hi].t())                  # [N, C] f32
+        loc = labels - (start + lo)
+        in_c = (loc >= 0) & (loc < hi - lo)
+        got = logits.gather(1, loc.clamp(0, hi - lo - 1)[:, None])[:, 0]
+        lab_logit = torch.where(in_c, got, lab_logit)
+        m_new = torch.maximum(m, logits.amax(dim=1))
+        s = s * torch.exp(m - m_new) + \
+            logits.sub_(m_new[:, None]).exp_().sum(dim=1)
+        m = m_new
+    loc = labels - start
+    return m, s, lab_logit, (loc >= 0) & (loc < w.shape[0])
+
+
+def _local_grads(h, w, labels, lse, scale, chunk, start):
+    """dh (f32, this shard's part) and dw of the shard's rows: (softmax -
+    onehot) x scale over its columns."""
+    dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    dw = torch.empty_like(w)
+    for lo, hi in _chunks(w.shape[0], chunk):
+        wc = w[lo:hi]
+        dl = _product(h, wc.t()).sub_(lse[:, None]).exp_()      # softmax
+        loc = labels - (start + lo)
+        in_c = (loc >= 0) & (loc < hi - lo)
+        col = loc.clamp(0, hi - lo - 1)[:, None]
+        at = dl.gather(1, col)
+        dl.mul_(scale[:, None])
+        dl.scatter_(1, col, torch.where(in_c[:, None], at - 1.0, at)
+                    * scale[:, None])
+        dl = dl.to(h.dtype)
+        dh += _product(dl, wc)
+        dw[lo:hi] = _product(dl.t(), h)
+    return dh, dw
+
+
+class _VocabParallelChunkedLMLoss(torch.autograd.Function):
+    """`_ChunkedLMLoss` over the rank's vocab shard `w` (rows [rank V_l,
+    (rank + 1) V_l) of the table) of an 'mp' slice (`group`, an
+    `MPGroup`)."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, ignore_index, chunk, group):
+        from ..distributed.collective import ReduceOp, all_reduce_
+        labels = labels.long()
+        start = group.rank * w.shape[0]
+        m, s, lab_logit, mine = _local_pass(h, w, labels, chunk, start)
+        big = m.clone()
+        all_reduce_(big, ReduceOp.MAX, group.pg)
+        both = torch.stack([s * torch.exp(m - big),
+                            torch.where(mine, lab_logit, 0.0)])
+        all_reduce_(both, ReduceOp.SUM, group.pg)
+        lse = big + torch.log(torch.clamp(both[0], min=1e-30))
+        valid = labels != ignore_index
+        per = torch.where(valid, lse - both[1], 0.0)
+        denom = torch.clamp(valid.sum().to(torch.float32), min=1.0)
+        ctx.save_for_backward(h, w, labels, lse, denom)
+        ctx.ignore_index, ctx.chunk, ctx.group = ignore_index, chunk, group
+        return per.sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed.collective import ReduceOp, all_reduce_
+        h, w, labels, lse, denom = ctx.saved_tensors
+        group = ctx.group
+        valid = labels != ctx.ignore_index
+        scale = (g / denom) * valid.to(torch.float32)
+        dh, dw = _local_grads(h, w, labels, lse, scale, ctx.chunk,
+                              group.rank * w.shape[0])
+        all_reduce_(dh, ReduceOp.SUM, group.pg)
+        return dh.to(h.dtype), dw, None, None, None, None
+
+
+def vocab_parallel_chunked_lm_loss(h, w, labels, group, ignore_index=-1,
+                                   chunk=4096):
+    """`chunked_lm_loss` over a vocabulary split on 'mp': `w` [V / mp, H]
+    is this rank's rows of the table (rank r holds rows [r V / mp, (r +
+    1) V / mp)), `labels` index the whole vocabulary, `h` is the same on
+    every rank of `group` (an `MPGroup`). Returns the mean cross entropy
+    over the whole vocabulary on every rank; dh is summed over the slice
+    in the backward."""
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError(f"vocab_parallel_chunked_lm_loss: h "
+                         f"{tuple(h.shape)} and w {tuple(w.shape)} need to "
+                         f"be [N, H] and [V / mp, H]")
+    if labels.shape != (h.shape[0],):
+        raise ValueError(f"vocab_parallel_chunked_lm_loss: labels "
+                         f"{tuple(labels.shape)} need to be [{h.shape[0]}]")
+    if chunk < 1:
+        raise ValueError(f"vocab_parallel_chunked_lm_loss: chunk {chunk} < 1")
+    return _VocabParallelChunkedLMLoss.apply(h, w, labels, int(ignore_index),
+                                             int(chunk), group)
 
 
 def chunked_lm_loss(h, w, labels, ignore_index=-1, chunk=4096):

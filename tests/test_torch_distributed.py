@@ -13,7 +13,13 @@ after sync() within rtol 1e-5, as tests/test_distributed.py:86-105; a
 tiny GPT and a tiny BERT, AdamW at ZeRO-1, 3 steps: losses within rtol
 2e-4, as tests/test_distributed.py:261); `hapi.Model` fitting,
 saving and resuming a ZeRO-1 run with an lr change, against the JAX
-Model; the refusals naming ROADMAP item 5b(ii), 'mp' and 'pp' meshes
+Model; ZeRO-3 on tests/test_zero3.py's MLP and the tiny GPT against the
+JAX ZeRO-3 step (rtol 2e-4, atol 2e-5, that test's own) and bit for bit
+against the port's ZeRO-1, each rank holding its chunks alone;
+exact_reshard on a 3-sequence batch bit for bit at dp=1 and dp=2, both
+against the JAX exact_reshard step and the port's plain TrainStep, and
+a hapi run saved at dp=2 resumed at dp=1 bit for bit, a resume without
+the strategy warning; ZeRO-3, exact_reshard, 'mp' and 'pp' meshes
 accepted. In this process: the
 launcher's cluster model and per-rank environment against the JAX
 ones, `spawn`, and `init_parallel_env` refusing NCCL without a card.
@@ -56,6 +62,25 @@ BERT_IDS = RNG.randint(0, 1000, (4, 128)).astype("int32")
 BERT_MLM = np.where(RNG.rand(4, 128) < 0.15,
                     RNG.randint(0, 1000, (4, 128)), -100).astype("int32")
 BERT_NSP = RNG.randint(0, 2, (4,)).astype("int32")
+# tests/test_zero3.py's batch (`_batch(seed=2)`)
+_Z3 = np.random.RandomState(2)
+Z3_X = _Z3.randn(32, 64).astype("f4")
+Z3_Y = _Z3.randint(0, 8, 32).astype("int64")
+
+
+class _ZeroMLP(pj.nn.Layer):
+    """tests/test_zero3.py's MLP."""
+
+    def __init__(self, d=64, h=128):
+        super().__init__()
+        self.fc1 = pj.nn.Linear(d, h)
+        self.fc2 = pj.nn.Linear(h, h)
+        self.fc3 = pj.nn.Linear(h, 8)
+
+    def forward(self, x):
+        x = pj.nn.functional.relu(self.fc1(x))
+        x = pj.nn.functional.relu(self.fc2(x))
+        return self.fc3(x)
 
 
 @pytest.fixture(autouse=True)
@@ -71,34 +96,38 @@ def jax_models():
     lin = pj.nn.Linear(8, 4)
     gm = jgpt.GPTForPretraining(jgpt.GPTConfig(**GPT_CFG))
     bm = jbert.BertForPretraining(jbert.BertConfig(**BERT_CFG))
-    return lin, gm, bm
+    pj.seed(0)
+    return lin, gm, bm, _ZeroMLP()
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory, jax_models):
-    lin, gm, bm = jax_models
+    lin, gm, bm, mlp = jax_models
     inputs = {"coll_base": COLL_BASE, "coll_rows": COLL_ROWS,
               "dp_x": DP_X, "dp_y": DP_Y, "lin_x": LIN_X, "lin_y": LIN_Y,
               "lin_w": lin.weight.numpy(), "lin_b": lin.bias.numpy(),
               "gpt_cfg": np.array(json.dumps(GPT_CFG)), "gpt_ids": GPT_IDS,
               "bert_cfg": np.array(json.dumps(BERT_CFG)),
               "bert_ids": BERT_IDS, "bert_mlm": BERT_MLM,
-              "bert_nsp": BERT_NSP}
+              "bert_nsp": BERT_NSP, "z3_x": Z3_X, "z3_y": Z3_Y}
     inputs.update({f"gpt:{k}": np.asarray(v.numpy(), "f4")
                    for k, v in gm.state_dict().items()})
     inputs.update({f"bert:{k}": np.asarray(v.numpy(), "f4")
                    for k, v in bm.state_dict().items()})
+    inputs.update({f"z3m:{k}": np.asarray(v.numpy(), "f4")
+                   for k, v in mlp.state_dict().items()})
     tmp = tmp_path_factory.mktemp("dist")
     inputs["ckpt_dir"] = np.array(str(tmp / "ckpt"))
     return ranks.World(tmp, N, ("sharded_linear", "hapi_zero1",
-                                "sharded_models", "collectives",
-                                "data_parallel", "refusals"), inputs)
+                                "sharded_models", "zero3", "exact",
+                                "collectives", "data_parallel", "refusals"),
+                       inputs)
 
 
 # the rank world runs while the first tests compute the JAX side: the
 # slowest of them comes first
 def test_sharded_gpt_and_bert_match_jax(world, jax_models):
-    _, gm, bm = jax_models
+    _, gm, bm, _ = jax_models
     make_mesh({"dp": N})
     step = JSharded(gm, jgpt.gpt_pretrain_loss, pj.optimizer.AdamW(
         learning_rate=1e-3, parameters=gm.parameters()), zero_stage=1)
@@ -114,7 +143,7 @@ def test_sharded_gpt_and_bert_match_jax(world, jax_models):
 
 @pytest.mark.parametrize("case,zero", ranks.LINEAR_CASES)
 def test_sharded_linear_matches_jax(world, jax_models, case, zero):
-    lin, _, _ = jax_models
+    lin, _, _, _ = jax_models
     net = pj.nn.Linear(8, 4)
     net.set_state_dict({k: v.numpy() for k, v in lin.state_dict().items()})
     merge = case == "adamw_merge"
@@ -125,7 +154,7 @@ def test_sharded_linear_matches_jax(world, jax_models, case, zero):
     # over 'dp'; its ZeRO-0 step makes the same update (sigma 0)
     step = JSharded(net, pj.nn.functional.mse_loss,
                     jfleet.distributed_optimizer(
-                        opt, ranks.merge_strategy(jfleet))
+                        opt, ranks.merge_strategy(jfleet, zero))
                     if merge else opt,
                     zero_stage=0 if case == "dpsgd" else zero)
     losses = [float(step(LIN_X, LIN_Y).numpy())
@@ -167,7 +196,7 @@ def test_hapi_model_saves_and_resumes_a_zero1_run_as_jax(world, jax_models,
     save, load_latest into a new Model and a third epoch: the losses,
     the checkpoint's moments and step count and the final weight
     against the JAX Model's."""
-    lin, _, _ = jax_models
+    lin, _, _, _ = jax_models
     make_mesh({"dp": N})
     ds = pj.io.TensorDataset([LIN_X, LIN_Y])
     s = jfleet.DistributedStrategy()
@@ -274,16 +303,206 @@ def test_data_parallel_grads_are_the_global_batch_gradient(world):
 
 
 def test_sharded_step_refuses_zero3_mp_and_pp_naming_5b(world):
-    """ZeRO-3 and exact_reshard are still refused, naming ROADMAP item
-    5b(ii); a mesh with 'mp' or 'pp' is accepted (tensor parallelism; a
-    'pp' axis without 'dp' is the batch axis, as in the JAX step)."""
+    """ZeRO-3 and exact_reshard (ROADMAP item 5b(ii)) are accepted, as a
+    mesh with 'mp' or 'pp' is (tensor parallelism; a 'pp' axis without
+    'dp' is the batch axis, as in the JAX step): each step is built and
+    runs a step. Dpsgd's noise stays refused under ZeRO-1 and ZeRO-3;
+    fp16_allreduce under ZeRO-3 warns and is ignored (the JAX step's
+    rule)."""
     for res in world.job("refusals"):
-        for name in ("zero3", "exact"):
-            msg = str(res[name])
-            assert "ROADMAP Queue 1 item 5b(ii)" in msg, (name, msg)
-        for name in ("mp", "pp"):
+        for name in ("zero3", "exact", "mp", "pp"):
             assert str(res[name]) == "accepted", (name, res[name])
-        assert "same noise" in str(res["dpsgd_noise"])
+        for stage in (1, 3):
+            assert "same noise" in str(res[f"dpsgd_noise_zero{stage}"])
+        (msg,) = res["fp16_zero3"]
+        assert "incompatible with ZeRO-3" in str(msg)
+        assert list(res["fp16_zero3_state"]) == [3, 0]
+
+
+def _jax_zero3(model, opt, x, y, steps, loss_fn):
+    make_mesh({"dp": N})
+    step = JSharded(model, loss_fn, opt, zero_stage=3)
+    losses = [float(step(x, y).numpy()) for _ in range(steps)]
+    step.sync()
+    return losses, {k: np.asarray(v.numpy())
+                    for k, v in model.state_dict().items()}
+
+
+def test_zero3_mlp_matches_jax_and_zero1(world, jax_models):
+    """tests/test_zero3.py's MLP (Adam 1e-3, 5 steps) at ZeRO-3 over
+    {'dp': 2}: the synced parameters within that test's rtol 2e-4 and
+    atol 2e-5 of the JAX ZeRO-3 step's, and the losses, parameters and
+    moments bit for bit the port's ZeRO-1 run's. Each rank holds its
+    chunks and nothing more (ZeRO-1 holds the full model beside them);
+    state_dict() before sync() raises, naming it."""
+    mlp = _ZeroMLP()
+    mlp.set_state_dict({k: v.numpy()
+                        for k, v in jax_models[3].state_dict().items()})
+    losses, params = _jax_zero3(
+        mlp, pj.optimizer.Adam(learning_rate=1e-3,
+                               parameters=mlp.parameters()),
+        Z3_X, Z3_Y, 5, pj.nn.CrossEntropyLoss())
+    for res in world.job("zero3"):
+        np.testing.assert_allclose(res["mlp3_losses"], losses, rtol=2e-4)
+        for k, v in params.items():
+            np.testing.assert_allclose(res[f"mlp3_p:{k}"], v, rtol=2e-4,
+                                       atol=2e-5, err_msg=k)
+        np.testing.assert_array_equal(res["mlp3_losses"], res["mlp1_losses"])
+        keys = [k[5:] for k in res if k.startswith("mlp1_p:")
+                or k.startswith("mlp1_m:")]
+        assert len(keys) == 6 + 12
+        for k in keys:
+            np.testing.assert_array_equal(res["mlp3_" + k], res["mlp1_" + k],
+                                          err_msg=k)
+        have, chunks = res["mlp3_bytes"]
+        assert have == chunks
+        have1, chunks1 = res["mlp1_bytes"]
+        full = sum(v.size * 4 for v in params.values())
+        assert chunks1 == chunks and have1 == chunks + full
+        assert chunks < full * 0.6
+        assert "sync()" in str(res["mlp3_state_dict"])
+
+
+def test_zero3_gpt_matches_jax_and_zero1(world, jax_models):
+    """The tiny GPT (2 layers, AdamW 1e-3, 3 steps) at ZeRO-3 over
+    {'dp': 2}, a block gathered at a time (3 units: the 2 blocks and the
+    root; no layer keeps the step's gathering forward between calls),
+    against the JAX ZeRO-3 step and bit for bit the port's ZeRO-1. The losses within rtol 2e-4 (tests/test_zero3.py's); the
+    parameters within the JAX package's own tolerance for a GPT's
+    parameters after AdamW steps (tests/test_pipeline.py:96-97: rtol
+    and atol 2e-4): AdamW's first steps move a weight whose gradient is
+    near 0 by up to lr on the gradient's rounding."""
+    gm = jgpt.GPTForPretraining(jgpt.GPTConfig(**GPT_CFG))
+    gm.set_state_dict({k: v.numpy()
+                       for k, v in jax_models[1].state_dict().items()})
+    losses, params = _jax_zero3(
+        gm, pj.optimizer.AdamW(learning_rate=1e-3,
+                               parameters=gm.parameters()),
+        GPT_IDS, GPT_IDS, 3, jgpt.gpt_pretrain_loss)
+    for res in world.job("zero3"):
+        assert int(res["gpt3_units"]) == GPT_CFG["num_layers"] + 1
+        # the gathering forwards live only inside a step's call
+        assert list(res["gpt3_patched"]) == []
+        np.testing.assert_allclose(res["gpt3_losses"], losses, rtol=2e-4)
+        for k, v in params.items():
+            np.testing.assert_allclose(res[f"gpt3_p:{k}"], v, rtol=2e-4,
+                                       atol=2e-4, err_msg=k)
+        np.testing.assert_array_equal(res["gpt3_losses"], res["gpt1_losses"])
+        for k in params:
+            np.testing.assert_array_equal(res[f"gpt3_p:{k}"],
+                                          res[f"gpt1_p:{k}"], err_msg=k)
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+def test_exact_reshard_is_bitwise_across_dp(world, stage):
+    """exact_reshard (through fleet's sharding_configs) on 3 sequences,
+    which 'dp' = 2 cannot divide: the losses, the global grad norms
+    (AdamW under a global-norm clip), the synced parameters and moments
+    of 3 steps are bit for bit equal over {'dp': 2} and {'dp': 1}."""
+    res = world.job("exact")
+    one, two = f"gpt{stage}_dp1", f"gpt{stage}_dp{N}"
+    keys = [k[len(one) + 1:] for k in res[0] if k.startswith(one + "/")]
+    assert len(keys) > 60
+    for k in keys:
+        for r in range(N):
+            np.testing.assert_array_equal(res[r][f"{two}/{k}"],
+                                          res[0][f"{one}/{k}"], err_msg=k)
+    assert list(res[0][f"{one}/state"]) == [stage, 1]
+
+
+def _jax_exact(src, stage, steps=3):
+    """The JAX exact_reshard step over {'dp': 2} (AdamW 1e-3 under a
+    global-norm clip of 1) on the 3-sequence batch: losses, grad norms,
+    the synced parameters and, by parameter index, the moments."""
+    gm = jgpt.GPTForPretraining(jgpt.GPTConfig(**GPT_CFG))
+    gm.set_state_dict({k: v.numpy() for k, v in src.state_dict().items()})
+    opt = pj.optimizer.AdamW(learning_rate=1e-3, parameters=gm.parameters(),
+                             grad_clip=pj.nn.ClipGradByGlobalNorm(1.0))
+    make_mesh({"dp": N})
+    step = JSharded(gm, jgpt.gpt_pretrain_loss, opt, zero_stage=stage,
+                    exact_reshard=True)
+    ids = GPT_IDS[:3]
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(float(step(ids, ids).numpy()))
+        norms.append(step.last_grad_norm())
+    step.sync()
+    params = {k: np.asarray(v.numpy()) for k, v in gm.state_dict().items()}
+    moments = {f"m:{i}:{slot}": np.asarray(v)
+               for i, p in enumerate(gm.parameters())
+               for slot, v in opt._accumulators.get(id(p), {}).items()}
+    return losses, norms, params, moments
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+def test_exact_reshard_matches_jax_and_the_plain_step(world, jax_models,
+                                                      stage):
+    """The exact_reshard trajectories at dp=1 and dp=2 (3 steps on 3
+    sequences, AdamW under a global-norm clip) against the JAX
+    exact_reshard step at the same stage over {'dp': 2}: losses and grad
+    norms within rtol 2e-4, the first moments within rtol 2e-4 and atol
+    2e-5 (tests/test_zero3.py's), the second moments (squared grads)
+    through their roots at the same tolerance, the synced parameters
+    within the JAX package's own tolerance for a GPT's parameters after
+    AdamW steps (tests/test_pipeline.py:96-97: rtol and atol 2e-4; a
+    weight whose gradient is near 0 moves by up to lr on its rounding,
+    as in `test_zero3_gpt_matches_jax_and_zero1`); and against the port's plain TrainStep on the whole batch within
+    rtol 1e-6, atol 1e-9: the same math, its sums taken in another
+    order."""
+    losses, norms, params, moments = _jax_exact(jax_models[1], stage)
+    res = world.job("exact")
+    plain = {k[len("gpt_plain/"):]: v for k, v in res[0].items()
+             if k.startswith("gpt_plain/")}
+    assert list(plain["state"]) == [-1, 0]
+    assert len(moments) == 2 * len(params)
+    for r in range(N):
+        for case in (f"gpt{stage}_dp1", f"gpt{stage}_dp{N}"):
+            if case.endswith("dp1") and r:
+                continue
+            got = {k[len(case) + 1:]: v for k, v in res[r].items()
+                   if k.startswith(case + "/")}
+            np.testing.assert_allclose(got["losses"], losses, rtol=2e-4)
+            np.testing.assert_allclose(got["norms"], norms, rtol=2e-4)
+            for k, v in params.items():
+                np.testing.assert_allclose(got[f"p:{k}"], v, rtol=2e-4,
+                                           atol=2e-4, err_msg=(case, k))
+            for k, v in moments.items():
+                g = got[k]
+                if k.endswith("moment2"):
+                    g, v = np.sqrt(g), np.sqrt(v)
+                np.testing.assert_allclose(g, v, rtol=2e-4, atol=2e-5,
+                                           err_msg=(case, k))
+            for k, v in plain.items():
+                if k != "state":
+                    np.testing.assert_allclose(got[k], v, rtol=1e-6,
+                                               atol=1e-9, err_msg=(case, k))
+
+
+def test_exact_reshard_resumes_across_dp_through_hapi(world):
+    """hapi.Model under fleet's sharding stage 3 with exact_reshard: an
+    epoch of 3-row batches on {'dp': 2}, saved, then resumed on {'dp':
+    1} for a second epoch, runs bit for bit as the uninterrupted run on
+    {'dp': 1}: the losses of both epochs and the final parameters."""
+    res = world.job("exact")
+    plain = list(res[0]["hapi_plain"])
+    assert len(plain) == 8
+    for r in range(N):
+        np.testing.assert_array_equal(res[r]["hapi_first"], plain[:4])
+    np.testing.assert_array_equal(res[0]["hapi_resumed"], plain[4:])
+    keys = [k.split(":", 1)[1] for k in res[0]
+            if k.startswith("hapi_plain_p:")]
+    assert len(keys) == 6
+    for k in keys:
+        np.testing.assert_array_equal(res[0][f"hapi_resumed_p:{k}"],
+                                      res[0][f"hapi_plain_p:{k}"], err_msg=k)
+
+
+def test_resume_without_the_sharding_strategy_warns(world):
+    """Resuming that checkpoint with a plain optimizer (no sharded step)
+    warns with the JAX package's message."""
+    (msg,) = world.job("exact")[0]["drift"]
+    assert "resume dropped the checkpoint's sharding configuration" in \
+        str(msg) and "step: checkpoint=" in str(msg)
 
 
 @pytest.mark.parametrize("nproc,ips,nnodes", [(2, "127.0.0.1", None),

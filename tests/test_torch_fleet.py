@@ -57,6 +57,9 @@ CHAINS = {
     "stacked": {"amp": True, "recompute": True, "sharding": True,
                 "gradient_merge": True},
 }
+# sharding on a mesh of one rank
+ONE_RANK = {"one_rank_sharding": {"stage": 1},
+            "one_rank_exact": {"stage": 1, "exact_reshard": True}}
 RNG = np.random.RandomState(0)
 MLP_X = RNG.randn(8, 16).astype("f4")
 MLP_Y = RNG.randn(8, 4).astype("f4")
@@ -73,7 +76,8 @@ def reset_mesh():
 @pytest.fixture(scope="module", autouse=True)
 def world(tmp_path_factory):
     inputs = {"hybrid": np.array(json.dumps(HYBRID)),
-              "strategies": np.array(json.dumps(STRATEGIES))}
+              "strategies": np.array(json.dumps(STRATEGIES)),
+              "one_rank": np.array(json.dumps(ONE_RANK))}
     return ranks.World(tmp_path_factory.mktemp("fleet"), N,
                        ("fleet_meshes", "build_step", "dist_mnist"), inputs)
 
@@ -214,6 +218,32 @@ def test_build_train_step_picks_the_jax_step(world, monkeypatch):
                     and f"item {item[jax_step]}" in got, (name, got)
             else:
                 assert got == jax_step, (name, got, jax_step)
+
+
+def test_build_train_step_on_one_rank_departs_only_for_exact_reshard(
+        world, monkeypatch):
+    """On a mesh of one rank the JAX fleet builds a TrainStep under
+    sharding. The port does too, except with `exact_reshard`, where it
+    builds a ShardedTrainStep, so a checkpoint written over more ranks
+    resumes on one bit for bit (the port's one departure)."""
+    import paddle_tpu.distributed.sharded as jsharded
+    import paddle_tpu.jit as jjit
+    for mod, name in ((jsharded, "ShardedTrainStep"), (jjit, "TrainStep")):
+        monkeypatch.setattr(mod, name, _Picked(name))
+    want = {}
+    for name, cfg in ONE_RANK.items():
+        s = _strategy(jfleet, {"sharding": True, "sharding_configs": cfg})
+        jmesh.make_mesh({"dp": 1})
+        net = pj.nn.Linear(4, 4)
+        opt = jfleet.distributed_optimizer(
+            pj.optimizer.SGD(0.1, parameters=net.parameters()), s)
+        want[name] = jfleet.build_train_step(net, pj.nn.functional.mse_loss,
+                                             opt)
+    assert want == {"one_rank_sharding": "TrainStep",
+                    "one_rank_exact": "TrainStep"}
+    got = world.job("build_step")[0]
+    assert str(got["one_rank_sharding"]) == "TrainStep"
+    assert str(got["one_rank_exact"]) == "ShardedTrainStep"
 
 
 def test_dist_mnist_twin_converges_over_two_ranks(world):

@@ -346,3 +346,37 @@ def test_pipeline_mnist_twin_converges(world):
         assert str(res["step"]) == "PipelineTrainStep"
         assert json.loads(str(res["mesh"])) == {"dp": 2, "pp": 2}
         assert last < first * 0.6, (first, last)
+
+
+@pytest.mark.parametrize("sched", ["gpipe", "1f1b"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_a_stage_holds_its_blocks_alone(world, jax_models, mesh, sched):
+    """After a step, a stage's rank keeps the weights of its own blocks
+    and no other stage's: the embeddings on the first stage, the final
+    norm and the tied word embedding on the last; over 'mp' not even
+    those whole, only its shards of the split ones. The parameter bytes
+    it holds are those."""
+    params = _state(jax_models["gpt"])
+    split = {n for n, p in jax_models["gpt"].named_parameters()
+             if "mp" in tuple(getattr(p, "sharding", None) or ())} \
+        if mesh.endswith("mp2") else set()
+    L = GPT_CFG["num_layers"]
+    res = world.job("pp_steps")
+    case = f"{sched}_{mesh}"
+    for r in range(2 if mesh == "pp2" else N):
+        got = res[r]
+        s = int(got[f"{case}/stage"])
+        S = 4 if mesh == "pp4" else 2
+        lps = L // S
+        own = {n for n in params
+               if any(n.startswith(f"gpt.blocks.{i}.")
+                      for i in range(s * lps, (s + 1) * lps))}
+        if s == 0:
+            own |= {n for n in params if n.startswith("gpt.embeddings.")}
+        if s == S - 1:
+            own |= {n for n in params if n.startswith("gpt.ln_f.")}
+            own.add("gpt.embeddings.word_embeddings.weight")
+        assert set(got[f"{case}/resident"]) == own - split, (r, s)
+        want = 4 * sum(params[n].size // (2 if n in split else 1)
+                       for n in own)
+        assert int(got[f"{case}/param_nbytes"]) == want, (r, s)

@@ -27,6 +27,15 @@ mesh, where GSPMD splits the full weights by the same hints.
 - With dropout > 0 the replicated parameters stay equal on both ranks of
   every mp slice, and each rank's sharded regions draw from a generator
   of its own.
+- The fused head over a vocabulary split on 'mp'
+  (`vocab_parallel_chunked_lm_loss`, each rank streaming its rows of the
+  table) against the JAX `chunked_lm_loss` over the whole vocabulary:
+  the loss within 1e-6 relative, dh and dw within 1e-5 x max(1,
+  max|g|); GPT with `fused_head_loss=True` over {'mp': 2} and, at
+  ZeRO-3, over {'dp': 2, 'mp': 2}, against the JAX step as above.
+- A rank holds its shards alone: the model's full weight of every split
+  parameter is released (ZeRO-3: of every parameter), and the bytes it
+  holds are its shards' (ZeRO-3: its chunks of them).
 """
 import json
 
@@ -54,6 +63,10 @@ X32 = RNG.randn(4, 5, 32).astype("f4")
 LAYER_IDS = RNG.randint(0, 64, (4, 5)).astype("int64")
 LOGITS = RNG.randn(6, 64).astype("f4")
 LABELS = RNG.randint(0, 64, (6,)).astype("int64")
+FH_H = RNG.randn(24, 16).astype("f4")
+FH_W = (RNG.randn(64, 16) * 0.5).astype("f4")
+FH_LAB = np.where(RNG.rand(24) < 0.2, -1,
+                  RNG.randint(0, 64, (24,))).astype("int64")
 LAYERS = {"col_gather": (lambda: jtp.ColumnParallelLinear(16, 32), X16, 32),
           "col_local": (lambda: jtp.ColumnParallelLinear(
               16, 32, gather_output=False), X16, 32),
@@ -99,6 +112,7 @@ def jax_models():
 def world(tmp_path_factory, jax_layers, jax_models):
     inputs = {"tpl_x": X16, "tpl_x32": X32, "tpl_ids": LAYER_IDS,
               "tpl_logits": LOGITS, "tpl_lab": LABELS, "tp_ids": IDS,
+              "fh_h": FH_H, "fh_w": FH_W, "fh_lab": FH_LAB,
               "gpt_cfg": np.array(json.dumps(GPT_CFG)),
               "llama_cfg": np.array(json.dumps(LLAMA_CFG))}
     for name, layer in jax_layers.items():
@@ -108,7 +122,8 @@ def world(tmp_path_factory, jax_layers, jax_models):
     for kind, m in jax_models.items():
         inputs.update({f"{kind}:{k}": v for k, v in _state(m).items()})
     return ranks.World(tmp_path_factory.mktemp("tp"), N,
-                       ("tp_layers", "tp_steps", "tp_dropout"), inputs)
+                       ("tp_layers", "tp_steps", "tp_dropout",
+                        "tp_fused_head"), inputs)
 
 
 def _jax_layer(layer, x, cot):
@@ -199,7 +214,8 @@ def jax_refs(jax_models):
 
 
 @pytest.mark.parametrize("case", ["gpt_mp2", "gpt_dp2mp2", "llama_mp2",
-                                  "llama_dp2mp2"])
+                                  "llama_dp2mp2", "gpt_fused_mp2",
+                                  "gpt_z3fused_dp2mp2"])
 def test_sharded_step_over_mp_matches_jax(world, jax_refs, case):
     losses, grads, params = jax_refs[case.split("_")[0]]
     res = world.job("tp_steps")
@@ -290,3 +306,51 @@ def test_mp_replicas_stay_equal_with_dropout(world):
         for k in rep:
             np.testing.assert_array_equal(res[a][k], res[b][k], err_msg=k)
         assert int(res[a]["sharded_seed"]) != int(res[b]["sharded_seed"])
+
+
+def test_fused_head_over_mp_matches_jax_chunked_lm_loss(world):
+    """Each rank of an 'mp' slice of 2 streams its half of the table's
+    rows in chunks of 16 (2 a rank), the max and the sums taken over the
+    slice: the loss, dh and the table's dw against the JAX
+    `chunked_lm_loss` over the whole vocabulary (ignored rows
+    included)."""
+    from paddle_tpu.ops.chunked_ce import chunked_lm_loss as jchunked
+
+    def f(h, w):
+        return jchunked(h, w, jnp.asarray(FH_LAB), -1, 16)
+
+    loss, (dh, dw) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(FH_H), jnp.asarray(FH_W))
+    for res in world.job("tp_fused_head"):
+        np.testing.assert_allclose(res["loss"], float(loss), rtol=1e-6)
+        for key, want in (("dh", dh), ("dw", dw)):
+            want = np.asarray(want)
+            scale = max(1.0, float(np.abs(want).max()))
+            np.testing.assert_allclose(res[key], want, rtol=0,
+                                       atol=1e-5 * scale, err_msg=key)
+
+
+@pytest.mark.parametrize("case", ["gpt_fused_mp2", "gpt_z3fused_dp2mp2"])
+def test_a_rank_holds_its_shards_alone_over_mp(world, jax_models, case):
+    """After a step over 'mp' the model's full weight of every split
+    parameter (ZeRO-3: of every parameter) is released on the rank, and
+    the parameter bytes it holds are its shards and the replicated
+    weights (ZeRO-3: its chunks over 'dp' of those, 16-element
+    aligned)."""
+    hints = _hints(jax_models["gpt"])
+    split = {k for k, spec in hints.items() if "mp" in spec}
+    params = _state(jax_models["gpt"])
+    assert split and len(split) < len(params)
+    z3 = "z3" in case
+
+    def local(k):
+        return params[k].size // 2 if k in split else params[k].size
+    if z3:
+        want = 4 * sum(-(-(-(-local(k) // 2)) // 16) * 16 for k in params)
+    else:
+        want = 4 * sum(local(k) for k in params)
+    res = world.job("tp_steps")
+    for r in range(2 if case.endswith("_mp2") else N):
+        released = set(params) - set(res[r][f"{case}/resident"])
+        assert released == (set(params) if z3 else split), sorted(released)
+        assert int(res[r][f"{case}/param_nbytes"]) == want

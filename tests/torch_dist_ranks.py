@@ -212,18 +212,19 @@ LINEAR_OPTS = {"sgd": ("SGD", {"learning_rate": 0.1}),
                "dpsgd": ("Dpsgd", {"learning_rate": 0.1, "clip": 0.05,
                                    "sigma": 0.0})}
 #: (case, ZeRO stage): "adamw_merge" is AdamW under fleet's
-#: gradient_merge (k_steps 2, avg) with sharding stage 1
+#: gradient_merge (k_steps 2, avg) with sharding at that stage
 LINEAR_CASES = (("sgd", 0), ("sgd", 1), ("adamw", 1), ("lamb", 1),
-                ("lars", 1), ("dpsgd", 1), ("adamw_merge", 1))
+                ("lars", 1), ("dpsgd", 1), ("adamw_merge", 1), ("adamw", 3),
+                ("adamw_merge", 3))
 
 
-def merge_strategy(fleet):
+def merge_strategy(fleet, stage=1):
     """The gradient_merge + sharding strategy of "adamw_merge"."""
     s = fleet.DistributedStrategy()
     s.gradient_merge = True
     s.gradient_merge_configs = {"k_steps": 2, "avg": True}
     s.sharding = True
-    s.sharding_configs = {"stage": 1}
+    s.sharding_configs = {"stage": stage}
     return s
 
 
@@ -254,7 +255,7 @@ def job_sharded_linear(inp, r, n):
         net, opt = _linear(inp, "adamw" if merge else case)
         step = ShardedTrainStep(
             net, nn.functional.mse_loss,
-            fleet.distributed_optimizer(opt, merge_strategy(fleet))
+            fleet.distributed_optimizer(opt, merge_strategy(fleet, zero))
             if merge else opt, zero_stage=zero)
         key = f"{case}_zero{zero}"
         out[key + "_losses"] = [float(step(_t(x), _t(y)))
@@ -348,32 +349,253 @@ def job_sharded_models(inp, r, n):
 
 
 def job_refusals(inp, r, n):
-    """ZeRO-3, exact_reshard and 'mp' / 'pp' meshes refused by name;
-    Dpsgd's noise under ZeRO-1."""
+    """ZeRO-3, exact_reshard and 'mp' / 'pp' meshes accepted (each step
+    built and run once); Dpsgd's noise under ZeRO-1 and ZeRO-3 refused;
+    fp16_allreduce with ZeRO-3 warned about and ignored, as the JAX step
+    does."""
+    import warnings
     import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.distributed import mesh
     from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
     out = {}
+    x = _t(np.ones((4, 4), "f4"))
     for name, shape, kw in (("zero3", {"dp": n}, {"zero_stage": 3}),
                             ("exact", {"dp": n}, {"exact_reshard": True}),
                             ("mp", {"mp": n}, {}), ("pp", {"pp": n}, {})):
         mesh.make_mesh(shape)
         net = nn.Linear(4, 4)
         try:
-            ShardedTrainStep(net, nn.functional.mse_loss, pt.optimizer.SGD(
-                0.1, parameters=net.parameters()), **kw)
+            step = ShardedTrainStep(net, nn.functional.mse_loss,
+                                    pt.optimizer.SGD(
+                                        0.1, parameters=net.parameters()),
+                                    **kw)
+            step(x, x)
             out[name] = "accepted"
         except NotImplementedError as e:
             out[name] = str(e)
-    mesh.make_mesh({"dp": n})
+    for stage in (1, 3):
+        mesh.make_mesh({"dp": n})
+        net = nn.Linear(4, 4)
+        try:
+            ShardedTrainStep(net, nn.functional.mse_loss, pt.optimizer.Dpsgd(
+                0.1, sigma=1.0, parameters=net.parameters()),
+                zero_stage=stage)
+            out[f"dpsgd_noise_zero{stage}"] = "accepted"
+        except NotImplementedError as e:
+            out[f"dpsgd_noise_zero{stage}"] = str(e)
+    s = fleet.DistributedStrategy()
+    s.fp16_allreduce = True
+    s.sharding = True
+    s.sharding_configs = {"stage": 3}
     net = nn.Linear(4, 4)
-    try:
-        ShardedTrainStep(net, nn.functional.mse_loss, pt.optimizer.Dpsgd(
-            0.1, sigma=1.0, parameters=net.parameters()), zero_stage=1)
-        out["dpsgd_noise"] = "accepted"
-    except NotImplementedError as e:
-        out["dpsgd_noise"] = str(e)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = ShardedTrainStep(net, nn.functional.mse_loss,
+                                fleet.distributed_optimizer(pt.optimizer.SGD(
+                                    0.1, parameters=net.parameters()), s))
+    out["fp16_zero3"] = [str(w.message) for w in caught
+                         if "fp16_allreduce" in str(w.message)]
+    out["fp16_zero3_state"] = [step.zero_stage, int(step.fp16_allreduce)]
+    return out
+
+
+# ------------------------------------------------ ZeRO-3, exact_reshard
+
+class _ZeroMLP:
+    """tests/test_zero3.py's MLP (3 Linears, 64 -> 128 -> 128 -> 8)."""
+
+    @staticmethod
+    def make(pt):
+        from paddle_tpu_torch import nn
+
+        class MLP(nn.Layer):
+            def __init__(self, d=64, h=128):
+                super().__init__()
+                self.fc1 = nn.Linear(d, h)
+                self.fc2 = nn.Linear(h, h)
+                self.fc3 = nn.Linear(h, 8)
+
+            def forward(self, x):
+                x = nn.functional.relu(self.fc1(x))
+                x = nn.functional.relu(self.fc2(x))
+                return self.fc3(x)
+        return MLP()
+
+
+def _zero_mlp(inp):
+    import paddle_tpu_torch as pt
+    net = _ZeroMLP.make(pt)
+    net.set_state_dict({k[4:]: v for k, v in inp.items()
+                        if k.startswith("z3m:")})
+    return net
+
+
+def job_zero3(inp, r, n):
+    """ZeRO-3 over {'dp': n}: tests/test_zero3.py's MLP (Adam 1e-3, 5
+    steps on its 32-row batch) and the tiny GPT (AdamW 1e-3, 3 steps),
+    each beside the same run at ZeRO-1: losses, the synced parameters
+    and moments; the parameter bytes each rank holds (`param_nbytes`)
+    against its chunks'; state_dict refused before sync()."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.sharded import ShardedTrainStep
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    mesh.make_mesh({"dp": n})
+    out = {}
+    x, y = _t(inp["z3_x"]), _t(inp["z3_y"])
+    ids = _t(inp["gpt_ids"])
+    gcfg = json.loads(str(inp["gpt_cfg"]))
+    for stage in (1, 3):
+        net = _zero_mlp(inp)
+        opt = pt.optimizer.Adam(learning_rate=1e-3,
+                                parameters=net.parameters())
+        step = ShardedTrainStep(net, nn.CrossEntropyLoss(), opt,
+                                zero_stage=stage)
+        chunks = sum(sh.numel() * sh.element_size()
+                     for sh, _, _ in step._shards)
+        out[f"mlp{stage}_bytes"] = [step.param_nbytes(), chunks]
+        out[f"mlp{stage}_losses"] = [float(step(x, y)) for _ in range(5)]
+        try:
+            net.state_dict()
+            out[f"mlp{stage}_state_dict"] = "allowed"
+        except RuntimeError as e:
+            out[f"mlp{stage}_state_dict"] = str(e)
+        step.sync()
+        out.update({f"mlp{stage}_p:{k}": p.numpy().copy()
+                    for k, p in net.named_parameters()})
+        out.update({f"mlp{stage}_m:{i}:{k}": v.numpy().copy()
+                    for i, st in opt._state.items() for k, v in st.items()})
+        gm = tgpt.GPTForPretraining(tgpt.GPTConfig(**gcfg), device="cpu")
+        tgpt.load_jax_state(gm, {k[4:]: v for k, v in inp.items()
+                                 if k.startswith("gpt:")})
+        step = ShardedTrainStep(gm, tgpt.gpt_pretrain_loss,
+                                pt.optimizer.AdamW(
+                                    learning_rate=1e-3,
+                                    parameters=gm.parameters()),
+                                zero_stage=stage)
+        out[f"gpt{stage}_units"] = len(step._units)
+        out[f"gpt{stage}_losses"] = [float(step(ids, ids))
+                                     for _ in range(3)]
+        # the layers whose forward is the step's, between calls
+        out[f"gpt{stage}_patched"] = [n for n, sub in gm.named_sublayers()
+                                      if "forward" in vars(sub)]
+        step.sync()
+        out.update({f"gpt{stage}_p:{k}": p.numpy().copy()
+                    for k, p in gm.named_parameters()})
+    return out
+
+
+def _exact_run(inp, r, dp, stage, steps=3):
+    """The tiny GPT through an exact_reshard step over {'dp': dp} (fleet's
+    sharding_configs; stage None: the plain jit.TrainStep, no mesh) on
+    the 3-sequence batch, AdamW under a global-norm clip: losses, grad
+    norms, the synced parameters and moments (None off the mesh)."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import gpt as tgpt
+    m = mesh.make_mesh({"dp": dp})
+    if m.coords is None:
+        return None
+    gcfg = json.loads(str(inp["gpt_cfg"]))
+    gm = tgpt.GPTForPretraining(tgpt.GPTConfig(**gcfg), device="cpu")
+    tgpt.load_jax_state(gm, {k[4:]: v for k, v in inp.items()
+                             if k.startswith("gpt:")})
+    opt = pt.optimizer.AdamW(learning_rate=1e-3, parameters=gm.parameters(),
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    if stage is None:
+        mesh.set_mesh(None)
+        step = TrainStep(gm, tgpt.gpt_pretrain_loss, opt)
+    else:
+        s = fleet.DistributedStrategy()
+        s.sharding = True
+        s.sharding_configs = {"stage": stage, "exact_reshard": True}
+        step = fleet.build_train_step(gm, tgpt.gpt_pretrain_loss,
+                                      fleet.distributed_optimizer(opt, s))
+    ids = _t(inp["gpt_ids"][:3])
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(float(step(ids, ids)))
+        norms.append(step.last_grad_norm())
+    step.sync()
+    res = {"losses": losses, "norms": norms,
+           "state": [getattr(step, "zero_stage", -1),
+                     int(getattr(step, "exact_reshard", False))]}
+    res.update({f"p:{k}": p.numpy().copy()
+                for k, p in gm.named_parameters()})
+    res.update({f"m:{i}:{k}": v.numpy().copy()
+                for i, st in opt._state.items() for k, v in st.items()})
+    return res
+
+
+def job_exact(inp, r, n):
+    """exact_reshard on a batch 'dp' cannot divide (3 sequences): the
+    tiny GPT at ZeRO-1 and ZeRO-3 over {'dp': n} and, on rank 0, over
+    {'dp': 1} and through the plain TrainStep; then hapi.Model fits the MLP under fleet's sharding
+    stage 3 with exact_reshard on {'dp': n} one epoch of 3-row batches,
+    saves, and rank 0 resumes it on {'dp': 1} for a second epoch beside
+    the uninterrupted run there; a resume without the strategy warns."""
+    import os
+    import warnings
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import mesh
+    out = {}
+    for stage in (1, 3):
+        for dp in (n, 1):
+            res = _exact_run(inp, r, dp, stage)
+            if res is not None:
+                _cases(out, f"gpt{stage}_dp{dp}", res)
+    res = _exact_run(inp, r, 1, None)
+    if res is not None:
+        _cases(out, "gpt_plain", res)
+    ds = pt.io.TensorDataset([inp["z3_x"][:12], inp["z3_y"][:12]])
+
+    def model(exact=True):
+        net = _zero_mlp(inp)
+        opt = pt.optimizer.AdamW(learning_rate=0.01,
+                                 parameters=net.parameters())
+        if exact:
+            s = fleet.DistributedStrategy()
+            s.sharding = True
+            s.sharding_configs = {"stage": 3, "exact_reshard": True}
+            opt = fleet.distributed_optimizer(opt, s)
+        m = pt.Model(net)
+        m.prepare(opt, nn.CrossEntropyLoss())
+        return m, net
+
+    def fit(m, epochs, resume=False):
+        return m.fit(ds, batch_size=3, epochs=epochs, shuffle=False,
+                     verbose=0, resume=resume)["loss"]
+
+    mesh.make_mesh({"dp": n})
+    m, _ = model()
+    out["hapi_first"] = fit(m, 1)
+    ckpt = os.path.join(str(inp["ckpt_dir"]), f"exact{r}")
+    m.save(os.path.join(ckpt, "ckpt"))
+    if mesh.make_mesh({"dp": 1}).coords is not None:
+        m, net = model()
+        out["hapi_plain"] = fit(m, 2)
+        out.update({f"hapi_plain_p:{k}": p.numpy().copy()
+                    for k, p in net.named_parameters()})
+        m, net = model()
+        m.load_latest(ckpt)
+        out["hapi_resumed"] = fit(m, 2, resume=True)
+        out.update({f"hapi_resumed_p:{k}": p.numpy().copy()
+                    for k, p in net.named_parameters()})
+        m, _ = model(exact=False)
+        m.load_latest(ckpt)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fit(m, 2, resume=True)
+        out["drift"] = [str(w.message) for w in caught
+                        if "sharding configuration" in str(w.message)]
+    mesh.make_mesh({"dp": n})       # the world's groups for what follows
     return out
 
 
@@ -481,6 +703,21 @@ def job_build_step(inp, r, n):
                 net, nn.functional.mse_loss, opt)).__name__
         except NotImplementedError as e:
             out[name] = f"refused: {e}"
+    # a mesh of one rank (rank 0's): sharding, with and without
+    # exact_reshard
+    from paddle_tpu_torch.distributed import mesh
+    prev = mesh.get_mesh()
+    if mesh.make_mesh({"dp": 1}).coords is not None:
+        for name, cfg in json.loads(str(inp["one_rank"])).items():
+            s = fleet.DistributedStrategy()
+            s.sharding = True
+            s.sharding_configs = cfg
+            net = nn.Linear(4, 4)
+            opt = fleet.distributed_optimizer(
+                pt.optimizer.SGD(0.1, parameters=net.parameters()), s)
+            out[name] = type(fleet.build_train_step(
+                net, nn.functional.mse_loss, opt)).__name__
+    mesh.set_mesh(prev)
     return out
 
 
@@ -540,20 +777,28 @@ def _adamw(model, clip=None):
                               parameters=model.parameters(), **kw)
 
 
-def _trajectory(step, model, x, y, steps=2, r=0, report=True):
+def _trajectory(step, model, x, y, steps=2, r=0, report=True, holds=False):
     """`steps` calls: the losses, the global grad norms, the first call's
     gradients, the synced parameters and the step count (rank 0 reports
-    the tensors)."""
-    losses, grads, norms = [], {}, []
+    the tensors); with `holds`, what the rank holds after the first
+    call: the names of the model's parameters whose weights it keeps
+    whole, and `param_nbytes()`."""
+    from paddle_tpu_torch.distributed import parallel_layers as tpl
+    losses, grads, norms, held = [], {}, [], {}
     for i in range(steps):
         losses.append(float(step(x, y)))
         norms.append(step.last_grad_norm())
+        if i == 0 and holds:
+            held = {"resident": sorted(
+                k for k, p in model.named_parameters()
+                if not tpl.is_released(p._data)),
+                "param_nbytes": step.param_nbytes()}
         if i == 0:
             grads = {k: v.numpy().copy() for k, v in
                      step.last_grads().items()}
     step.sync()
     out = {"losses": losses, "grad_norms": norms,
-           "step": step.optimizer._global_step}
+           "step": step.optimizer._global_step, **held}
     if report and r == 0:
         out.update({f"g:{k}": v for k, v in grads.items()})
         out.update({f"p:{n}": p.numpy().copy()
@@ -691,6 +936,18 @@ def job_tp_steps(inp, r, n):
             step.sync()
             out.update({f"{case}/p:{k}": p.numpy().copy()
                         for k, p in model.named_parameters()})
+    # the fused head over the vocab split on 'mp' (ZeRO-0 over {'mp':
+    # 2}; ZeRO-3 over {'dp': 2, 'mp': 2}); what each rank holds
+    for case, shape, zero in (("gpt_fused_mp2", {"mp": 2}, 0),
+                              ("gpt_z3fused_dp2mp2", {"dp": 2, "mp": 2}, 3)):
+        m = mesh.make_mesh(shape)
+        if m.coords is None:
+            continue
+        model = _tiny_model(inp, "gpt", fused_head_loss=True)
+        step = ShardedTrainStep(model, tgpt.gpt_pretrain_loss,
+                                _adamw(model, 1.0), zero_stage=zero)
+        _cases(out, case, _trajectory(step, model, ids, ids, r=r,
+                                      holds=True))
     mesh.make_mesh({"mp": n})
     model = _tiny_model(inp, "llama")
     try:
@@ -699,6 +956,29 @@ def job_tp_steps(inp, r, n):
     except ValueError as e:
         out["llama_mp4"] = str(e)
     return out
+
+
+def job_tp_fused_head(inp, r, n):
+    """`vocab_parallel_chunked_lm_loss` over {'dp': 2, 'mp': 2}: each
+    rank's half of the table's rows, chunks of 16: the loss, dh and the
+    whole table's dw (the slice's rows gathered)."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh, parallel_layers as tp
+    from paddle_tpu_torch.ops.chunked_ce import \
+        vocab_parallel_chunked_lm_loss
+    m = mesh.make_mesh({"dp": 2, "mp": n // 2})
+    group = tp.mp_group(m)
+    h = _t(inp["fh_h"]).requires_grad_(True)
+    w = _t(inp["fh_w"]).chunk(group.size, 0)[group.rank].contiguous()
+    w.requires_grad_(True)
+    loss = vocab_parallel_chunked_lm_loss(h, w, _t(inp["fh_lab"]), group,
+                                          -1, 16)
+    loss.backward()
+    every = torch.empty((group.size,) + tuple(w.shape))
+    C.all_gather_into(every, w.grad.contiguous(), group.pg)
+    return {"loss": float(loss), "dh": h.grad.numpy(),
+            "dw": torch.cat(every.unbind(0), 0).numpy()}
 
 
 def job_tp_dropout(inp, r, n):
@@ -751,8 +1031,10 @@ def job_pp_steps(inp, r, n):
             model = _tiny_model(inp, "gpt")
             step = cls(model, tgpt.gpt_pretrain_loss, _adamw(model),
                        num_micro=4)
-            _cases(out, f"{sched}_{mname}",
-                   _trajectory(step, model, ids, ids, r=r))
+            case = f"{sched}_{mname}"
+            out[f"{case}/stage"] = m.axis_index("pp")
+            _cases(out, case, _trajectory(step, model, ids, ids, r=r,
+                                          holds=True))
     for mname in ("pp2", "pp2mp2"):
         for sched, cls in (("gpipe", PipelineTrainStep),
                            ("1f1b", OneF1BTrainStep)):
@@ -1004,11 +1286,13 @@ JOBS = {"collectives": job_collectives,
         "data_parallel": job_data_parallel,
         "sharded_linear": job_sharded_linear,
         "sharded_models": job_sharded_models, "hapi_zero1": job_hapi_zero1,
-        "refusals": job_refusals, "attention": job_attention,
+        "refusals": job_refusals, "zero3": job_zero3, "exact": job_exact,
+        "attention": job_attention,
         "gpt_sp": job_gpt_sp, "fleet_meshes": job_fleet_meshes,
         "build_step": job_build_step, "dist_mnist": job_dist_mnist,
         "tp_layers": job_tp_layers, "tp_steps": job_tp_steps,
-        "tp_dropout": job_tp_dropout, "pp_steps": job_pp_steps,
+        "tp_dropout": job_tp_dropout, "tp_fused_head": job_tp_fused_head,
+        "pp_steps": job_pp_steps,
         "pp_parts": job_pp_parts, "pp_apply": job_pp_apply,
         "pp_hapi": job_pp_hapi,
         "pp_mnist": job_pp_mnist}
